@@ -21,7 +21,20 @@ Phases (any failed check exits non-zero):
      CPU run;
   5. the generic flat path: the same model with Adam, where the flat engine
      runs ``zo_perturb_flat``/``zo_reconstruct_flat``;
-  6. Fig. 1: the universal attack (d=900), 16 steps with engine="flat".
+  6. Fig. 1: the universal attack (d=900), 16 steps with engine="flat";
+  7. flash attention: the CUDA kernel against its plain version at the
+     serving shapes (B=1, H=40, KV=8, hd=128, bf16, causal, S in {64, 512,
+     1024, 2048}) and the feature shapes (gemma2's hd=256 with window 4096
+     and softcap 50, phi3's hd=96, causal off, float32), with controls (the
+     KV head h % KV, the causal mask dropped); kernel, plain and
+     ``scaled_dot_product_attention`` times and the bound;
+  8. serving qwen3-14b at full width and depth (random bf16 weights from a
+     seeded generator on the card): 8 seeded prompts of 65-1000 tokens
+     through ``Engine.generate`` at temperature 0, 8 slots, 32 new tokens,
+     once through the kernel (use_pallas) and once through the plain path,
+     with launch counts, logits and greedy tokens held against each other,
+     prefill and decode times, and profiles of one prefill and one decode
+     step.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it.
 """
@@ -34,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -50,7 +64,11 @@ INSTR_PER_S = FP32_OPS_PER_S / 2
 # elements at most, each by one bf16 ulp (an ulp of logf/cosf can flip a
 # rounding); a skipped bf16 rounding changes far more of them
 MISMATCH_FRAC = 1e-3
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 CUDA_SRC = "src/repro_torch/kernels/csrc/zo_direction.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:111"
+SERVE_SHAPES = (64, 512, 1024, 2048)     # prefill lengths timed at the serving shape
 REPLACES = {
     "zo_perturb_sumsq": "src/repro/kernels/zo_direction.py:349",
     "zo_reconstruct_update": "src/repro/kernels/zo_direction.py:447",
@@ -551,6 +569,322 @@ def fig1_phase(torch, dev):
     check(math.isfinite(am["l2_all"]), "attack metrics not finite")
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: flash attention against its plain version
+# --------------------------------------------------------------------------- #
+def attn_agree(torch, got, want):
+    """(ok, max abs error, tolerance text) of an attention output.
+
+    bf16: every element within one bf16 ulp of the plain value, where values
+    under 1e-3 of the largest count as 1e-3 of it (both compute in float32
+    in other summation orders and round once; an output that cancels to
+    ~1e-7 keeps only float32's absolute accuracy).  float32: within 1e-5 of
+    the largest value plus 1e-5 of the element."""
+    got32, want32 = got.float(), want.float()
+    err = (got32 - want32).abs()
+    top = want32.abs().max()
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(want32.abs(), 1e-3 * top))
+        tol = torch.ldexp(torch.ones_like(want32), e - 8)
+        text = "1 bf16 ulp each (floor 1e-3 of max)"
+    else:
+        tol = 1e-5 * top + 1e-5 * want32.abs()
+        text = "1e-5*max + 1e-5*|x|"
+    return bool((err <= tol).all()), float(err.max()), text
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks keep: the work these inputs need."""
+    n = 0
+    for i in range(Sq):
+        lo = 0 if window is None else max(0, i - window + 1)     # i - j < window
+        hi = min(Sk - 1, i) if causal else Sk - 1                # i - j >= 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def flash_bound(B, Sq, Sk, H, KV, hd, dtype_bytes, causal, window):
+    """(bound ms, by): bytes of q, k, v read once and out written once over
+    the HBM rate; the products' operations (2 * hd for q.k and 2 * hd for
+    p.v per live pair and head) over the dense rate of the inputs' type."""
+    n_bytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * dtype_bytes
+    ops_ = 4 * hd * H * B * live_pairs(Sq, Sk, causal, window)
+    rate = BF16_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, ops_ / rate * 1e3
+    return ((tb, "bytes") if tb >= to else (to, "operations")), n_bytes, ops_
+
+
+def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator().manual_seed(11)
+
+    def qkv(S, H_, KV_, hd_, dtype, B=1):
+        return [torch.randn(B, S, n, hd_, generator=g).to(dev, dtype) for n in (H_, KV_, KV_)]
+
+    worst = 0.0
+
+    def compare(what, args, causal=True, window=None, softcap=None):
+        nonlocal worst
+        got = fa.flash_attention(*args, causal, window, softcap)
+        want = ref.ref_flash_attention(*args, causal, window, softcap)
+        ok, err, tol = attn_agree(torch, got, want)
+        print(f"  flash_attention {what:52s} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"flash_attention {what}: kernel and plain version disagree ({err})")
+        worst = max(worst, err)
+        return want
+
+    def control(what, bad, want):
+        ok, err, _ = attn_agree(torch, bad, want)
+        print(f"  flash_attention control, {what}: fails the check (max_abs_err={err:.3e})")
+        check(not ok, f"flash_attention: the check lets a faulty output pass ({what})")
+
+    bf = torch.bfloat16
+    inputs = {}
+    for S in serve_shapes:
+        inputs[S] = qkv(S, H, KV, hd, bf)
+        want = compare(f"serving S={S} H={H} KV={KV} hd={hd} bf16 causal", inputs[S])
+        if S == serve_shapes[1]:
+            q, k, v = inputs[S]
+            idx = torch.arange(H, device=dev) % KV
+            control("KV head h % KV", ref.ref_flash_attention(q, k[:, :, idx], v[:, :, idx]), want)
+            control("causal mask dropped", ref.ref_flash_attention(q, k, v, causal=False), want)
+    compare("gemma2 S=4608 H=8 KV=4 hd=256 bf16 window=4096 softcap=50",
+            qkv(4608, 8, 4, 256, bf), window=4096, softcap=50.0)
+    compare("phi3 S=512 H=32 KV=32 hd=96 bf16", qkv(512, 32, 32, 96, bf))
+    compare("S=512 H=8 KV=2 hd=128 bf16 causal off", qkv(512, 8, 2, 128, bf), causal=False)
+    compare("S=512 H=8 KV=2 hd=64 float32", qkv(512, 8, 2, 64, torch.float32))
+    compare("S=256 H=8 KV=2 hd=128 float32 window=100 softcap=30 B=2",
+            qkv(256, 8, 2, 128, torch.float32, B=2), window=100, softcap=30.0)
+    torch.cuda.synchronize()
+
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    rows = []
+    for S in serve_shapes:
+        q, k, v = inputs[S]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kern = lambda: fa.flash_attention(q, k, v)                      # noqa: E731
+        plain = lambda: ref.ref_flash_attention(q, k, v)                # noqa: E731
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        lib_err = float((lib().transpose(1, 2).float() - plain().float()).abs().max())
+        p1, k1, l1 = cuda_ms(torch, plain), cuda_ms(torch, kern), cuda_ms(torch, lib)
+        l2, k2, p2 = cuda_ms(torch, lib), cuda_ms(torch, kern), cuda_ms(torch, plain)
+        (b, by), n_bytes, n_ops = flash_bound(1, S, S, H, KV, hd, 2, True, None)
+        row = {"S": S, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": (l1 + l2) / 2, "bound_ms": b, "bound_by": by,
+               "bytes": n_bytes, "operations": n_ops}
+        rows.append(row)
+        print(f"  flash_attention S={S:5d}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} (scaled_dot_product_attention, "
+              f"max |diff| to plain {lib_err:.3e}) bound_ms={b:.5f} ({by}; bytes "
+              f"{n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, operations {n_ops:.3e} at 989 T/s "
+              f"{n_ops / BF16_OPS_PER_S * 1e3:.5f}); kernel at "
+              f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s")
+    return {"max_abs_err": worst, "rows": rows}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: serving qwen3-14b through the port
+# --------------------------------------------------------------------------- #
+def instrument(torch, sch, rec):
+    """Time every prefill and decode of the scheduler ``sch`` (synchronised
+    before and after) and keep each prefill's logits and each decode step's
+    top-2 logit margin per request, in ``rec``."""
+    prefill, decode = sch._prefill, sch._decode
+
+    def top2(logits):
+        v = logits.float().topk(2, dim=-1).values
+        return (v[:, 0] - v[:, 1]).tolist()
+
+    def timed_prefill(bucket):
+        fn = prefill(bucket)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = fn(*args)
+            torch.cuda.synchronize()
+            rec["prefill"].append((bucket, 1e3 * (time.perf_counter() - t0),
+                                   logits[0].float().cpu(), top2(logits)[0]))
+            return logits, caches
+        return run
+
+    def timed_decode(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = decode(*args)
+        torch.cuda.synchronize()
+        rec["decode_ms"].append(1e3 * (time.perf_counter() - t0))
+        for slot, mg in enumerate(top2(logits)):
+            rid = int(sch.pool.owner[slot])
+            if rid >= 0:
+                rec["margins"].setdefault(rid, []).append(mg)
+        return logits, caches
+
+    sch._prefill, sch._decode = timed_prefill, timed_decode
+
+
+def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
+    """qwen3-14b (full width and depth unless ``cfg`` is given) served twice
+    on the same weights: through the flash kernel and through the plain
+    path.  Returns the kernel run's launch counts and timings."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = cfg or get_config("qwen3-14b")
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params:,} parameters "
+          f"({n_params * 2 / 1e9:.1f} GB), initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s; KV cache "
+          f"{2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2:,} B per token and slot")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, param_count() says "
+          f"{cfg.param_count()}")
+
+    rng = np.random.default_rng(0)
+    lens = lens or [65, 1000] + [int(n) for n in rng.integers(65, 1001, 6)]
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in lens]
+    max_seq = (1 << (max(lens) - 1).bit_length()) + max_new   # the largest bucket fits
+    print(f"  {len(prompts)} prompts of {lens} tokens, {max_new} new tokens each, "
+          f"{slots} slots, max_seq {max_seq}")
+
+    runs = {}
+    for use_pallas in (True, False):
+        eng = Engine(cfg.with_(use_pallas=use_pallas), params,
+                     ServeConfig(max_seq=max_seq, slots=slots))
+        rec = {"prefill": [], "decode_ms": [], "margins": {}}
+        instrument(torch, eng.scheduler, rec)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, max_new)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = ops.launch_counts()
+        rec["outs"] = outs
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+        runs[use_pallas] = rec
+        del eng
+
+    fast, plain = runs[True], runs[False]
+    n_prefill = len(fast["prefill"])
+    check(n_prefill == len(prompts), f"{n_prefill} prefills for {len(prompts)} prompts")
+    kernel_buckets = [b for b, *_ in fast["prefill"] if b % 64 == 0]
+    want_launches = len(kernel_buckets) * cfg.n_layers
+    print(f"  launches: kernel run {fast['launches']['flash_attention']} "
+          f"(prefills on 64-aligned buckets {len(kernel_buckets)} x {cfg.n_layers} layers "
+          f"= {want_launches}), plain run {plain['launches']['flash_attention']}")
+    check(fast["launches"]["flash_attention"] == want_launches == n_prefill * cfg.n_layers,
+          "flash_attention launches != admitted prefills x layers")
+    check(plain["launches"]["flash_attention"] == 0, "the plain run launched the kernel")
+
+    # last-prompt-token logits of the two runs
+    top = max(float(lg.abs().max()) for _, _, lg, _ in plain["prefill"])
+    tol = 0.05 * top
+    diffs = [float((a[2] - b[2]).abs().max()) for a, b in zip(fast["prefill"], plain["prefill"])]
+    print(f"  last-prompt-token logits, kernel vs plain run: max |diff| {max(diffs):.4f} "
+          f"(per prompt {[round(d, 4) for d in diffs]}); tolerance 5% of the largest "
+          f"logit {top:.3f} = {tol:.4f} (both paths round each attention output to bf16 "
+          f"from float32 sums in other orders; a flipped rounding is 2**-8 of a value and "
+          f"spreads through every later bf16 operation of {cfg.n_layers} layers: two "
+          f"layers already differ by ~0.7%)")
+    check(all(math.isfinite(d) for d in diffs) and max(diffs) <= tol,
+          "kernel and plain runs' prefill logits disagree")
+    # greedy tokens; where they part, the plain run's top-2 margin there must be a near-tie
+    n_diff = 0
+    for rid, (a, b) in enumerate(zip(fast["outs"], plain["outs"])):
+        check(len(a) == len(b) == lens[rid] + max_new, "wrong output length")
+        gen_a, gen_b = a[lens[rid]:], b[lens[rid]:]
+        if gen_a != gen_b:
+            n_diff += 1
+            t = next(i for i, (x, y) in enumerate(zip(gen_a, gen_b)) if x != y)
+            margins = [plain["prefill"][rid][3]] + plain["margins"][rid]
+            print(f"  request {rid}: tokens part at generated token {t} ({gen_a[t]} vs "
+                  f"{gen_b[t]}); the plain run's top-2 margin there is {margins[t]:.4f}")
+            check(margins[t] <= tol, f"request {rid}: tokens differ where the plain run's "
+                  f"top-2 margin {margins[t]:.4f} exceeds {tol:.4f}")
+    print(f"  greedy tokens: {len(prompts) - n_diff} of {len(prompts)} requests identical "
+          f"over all {max_new} tokens")
+    for rid, o in enumerate(fast["outs"]):
+        check(all(0 <= t < cfg.vocab_size for t in o), "token out of range")
+
+    print(f"  times on {smi_line()} (host clock, synchronised around each call):")
+    for name, rec in (("kernel", fast), ("plain", plain)):
+        by_bucket = {}
+        for b, ms, *_ in rec["prefill"]:
+            by_bucket.setdefault(b, []).append(ms)
+        n_tok = len(prompts) * max_new
+        dec = rec["decode_ms"]
+        print(f"  {name:6s} run: prefill ms by bucket "
+              f"{ {b: [round(x, 3) for x in v] for b, v in sorted(by_bucket.items())} }; "
+              f"decode {len(dec)} steps, median {statistics.median(dec):.3f} ms/step "
+              f"(first {dec[0]:.3f}); {n_tok} tokens in {rec['wall_s']:.3f} s = "
+              f"{n_tok / rec['wall_s']:.1f} tok/s; peak memory {rec['peak_gb']:.1f} GB")
+    return {"launches": fast["launches"], "params": params, "prompts": prompts,
+            "cfg": cfg}
+
+
+def profile_call(torch, what, fn):
+    """torch.profiler over one call of ``fn`` (after one warm-up call): host
+    wall, device busy and idle share, device kernels launched, and device
+    time by kernel, with the flash kernel's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        print(f"  {what}: not measured (the profiler saw no device time)")
+        return
+    busy = sum(r[0] for r in rows) / 1e3
+    flash = sum(r[0] for r in rows if "flash_fwd" in r[2]) / 1e3
+    print(f"  {what} under the profiler: host wall {1e3 * wall:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {1 - busy / (1e3 * wall):.3f}), "
+          f"{sum(r[1] for r in rows)} device kernels and copies; flash kernel "
+          f"{flash:.3f} ms = {flash / busy:.3f} of device time")
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"    {us / 1e3:9.3f} ms  {count:5d} calls  {key[:90]}")
+
+
+def serve_profiles(torch, cfg, params, tokens, slots=8, max_seq=1056):
+    """One kernel-path prefill of ``tokens`` (right-padded to its
+    power-of-two bucket, as the scheduler pads it) and one decode step over
+    a full pool of ``slots`` slots, each under the profiler."""
+    from repro_torch.models import transformer as T
+
+    cfg = cfg.with_(use_pallas=True)
+    dev = params["embed"].device
+    bucket = 1 << (len(tokens) - 1).bit_length()
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    toks[0, :len(tokens)] = torch.tensor(tokens)
+    last = torch.tensor([len(tokens) - 1], device=dev)
+    profile_call(torch, f"prefill of {len(tokens)} tokens (bucket {bucket})",
+                 lambda: T.prefill_at(cfg, params, {"tokens": toks}, last))
+    caches = T.init_caches(cfg, slots, max_seq, getattr(torch, cfg.dtype), dev)
+    cur = torch.arange(slots, device=dev)
+    pos = torch.full((slots,), len(tokens), dtype=torch.int32, device=dev)
+    profile_call(torch, f"decode step over {slots} slots at position {len(tokens)}",
+                 lambda: T.decode_step_slots(cfg, params, cur, pos, caches))
+
+
 def main() -> None:
     try:
         import torch
@@ -573,9 +907,11 @@ def main() -> None:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
     t0 = time.perf_counter()
-    lib = build.build("zo_direction", verbose=True)
-    print(f"# build: {time.perf_counter() - t0:.1f} s")
-    gauss_instr = gauss_instructions(lib)
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:     # one nvcc per source
+        libs = dict(zip(build.SOURCES, pool.map(lambda n: build.build(n, verbose=True),
+                                                build.SOURCES)))
+    print(f"# build: {time.perf_counter() - t0:.1f} s ({', '.join(sorted(libs))})")
+    gauss_instr = gauss_instructions(libs["zo_direction"])
 
     from repro_torch.core.engine import FlatEngine
     from repro_torch.models.mlp import init_mlp_classifier
@@ -597,6 +933,12 @@ def main() -> None:
     generic_launches = generic_flat_phase(torch, dev)
     print("# phase: Fig. 1 universal attack (engine=flat)")
     fig1_phase(torch, dev)
+    print("# phase: flash attention vs its plain version on the card")
+    flash = flash_phase(torch, dev)
+    print("# phase: serving qwen3-14b at full width and depth (kernel vs plain path)")
+    serve = serve_phase(torch, dev)
+    print("# phase: profiles of one 1000-token prefill and one decode step")
+    serve_profiles(torch, serve["cfg"], serve["params"], max(serve["prompts"], key=len))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -616,6 +958,18 @@ def main() -> None:
             "path": "fig2 flat+sgd" if main else "fig2 flat+adam",
             **({"sumsq_rel_err": row["sumsq_rel_err"]} if "sumsq_rel_err" in row else {}),
         })
+    head = flash["rows"][-1]                  # the serving shape at S=2048
+    check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_REPLACES, "launches": serve["launches"]["flash_attention"],
+        "max_abs_err": flash["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "path": "serve qwen3-14b prefill",
+        "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
+        "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
+                      for r in flash["rows"]],
+    })
     print(f"# total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@ A JAX run's parameters (or its SGD momentum / Adam moments, which are trees
 of the same structure) become tensors with ``params_from_numpy(tree)``, so a
 run started in the JAX package continues in the port: ``np.asarray`` of a
 JAX array is the bridge, and no JAX import is needed here.  bfloat16 arrays
-(numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
+(numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.  A transformer's
+``init_model`` tree needs nothing more: its layers are stacked on axis 0 in
+both packages, and its nested dicts flatten in the same sorted-key order.
 """
 from __future__ import annotations
 

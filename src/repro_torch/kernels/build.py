@@ -1,14 +1,15 @@
-"""Build the CUDA kernels with ``nvcc`` into a shared library, at first use.
+"""Build the CUDA kernels with ``nvcc`` into shared libraries, at first use.
 
-The library has a plain C interface and is loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds).  It goes to ``build/kernels/``
-at the root of the checkout (git-ignored; ``REPRO_TORCH_BUILD_DIR``
-overrides it), named by a hash of the source and the flags, so a changed
-source is rebuilt and an unchanged one is reused.
+One library per source in ``SOURCES``.  Each has a plain C interface and is
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).  It
+goes to ``build/kernels/`` at the root of the checkout (git-ignored;
+``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the source and
+the flags, so a changed source is rebuilt and an unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper), no ``--use_fast_math`` (IEEE ``logf``/``cosf``/
 ``sqrtf``, no flush to zero) and ``-fmad=false`` (no multiply-add
-contraction), so the kernels round as their plain PyTorch versions do.
+contraction), so the kernels round as their plain PyTorch versions do
+(flash attention asks for its multiply-adds with ``fmaf``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"zo_direction": CSRC / "zo_direction.cu"}
+SOURCES = {"zo_direction": CSRC / "zo_direction.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

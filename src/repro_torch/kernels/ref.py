@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the ZO-direction kernels (the oracles).
+"""Plain PyTorch versions of the port's kernels (the oracles).
 
-Counterpart of the ZO part of ``repro.kernels.ref``.  On a CPU tensor the
+Counterpart of ``repro.kernels.ref``: the ZO-direction kernels and flash
+attention.  On a CPU tensor the
 wrappers in ``repro_torch.kernels.ops`` run these functions; on the card the
 CUDA kernels are held against them.  The flat versions take the same
 per-block metadata as the kernels (leaf salt, leaf-local counter start, valid
@@ -9,6 +10,8 @@ lanes) and evaluate block by block: the whole packed buffer is viewed as
 lanes are masked exactly as in the kernels.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -137,3 +140,33 @@ def ref_zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs,
         raise ValueError("bf16_mask must have one flag per block")
     p_new = torch.where(bf, p_new.to(torch.bfloat16).to(torch.float32), p_new)
     return p_new, v_new
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+def ref_flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """What the flash kernel computes, written out: q ``(B, Sq, H, hd)``, k
+    and v ``(B, Sk, KV, hd)``; query head h reads KV head ``h // (H // KV)``.
+    float32 throughout, q scaled by the float32 of 1/sqrt(hd) before the
+    product, softcap ``c * tanh(s / c)`` before the mask, causal and window
+    masks on positions 0.. of both sides, masked logits -1e30; the output is
+    rounded once to q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = (q.to(torch.float32) * (1.0 / hd ** 0.5)).reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    rel = (torch.arange(Sq, device=q.device)[:, None]
+           - torch.arange(Sk, device=q.device)[None, :])
+    mask = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(torch.float32))
+    return out.reshape(B, Sq, H, hd).to(q.dtype)

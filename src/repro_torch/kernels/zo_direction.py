@@ -8,8 +8,9 @@ the plain versions live in ``repro_torch.kernels.ref`` and
 ``repro_torch.kernels.ops`` picks between the two by the tensors' device.
 
 The library is built (``kernels.build``) and loaded at the first launch, never
-at import.  ``LAUNCHES`` counts kernel launches per function, and only here,
-where they happen; ``zo_perturb_sumsq`` makes two launches per call.
+at import (``kernels.binding``).  ``LAUNCHES`` counts kernel launches per
+function, and only here, where they happen; ``zo_perturb_sumsq`` makes two
+launches per call.
 """
 from __future__ import annotations
 
@@ -18,10 +19,13 @@ import ctypes
 import torch
 
 from repro_torch.dtypes import acc_dtype_of
+from repro_torch.kernels.binding import check as _check
+from repro_torch.kernels.binding import cuda_device as _cuda_device
+from repro_torch.kernels.binding import launch, library
+from repro_torch.kernels.binding import stream as _stream
 
 LAUNCHES = {"zo_perturb_flat": 0, "zo_reconstruct_flat": 0,
             "zo_perturb_sumsq": 0, "zo_reconstruct_update": 0}
-_lib_handle = None
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -34,39 +38,8 @@ _SIGNATURES = {
 }
 
 
-def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        from repro_torch.kernels.build import build
-
-        lib = ctypes.CDLL(str(build("zo_direction")))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
-
-
 def _launch(counter: str, entry: str, *args) -> None:
-    rc = getattr(_lib(), entry)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[counter] += 1
-
-
-def _check(t, what: str, dtype: torch.dtype, device: torch.device, shape=None):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{what}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    return t.data_ptr()
+    launch(library("zo_direction", _SIGNATURES), LAUNCHES, counter, entry, *args)
 
 
 def _scalar(v, device: torch.device) -> torch.Tensor:
@@ -87,16 +60,6 @@ def _meta(salts, ctrs, nvalid, device, m=None):
             _check(salts, "salts", torch.uint32, device, sshape),
             _check(ctrs, "ctrs", torch.uint32, device, (nb,)),
             _check(nvalid, "nvalid", torch.int32, device, (nb,)))
-
-
-def _cuda_device(t) -> torch.device:
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError("the CUDA kernels take CUDA tensors")
-    return t.device
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def zo_perturb_flat(x, salts, ctrs, nvalid, scale, block: int = 4096):

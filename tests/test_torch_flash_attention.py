@@ -1,0 +1,129 @@
+"""The port's flash attention (its plain version, on CPU tensors) against the
+JAX package's Pallas kernel in interpret mode and against the model's
+``_attend``, on the CPU.
+
+Inputs are numpy draws from a seed, in the model's layout (q ``(B, S, H,
+hd)``, k and v ``(B, S, KV, hd)``).  The sweep, as small as the reference's
+own (``tests/test_kernels.py``): S in {64, 128}, (H, KV) in {(4, 4), (4, 2),
+(4, 1)}, hd in {32, 64}, float32 and bfloat16 at the causal default; and the
+features (causal on and off, window {None, 8}, softcap {None, 50}) at each
+(H, KV).  Tolerances: float32 outputs within rtol 1e-5 / atol 1e-6 (both
+compute in float32, in other summation orders: ~1e-7 apart); bfloat16
+outputs, which both round once from float32, within one bf16 ulp of the
+reference's value per element, where a value under 1e-3 of the largest
+counts as 1e-3 of it (an output that cancels to ~1e-7 from terms of size ~1
+keeps only float32's absolute accuracy; measured: 1.1e-8 apart).
+
+The CUDA wrapper's input checks run on CPU tensors too: what the kernel
+cannot take raises, and a CPU tensor never reaches the kernel.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.kernels import ops as jops
+from repro.models import attention as JA
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
+B = 2
+
+
+def inputs(S, H, KV, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32))
+
+
+def both(arrays, dtype, **kw):
+    """(port, reference) outputs as float32 numpy arrays."""
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays), **kw)
+    assert got.dtype == tdt and got.shape == arrays[0].shape
+    want = jops.flash_attention(*(jnp.asarray(a, jdt) for a in arrays), block_q=64,
+                                block_k=64, **kw)
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+def assert_match(got, want, dtype):
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        mag = np.maximum(np.abs(want), 1e-3 * np.abs(want).max())
+        _, e = np.frexp(mag)
+        ulp = np.ldexp(1.0, e - 8)          # bf16 keeps 8 significant bits
+        assert np.all(np.abs(got - want) <= ulp), float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,KV,hd", [
+    (64, 4, 4, 32), (128, 4, 2, 64), (64, 4, 1, 64), (128, 4, 1, 32),
+])
+def test_flash_matches_pallas_kernel(S, H, KV, hd, dtype):
+    assert_match(*both(inputs(S, H, KV, hd), dtype, causal=True), dtype)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 8, None), (True, None, 50.0), (False, None, None), (False, 8, 50.0),
+])
+def test_flash_features_match_pallas_kernel(H, KV, causal, window, softcap):
+    got, want = both(inputs(64, H, KV, 32, seed=1), "float32", causal=causal,
+                     window=window, softcap=softcap)
+    assert_match(got, want, "float32")
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_flash_matches_model_attend(window):
+    """The plain version agrees with the reference model's ``_attend`` (the
+    same masks, scale and softcap: gemma2's 50) on GQA heads."""
+    cfg = jget_config("gemma2-2b").reduced().with_(attn_chunk=0)
+    H, KV, hd = cfg.n_heads, 2, cfg.head_dim
+    q, k, v = inputs(128, H, KV, hd, seed=2)
+    pos = jnp.arange(128, dtype=jnp.int32)
+    want = JA._attend(cfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, pos,
+                      None if window is None else jnp.int32(window), causal=True)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True, window=window,
+                              softcap=cfg.attn_softcap)
+    np.testing.assert_allclose(got.reshape(B, 128, H * hd).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_tensors_never_reach_the_kernel():
+    q, k, v = (torch.from_numpy(a) for a in inputs(64, 4, 2, 32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(q, k, v)
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("change,err", [
+    (lambda q, k, v: (q[:, :48], k, v), "multiples of 64"),
+    (lambda q, k, v: (q, k[:, :, :1].repeat(1, 1, 3, 1), v[:, :, :1].repeat(1, 1, 3, 1)),
+     "multiple of 3 KV heads"),
+    (lambda q, k, v: (q[..., :16], k[..., :16], v[..., :16]), "head width 16"),
+    (lambda q, k, v: (q.double(), k.double(), v.double()), "dtype"),
+    (lambda q, k, v: (q, k, v[:, :64]), "do not fit"),
+])
+def test_inputs_the_kernel_cannot_take_raise(change, err):
+    q, k, v = change(*(torch.from_numpy(a) for a in inputs(128, 4, 2, 32)))
+    with pytest.raises((ValueError, TypeError), match=err):
+        fa.check_inputs(q, k, v, None, None)
+
+
+def test_window_and_softcap_must_be_positive():
+    q, k, v = (torch.from_numpy(a) for a in inputs(64, 4, 2, 32))
+    with pytest.raises(ValueError, match="window"):
+        fa.check_inputs(q, k, v, 0, None)
+    with pytest.raises(ValueError, match="softcap"):
+        fa.check_inputs(q, k, v, None, 0.0)
+    fa.check_inputs(q, k, v, 8, 50.0)

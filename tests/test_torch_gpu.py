@@ -7,7 +7,10 @@ against its plain PyTorch version on the same inputs, fp32 outputs to
 rtol 1e-5 / atol 1e-6 (the two differ at most by ulps of logf/cosf and by
 the order of the sum of squares) and bf16-rounded outputs to one bf16 ulp
 per element with at most 0.1% of the elements differing at all; an fp32
-accumulator fails that check.
+accumulator fails that check.  Flash attention is held to its plain version
+in float32 to rtol 1e-5 / atol 1e-5 and in bf16 to one bf16 ulp per element
+(values under 1e-3 of the largest count as 1e-3 of it): both compute in
+float32 in other summation orders and round once.
 """
 import numpy as np
 import pytest
@@ -98,3 +101,107 @@ def test_flat_engine_step_on_card_matches_fused(momentum):
                                   batches(ds, 4 * 16, seed=1), 8)
     assert hist["flat"]["order"] == hist["fused"]["order"]
     np.testing.assert_allclose(hist["flat"]["loss"], hist["fused"]["loss"], rtol=1e-4)
+
+
+def _attn_close(got, want):
+    got, want = got.float(), want.float()
+    mag = torch.maximum(want.abs(), 1e-3 * want.abs().max())
+    _, e = torch.frexp(mag)
+    return bool(((got - want).abs() <= torch.ldexp(torch.ones_like(mag), e - 8)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,hd,causal,window,softcap", [
+    (128, 8, 2, 128, True, None, None),    # qwen3-style GQA
+    (192, 4, 2, 256, True, 64, 50.0),      # gemma2: window and softcap
+    (128, 4, 4, 96, True, None, None),     # phi3's head width
+    (64, 4, 1, 64, False, None, None),
+    (128, 4, 2, 32, True, 8, None),        # reduced() configs
+])
+def test_flash_attention_kernel_matches_plain_version(S, H, KV, hd, causal, window,
+                                                       softcap, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, S, n, hd, generator=g).to(dev, dtype) for n in (H, KV, KV))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal, window, softcap)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = ref.ref_flash_attention(q, k, v, causal, window, softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _attn_close(got, want)
+    # control: the KV head h % KV instead of h // (H // KV) fails the check
+    if KV not in (1, H):
+        wrong = ref.ref_flash_attention(q, k[:, :, torch.arange(H) % KV],
+                                        v[:, :, torch.arange(H) % KV], causal, window,
+                                        softcap)
+        assert not _attn_close(wrong, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects_what_it_cannot_take():
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = _cuda()
+    q = torch.randn(1, 128, 4, 128, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, 128, 2, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[:, :100], k[:, :100], k[:, :100])   # not a multiple of 64
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.float(), k)
+
+
+@pytest.mark.gpu
+def test_model_prefill_through_the_kernel_matches_plain_path():
+    """qwen3-14b.reduced() with a GQA variant, in bf16, prefilled on the card
+    through the kernel (use_pallas) and through the plain path: the kernel
+    launches once per layer and the logits agree to 2% of their largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    dev = _cuda()
+    cfg = get_config("qwen3-14b").reduced().with_(n_kv_heads=2, dtype="bfloat16")
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
+    toks, last = toks.to(dev), torch.tensor([100], device=dev)
+    ops.reset_launch_counts()
+    fast, _ = T.prefill_at(cfg.with_(use_pallas=True), params, {"tokens": toks}, last)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    plain, _ = T.prefill_at(cfg, params, {"tokens": toks}, last)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.cuda.synchronize()
+    err = float((fast.float() - plain.float()).abs().max())
+    assert err <= 0.02 * float(plain.float().abs().max()), err
+
+
+@pytest.mark.gpu
+def test_serving_on_card_samples_independently_of_slots():
+    """The serving engine on the card at temperature 1 (CUDA generators from
+    fold(seed, request, step)): 1 slot and 3 slots give the same tokens, and
+    the aligned prefills launch the kernel once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, ServeConfig
+
+    dev = _cuda()
+    cfg = get_config("qwen3-14b").reduced().with_(dtype="bfloat16", use_pallas=True)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in (70, 5, 100)]
+    outs = []
+    for slots in (1, 3):
+        ops.reset_launch_counts()
+        eng = Engine(cfg, params, ServeConfig(max_seq=160, slots=slots, temperature=1.0))
+        outs.append(eng.generate(prompts, max_new=6, key=7))
+        assert ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers
+    assert outs[0] == outs[1]
