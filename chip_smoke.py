@@ -22,13 +22,26 @@ Phases (any failed check exits non-zero):
   5. the generic flat path: the same model with Adam, where the flat engine
      runs ``zo_perturb_flat``/``zo_reconstruct_flat``;
   6. Fig. 1: the universal attack (d=900), 16 steps with engine="flat";
-  7. flash attention: the CUDA kernel against its plain version at the
+  7. per-leaf kernels (zo_perturb, zo_reconstruct, zo_sumsq) against their
+     plain versions at the Fig. 2 leaf sizes (7, 1300, 1300, 9100, 70200,
+     1690000) and ragged ones (1, 4095, 4097, 5000), offsets 0 and 12345,
+     x in float32/bfloat16, acc_dtype float32/bfloat16, m in {1, 4}, a
+     split leaf, with controls (tail mask dropped, stores past the leaf,
+     offset ignored, float32 accumulator for bfloat16), and their times at
+     the w2 leaf (n=1,690,000);
+  8. the Fig. 2 method set: all seven methods through
+     ``run_comparison(..., engine="pallas")`` at hidden=1300, 32 steps, with
+     HO-SGD's per-leaf launch counts, HO-SGD pallas against fused and
+     against its round program, comm_bytes and CommLedger totals against
+     the closed forms, the analytic meters, and port against port at
+     hidden=64 (card against CPU); then a profile of the pallas ZO step;
+  9. flash attention: the CUDA kernel against its plain version at the
      serving shapes (B=1, H=40, KV=8, hd=128, bf16, causal, S in {64, 512,
      1024, 2048}) and the feature shapes (gemma2's hd=256 with window 4096
      and softcap 50, phi3's hd=96, causal off, float32), with controls (the
      KV head h % KV, the causal mask dropped); kernel, plain and
      ``scaled_dot_product_attention`` times and the bound;
-  8. serving qwen3-14b at full width and depth (random bf16 weights from a
+  10. serving qwen3-14b at full width and depth (random bf16 weights from a
      seeded generator on the card): 8 seeded prompts of 65-1000 tokens
      through ``Engine.generate`` at temperature 0, 8 slots, 32 new tokens,
      once through the kernel (use_pallas) and once through the plain path,
@@ -75,6 +88,14 @@ REPLACES = {
     "zo_perturb_flat": "src/repro/kernels/zo_direction.py:236",
     "zo_reconstruct_flat": "src/repro/kernels/zo_direction.py:275",
 }
+LEAF_REPLACES = {
+    "zo_perturb": "src/repro/kernels/zo_direction.py:136",
+    "zo_reconstruct": "src/repro/kernels/zo_direction.py:183",
+    "zo_sumsq": "src/repro/kernels/zo_direction.py:104",
+}
+FIG2_LEAVES = (7, 1300, 1300, 9100, 70200, 1690000)   # the MLP's six leaves
+RAGGED_LEAVES = (1, 4095, 4097, 5000)
+METHODS = ["ho_sgd", "sync_sgd", "ri_sgd", "pa_sgd", "zo_sgd", "zo_svrg_ave", "qsgd"]
 SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
@@ -444,10 +465,10 @@ def fig2_phase(torch, dev, hidden=1300):
     return launches
 
 
-def profile_phase(torch, dev, hidden=1300):
-    """Where a main-path ZO step's time goes: torch.profiler over 7 ZO steps
-    (t=9..15) after 7 warm-up ZO steps; device busy time by kernel and the
-    device's idle share of the host's wall time."""
+def profile_phase(torch, dev, hidden=1300, engine="flat"):
+    """Where a ZO step's time goes with ``engine``: torch.profiler over 7 ZO
+    steps (t=9..15) after 7 warm-up ZO steps; device busy time by kernel and
+    the device's idle share of the host's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,7 +482,7 @@ def profile_phase(torch, dev, hidden=1300):
                                  ds.n_classes, hidden=hidden, device=dev)
     d = sum(p.numel() for p in params.values())
     meth = make_ho_sgd(mlp_loss, HOSGDConfig(tau=8, mu=1e-3, m=4, lr=0.05,
-                                             zo_lr=0.05 * 30.0 / d, engine="flat"))
+                                             zo_lr=0.05 * 30.0 / d, engine=engine))
     state, data = meth.init(params), batches(ds, 256, seed=1)
     for t in range(1, 8):
         params, state, _ = meth.step(t, params, state, next(data))
@@ -478,14 +499,15 @@ def profile_phase(torch, dev, hidden=1300):
     rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     n = len(steps)
-    print(f"  {n} ZO steps: host wall {1e3 * wall / n:.3f} ms/step")
+    print(f"  {n} ZO steps (engine={engine}): host wall {1e3 * wall / n:.3f} ms/step")
     if not rows:
         print("  device busy time and idle share: not measured (the profiler saw "
               "no device time)")
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"  device busy {busy_ms / n:.3f} ms/step, device idle share "
-          f"{1.0 - busy_ms / (1e3 * wall):.3f}")
+          f"{1.0 - busy_ms / (1e3 * wall):.3f}, {sum(r[1] for r in rows) / n:.0f} device "
+          f"kernels and copies per step")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"    {us / 1e3 / n:8.4f} ms/step  {count // n:4d} calls/step  {key[:90]}")
 
@@ -570,7 +592,318 @@ def fig1_phase(torch, dev):
 
 
 # --------------------------------------------------------------------------- #
-# phase 7: flash attention against its plain version
+# phase 7: the per-leaf kernels against their plain versions
+# --------------------------------------------------------------------------- #
+def perturb_into(torch, x, out, salt, scale, offset):
+    """Launch zo_perturb's float32 kernel writing into ``out`` (a caller's
+    buffer, longer than the leaf): the canary check's way in."""
+    from repro_torch.kernels import zo_direction as cu
+
+    dev = x.device
+    cu._launch("zo_perturb", "zo_perturb_leaf_launch", x.data_ptr(), out.data_ptr(),
+               x.numel(), salt, offset, scale.reshape(1).data_ptr(), 0, dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
+
+
+def leaf_kernel_phase(torch, dev, gauss_instr, sizes=FIG2_LEAVES + RAGGED_LEAVES):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import zo_direction as cu
+
+    g = torch.Generator().manual_seed(13)
+    salt, off1, k_split = 0x2545F491, 12345, 1234567
+    scale = torch.tensor(0.37, device=dev)    # an O(1) perturbation: every bit shows
+    salts = torch.tensor([101, 202, 303, 404], dtype=torch.int64).to(torch.uint32)
+    coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1], device=dev)
+    errs = {k: 0.0 for k in LEAF_REPLACES}
+    sumsq_rel = 0.0
+
+    def same(name, got, want, what, bf16=False):
+        if bf16:
+            ok, err, tol = agree(torch, got, want, bf16=True)
+        else:
+            ok, err, tol = torch.equal(got, want), float((got - want).abs().max()), "bitwise"
+        print(f"  {name:15s} {what:50s} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"{name} {what}: kernel and plain version disagree ({err}, {tol})")
+        errs[name] = max(errs[name], err)
+
+    def control(name, ok, what, err):
+        print(f"  {name:15s} control, {what}: fails the check (error {err:.3e})")
+        check(not ok, f"{name}: the check lets a faulty output pass ({what})")
+
+    def sumsq_check(n, off):
+        nonlocal sumsq_rel
+        got = cu.zo_sumsq(n, salt, off, dev)
+        want = ref.ref_zo_sumsq(n, salt, off, device=dev)
+        rel = float(abs(got / want - 1.0))
+        print(f"  {'zo_sumsq':15s} {f'n={n} offset={off}':50s} relative error {rel:.3e} "
+              f"(tol 1e-6)")
+        check(rel <= 1e-6, f"zo_sumsq n={n} offset={off}: relative error {rel}")
+        check(torch.equal(got, cu.zo_sumsq(n, salt, off, dev)),
+              "zo_sumsq is not the same run to run")
+        sumsq_rel = max(sumsq_rel, rel)
+        errs["zo_sumsq"] = max(errs["zo_sumsq"], float(abs(got - want)))
+
+    for n in sizes:
+        x = torch.randn(n, generator=g).to(dev)
+        for off in (0, off1):
+            what = f"n={n} offset={off}"
+            same("zo_perturb", cu.zo_perturb(x, salt, scale, off),
+                 ref.ref_zo_perturb(x, salt, scale, off), what + " float32")
+            xb = x.to(torch.bfloat16)
+            same("zo_perturb", cu.zo_perturb(xb, salt, scale, off),
+                 ref.ref_zo_perturb(xb, salt, scale, off), what + " bfloat16", bf16=True)
+            for m in (1, 4):
+                s = salts[:m]
+                for acc in ("float32", "bfloat16"):
+                    same("zo_reconstruct", cu.zo_reconstruct(n, s.to(dev), coeffs[:m], off, acc),
+                         ref.ref_zo_reconstruct(n, s, coeffs[:m], off, acc, device=dev),
+                         f"{what} m={m} acc={acc}", bf16=acc == "bfloat16")
+            sumsq_check(n, off)
+
+    # the split leaf: two calls at offsets 0 and k equal one call
+    n = max(sizes)
+    k = min(k_split, n // 2)
+    x = torch.randn(n, generator=g).to(dev)
+    s4 = salts.to(dev)
+    check(torch.equal(torch.cat([cu.zo_perturb(x[:k], salt, scale, 0),
+                                 cu.zo_perturb(x[k:], salt, scale, k)]),
+                      cu.zo_perturb(x, salt, scale, 0)), "zo_perturb: split leaf differs")
+    check(torch.equal(torch.cat([cu.zo_reconstruct(k, s4, coeffs, 0),
+                                 cu.zo_reconstruct(n - k, s4, coeffs, k)]),
+                      cu.zo_reconstruct(n, s4, coeffs, 0)), "zo_reconstruct: split leaf differs")
+    parts = cu.zo_sumsq(k, salt, 0, dev) + cu.zo_sumsq(n - k, salt, k, dev)
+    rel = float(abs(parts / cu.zo_sumsq(n, salt, 0, dev) - 1.0))
+    check(rel <= 1e-6, f"zo_sumsq: split leaf differs by {rel}")
+    print(f"  split leaf n={n} at k={k}: zo_perturb and zo_reconstruct bitwise equal to "
+          f"one call, zo_sumsq within {rel:.2e}")
+
+    # controls: each check above must reject these faulty outputs
+    n = 5000                                           # a ragged tail
+    x = torch.randn(n, generator=g).to(dev)
+    n_up = -(-n // cu.SUMSQ_CHUNK) * cu.SUMSQ_CHUNK
+    want = ref.ref_zo_sumsq(n, salt, 0, device=dev)
+    bad = ref.ref_zo_sumsq(n_up, salt, 0, device=dev)
+    control("zo_sumsq", float(abs(bad / want - 1.0)) <= 1e-6,
+            f"tail mask dropped ({n_up - n} lanes past n={n})", float(abs(bad / want - 1.0)))
+    buf = torch.full((n + 256,), 7.0, device=dev)
+    perturb_into(torch, x, buf, salt, scale, 0)
+    torch.cuda.synchronize()
+    canary = lambda b: bool((b[n:] == 7.0).all())           # noqa: E731
+    check(canary(buf) and torch.equal(buf[:n], ref.ref_zo_perturb(x, salt, scale, 0)),
+          "zo_perturb wrote past the leaf or wrote wrong values")
+    print(f"  {'zo_perturb':15s} canary of 256 values after the leaf (n={n}) untouched")
+    lanes = -(-n // 256) * 256                          # what unmasked 256-thread blocks store
+    bad = buf.clone()
+    x_up = torch.cat([x, torch.zeros(lanes - n, device=dev)])
+    bad[:lanes] = ref.ref_zo_perturb(x_up, salt, scale, 0)
+    control("zo_perturb", canary(bad), f"stores past n ({lanes - n} lanes into the canary)",
+            float((bad[n:] - 7.0).abs().max()))
+    for name, got, want in (
+            ("zo_perturb", ref.ref_zo_perturb(x, salt, scale, 0),
+             ref.ref_zo_perturb(x, salt, scale, off1)),
+            ("zo_reconstruct", ref.ref_zo_reconstruct(n, salts, coeffs, 0, device=dev),
+             ref.ref_zo_reconstruct(n, salts, coeffs, off1, device=dev))):
+        control(name, torch.equal(got, want), f"offset {off1} ignored",
+                float((got - want).abs().max()))
+    n = max(sizes)
+    want = ref.ref_zo_reconstruct(n, salts, coeffs, 0, "bfloat16", device=dev)
+    bad = ref.ref_zo_reconstruct(n, salts, coeffs, 0, "float32", device=dev)
+    control("zo_reconstruct", agree(torch, bad, want, bf16=True)[0],
+            f"float32 accumulator where bfloat16 was asked (n={n}, m=4)",
+            float((bad - want).abs().max()))
+    torch.cuda.synchronize()
+
+    # times at the w2 leaf, the main path's largest launch (float32, m=4)
+    x = torch.randn(n, generator=g).to(dev)
+    m = 4
+    runs = {
+        "zo_perturb": (lambda: cu.zo_perturb(x, salt, scale, 0),
+                       lambda: ref.ref_zo_perturb(x, salt, scale, 0),
+                       8 * n + 4, n * gauss_instr),
+        "zo_reconstruct": (lambda: cu.zo_reconstruct(n, s4, coeffs, 0),
+                           lambda: ref.ref_zo_reconstruct(n, salts, coeffs, 0, device=dev),
+                           4 * n + 8 * m, m * n * gauss_instr),
+        "zo_sumsq": (lambda: cu.zo_sumsq(n, salt, 0, dev),
+                     lambda: ref.ref_zo_sumsq(n, salt, 0, device=dev),
+                     4, n * gauss_instr),
+    }
+    rows = {}
+    for name, (kern, plain, nbytes, ninstr) in runs.items():
+        p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kern, kern, plain))
+        b, by = bound_ms(nbytes, ninstr)
+        rows[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b,
+                      "bound_by": by, "max_abs_err": errs[name], "n": n}
+        if name == "zo_sumsq":
+            rows[name]["sumsq_rel_err"] = sumsq_rel
+        print(f"  {name:15s} n={n}: ms={rows[name]['ms']:.4f} plain_ms="
+              f"{rows[name]['plain_ms']:.4f} bound_ms={b:.4f} ({by}; bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
+              f"{ninstr / INSTR_PER_S * 1e3:.4f}) library_ms=none")
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: the Fig. 2 method set through engine="pallas"
+# --------------------------------------------------------------------------- #
+def ledger_run(torch, meth, params, data, n_iters, key=0):
+    """``meth`` for ``n_iters`` steps, each wrapped in a CommLedger under its
+    round's tag; returns (losses, comm_bytes per step, the ledger)."""
+    from repro_torch.dist import CommLedger
+
+    prog, ledger, wrapped = meth.program, CommLedger(), {}
+    state, losses, nbytes = meth.init(params), [], []
+    for t in range(n_iters):
+        tag = prog.round_for(t, state).round.tag
+        step = wrapped.setdefault(tag, ledger.wrap(tag, meth.step))
+        params, state, met = step(t, params, state, next(data), key)
+        losses.append(float(met["loss"]))
+        nbytes.append(met["comm_bytes"])
+    return losses, nbytes, ledger
+
+
+def method_set_phase(torch, dev, hidden=1300, n_iters=32, small_hidden=64):
+    import numpy as np
+
+    from repro_torch.apps.classification import load_dataset, run_comparison
+    from repro_torch.core import HOSGDConfig, make_ho_sgd, to_method
+    from repro_torch.core.baselines import make_pa_sgd, make_qsgd, make_ri_sgd
+    from repro_torch.core.engine import make_engine
+    from repro_torch.core.rounds import ho_sgd_program
+    from repro_torch.data.synthetic import batches
+    from repro_torch.dist.compress import qsgd
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss
+
+    m, B, tau, lr, mu, seed = 4, 64, 8, 0.05, 1e-3, 0
+    kw = dict(n_iters=n_iters, m=m, B=B, tau=tau, hidden=hidden, lr=lr, mu=mu, seed=seed,
+              eval_every=n_iters)
+    ops.reset_launch_counts()
+    res = run_comparison("covtype", engine="pallas", methods=METHODS, device=dev, **kw)
+    torch.cuda.synchronize()
+    # zo_sumsq on every leaf of the trained tree for one (t, worker), against
+    # the engine's shared plain reduction
+    params = res["ho_sgd"]["params"]
+    eng = make_engine("pallas", params, seed)
+    t_s, w_s = 9, 2
+    parts = [ops.zo_sumsq(n, s, device=dev) for n, s in zip(eng.sizes, eng.salts(t_s, w_s))]
+    total, plain = float(torch.stack(parts).sum()), float(eng.sumsq(t_s, w_s))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"  launches (7 methods, {n_iters} steps each, engine=pallas): {launches}")
+    rel = abs(total / plain - 1.0)
+    print(f"  zo_sumsq over the {len(parts)} leaves at (t={t_s}, worker={w_s}): {total:.6f} vs "
+          f"engine.sumsq {plain:.6f}, relative {rel:.3e} (tol 1e-5)")
+    check(rel <= 1e-5, f"zo_sumsq over the leaves differs from engine.sumsq by {rel}")
+
+    d = sum(eng.sizes)
+    n_leaves = len(eng.sizes)
+    ho = res["ho_sgd"]
+    order = [1 if t % tau == 0 else 0 for t in range(n_iters)]
+    n_zo = order.count(0)
+    check(ho["order"] == order, f"unexpected HO-SGD order {ho['order']}")
+    want = {"zo_perturb": n_leaves * m * n_zo, "zo_reconstruct": n_leaves * n_zo,
+            "zo_sumsq": 2 * n_leaves}
+    for name, n in want.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times, expected {n}")
+    others = {k: v for k, v in launches.items() if k not in want}
+    check(not any(others.values()), f"kernels off the pallas path launched: {others}")
+    print(f"  HO-SGD: {n_leaves} leaves x m={m} x {n_zo} ZO steps = {want['zo_perturb']} "
+          f"zo_perturb, {n_leaves} x {n_zo} = {want['zo_reconstruct']} zo_reconstruct; "
+          f"zo_sumsq 2 launches x {n_leaves} leaves")
+
+    for name in METHODS:
+        h = res[name]
+        check(all(math.isfinite(v) for v in h["loss"]), f"{name}: non-finite loss")
+        first, tail = h["loss"][0], statistics.mean(h["loss"][-8:])
+        if name in ("ho_sgd", "sync_sgd", "pa_sgd", "ri_sgd", "qsgd"):
+            check(tail < first, f"{name}: mean of the last 8 losses {tail} not below the "
+                  f"first {first}")
+        fo = [s for s, o in zip(h["iter_s"][1:], h["order"][1:]) if o == 1]
+        zo = [s for s, o in zip(h["iter_s"][1:], h["order"][1:]) if o == 0]
+        times = "; ".join(f"{k} median {1e3 * statistics.median(v):.3f} ms (n={len(v)})"
+                          for k, v in (("FO", fo), ("ZO", zo)) if v)
+        print(f"  {name:11s} loss {first:.5f} -> last-8 mean {tail:.5f}; steps after the "
+              f"first: {times}; final_acc {h['final_acc']:.4f}")
+
+    # analytic meters (Table 1 per worker), against their closed forms
+    analytic = {"ho_sgd": (d + tau - 1) / tau, "sync_sgd": float(d), "ri_sgd": d / tau,
+                "pa_sgd": d / tau, "zo_sgd": 1.0, "zo_svrg_ave": 1.0,
+                "qsgd": (8 * 8 + 8 * math.sqrt(d)) / 32.0}
+    for name, per_iter in analytic.items():
+        got = res[name]["meter"]["scalars_sent_per_worker"]
+        check(math.isclose(got, per_iter * n_iters, rel_tol=1e-12),
+              f"{name}: scalars_sent_per_worker {got} != {per_iter * n_iters}")
+    print(f"  MeterRegistry scalars_sent_per_worker equal the analytic forms for all "
+          f"{len(analytic)} methods")
+
+    # HO-SGD: the kernels against the plain engine, and the round program
+    fused = run_comparison("covtype", engine="fused", methods=["ho_sgd"], device=dev,
+                           **kw)["ho_sgd"]
+    check(fused["order"] == ho["order"], "pallas and fused FO/ZO orders differ")
+    rel_f = max(abs(a - b) / abs(b) for a, b in zip(ho["loss"], fused["loss"]))
+    print(f"  HO-SGD pallas vs fused: max relative loss difference {rel_f:.3e} (tol 1e-3)")
+    check(rel_f <= 1e-3, f"HO-SGD pallas vs fused losses differ by {rel_f}")
+
+    ds = load_dataset("covtype")
+    p0 = init_mlp_classifier(torch.Generator().manual_seed(seed), ds.n_features,
+                             ds.n_classes, hidden=hidden, device=dev)
+    cfg = HOSGDConfig(tau=tau, mu=mu, m=m, lr=lr, zo_lr=lr * 30.0 / d, engine="pallas")
+    d_leaves = [int(x.numel()) for x in (p0[k] for k in sorted(p0))]
+    closed = {
+        "ho_sgd_program": [4 * d if o else 4 * m for o in order],
+        "pa_sgd": [4 * d if (t + 1) % tau == 0 else 0 for t in range(n_iters)],
+        "ri_sgd": [4 * d if (t + 1) % tau == 0 else 0 for t in range(n_iters)],
+        "qsgd": [m * sum(qsgd(8).nbytes(n) for n in d_leaves)] * n_iters,
+    }
+    methods = {
+        "ho_sgd_program": lambda: to_method(ho_sgd_program(mlp_loss, cfg)),
+        "pa_sgd": lambda: make_pa_sgd(mlp_loss, m, tau=tau, lr=lr),
+        "ri_sgd": lambda: make_ri_sgd(mlp_loss, m, tau=tau, lr=lr, mu_r=0.25),
+        "qsgd": lambda: make_qsgd(mlp_loss, m, s=8, lr=lr),
+    }
+    ledgers = {}
+    for name, build in methods.items():
+        losses, nbytes, ledger = ledger_run(torch, build(), p0,
+                                            batches(ds, m * B, seed=seed + 1), n_iters, seed)
+        ledgers[name] = ledger
+        torch.cuda.synchronize()
+        check(nbytes == closed[name], f"{name}: comm_bytes {nbytes[:9]} differ from the "
+              f"closed form {closed[name][:9]}")
+        check(ledger.total_bytes() == sum(nbytes), f"{name}: ledger books "
+              f"{ledger.total_bytes()}, comm_bytes sum to {sum(nbytes)}")
+        if name != "ho_sgd_program":
+            check(res[name]["comm_bytes"] == nbytes,
+                  f"{name}: run_comparison's comm_bytes differ from the ledger run's")
+        per_round = {k: v["bytes_per_step"] for k, v in ledger.summary().items()}
+        print(f"  {name:15s} comm_bytes per round {per_round}, ledger total "
+              f"{ledger.total_bytes()} B in {n_iters} steps = closed form")
+        if name == "ho_sgd_program":
+            rel_p = max(abs(a - b) / abs(b) for a, b in zip(losses, ho["loss"]))
+            print(f"  HO-SGD round program vs make_ho_sgd (both pallas): max relative loss "
+                  f"difference {rel_p:.3e} (tol 1e-3)")
+            check(rel_p <= 1e-3, f"HO-SGD round program vs make_ho_sgd differ by {rel_p}")
+    ho_ledger = ledgers["ho_sgd_program"]
+    check(ho_ledger.bytes_per_step("zo") == 4 * m and ho_ledger.bytes_per_step("fo") == 4 * d,
+          "HO-SGD ledger: not 4m per ZO round and 4d per FO round")
+
+    # port against port at small width: the card's run against the CPU's
+    small = dict(kw, hidden=small_hidden, n_iters=8, eval_every=8)
+    held = [n for n in METHODS if n != "qsgd"]
+    gpu = run_comparison("covtype", engine="pallas", methods=held, device=dev, **small)
+    cpu = run_comparison("covtype", engine="pallas", methods=held, device="cpu", **small)
+    for name in held:
+        r = max(abs(a - b) / abs(b) for a, b in zip(gpu[name]["loss"], cpu[name]["loss"]))
+        print(f"  hidden={small_hidden} {name:11s}: card vs CPU max relative loss difference "
+              f"{r:.3e} (tol 1e-3)")
+        check(r <= 1e-3 and gpu[name]["order"] == cpu[name]["order"],
+              f"{name}: card and CPU runs differ")
+    print("  qsgd is not held card against CPU: its uniforms come from a generator on the "
+          "gradient's device (CUDA Philox on the card, CPU Mersenne Twister on the CPU)")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: flash attention against its plain version
 # --------------------------------------------------------------------------- #
 def attn_agree(torch, got, want):
     """(ok, max abs error, tolerance text) of an attention output.
@@ -686,7 +1019,7 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
 
 
 # --------------------------------------------------------------------------- #
-# phase 8: serving qwen3-14b through the port
+# phase 10: serving qwen3-14b through the port
 # --------------------------------------------------------------------------- #
 def instrument(torch, sch, rec):
     """Time every prefill and decode of the scheduler ``sch`` (synchronised
@@ -933,6 +1266,12 @@ def main() -> None:
     generic_launches = generic_flat_phase(torch, dev)
     print("# phase: Fig. 1 universal attack (engine=flat)")
     fig1_phase(torch, dev)
+    print("# phase: per-leaf kernels vs plain versions on the card")
+    leaf_rows = leaf_kernel_phase(torch, dev, gauss_instr)
+    print("# phase: the Fig. 2 method set at hidden=1300 (engine=pallas)")
+    method_launches = method_set_phase(torch, dev)
+    print("# phase: profile of the ZO step with engine=pallas")
+    profile_phase(torch, dev, engine="pallas")
     print("# phase: flash attention vs its plain version on the card")
     flash = flash_phase(torch, dev)
     print("# phase: serving qwen3-14b at full width and depth (kernel vs plain path)")
@@ -956,6 +1295,17 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "path": "fig2 flat+sgd" if main else "fig2 flat+adam",
+            **({"sumsq_rel_err": row["sumsq_rel_err"]} if "sumsq_rel_err" in row else {}),
+        })
+    for name, row in leaf_rows.items():
+        check(method_launches[name] > 0, f"{name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": CUDA_SRC,
+            "replaces": LEAF_REPLACES[name], "launches": method_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "path": "fig2 method set, ho_sgd engine=pallas",
+            "shape": f"w2 leaf n={row['n']}" + (", m=4" if name == "zo_reconstruct" else ""),
             **({"sumsq_rel_err": row["sumsq_rel_err"]} if "sumsq_rel_err" in row else {}),
         })
     head = flash["rows"][-1]                  # the serving shape at S=2048

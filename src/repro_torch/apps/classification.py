@@ -1,11 +1,11 @@
 """§5.2 experiment: multi-class classification with the 1.77M-param MLP.
 
-Counterpart of ``repro.apps.classification``.  ``build_methods`` has the
-methods ported so far — ``ho_sgd``, ``sync_sgd`` and ``zo_sgd``; the
-baselines ``ri_sgd``, ``pa_sgd``, ``qsgd`` and ``zo_svrg_ave`` raise until
-their port lands.  ``run_comparison`` gains ``engine=`` (the HO-SGD
-DirectionEngine), ``device=`` and ``params0=`` (initial parameters, e.g. a
-JAX run's, carried across with ``repro_torch.convert``).
+Counterpart of ``repro.apps.classification``: HO-SGD against the Fig. 2
+baselines (sync-SGD, RI-SGD, PA-SGD, ZO-SGD, ZO-SVRG-Ave, QSGD).
+``run_comparison`` gains ``engine=`` (the HO-SGD DirectionEngine; the other
+methods keep their own), ``device=`` and ``params0=`` (initial parameters,
+e.g. a JAX run's, carried across with ``repro_torch.convert``), and records
+each step's ``comm_bytes`` where the method books them (the round programs).
 """
 from __future__ import annotations
 
@@ -16,7 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import HOSGDConfig, make_ho_sgd, make_sync_sgd, make_zo_sgd
+from repro_torch.core import (
+    HOSGDConfig, make_ho_sgd, make_pa_sgd, make_qsgd, make_ri_sgd,
+    make_sync_sgd, make_zo_sgd, make_zo_svrg_ave,
+)
 from repro_torch.core.ho_sgd import to_device
 from repro_torch.data.libsvm import try_load
 from repro_torch.data.synthetic import Dataset, batches, make_classification
@@ -24,10 +27,6 @@ from repro_torch.device import resolve_device
 from repro_torch.metrics import MeterRegistry
 from repro_torch.models.mlp import init_mlp_classifier, mlp_accuracy, mlp_loss
 from repro_torch.tree import tree_leaves
-
-PORTED = ("ho_sgd", "sync_sgd", "zo_sgd")
-NOT_PORTED = ("ri_sgd", "pa_sgd", "zo_svrg_ave", "qsgd")
-
 
 def load_dataset(name: str, n_train: int = 8192) -> Dataset:
     real = try_load(name)
@@ -37,21 +36,20 @@ def load_dataset(name: str, n_train: int = 8192) -> Dataset:
 def build_methods(m: int, tau: int, lr: float, zo_lr: float, mu: float,
                   dataset_batch, which: Optional[List[str]] = None,
                   engine: str = "fused") -> Dict:
-    ported = {
+    all_methods = {
         "ho_sgd": lambda: make_ho_sgd(
             mlp_loss, HOSGDConfig(tau=tau, mu=mu, m=m, lr=lr, zo_lr=zo_lr,
                                   engine=engine)),
         "sync_sgd": lambda: make_sync_sgd(mlp_loss, m, lr=lr),
+        "ri_sgd": lambda: make_ri_sgd(mlp_loss, m, tau=tau, lr=lr, mu_r=0.25),
+        "pa_sgd": lambda: make_pa_sgd(mlp_loss, m, tau=tau, lr=lr),
         "zo_sgd": lambda: make_zo_sgd(mlp_loss, m, mu=mu, lr=zo_lr),
+        "zo_svrg_ave": lambda: make_zo_svrg_ave(
+            mlp_loss, m, mu=mu, lr=zo_lr, dataset=dataset_batch),
+        "qsgd": lambda: make_qsgd(mlp_loss, m, s=8, lr=lr),
     }
-    out = {}
-    for k in which or list(PORTED):
-        if k in NOT_PORTED:
-            raise NotImplementedError(
-                f"method {k!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md Queue 1); have {list(PORTED)}")
-        out[k] = ported[k]()
-    return out
+    which = which or list(all_methods)
+    return {k: all_methods[k]() for k in which}
 
 
 def run_comparison(
@@ -71,10 +69,11 @@ def run_comparison(
     params0=None,
 ) -> Dict[str, Dict]:
     """Train each method from the same initial parameters on the same
-    batches.  Per method: ``loss``, ``order``, ``acc``, ``iter_s`` (host
-    time of each step up to its loss being on the host, so device work is
-    included), ``wall_s``, ``meter``, ``final_acc``, ``final_loss`` and the
-    final ``params``."""
+    batches.  Per method: ``loss``, ``order``, ``comm_bytes`` (None where
+    the method books none), ``acc``, ``iter_s`` (host time of each step up
+    to its loss being on the host, so device work is included), ``wall_s``,
+    ``meter``, ``final_acc``, ``final_loss`` and the final ``params``.  Every
+    step gets ``key=seed``, as in the reference."""
     dev = resolve_device(device)
     ds = load_dataset(dataset_name)
     if params0 is None:
@@ -93,16 +92,17 @@ def run_comparison(
     for name, meth in meths.items():
         params, state = params0, meth.init(params0)
         meter = MeterRegistry(d)
-        hist = {"loss": [], "order": [], "acc": [], "iter_s": []}
+        hist = {"loss": [], "order": [], "comm_bytes": [], "acc": [], "iter_s": []}
         data = batches(ds, m * B, seed=seed + 1)
         t0 = time.perf_counter()
         for t in range(n_iters):
             batch = next(data)
             ts = time.perf_counter()
-            params, state, metrics = meth.step(t, params, state, batch)
+            params, state, metrics = meth.step(t, params, state, batch, seed)
             hist["loss"].append(float(metrics["loss"]))
             hist["iter_s"].append(time.perf_counter() - ts)
             hist["order"].append(int(metrics["order"]))
+            hist["comm_bytes"].append(metrics.get("comm_bytes"))
             meter.tick(meth)
             if (t + 1) % eval_every == 0 or t == n_iters - 1:
                 hist["acc"].append((t + 1, float(mlp_accuracy(params, test))))

@@ -11,13 +11,17 @@ Backends
 * ``fused`` — generates one leaf's direction at a time inside the consuming
               op (in eager PyTorch the same arithmetic as ``tree``, with one
               leaf's direction alive at a time instead of the whole tree's).
+* ``pallas`` — routes ``perturb``/``reconstruct`` through the per-leaf
+              CUDA kernels (``kernels.ops.zo_perturb``/``zo_reconstruct``;
+              the plain versions on a CPU tensor): one launch per leaf, the
+              direction regenerated in registers, all m workers
+              reconstructed in one pass over each leaf.
 * ``flat``  — packs the tree into ONE contiguous block-aligned float32 buffer
               and runs one hand-written CUDA kernel per primitive
               (``repro_torch.kernels.ops``; the plain versions on a CPU
               tensor), plus the fused step path used by ``core.ho_sgd`` with
               plain SGD(+momentum): perturb + norm in one call, reconstruct +
               commit in one in-place launch.
-* ``pallas`` (per-leaf kernels) is not ported yet: ``make_engine`` raises.
 
 Contract (README §DirectionEngine of the JAX package): leaf i of worker w at
 step t uses salt ``fold(seed, t, w, i)`` with leaf-local counters from 0, in
@@ -26,6 +30,13 @@ sorted-key leaf order; ``inv_norm`` is the shared reduction in every backend;
 ``reconstruct`` rounds the accumulator to ``acc_dtype`` after every worker.
 Sharding ``specs`` have no counterpart on one card: only ``specs=None``.
 Steps and workers are Python ints; salts are folded on the host.
+
+``vmap_workers`` (``zo_coeffs``, ``reconstruct``) keeps the reference's
+semantics without ``torch.func.vmap``: the coefficients are the same
+per-worker values either way (eager PyTorch has no program size to keep
+O(1) in m), and the batched reconstruction generates the m directions of a
+leaf at once and contracts them in one float32 sum, rounded once to
+``acc_dtype`` -- equal to the sequential path within accumulation order.
 """
 from __future__ import annotations
 
@@ -103,8 +114,11 @@ class DirectionEngine:
         return ((self.dim / mu) * (f1 - f0)).to(_F32), f0
 
     def zo_coeffs(self, loss_fn: Callable, params: Any, batches: Any, t,
-                  workers, mu: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        """All workers' coefficients; ``batches`` is worker-stacked (m, B, ...)."""
+                  workers, mu: float, *, vmap_workers: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All workers' coefficients; ``batches`` is worker-stacked (m, B, ...).
+        ``vmap_workers`` is accepted for the reference's signature: the
+        per-worker loop computes the same values."""
         cs, f0s = [], []
         for i, w in enumerate(workers):
             b_i = tree_map(lambda x: x[i], batches)
@@ -114,15 +128,37 @@ class DirectionEngine:
         return torch.stack(cs), torch.stack(f0s)
 
     # ---- primitive 4: reconstruct --------------------------------------- #
-    def reconstruct(self, coeffs: torch.Tensor, t, workers=None) -> Any:
+    def reconstruct(self, coeffs: torch.Tensor, t, workers=None, *,
+                    vmap_workers: bool = False) -> Any:
         """sum_w (coeffs[w] * inv_norm_w) * v_raw_w as a float32 tree, the
-        accumulator rounded to ``acc_dtype`` after every worker."""
+        accumulator rounded to ``acc_dtype`` after every worker; with
+        ``vmap_workers`` one float32 contraction over the m directions of
+        each leaf, rounded once (equal within accumulation order)."""
         m = int(coeffs.shape[0])
         workers = list(range(m)) if workers is None else [int(w) for w in workers]
-        return self._reconstruct(coeffs.to(device=self.device, dtype=_F32), t, workers)
+        coeffs = coeffs.to(device=self.device, dtype=_F32)
+        if vmap_workers:
+            return self._reconstruct_vmapped(coeffs, t, workers)
+        return self._reconstruct(coeffs, t, workers)
 
     def _reconstruct(self, coeffs, t, workers) -> Any:
         raise NotImplementedError
+
+    def _prescaled(self, coeffs, t, workers) -> torch.Tensor:
+        """``coeffs[w] * inv_norm_w``: what the kernels take per worker."""
+        return coeffs * torch.stack([self.inv_norm(t, w) for w in workers])
+
+    def _reconstruct_vmapped(self, coeffs, t, workers) -> Any:
+        scaled = self._prescaled(coeffs, t, workers)
+        outs = []
+        for i, shape in enumerate(self.shapes):
+            idx = torch.arange(self.sizes[i], dtype=torch.int64, device=self.device)
+            salts = torch.tensor([D.fold(self.seed, t, w, i) for w in workers],
+                                 dtype=torch.int64, device=self.device)
+            g = D.gaussian_from_counters(idx[None, :], salts[:, None])   # (m, n)
+            acc = torch.tensordot(scaled, g, dims=([0], [0]))            # fp32
+            outs.append(acc.to(self.acc_dtype).to(_F32).reshape(shape))
+        return tree_unflatten(self.treedef, outs)
 
     def _acc_init(self) -> List[torch.Tensor]:
         return [torch.zeros(s, dtype=self.acc_dtype, device=self.device)
@@ -171,6 +207,49 @@ class FusedEngine(DirectionEngine):
                 acc[li] = (acc[li].to(_F32)
                            + coeff * self._gauss(li, s)).to(self.acc_dtype)
         return tree_unflatten(self.treedef, [a.to(_F32) for a in acc])
+
+
+# --------------------------------------------------------------------------- #
+class PallasEngine(DirectionEngine):
+    """Per-leaf kernel backend: the direction never touches device memory.
+
+    ``perturb`` is one read + one write of each leaf (``ops.zo_perturb``,
+    one launch per leaf); ``reconstruct`` is one pass over each leaf with all
+    m Gaussians generated in registers (``ops.zo_reconstruct``, one launch
+    per leaf) from the coefficients pre-scaled by ``inv_norm``, which stays
+    the shared plain reduction.  The salts are folded on the host: a
+    perturb passes its leaf's salt by value, and a reconstruct copies its
+    (leaves, m) salt table to the card once, without blocking the host.
+    """
+
+    name = "pallas"
+
+    def perturb(self, params, t, worker, scale):
+        from repro_torch.kernels import ops  # deferred, as in FlatEngine
+
+        out = [ops.zo_perturb(x.reshape(-1), s, scale).reshape(x.shape)
+               for x, s in zip(tree_leaves(params), self.salts(t, worker))]
+        return tree_unflatten(self.treedef, out)
+
+    def _reconstruct(self, coeffs, t, workers):
+        from repro_torch.kernels import ops
+
+        scaled = self._prescaled(coeffs, t, workers)
+        table = np.asarray([self.salts(t, w) for w in workers], np.uint32).T
+        salts = _host_to_device(np.ascontiguousarray(table), self.device)
+        out = [ops.zo_reconstruct(n, salts[li], scaled,
+                                  acc_dtype=self.acc_dtype).reshape(shape)
+               for li, (n, shape) in enumerate(zip(self.sizes, self.shapes))]
+        return tree_unflatten(self.treedef, out)
+
+
+def _host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device``; on the card through pinned memory
+    and a non-blocking copy, so the host does not wait for the stream."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 # --------------------------------------------------------------------------- #
@@ -262,10 +341,9 @@ class FlatEngine(DirectionEngine):
     def _reconstruct(self, coeffs, t, workers):
         from repro_torch.kernels import ops
 
-        invs = torch.stack([self.inv_norm(t, w) for w in workers])
         out = ops.zo_reconstruct_flat(
-            self.blk_salts_multi(t, workers), coeffs * invs, self._blk_ctr,
-            self._blk_nv, block=self.block, acc_dtype=self.acc_dtype)
+            self.blk_salts_multi(t, workers), self._prescaled(coeffs, t, workers),
+            self._blk_ctr, self._blk_nv, block=self.block, acc_dtype=self.acc_dtype)
         return self.unpack(out, cast=False)
 
     # ---- fused step path (buffer stays packed across the round) ---------- #
@@ -299,6 +377,7 @@ class FlatEngine(DirectionEngine):
 ENGINES = {
     "tree": TreeEngine,
     "fused": FusedEngine,
+    "pallas": PallasEngine,
     "flat": FlatEngine,
 }
 
@@ -306,12 +385,8 @@ ENGINES = {
 def make_engine(name: str, params_like: Any, seed: int, *, specs: Any = None,
                 acc_dtype: Any = "float32", block: int = 4096
                 ) -> DirectionEngine:
-    """Build a DirectionEngine backend by name ('tree' | 'fused' | 'flat')."""
-    if name == "pallas":
-        raise NotImplementedError(
-            "the 'pallas' engine (per-leaf zo_perturb/zo_reconstruct/zo_sumsq "
-            "kernels) is not ported to repro_torch yet; use 'flat' for the "
-            "CUDA kernels or 'tree'/'fused' for plain PyTorch")
+    """Build a DirectionEngine backend by name
+    ('tree' | 'fused' | 'pallas' | 'flat')."""
     try:
         cls = ENGINES[name]
     except KeyError:

@@ -36,10 +36,11 @@ class HOSGDConfig:
     momentum: float = 0.0
     # dtype of the ZO reconstruction accumulator ('float32' | 'bfloat16')
     acc_dtype: str = "float32"
-    # DirectionEngine backend ('tree' | 'fused' | 'flat'; repro_torch.core.
-    # engine).  'flat' with plain SGD runs the whole ZO round through the
-    # CUDA kernels: perturb + norm per worker, then one in-place
-    # reconstruct + commit.
+    # DirectionEngine backend ('tree' | 'fused' | 'pallas' | 'flat';
+    # repro_torch.core.engine).  'pallas' runs perturb and reconstruct
+    # through the per-leaf CUDA kernels; 'flat' with plain SGD runs the whole
+    # ZO round through the flat ones: perturb + norm per worker, then one
+    # in-place reconstruct + commit.
     engine: str = "fused"
 
     @property
@@ -83,13 +84,20 @@ def _device_of(params) -> torch.device:
     return tree_leaves(params)[0].device
 
 
-def make_ho_sgd(
-    loss_fn: Callable[[Any, Any], torch.Tensor],
-    cfg: HOSGDConfig,
-    opt: Optional[Optimizer] = None,
-    name: str = "ho_sgd",
-) -> Method:
-    opt = opt or sgd(const_schedule(cfg.lr), cfg.momentum)
+def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
+    """``(loss, grads)`` of ``loss_fn`` at ``params`` (``jax.value_and_grad``),
+    both detached; the grads are a tree shaped like ``params``."""
+    leaves, treedef = tree_flatten(params)
+    with torch.enable_grad():
+        req = [x.detach().requires_grad_(True) for x in leaves]
+        loss = loss_fn(tree_unflatten(treedef, req), batch)
+        grads = torch.autograd.grad(loss, req)
+    return loss.detach(), tree_unflatten(treedef, list(grads))
+
+
+def engine_cache(engine: str, seed: int, acc_dtype: str) -> Callable:
+    """``params -> DirectionEngine``, built once per tree structure, leaf
+    shapes, dtypes and device (an engine holds per-leaf metadata)."""
     engines: Dict[Any, Any] = {}
 
     def engine_for(params):
@@ -97,22 +105,28 @@ def make_ho_sgd(
         key = (repr(treedef),
                tuple((tuple(x.shape), x.dtype, x.device) for x in leaves))
         if key not in engines:
-            engines[key] = make_engine(cfg.engine, params, cfg.seed,
-                                       acc_dtype=cfg.acc_dtype)
+            engines[key] = make_engine(engine, params, seed, acc_dtype=acc_dtype)
         return engines[key]
+
+    return engine_for
+
+
+def make_ho_sgd(
+    loss_fn: Callable[[Any, Any], torch.Tensor],
+    cfg: HOSGDConfig,
+    opt: Optional[Optimizer] = None,
+    name: str = "ho_sgd",
+) -> Method:
+    opt = opt or sgd(const_schedule(cfg.lr), cfg.momentum)
+    engine_for = engine_cache(cfg.engine, cfg.seed, cfg.acc_dtype)
 
     def fo_step(t, params, opt_state, batch):
         """Eq. (3): all workers' first-order grads, averaged (data-parallel)."""
         flat = tree_map(lambda x: x.reshape(-1, *x.shape[2:]), batch)
-        leaves, treedef = tree_flatten(params)
-        with torch.enable_grad():
-            req = [x.detach().requires_grad_(True) for x in leaves]
-            loss = loss_fn(tree_unflatten(treedef, req), flat)
-            grads = torch.autograd.grad(loss, req)
+        loss, grads = value_and_grad(loss_fn, params, flat)
         with torch.no_grad():
-            deltas, opt_state = opt.update(tree_unflatten(treedef, list(grads)),
-                                           opt_state, params, t)
-            return apply_deltas(params, deltas), opt_state, loss.detach()
+            deltas, opt_state = opt.update(grads, opt_state, params, t)
+            return apply_deltas(params, deltas), opt_state, loss
 
     # The flat engine's fused step path needs introspectable SGD semantics
     # (the momentum update runs in-kernel); any other optimizer — or any

@@ -40,10 +40,11 @@ def zo_gradient(loss_fn: Callable, params: Any, batch: Any, seed: int, t,
 
 @torch.no_grad()
 def reconstruct_update(params: Any, coeffs: torch.Tensor, seed: int, t,
-                       engine: str = "tree") -> Any:
-    """(1/m) * sum_i c_i * v_{t,i} regenerated locally from the scalars."""
+                       engine: str = "tree", vmap_workers: bool = False) -> Any:
+    """(1/m) * sum_i c_i * v_{t,i} regenerated locally from the scalars;
+    ``vmap_workers`` contracts the m directions of each leaf at once."""
     eng = make_engine(engine, params, seed)
-    rec = eng.reconstruct(coeffs, t)
+    rec = eng.reconstruct(coeffs, t, vmap_workers=vmap_workers)
     return tree_map(lambda a: a / coeffs.shape[0], rec)
 
 

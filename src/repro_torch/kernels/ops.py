@@ -1,7 +1,7 @@
 """The kernels' wrappers: plain version on CPU, kernel on CUDA.
 
-Counterpart of ``repro.kernels.ops`` for the four flat ZO-direction kernels
-and flash attention.  A wrapper picks by the device of the tensor it is
+Counterpart of ``repro.kernels.ops`` for the seven ZO-direction kernels (four
+flat, three per leaf) and flash attention.  A wrapper picks by the device of the tensor it is
 given: a CPU tensor goes to the plain PyTorch version (``kernels.ref``); a
 CUDA tensor launches the hand-written kernel (``kernels.zo_direction``,
 ``kernels.flash_attention``) or raises.  Nothing falls back.
@@ -9,7 +9,10 @@ CUDA tensor launches the hand-written kernel (``kernels.zo_direction``,
 Metadata dtypes: ``salts``/``ctrs`` are ``torch.uint32``, ``nvalid`` and
 ``bf16_mask`` ``torch.int32``, everything else float32.  ``scale``, ``mu`` and
 ``lr`` may be Python floats or tensors.  ``zo_reconstruct_update`` updates
-``p`` and ``mom`` in place on both paths and returns them.
+``p`` and ``mom`` in place on both paths and returns them.  A per-leaf salt
+and counter offset are Python ints; ``zo_reconstruct`` takes its m salts as
+a uint32 tensor on the coefficients' device.  The reference's ``block``
+argument has no counterpart here: the CUDA kernels' tiles are their own.
 """
 from __future__ import annotations
 
@@ -24,12 +27,15 @@ from repro_torch.kernels import zo_direction as _cu
 _COUNTS = (_cu.LAUNCHES, _fa.LAUNCHES)
 
 
-def _on_cpu(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cpu":
+def _on_cpu(t, what: str) -> bool:
+    """Whether tensor (or device) ``t`` is on the CPU; False on the card,
+    and any other device raises."""
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(t)
+    if dev.type == "cpu":
         return True
-    if t.device.type == "cuda":
+    if dev.type == "cuda":
         return False
-    raise ValueError(f"{what}: unsupported device {t.device}")
+    raise ValueError(f"{what}: unsupported device {dev}")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -76,6 +82,26 @@ def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr,
         return p, mom
     return _cu.zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask,
                                      coeffs, lr, momentum, block, acc_dtype)
+
+
+def zo_sumsq(n: int, salt, offset=0, *, device) -> torch.Tensor:
+    """``sum v^2`` of one leaf (a 0-d float32 tensor on ``device``); there is
+    no tensor input, so the device is named."""
+    if _on_cpu(device, "zo_sumsq"):
+        return ref.ref_zo_sumsq(n, salt, offset)
+    return _cu.zo_sumsq(n, salt, offset, device)
+
+
+def zo_perturb(x, salt, scale, offset=0):
+    if _on_cpu(x, "zo_perturb"):
+        return ref.ref_zo_perturb(x, salt, scale, offset)
+    return _cu.zo_perturb(x, salt, scale, offset)
+
+
+def zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32"):
+    if _on_cpu(coeffs, "zo_reconstruct"):
+        return ref.ref_zo_reconstruct(n, salts, coeffs, offset, acc_dtype)
+    return _cu.zo_reconstruct(n, salts, coeffs, offset, acc_dtype)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,

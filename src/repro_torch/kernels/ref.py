@@ -35,6 +35,12 @@ def _round(acc: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # per-leaf oracles
 # --------------------------------------------------------------------------- #
+def ref_zo_sumsq(n: int, salt, offset=0, device="cpu") -> torch.Tensor:
+    """``sum v^2`` of one leaf's ``n`` Gaussians (a 0-d float32 tensor)."""
+    g = gaussian_from_salt((int(n),), salt, offset, device=device)
+    return torch.sum(g * g)
+
+
 def ref_zo_perturb(x: torch.Tensor, salt, scale, offset=0) -> torch.Tensor:
     g = gaussian_from_salt(tuple(x.shape), salt, offset, device=x.device)
     return (x.to(torch.float32) + _f32(scale, x.device) * g).to(x.dtype)
@@ -43,7 +49,8 @@ def ref_zo_perturb(x: torch.Tensor, salt, scale, offset=0) -> torch.Tensor:
 def ref_zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32",
                        device="cpu") -> torch.Tensor:
     """``sum_w coeffs[w] * v_w`` over one leaf, rounding the accumulator to
-    ``acc_dtype`` after each worker."""
+    ``acc_dtype`` after each worker; ``salts`` holds m salts (ints or a
+    tensor on the CPU)."""
     adt = acc_dtype_of(acc_dtype)
     coeffs = _f32(coeffs, device)
     acc = torch.zeros((n,), dtype=torch.float32, device=device)

@@ -1,6 +1,7 @@
 """ctypes binding of the CUDA kernels in ``csrc/zo_direction.cu``.
 
-Counterpart of the flat kernels of ``repro.kernels.zo_direction``.  Each
+Counterpart of ``repro.kernels.zo_direction``: the four flat kernels and the
+per-leaf ``zo_perturb``, ``zo_reconstruct`` and ``zo_sumsq``.  Each
 function here takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on PyTorch's
 current stream and raises if the launch was refused.  There is no fallback:
@@ -9,8 +10,12 @@ the plain versions live in ``repro_torch.kernels.ref`` and
 
 The library is built (``kernels.build``) and loaded at the first launch, never
 at import (``kernels.binding``).  ``LAUNCHES`` counts kernel launches per
-function, and only here, where they happen; ``zo_perturb_sumsq`` makes two
-launches per call.
+function, and only here, where they happen; ``zo_perturb_sumsq`` and
+``zo_sumsq`` make two launches per call.
+
+A leaf's salt and counter offset are Python ints and go to the kernel by
+value; a scale is read from device memory (``_scalar``), so a scale computed
+on the card is never synced to the host.
 """
 from __future__ import annotations
 
@@ -25,9 +30,13 @@ from repro_torch.kernels.binding import launch, library
 from repro_torch.kernels.binding import stream as _stream
 
 LAUNCHES = {"zo_perturb_flat": 0, "zo_reconstruct_flat": 0,
-            "zo_perturb_sumsq": 0, "zo_reconstruct_update": 0}
+            "zo_perturb_sumsq": 0, "zo_reconstruct_update": 0,
+            "zo_perturb": 0, "zo_reconstruct": 0, "zo_sumsq": 0}
+SUMSQ_CHUNK = 4096     # lanes per partial sum of zo_sumsq's first launch
+LEAF_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+_U32 = ctypes.c_uint32
 _SIGNATURES = {
     "zo_perturb_flat_launch": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "zo_reconstruct_flat_launch": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
@@ -35,6 +44,10 @@ _SIGNATURES = {
     "zo_perturb_sumsq_apply_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
     "zo_reconstruct_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _I64, _I,
                                      _I, _I, _I, _P],
+    "zo_perturb_leaf_launch": [_P, _P, _I64, _U32, _U32, _P, _I, _I, _P],
+    "zo_reconstruct_leaf_launch": [_P, _P, _P, _I64, _U32, _I, _I, _I, _P],
+    "zo_sumsq_leaf_partials_launch": [_P, _I, _I64, _U32, _U32, _I, _I, _P],
+    "zo_sum_partials_launch": [_P, _I, _P, _I, _P],
 }
 
 
@@ -128,3 +141,71 @@ def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr,
             ps, pc, pn, pb, pco, lr_t.data_ptr(), float(momentum), p.numel(),
             block, m, acc_bf16, dev.index, _stream(dev))
     return p, mom
+
+
+# --------------------------------------------------------------------------- #
+# per-leaf kernels
+# --------------------------------------------------------------------------- #
+def _leaf_size(n) -> int:
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"a leaf needs at least one value, got n={n}")
+    return n
+
+
+def _u32(v) -> int:
+    """A salt or counter offset as the uint32 word the kernel takes."""
+    return int(v) & 0xFFFFFFFF
+
+
+def zo_perturb(x, salt, scale, offset=0):
+    """``(f32(x) + scale * v).to(x.dtype)`` for one flat leaf of float32 or
+    bfloat16 values, out of place; one launch."""
+    dev = _cuda_device(x)
+    if x.dtype not in LEAF_DTYPES:
+        raise TypeError(f"x: dtype {x.dtype}, expected one of {LEAF_DTYPES}")
+    n = _leaf_size(x.numel())
+    px = _check(x, "x", x.dtype, dev, (n,))
+    sc = _scalar(scale, dev)
+    out = torch.empty_like(x)
+    _launch("zo_perturb", "zo_perturb_leaf_launch", px, out.data_ptr(), n,
+            _u32(salt), _u32(offset), sc.data_ptr(), int(x.dtype == torch.bfloat16),
+            dev.index, _stream(dev))
+    return out
+
+
+def zo_reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32"):
+    """``sum_w coeffs[w] * v_w`` for one leaf of ``n`` values (float32), the
+    accumulator rounded to ``acc_dtype`` after each worker; ``salts`` is a
+    (m,) uint32 and ``coeffs`` a (m,) float32 tensor on the card; one launch."""
+    dev = _cuda_device(coeffs)
+    n = _leaf_size(n)
+    m = int(coeffs.shape[0])
+    pco = _check(coeffs, "coeffs", torch.float32, dev, (m,))
+    ps = _check(salts, "salts", torch.uint32, dev, (m,))
+    acc_bf16 = int(acc_dtype_of(acc_dtype) == torch.bfloat16)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch("zo_reconstruct", "zo_reconstruct_leaf_launch", ps, pco, out.data_ptr(),
+            n, _u32(offset), m, acc_bf16, dev.index, _stream(dev))
+    return out
+
+
+def zo_sumsq(n, salt, offset=0, device="cuda"):
+    """``sum v^2`` over one hashed-Gaussian leaf of ``n`` values, a 0-d
+    float32 tensor on ``device``: per-chunk partials, then one fixed-order
+    sum (two launches; the same result run to run)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n = _leaf_size(n)
+    nb = -(-n // SUMSQ_CHUNK)
+    partials = torch.empty(nb, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    _launch("zo_sumsq", "zo_sumsq_leaf_partials_launch", partials.data_ptr(), nb, n,
+            _u32(salt), _u32(offset), SUMSQ_CHUNK, dev.index, stream)
+    _launch("zo_sumsq", "zo_sum_partials_launch", partials.data_ptr(), nb,
+            out.data_ptr(), dev.index, stream)
+    return out

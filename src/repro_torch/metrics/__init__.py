@@ -1,1 +1,1 @@
-from repro_torch.metrics.logging import CSVLogger, MeterRegistry  # noqa: F401
+from repro_torch.metrics.logging import CSVLogger, MeterRegistry, comm_report  # noqa: F401

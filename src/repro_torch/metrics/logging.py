@@ -1,7 +1,8 @@
 """Training metrics: CSV logging + communication/compute meters.
 
-A copy of ``CSVLogger`` and ``MeterRegistry`` from ``repro.metrics.logging``
-(pure Python); ``comm_report`` waits for the port of the comm ledger.
+A copy of ``CSVLogger``, ``MeterRegistry`` and ``comm_report`` from
+``repro.metrics.logging`` (pure Python; the ledger is
+``repro_torch.dist.CommLedger``).
 
 The meters track the *analytic* per-method cost model (Method.comm_scalars
 etc.) alongside measured losses, so the Table-1 benchmark can print measured
@@ -74,3 +75,41 @@ class MeterRegistry:
             "gevals_per_worker": self.gevals,
             "wall_s": time.perf_counter() - self.t0,
         }
+
+
+def comm_report(ledger, d: int, m: int, tau: int,
+                scalar_bytes: int = 4, codec=None, leaf_dims=None,
+                grad_bytes: int = None) -> list:
+    """Measured-vs-analytic communication lines (paper Table 1, in bytes).
+
+    ``ledger`` is a ``repro_torch.dist.CommLedger`` whose FO/ZO steps were
+    wrapped under the names ``"fo"``/``"zo"``.  Analytic model per worker per
+    iteration (ledger convention: bytes received): FO moves the d-dim
+    gradient, ZO gathers one scalar from each of the m workers; amortized
+    over the ledger's actual FO/ZO step counts.  ``codec`` (a
+    ``dist.compress.Compressor``) with ``leaf_dims`` prices the FO column by
+    its per-leaf wire model; ``grad_bytes`` is the dense gradient's
+    per-scalar width (the ZO coefficients stay ``scalar_bytes``).
+    """
+    fo_b = ledger.bytes_per_step("fo")
+    zo_b = ledger.bytes_per_step("zo")
+    n_fo = ledger.steps.get("fo", 0)
+    n_zo = ledger.steps.get("zo", 0)
+    iters = n_fo + n_zo
+    if codec is None:
+        fo_analytic = (grad_bytes or scalar_bytes) * d
+    else:
+        fo_analytic = sum(codec.nbytes(n) for n in (leaf_dims or [d]))
+    tag = f"[{codec.name}]" if codec is not None else ""
+    lines = [
+        "# communication (bytes/worker): measured (CommLedger) vs analytic",
+        f"comm/fo_bytes_per_step{tag},measured={fo_b},analytic={fo_analytic}",
+        f"comm/zo_bytes_per_step,measured={zo_b},analytic={scalar_bytes * m}",
+    ]
+    if iters:
+        measured = ledger.total_bytes() / iters
+        analytic = (n_fo * fo_analytic + n_zo * scalar_bytes * m) / iters
+        lines.append(
+            f"comm/amortized_bytes_per_iter,measured={measured:.1f},"
+            f"analytic={analytic:.1f},steps={iters}")
+    return lines

@@ -16,7 +16,7 @@ import torch
 
 from repro.core.engine import make_engine as jmake
 from repro.core.ho_sgd import HOSGDConfig as JCfg, make_ho_sgd as jmake_ho, run_method as jrun
-from repro_torch.core.engine import ENGINES, FlatEngine, make_engine
+from repro_torch.core.engine import ENGINES, FlatEngine, PallasEngine, make_engine
 from repro_torch.core.ho_sgd import HOSGDConfig, make_ho_sgd, run_method
 from repro_torch.tree import tree_leaves
 
@@ -252,9 +252,12 @@ def test_tree_and_fused_engines_bitwise_in_torch():
 
 
 def test_make_engine_errors():
+    """Every name of the reference builds its engine (``pallas`` too, since
+    the per-leaf kernels are ported); an unknown name and sharding specs
+    raise."""
     p = {"x": torch.zeros(3)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_engine("pallas", p, 0)
+    assert isinstance(make_engine("pallas", p, 0), PallasEngine)
+    assert sorted(ENGINES) == ["flat", "fused", "pallas", "tree"]
     with pytest.raises(ValueError, match="unknown direction engine"):
         make_engine("mosaic", p, 0)
     with pytest.raises(ValueError, match="specs"):

@@ -3,7 +3,9 @@
 Run on a GPU machine from the repository root with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 This file imports no JAX (the GPU machine has none): each kernel is held
-against its plain PyTorch version on the same inputs, fp32 outputs to
+against its plain PyTorch version on the same inputs.  Per-leaf kernels: fp32
+outputs bitwise, bf16 ones to one bf16 ulp, the sum of squares to rtol
+1e-6.  Flat kernels: fp32 outputs to
 rtol 1e-5 / atol 1e-6 (the two differ at most by ulps of logf/cosf and by
 the order of the sum of squares) and bf16-rounded outputs to one bf16 ulp
 per element with at most 0.1% of the elements differing at all; an fp32
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import zo_direction as cu
-from torch_flat_helpers import bf16_match, flat_meta, multi_salts, packed, to_t
+from torch_flat_helpers import bf16_match, flat_meta, leaf, multi_salts, packed, to_t
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -101,6 +103,70 @@ def test_flat_engine_step_on_card_matches_fused(momentum):
                                   batches(ds, 4 * 16, seed=1), 8)
     assert hist["flat"]["order"] == hist["fused"]["order"]
     np.testing.assert_allclose(hist["flat"]["loss"], hist["fused"]["loss"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 37, 4097, 70200])
+@pytest.mark.parametrize("offset", [0, 12345])
+def test_per_leaf_kernels_match_plain_versions(n, offset):
+    """zo_perturb (float32 bitwise, bfloat16 within one bf16 ulp),
+    zo_reconstruct (float32 bitwise, bfloat16 accumulator within one bf16
+    ulp, which a float32 accumulator fails), zo_sumsq (rtol 1e-6, the same
+    run to run) and no store past the leaf."""
+    dev = _cuda()
+    x = to_t(leaf(n)).to(dev)
+    scale = torch.tensor(0.37, device=dev)
+    assert torch.equal(cu.zo_perturb(x, 99, scale, offset),
+                       ref.ref_zo_perturb(x, 99, scale, offset))
+    xb = x.to(torch.bfloat16)
+    got = cu.zo_perturb(xb, 99, scale, offset)
+    assert got.dtype == torch.bfloat16
+    assert bf16_match(got, ref.ref_zo_perturb(xb, 99, scale, offset))
+    for m in (1, 4):
+        salts = torch.arange(11, 11 + m, dtype=torch.int32).to(torch.uint32).to(dev)
+        coeffs = torch.linspace(-1.5, 2.0, m, device=dev)
+        want = {acc: ref.ref_zo_reconstruct(n, salts.cpu(), coeffs, offset, acc, device=dev)
+                for acc in ("float32", "bfloat16")}
+        assert torch.equal(cu.zo_reconstruct(n, salts, coeffs, offset), want["float32"])
+        assert bf16_match(cu.zo_reconstruct(n, salts, coeffs, offset, "bfloat16"),
+                          want["bfloat16"])
+        if m == 4 and n > 1000:
+            assert not bf16_match(want["float32"], want["bfloat16"])
+    ss = cu.zo_sumsq(n, 99, offset, dev)
+    torch.testing.assert_close(ss, ref.ref_zo_sumsq(n, 99, offset, device=dev),
+                               rtol=1e-6, atol=0.0)
+    assert torch.equal(ss, cu.zo_sumsq(n, 99, offset, dev))
+    # the masked tail: a canary after the leaf in the same allocation
+    buf = torch.full((n + 256,), 7.0, device=dev)
+    cu._launch("zo_perturb", "zo_perturb_leaf_launch", x.data_ptr(), buf.data_ptr(), n,
+               99, offset, scale.reshape(1).data_ptr(), 0, x.device.index,
+               torch.cuda.current_stream(x.device).cuda_stream)
+    assert torch.equal(buf[:n], ref.ref_zo_perturb(x, 99, scale, offset))
+    assert bool((buf[n:] == 7.0).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_pallas_engine_step_on_card_matches_fused():
+    """HO-SGD through the per-leaf kernels (engine='pallas') against the
+    plain engine on the card: same FO/ZO order and losses to rtol 1e-4."""
+    from repro_torch.apps.classification import load_dataset
+    from repro_torch.core.ho_sgd import HOSGDConfig, make_ho_sgd, run_method
+    from repro_torch.data.synthetic import batches
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss
+
+    dev = _cuda()
+    ds = load_dataset("covtype")
+    p0 = init_mlp_classifier(torch.Generator().manual_seed(0), ds.n_features,
+                             ds.n_classes, hidden=64, device=dev)
+    d = sum(p.numel() for p in p0.values())
+    hist = {}
+    for engine in ("pallas", "fused"):
+        cfg = HOSGDConfig(tau=4, mu=1e-3, m=4, lr=0.05, zo_lr=0.05 * 30.0 / d, engine=engine)
+        hist[engine] = run_method(make_ho_sgd(mlp_loss, cfg), p0,
+                                  batches(ds, 4 * 16, seed=1), 8)
+    assert hist["pallas"]["order"] == hist["fused"]["order"]
+    np.testing.assert_allclose(hist["pallas"]["loss"], hist["fused"]["loss"], rtol=1e-4)
 
 
 def _attn_close(got, want):

@@ -40,7 +40,7 @@ def slice_setup():
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
-@pytest.mark.parametrize("engine", ["tree", "fused", "flat"])
+@pytest.mark.parametrize("engine", ["tree", "fused", "pallas", "flat"])
 def test_fig2_slice_matches_jax(slice_setup, engine, momentum):
     ds, p0, d = slice_setup
     kw = dict(tau=TAU, mu=MU, m=M, lr=LR, zo_lr=LR * 30.0 / d, momentum=momentum,

@@ -1,4 +1,4 @@
-"""Inputs and checks shared by the port's flat-kernel tests (no JAX here:
+"""Inputs and checks shared by the port's ZO-kernel tests (no JAX here:
 ``tests/test_torch_gpu.py`` runs on a GPU machine without it)."""
 import numpy as np
 import torch
@@ -24,6 +24,11 @@ def packed(sizes, block, seed=0):
         nb = max(1, -(-n // block))
         parts.append(np.pad(rng.normal(size=n).astype(np.float32), (0, nb * block - n)))
     return np.concatenate(parts)
+
+
+def leaf(n, seed=0):
+    """One leaf of ``n`` normal float32 values."""
+    return np.random.default_rng(seed).normal(size=n).astype(np.float32)
 
 
 def to_t(a):
