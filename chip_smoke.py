@@ -47,12 +47,27 @@ Phases (any failed check exits non-zero):
      once through the kernel (use_pallas) and once through the plain path,
      with launch counts, logits and greedy tokens held against each other,
      prefill and decode times, and profiles of one prefill and one decode
-     step.
+     step;
+  11. the selective scan and RMSNorm: each CUDA kernel against its plain
+     version (the scan at falcon-mamba-7b's width, B=1, di=8192, n=16, S in
+     {64, 256, 1024}, bf16, ragged di and S, every n template; RMSNorm at
+     (1024, 4096) bf16, (1000, 5120) float32 and ragged rows), with controls
+     (the scan's state reset at every tile, D*u dropped, C_t read a step
+     late; RMSNorm without (1 + scale), or over all rows); kernel, plain and
+     (for RMSNorm) ``F.rms_norm`` times and the bound, the scan's expf
+     counted from its SASS; RMSNorm's path, ``ops.rmsnorm``, with launches;
+  12. serving falcon-mamba-7b at full width and depth (7,006,588,928 random
+     bf16 parameters, after qwen3-14b's are freed): 8 seeded prompts whose
+     lengths are multiples of 64 in [64, 1024], exact-length prefills, as
+     in phase 10 through the scan kernel and through the plain path;
+  13. profiles of one 1024-token falcon-mamba prefill (the scan kernel's and
+     the plain tail-state scan's shares) and one decode step over 8 slots.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -82,6 +97,16 @@ CUDA_SRC = "src/repro_torch/kernels/csrc/zo_direction.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:111"
 SERVE_SHAPES = (64, 512, 1024, 2048)     # prefill lengths timed at the serving shape
+SCAN_SRC = "src/repro_torch/kernels/csrc/selective_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/selective_scan.py:72"
+SCAN_SHAPES = (64, 256, 1024)            # prefill lengths timed at falcon-mamba-7b's width
+SCAN_TILE = 32                           # time steps per tile of the scan kernel (kTT)
+RMSNORM_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+RMSNORM_REPLACES = "src/repro/kernels/rmsnorm.py:28"
+# what each serving kernel's output is, for the tolerance note
+ROUNDED = {"flash_attention": "attention output",
+           "selective_scan": "scan output (a sequential recurrence against an associative "
+                             "scan)"}
 REPLACES = {
     "zo_perturb_sumsq": "src/repro/kernels/zo_direction.py:349",
     "zo_reconstruct_update": "src/repro/kernels/zo_direction.py:447",
@@ -201,10 +226,10 @@ def shortest_path(instrs, start: int = 0, ends=("EXIT",)) -> int:
     fail("no path to the end of a probe kernel in its SASS")
 
 
-def gauss_instructions(lib: Path) -> int:
-    """Instructions of one IEEE Gaussian: the shortest SASS path of
-    ``zo_probe_gauss`` less that of ``zo_probe_base`` (the same kernel
-    without the Gaussian), read from the library that was just built."""
+def probe_instructions(lib: Path, probe: str, base: str, what: str, least: int) -> int:
+    """Instructions of ``what``: the shortest SASS path of the kernel
+    ``probe`` less that of ``base`` (the same kernel without it), read from
+    the library that was just built."""
     from repro_torch.kernels.build import find_nvcc
 
     tool = Path(find_nvcc()).parent / "cuobjdump"
@@ -212,14 +237,20 @@ def gauss_instructions(lib: Path) -> int:
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
     funcs = sass_functions(out.stdout)
-    check({"zo_probe_gauss", "zo_probe_base"} <= set(funcs),
+    check({probe, base} <= set(funcs),
           f"probe kernels missing from the SASS ({sorted(funcs)[:8]})")
-    g, b = shortest_path(funcs["zo_probe_gauss"]), shortest_path(funcs["zo_probe_base"])
-    print(f"# one Gaussian: {g - b} instructions on the shortest SASS path "
-          f"(zo_probe_gauss {g} - zo_probe_base {b}; zo_probe_gauss holds "
-          f"{len(funcs['zo_probe_gauss'])} instructions in all)")
-    check(g - b > 10, "implausible instruction count for one Gaussian")
+    g, b = shortest_path(funcs[probe]), shortest_path(funcs[base])
+    print(f"# {what}: {g - b} instructions on the shortest SASS path "
+          f"({probe} {g} - {base} {b}; {probe} holds "
+          f"{len(funcs[probe])} instructions in all)")
+    check(g - b > least, f"implausible instruction count for {what}")
     return g - b
+
+
+def gauss_instructions(lib: Path) -> int:
+    """Instructions of one IEEE Gaussian (probes ``zo_probe_gauss`` and
+    ``zo_probe_base``)."""
+    return probe_instructions(lib, "zo_probe_gauss", "zo_probe_base", "one Gaussian", 10)
 
 
 # --------------------------------------------------------------------------- #
@@ -1059,10 +1090,24 @@ def instrument(torch, sch, rec):
     sch._prefill, sch._decode = timed_prefill, timed_decode
 
 
-def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
+def model_text(cfg):
+    """(shape, per-slot cache) of ``cfg`` as text, for the log."""
+    if cfg.has_ssm:
+        state = cfg.n_layers * cfg.d_inner * ((cfg.ssm_conv - 1) * 2 + cfg.ssm_state * 4)
+        return (f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, "
+                f"dt_rank {cfg.dt_rank_actual}, vocab {cfg.vocab_size}, {cfg.dtype}",
+                f"conv + ssm state {state:,} B per slot")
+    return (f"heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}, {cfg.dtype}",
+            f"KV cache {2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2:,} B per "
+            f"token and slot")
+
+
+def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
+                kernel="flash_attention"):
     """qwen3-14b (full width and depth unless ``cfg`` is given) served twice
-    on the same weights: through the flash kernel and through the plain
-    path.  Returns the kernel run's launch counts and timings."""
+    on the same weights: through ``kernel`` (``use_pallas``) and through the
+    plain path.  Returns the kernel run's launch counts and timings."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1076,19 +1121,18 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
     params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}: {n_params:,} parameters "
-          f"({n_params * 2 / 1e9:.1f} GB), initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s; KV cache "
-          f"{2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2:,} B per token and slot")
+    shape, cache = model_text(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {shape}: "
+          f"{n_params:,} parameters ({n_params * 2 / 1e9:.1f} GB), initialised on the card "
+          f"in {time.perf_counter() - t0:.1f} s; {cache}")
     check(n_params == cfg.param_count(), f"{n_params} parameters, param_count() says "
           f"{cfg.param_count()}")
 
     rng = np.random.default_rng(0)
     lens = lens or [65, 1000] + [int(n) for n in rng.integers(65, 1001, 6)]
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in lens]
-    max_seq = (1 << (max(lens) - 1).bit_length()) + max_new   # the largest bucket fits
+    # the largest bucket fits (an SSM prefills at exact length)
+    max_seq = (max(lens) if cfg.has_ssm else 1 << (max(lens) - 1).bit_length()) + max_new
     print(f"  {len(prompts)} prompts of {lens} tokens, {max_new} new tokens each, "
           f"{slots} slots, max_seq {max_seq}")
 
@@ -1099,6 +1143,7 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
         rec = {"prefill": [], "decode_ms": [], "margins": {}}
         instrument(torch, eng.scheduler, rec)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         outs = eng.generate(prompts, max_new)
@@ -1115,12 +1160,12 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
     check(n_prefill == len(prompts), f"{n_prefill} prefills for {len(prompts)} prompts")
     kernel_buckets = [b for b, *_ in fast["prefill"] if b % 64 == 0]
     want_launches = len(kernel_buckets) * cfg.n_layers
-    print(f"  launches: kernel run {fast['launches']['flash_attention']} "
+    print(f"  launches: kernel run {fast['launches'][kernel]} "
           f"(prefills on 64-aligned buckets {len(kernel_buckets)} x {cfg.n_layers} layers "
-          f"= {want_launches}), plain run {plain['launches']['flash_attention']}")
-    check(fast["launches"]["flash_attention"] == want_launches == n_prefill * cfg.n_layers,
-          "flash_attention launches != admitted prefills x layers")
-    check(plain["launches"]["flash_attention"] == 0, "the plain run launched the kernel")
+          f"= {want_launches}), plain run {plain['launches'][kernel]}")
+    check(fast["launches"][kernel] == want_launches == n_prefill * cfg.n_layers,
+          f"{kernel} launches != admitted prefills x layers")
+    check(plain["launches"][kernel] == 0, "the plain run launched the kernel")
 
     # last-prompt-token logits of the two runs
     top = max(float(lg.abs().max()) for _, _, lg, _ in plain["prefill"])
@@ -1128,10 +1173,10 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
     diffs = [float((a[2] - b[2]).abs().max()) for a, b in zip(fast["prefill"], plain["prefill"])]
     print(f"  last-prompt-token logits, kernel vs plain run: max |diff| {max(diffs):.4f} "
           f"(per prompt {[round(d, 4) for d in diffs]}); tolerance 5% of the largest "
-          f"logit {top:.3f} = {tol:.4f} (both paths round each attention output to bf16 "
+          f"logit {top:.3f} = {tol:.4f} (both paths round each {ROUNDED[kernel]} to bf16 "
           f"from float32 sums in other orders; a flipped rounding is 2**-8 of a value and "
-          f"spreads through every later bf16 operation of {cfg.n_layers} layers: two "
-          f"layers already differ by ~0.7%)")
+          f"spreads through every later bf16 operation of {cfg.n_layers} layers"
+          f"{': two layers already differ by ~0.7%' if kernel == 'flash_attention' else ''})")
     check(all(math.isfinite(d) for d in diffs) and max(diffs) <= tol,
           "kernel and plain runs' prefill logits disagree")
     # greedy tokens; where they part, the plain run's top-2 margin there must be a near-tie
@@ -1168,15 +1213,19 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
             "cfg": cfg}
 
 
-def profile_call(torch, what, fn):
-    """torch.profiler over one call of ``fn`` (after one warm-up call): host
-    wall, device busy and idle share, device kernels launched, and device
-    time by kernel, with the flash kernel's share."""
+def profile_call(torch, what, fn, key="flash_fwd", label="flash kernel", after_warmup=None):
+    """torch.profiler over one call of ``fn`` (after one warm-up call, then
+    ``after_warmup()``): host wall, device busy and idle share, device
+    kernels launched, and device time by kernel, with the share of the
+    kernels whose name holds ``key``.  Returns the device busy ms (None when
+    the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    if after_warmup is not None:
+        after_warmup()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -1186,15 +1235,16 @@ def profile_call(torch, what, fn):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
         print(f"  {what}: not measured (the profiler saw no device time)")
-        return
+        return None
     busy = sum(r[0] for r in rows) / 1e3
-    flash = sum(r[0] for r in rows if "flash_fwd" in r[2]) / 1e3
+    flash = sum(r[0] for r in rows if key in r[2]) / 1e3
     print(f"  {what} under the profiler: host wall {1e3 * wall:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {1 - busy / (1e3 * wall):.3f}), "
-          f"{sum(r[1] for r in rows)} device kernels and copies; flash kernel "
+          f"{sum(r[1] for r in rows)} device kernels and copies; {label} "
           f"{flash:.3f} ms = {flash / busy:.3f} of device time")
-    for us, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"    {us / 1e3:9.3f} ms  {count:5d} calls  {key[:90]}")
+    for us, count, name in sorted(rows, reverse=True)[:8]:
+        print(f"    {us / 1e3:9.3f} ms  {count:5d} calls  {name[:90]}")
+    return busy
 
 
 def serve_profiles(torch, cfg, params, tokens, slots=8, max_seq=1056):
@@ -1216,6 +1266,232 @@ def serve_profiles(torch, cfg, params, tokens, slots=8, max_seq=1056):
     pos = torch.full((slots,), len(tokens), dtype=torch.int32, device=dev)
     profile_call(torch, f"decode step over {slots} slots at position {len(tokens)}",
                  lambda: T.decode_step_slots(cfg, params, cur, pos, caches))
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: the selective scan and RMSNorm against their plain versions
+# --------------------------------------------------------------------------- #
+def max_agree(torch, got, want, rel=1e-4):
+    """(ok, max abs error, tolerance text): float32 within ``rel`` of the
+    largest |want|; bf16 within one bf16 ulp per element, where values under
+    1e-3 of the largest count as 1e-3 of it (both sides compute in float32,
+    the sums in other orders, and round once)."""
+    got32, want32 = got.float(), want.float()
+    err = (got32 - want32).abs()
+    top = want32.abs().max()
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(want32.abs(), 1e-3 * top))
+        ok = bool((err <= torch.ldexp(torch.ones_like(want32), e - 8)).all())
+        return ok, float(err.max()), "1 bf16 ulp each (floor 1e-3 of max)"
+    return bool((err <= rel * top).all()), float(err.max()), f"{rel:g}*max|y| = {float(rel * top):.3e}"
+
+
+def scan_inputs(torch, dev, B, S, di, n, dtype, seed=0):
+    """The reference test's distributions: u ~ 0.5 N, dt = 0.1 softplus(N),
+    B and C ~ N, A = -exp(0.2 N), D = 1; A and D float32."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)   # noqa: E731
+    u, dt = 0.5 * r(B, S, di), 0.1 * torch.nn.functional.softplus(r(B, S, di))
+    Bm, Cm, A = r(B, S, n), r(B, S, n), -torch.exp(0.2 * r(di, n))
+    return [t.to(dev, dtype) for t in (u, dt, Bm, Cm)] + [A.to(dev), torch.ones(di, device=dev)]
+
+
+def faulty_scan(torch, u, dt, Bm, Cm, A, D, fault):
+    """The plain recurrence with one fault: ``reset`` (h = 0 at every tile
+    of SCAN_TILE steps), ``no_du`` (the D u term dropped) or ``c_late``
+    (C_{t-1} read at step t, zeros at t = 0)."""
+    uf, dtf, Bf, Cf = (t.float() for t in (u, dt, Bm, Cm))
+    h = torch.zeros((u.shape[0], u.shape[2], A.shape[1]), device=u.device)
+    ys = []
+    for t in range(u.shape[1]):
+        if fault == "reset" and t % SCAN_TILE == 0:
+            h = torch.zeros_like(h)
+        h = torch.exp(dtf[:, t, :, None] * A) * h + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None]
+        if fault == "c_late":
+            C = Cf[:, t - 1] if t else torch.zeros_like(Cf[:, 0])
+        else:
+            C = Cf[:, t]
+        ys.append((h * C[:, None]).sum(-1) + (0 if fault == "no_du" else D * uf[:, t]))
+    return torch.stack(ys, 1).to(u.dtype)
+
+
+def scan_bound(S, di, n, exp_instr, B=1, dtype_bytes=4):
+    """(bound ms, by), bytes, instructions: u and dt read and y written
+    (B, S, di), B and C read (B, S, n), A and D read; one expf plus six
+    multiplies and adds per (t, d, s) (dt*A, dA*h, dtu*B, +, h*C, + into the
+    sum) and two more per (t, d) (dt*u, D*u and its add, less the first
+    add of the sum), over the issue rate."""
+    n_bytes = (3 * B * S * di + 2 * B * S * n) * dtype_bytes + (di * n + di) * 4
+    n_instr = B * S * di * (n * (exp_instr + 6) + 2)
+    return bound_ms(n_bytes, n_instr), n_bytes, n_instr
+
+
+def scan_phase(torch, dev, exp_instr, di=8192, n=16, shapes=SCAN_SHAPES):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    worst = 0.0
+
+    def compare(what, args):
+        nonlocal worst
+        got, want = ss.selective_scan(*args), ref.ref_selective_scan(*args)
+        ok, err, tol = max_agree(torch, got, want)
+        print(f"  selective_scan {what:44s} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"selective_scan {what}: kernel and plain version disagree ({err})")
+        worst = max(worst, err)
+        return want
+
+    inputs = {S: scan_inputs(torch, dev, 1, S, di, n, torch.float32, seed=S) for S in shapes}
+    for S in shapes:
+        want = compare(f"B=1 S={S} di={di} n={n} float32", inputs[S])
+        if S == shapes[1]:
+            for fault, text in (("reset", f"state reset every {SCAN_TILE}-step tile"),
+                                ("no_du", "D*u dropped"), ("c_late", "C_t read one step late")):
+                bad = faulty_scan(torch, *inputs[S], fault)
+                ok, err, _ = max_agree(torch, bad, want)
+                print(f"  selective_scan control, {text}: fails the check (max_abs_err={err:.3e})")
+                check(not ok, f"selective_scan: the check lets a faulty output pass ({text})")
+    compare(f"B=1 S=256 di={di} n={n} bf16", scan_inputs(torch, dev, 1, 256, di, n, torch.bfloat16))
+    for B, S, d_, n_ in ((2, 100, 200, 16), (2, 33, 64, 4), (1, 40, 96, 8), (1, 70, 64, 24),
+                         (1, 37, 64, 64), (3, 1, 8192, 16)):
+        for dt_ in (torch.float32, torch.bfloat16):
+            compare(f"B={B} S={S} di={d_} n={n_} {str(dt_)[6:]}",
+                    scan_inputs(torch, dev, B, S, d_, n_, dt_))
+    torch.cuda.synchronize()
+
+    rows = []
+    for S in shapes:
+        args = inputs[S]
+        kern = lambda: ss.selective_scan(*args)       # noqa: E731
+        plain = lambda: ref.ref_selective_scan(*args)  # noqa: E731
+        p1, k1 = cuda_ms(torch, plain, reps=5), cuda_ms(torch, kern)
+        k2, p2 = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
+        (b, by), n_bytes, n_instr = scan_bound(S, di, n, exp_instr)
+        row = {"S": S, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+               "bound_ms": b, "bound_by": by}
+        rows.append(row)
+        print(f"  selective_scan S={S:5d}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+              f"bound_ms={b:.5f} ({by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, "
+              f"{n_instr:.3e} instructions {n_instr / INSTR_PER_S * 1e3:.5f}); kernel at "
+              f"{b / row['ms']:.3f} of its bound; no library call computes the scan")
+    return {"max_abs_err": worst, "rows": rows}
+
+
+def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "float32"))):
+    """The kernel against its plain version (timed shapes and ragged ones),
+    with controls; times beside ``F.rms_norm`` and the bound; then the path
+    (``ops.rmsnorm`` on any leading shape) with its launches counted."""
+    from torch.nn.functional import rms_norm
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator().manual_seed(3)
+
+    def inputs(R, D, dtype):
+        x = torch.randn(R, D, generator=g).to(dev, getattr(torch, dtype))
+        return x, (0.1 * torch.randn(D, generator=g)).to(dev)
+
+    worst = 0.0
+    for R, D, dt_ in shapes + ((3, 8192, "float32"), (5, 1, "bfloat16"), (7, 333, "bfloat16"),
+                               (1, 8192, "bfloat16"), (2, 4097, "float32")):
+        x, s = inputs(R, D, dt_)
+        got, want = rn.rmsnorm(x, s, 1e-6), ref.ref_rmsnorm(x, s, 1e-6)
+        ok, err, tol = max_agree(torch, got, want)
+        print(f"  rmsnorm R={R} D={D} {dt_:8s} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"rmsnorm R={R} D={D} {dt_}: kernel and plain version disagree ({err})")
+        worst = max(worst, err)
+        if (R, D) == shapes[0][:2]:
+            xf = x.float()
+            for text, bad in (("(1 + scale) dropped", ref.ref_rmsnorm(x, torch.zeros_like(s))),
+                              ("mean over all rows", (xf * torch.rsqrt((xf * xf).mean() + 1e-6)
+                                                      * (1 + s)).to(x.dtype))):
+                ok, err, _ = max_agree(torch, bad, want)
+                print(f"  rmsnorm control, {text}: fails the check (max_abs_err={err:.3e})")
+                check(not ok, f"rmsnorm: the check lets a faulty output pass ({text})")
+    torch.cuda.synchronize()
+
+    rows = []
+    for R, D, dt_ in shapes:
+        x, s = inputs(R, D, dt_)
+        kern = lambda: rn.rmsnorm(x, s, 1e-6)                       # noqa: E731
+        plain = lambda: ref.ref_rmsnorm(x, s, 1e-6)                 # noqa: E731
+        lib = lambda: rms_norm(x.float(), (D,), 1 + s, 1e-6)        # noqa: E731
+        lib_err = float((lib() - plain().float()).abs().max())
+        p1, k1, l1 = cuda_ms(torch, plain), cuda_ms(torch, kern), cuda_ms(torch, lib)
+        l2, k2, p2 = cuda_ms(torch, lib), cuda_ms(torch, kern), cuda_ms(torch, plain)
+        n_bytes = 2 * R * D * x.element_size() + 4 * D
+        n_ops = 5 * R * D      # x*x, its add, x*r, 1+s, the product: float32
+        tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+        b, by = (tb, "bytes") if tb >= to else (to, "operations")
+        row = {"shape": f"R={R} D={D} {dt_}", "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": (l1 + l2) / 2, "bound_ms": b, "bound_by": by}
+        rows.append(row)
+        print(f"  rmsnorm {row['shape']}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} (F.rms_norm in float32, max |diff| to "
+              f"plain {lib_err:.3e}) bound_ms={b:.5f} ({by}; {n_bytes:,} bytes)")
+
+    # the path: the public wrapper on a (batch, seq, D) tensor and on each timed shape
+    xs = [inputs(R, D, dt_) for R, D, dt_ in shapes]
+    x3 = torch.randn(8, 128, 4096, generator=g).to(dev, torch.bfloat16)
+    s3 = torch.zeros(4096, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.rmsnorm(x, s) for x, s in xs] + [ops.rmsnorm(x3, s3)]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["rmsnorm"]
+    check(launches == len(outs), f"rmsnorm launched {launches} times for {len(outs)} calls")
+    check(outs[-1].shape == x3.shape and bool(torch.isfinite(outs[-1].float()).all()),
+          "ops.rmsnorm on (8, 128, 4096): wrong shape or non-finite values")
+    ok, err, _ = max_agree(torch, outs[-1], ref.ref_rmsnorm(x3, s3))
+    check(ok, f"ops.rmsnorm on (8, 128, 4096) disagrees with the plain version ({err})")
+    print(f"  rmsnorm path (ops.rmsnorm on {len(outs)} inputs, one (8, 128, 4096) bf16): "
+          f"{launches} launches")
+    return {"max_abs_err": worst, "rows": rows, "launches": launches}
+
+
+def mamba_profiles(torch, cfg, params, tokens, slots=8):
+    """One kernel-path prefill of ``tokens`` (exact length, as the scheduler
+    runs it) and one decode step over a full pool of ``slots`` slots, each
+    under the profiler, with the scan kernel's share and, timed by CUDA
+    events around each call, the share of the plain tail-state scan
+    (``transformer._mamba_tail_state``, run whatever ``use_pallas`` is)."""
+    from repro_torch.models import transformer as T
+
+    cfg = cfg.with_(use_pallas=True)
+    dev = params["embed"].device
+    toks = torch.tensor([tokens], device=dev)
+    last = torch.tensor([len(tokens) - 1], device=dev)
+    spans, tail = [], T._mamba_tail_state
+
+    def timed_tail(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = tail(*args)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    T._mamba_tail_state = timed_tail
+    try:
+        busy = profile_call(torch, f"prefill of {len(tokens)} tokens (exact length)",
+                            lambda: T.prefill_at(cfg, params, {"tokens": toks}, last),
+                            key="selective_scan_kernel", label="scan kernel",
+                            after_warmup=spans.clear)
+    finally:
+        T._mamba_tail_state = tail
+    torch.cuda.synchronize()
+    tail_ms = sum(s.elapsed_time(e) for s, e in spans)
+    check(len(spans) == cfg.n_layers, f"{len(spans)} tail-state calls in one prefill")
+    share = f" = {tail_ms / busy:.3f} of device busy" if busy else ""
+    print(f"  plain tail-state scan (CUDA events around its {len(spans)} calls): "
+          f"{tail_ms:.3f} ms{share}")
+    caches = T.init_caches(cfg, slots, len(tokens) + 1, getattr(torch, cfg.dtype), dev)
+    cur = torch.arange(slots, device=dev)
+    pos = torch.full((slots,), len(tokens), dtype=torch.int32, device=dev)
+    profile_call(torch, f"decode step over {slots} slots",
+                 lambda: T.decode_step_slots(cfg, params, cur, pos, caches),
+                 key="selective_scan_kernel", label="scan kernel")
 
 
 def main() -> None:
@@ -1278,6 +1554,26 @@ def main() -> None:
     serve = serve_phase(torch, dev)
     print("# phase: profiles of one 1000-token prefill and one decode step")
     serve_profiles(torch, serve["cfg"], serve["params"], max(serve["prompts"], key=len))
+    del serve["params"]                   # qwen3-14b's 29.5 GB go before falcon-mamba's
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("# phase: selective scan and rmsnorm vs their plain versions on the card")
+    exp_instr = probe_instructions(libs["selective_scan"], "ss_probe_exp", "ss_probe_base",
+                                   "one expf", 3)
+    scan = scan_phase(torch, dev, exp_instr)
+    norm = rmsnorm_phase(torch, dev)
+    print("# phase: serving falcon-mamba-7b at full width and depth (kernel vs plain path)")
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(1)
+    lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)]
+    mamba = serve_phase(torch, dev, cfg=get_config("falcon-mamba-7b"), lens=lens,
+                        kernel="selective_scan")
+    print("# phase: profiles of one 1024-token prefill and one decode step (falcon-mamba-7b)")
+    mamba_profiles(torch, mamba["cfg"], mamba["params"], max(mamba["prompts"], key=len))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -1319,6 +1615,29 @@ def main() -> None:
         "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for r in flash["rows"]],
+    })
+    check(mamba["launches"]["selective_scan"] > 0, "selective_scan was not launched")
+    head = scan["rows"][-1]                   # falcon-mamba-7b's width at S=1024
+    kernels.append({
+        "name": "selective_scan", "route": "cuda", "source": SCAN_SRC,
+        "replaces": SCAN_REPLACES, "launches": mamba["launches"]["selective_scan"],
+        "max_abs_err": scan["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
+        "path": "serve falcon-mamba-7b prefill", "shape": "B=1 S=1024 di=8192 n=16 float32",
+        "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "bound_ms")}
+                      for r in scan["rows"]],
+    })
+    check(norm["launches"] > 0, "rmsnorm was not launched")
+    head = norm["rows"][0]
+    kernels.append({
+        "name": "rmsnorm", "route": "cuda", "source": RMSNORM_SRC,
+        "replaces": RMSNORM_REPLACES, "launches": norm["launches"],
+        "max_abs_err": norm["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "path": "kernels.ops.rmsnorm (no model calls it)",
+        "shape": head["shape"],
+        "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+                     for r in norm["rows"]],
     })
     print(f"# total {time.perf_counter() - t_all:.1f} s")
     print(smi)

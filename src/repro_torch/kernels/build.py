@@ -22,7 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"zo_direction": CSRC / "zo_direction.cu",
-           "flash_attention": CSRC / "flash_attention.cu"}
+           "flash_attention": CSRC / "flash_attention.cu",
+           "selective_scan": CSRC / "selective_scan.cu",
+           "rmsnorm": CSRC / "rmsnorm.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

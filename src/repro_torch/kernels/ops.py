@@ -1,10 +1,12 @@
 """The kernels' wrappers: plain version on CPU, kernel on CUDA.
 
 Counterpart of ``repro.kernels.ops`` for the seven ZO-direction kernels (four
-flat, three per leaf) and flash attention.  A wrapper picks by the device of the tensor it is
-given: a CPU tensor goes to the plain PyTorch version (``kernels.ref``); a
-CUDA tensor launches the hand-written kernel (``kernels.zo_direction``,
-``kernels.flash_attention``) or raises.  Nothing falls back.
+flat, three per leaf), flash attention, the selective scan and RMSNorm.  A
+wrapper picks by the device of the tensor it is given: a CPU tensor goes to
+the plain PyTorch version (``kernels.ref``); a CUDA tensor launches the
+hand-written kernel (``kernels.zo_direction``, ``kernels.flash_attention``,
+``kernels.selective_scan``, ``kernels.rmsnorm``) or raises.  Nothing falls
+back.
 
 Metadata dtypes: ``salts``/``ctrs`` are ``torch.uint32``, ``nvalid`` and
 ``bf16_mask`` ``torch.int32``, everything else float32.  ``scale``, ``mu`` and
@@ -22,9 +24,11 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import zo_direction as _cu
 
-_COUNTS = (_cu.LAUNCHES, _fa.LAUNCHES)
+_COUNTS = (_cu.LAUNCHES, _fa.LAUNCHES, _ss.LAUNCHES, _rn.LAUNCHES)
 
 
 def _on_cpu(t, what: str) -> bool:
@@ -112,3 +116,23 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     if _on_cpu(q, "flash_attention"):
         return ref.ref_flash_attention(q, k, v, causal, window, softcap)
     return _fa.flash_attention(q, k, v, causal, window, softcap)
+
+
+def selective_scan(u, dt, Bmat, Cmat, A, D) -> torch.Tensor:
+    """The Mamba-1 scan: u and dt ``(B, S, di)``, Bmat and Cmat ``(B, S, n)``,
+    A ``(di, n)``, D ``(di,)`` -> ``(B, S, di)`` in u's dtype.  The
+    reference's ``block_d`` / ``block_s`` have no counterpart: the CUDA
+    kernel's tiles are its own."""
+    if _on_cpu(u, "selective_scan"):
+        return ref.ref_selective_scan(u, dt, Bmat, Cmat, A, D)
+    return _ss.selective_scan(u, dt, Bmat, Cmat, A, D)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, any leading shape; the reference's
+    ``block_rows`` has no counterpart (the CUDA kernel takes a row per
+    block)."""
+    if _on_cpu(x, "rmsnorm"):
+        return ref.ref_rmsnorm(x, scale, eps)
+    flat = x.reshape(-1, x.shape[-1])
+    return _rn.rmsnorm(flat, scale, eps).reshape(x.shape)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the oracles).
 
-Counterpart of ``repro.kernels.ref``: the ZO-direction kernels and flash
-attention.  On a CPU tensor the
+Counterpart of ``repro.kernels.ref``: the ZO-direction kernels, flash
+attention, the selective scan and RMSNorm.  On a CPU tensor the
 wrappers in ``repro_torch.kernels.ops`` run these functions; on the card the
 CUDA kernels are held against them.  The flat versions take the same
 per-block metadata as the kernels (leaf salt, leaf-local counter start, valid
@@ -30,6 +30,37 @@ def _f32(v, device) -> torch.Tensor:
 def _round(acc: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
     """Round the float32 accumulator through ``adt`` (no-op for float32)."""
     return acc if adt == torch.float32 else acc.to(adt).to(torch.float32)
+
+
+# --------------------------------------------------------------------------- #
+# norm and selective scan
+# --------------------------------------------------------------------------- #
+def ref_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last axis, in
+    float32, rounded once to x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def ref_selective_scan(u, dt, Bmat, Cmat, A, D) -> torch.Tensor:
+    """The Mamba-1 recurrence, one time step after another: u and dt
+    ``(B, S, di)``, Bmat and Cmat ``(B, S, n)``, A ``(di, n)``, D ``(di,)``;
+    ``h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t`` and ``y_t = h_t . C_t +
+    D u_t``, with a float32 state from 0 and the output in u's dtype."""
+    uf, dtf = u.to(torch.float32), dt.to(torch.float32)
+    Bf, Cf = Bmat.to(torch.float32), Cmat.to(torch.float32)
+    A, D = A.to(torch.float32), D.to(torch.float32)
+    B, S, di = u.shape
+    h = torch.zeros((B, di, A.shape[1]), dtype=torch.float32, device=u.device)
+    ys = []
+    for t in range(S):
+        u_t, dt_t = uf[:, t], dtf[:, t]
+        dA = torch.exp(dt_t[..., None] * A)
+        dBu = (dt_t * u_t)[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBu
+        ys.append(torch.sum(h * Cf[:, t, None, :], dim=-1) + D * u_t)
+    return torch.stack(ys, dim=1).to(u.dtype)
 
 
 # --------------------------------------------------------------------------- #

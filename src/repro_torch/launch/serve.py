@@ -4,13 +4,16 @@ Counterpart of ``repro.launch.serve``'s offline mode, with its flags:
 
     python -m repro_torch.launch.serve --arch qwen3-14b --reduce smoke   # on a GPU
     python -m repro_torch.launch.serve --device cpu --arch qwen3-14b --reduce smoke
+    python -m repro_torch.launch.serve --device cpu --arch falcon-mamba-7b --reduce smoke
 
 It submits ``--batch`` seeded random prompts to the continuous-batching
 engine, prints each completion and the measured tokens per second.
 ``--device`` (default ``cuda``, which raises without a GPU) picks the device;
 ``--use-pallas`` sets ``ModelConfig.use_pallas``, which sends aligned
-prefills to the flash-attention kernel (default: on for ``cuda``, off for
-``cpu``, where the plain path and the kernel's plain version agree anyway).
+prefills to the flash-attention kernel (dense decoders) or the selective-scan
+kernel (SSM decoders, which prefill at exact length, so only prompts of a
+multiple of 64 tokens reach it) (default: on for ``cuda``, off for ``cpu``,
+where the plain path and the kernel's plain version agree anyway).
 Traffic mode (``--traffic``, and its ``--requests``, ``--flops-per-sec`` and
 ``--trace``) is not ported yet (ROADMAP Queue 1 item 13).
 """
@@ -49,7 +52,8 @@ def main(argv=None):
                     help="CSV path for per-request rows")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--use-pallas", action=argparse.BooleanOptionalAction, default=None,
-                    help="send aligned prefills to the flash kernel "
+                    help="send aligned prefills to the flash-attention kernel "
+                         "(dense) or the selective-scan kernel (SSM) "
                          "(default: on for cuda, off for cpu)")
     args = ap.parse_args(argv)
 

@@ -1,0 +1,177 @@
+"""Mamba-1 selective SSM block (falcon-mamba): counterpart of ``repro.models.ssm``.
+
+The plain path runs the recurrence as a log-depth associative scan
+(``_assoc_scan``, the combination order of ``jax.lax.associative_scan``),
+which materialises the ``(B, S, d_inner, n)`` state; ``cfg.ssm_chunk`` bounds
+that by scanning over sequence chunks.  With ``cfg.use_pallas``, a length and
+a ``d_inner`` that are multiples of 64 send the scan to the selective-scan
+kernel (``kernels.ops.selective_scan``), which keeps the state out of memory.
+That dispatch is the reference's, not a fallback: a CUDA tensor that reaches
+the kernel launches it or raises.
+
+Softplus is ``jax.nn.softplus``'s ``logaddexp(x, 0)`` (no threshold) and SiLU
+``x * sigmoid(x)``, each in its input's dtype, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init
+
+Params = Dict[str, torch.Tensor]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def init_mamba(gen, cfg: ModelConfig, dtype, device="cpu") -> Params:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, K = cfg.dt_rank_actual, cfg.ssm_conv
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init(gen, (d, 2 * di), dtype, device=device),
+        "conv_w": dense_init(gen, (K, di), dtype, scale=1.0, device=device),
+        "conv_b": torch.zeros((di,), **f32),
+        "x_proj": dense_init(gen, (di, dtr + 2 * n), dtype, device=device),
+        "dt_w": dense_init(gen, (dtr, di), dtype, device=device),
+        # softplus(dt_b) ~= 0.01 at init (standard mamba dt bias init)
+        "dt_b": torch.full((di,), -4.6, **f32),
+        "A_log": torch.log(torch.arange(1, n + 1, **f32)).expand(di, n).contiguous(),
+        "D": torch.ones((di,), **f32),
+        "out_proj": dense_init(gen, (di, d), dtype, device=device),
+    }
+
+
+def _causal_conv(p: Params, u: torch.Tensor, K: int) -> torch.Tensor:
+    """Depthwise causal conv, kernel K: u (B, S, di) -> (B, S, di)."""
+    S = u.shape[1]
+    padded = torch.nn.functional.pad(u, (0, 0, K - 1, 0))
+    y = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    for k in range(K):  # K is 4: unrolled shifts, as in the reference
+        y = y + p["conv_w"][k].to(torch.float32) * padded[:, k:k + S].to(torch.float32)
+    return (y + p["conv_b"]).to(u.dtype)
+
+
+def _split_x(cfg: ModelConfig, p: Params, u: torch.Tensor):
+    """u (B, S, di) -> (dt (B, S, di), B (B, S, n), C (B, S, n)), float32."""
+    dtr, n = cfg.dt_rank_actual, cfg.ssm_state
+    x_dbl = (u @ p["x_proj"]).to(torch.float32)
+    dt_low, Bmat, Cmat = torch.split(x_dbl, [dtr, n, n], dim=-1)
+    dt = softplus(dt_low @ p["dt_w"].to(torch.float32) + p["dt_b"])
+    return dt, Bmat, Cmat
+
+
+def _ssm_inputs(cfg: ModelConfig, p: Params, u: torch.Tensor):
+    """u (B, S, di) -> (deltaA, deltaBu, C) with shapes (B, S, di, n) / (B, S, n)."""
+    dt, Bmat, Cmat = _split_x(cfg, p, u)
+    A = -torch.exp(p["A_log"])                                   # (di, n)
+    deltaA = torch.exp(dt[..., None] * A)                        # (B, S, di, n)
+    deltaBu = (dt * u.to(torch.float32))[..., None] * Bmat[..., None, :]
+    return deltaA, deltaBu, Cmat
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[a0, b0, a1, b1, ...] along axis 1 (len(a) is len(b) or one more)."""
+    shape = list(a.shape)
+    shape[1] = a.shape[1] + b.shape[1]
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    out[:, 0::2] = a
+    out[:, 1::2] = b
+    return out
+
+
+def _scan_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The b half of ``jax.lax.associative_scan`` of ``(a2 a1, a2 b1 + b2)``
+    along axis 1, with its recursion: combine adjacent pairs, scan the half,
+    then fill in the even positions.  The scanned a is never needed, so it
+    is not formed (XLA drops it from the reference's program too)."""
+    n = a.shape[1]
+    if n < 2:
+        return b
+    b_odd = _scan_pairs(a[:, 1::2] * a[:, 0:-1:2], a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2])
+    b_prev = b_odd[:, :-1] if n % 2 == 0 else b_odd
+    b_even = torch.cat([b[:, :1], a[:, 2::2] * b_prev + b[:, 2::2]], dim=1)
+    return _interleave(b_even, b_odd)
+
+
+def _assoc_scan(deltaA: torch.Tensor, deltaBu: torch.Tensor,
+                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h[t] = deltaA[t] * h[t-1] + deltaBu[t] along axis 1 (seq)."""
+    if h0 is not None:
+        deltaBu = deltaBu.clone()
+        deltaBu[:, 0] += deltaA[:, 0] * h0
+    return _scan_pairs(deltaA, deltaBu)
+
+
+def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
+    """Sequence mixing only (conv + selective scan), u (B, S, di) -> (B, S, di)."""
+    u = silu(_causal_conv(p, u, cfg.ssm_conv))
+    if cfg.use_pallas and u.shape[1] % 64 == 0 and cfg.d_inner % 64 == 0:
+        # the kernel path: its inputs, without the (B, S, di, n) state
+        dt, Bm, Cm = _split_x(cfg, p, u)
+        A = -torch.exp(p["A_log"])
+        return ops.selective_scan(u.to(torch.float32), dt, Bm.contiguous(),
+                                  Cm.contiguous(), A, p["D"]).to(u.dtype)
+    deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u)
+    if cfg.ssm_chunk and u.shape[1] > cfg.ssm_chunk:
+        S, ck = u.shape[1], cfg.ssm_chunk
+        if S % ck:
+            raise ValueError(f"sequence length {S} is not a multiple of ssm_chunk={ck}")
+        B, di, n = u.shape[0], cfg.d_inner, cfg.ssm_state
+        h = torch.zeros((B, di, n), dtype=torch.float32, device=u.device)
+        chunks = []
+        for c in range(S // ck):
+            h_seq = _assoc_scan(deltaA[:, c * ck:(c + 1) * ck],
+                                deltaBu[:, c * ck:(c + 1) * ck], h0=h)
+            h = h_seq[:, -1]
+            chunks.append(h_seq)
+        h = torch.cat(chunks, dim=1)
+    else:
+        h = _assoc_scan(deltaA, deltaBu)
+    y = torch.einsum("bsdn,bsn->bsd", h, Cmat) + p["D"] * u.to(torch.float32)
+    return y.to(u.dtype)
+
+
+def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Full mamba block: x (B, S, D) -> (B, S, D)."""
+    u, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    y = mamba_mix(cfg, p, u)
+    return (y * silu(z)) @ p["out_proj"]
+
+
+# --------------------------------------------------------------------------- #
+# decode (single-token recurrence)
+# --------------------------------------------------------------------------- #
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
+                     device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(conv_state (B, K-1, di), ssm_state (B, di, n))."""
+    return (
+        torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+        torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=device),
+    )
+
+
+def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 state: Tuple[torch.Tensor, torch.Tensor]):
+    """One token: x (B, 1, D) and (conv_state, ssm_state) -> (out (B, 1, D),
+    (new conv_state, new ssm_state)); the state is returned, not written."""
+    conv_state, h = state
+    u, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)        # (B, di)
+    window = torch.cat([conv_state, u[:, None]], dim=1)            # (B, K, di)
+    conv_y = torch.einsum("bkd,kd->bd", window.to(torch.float32),
+                          p["conv_w"].to(torch.float32))
+    u_c = silu(conv_y + p["conv_b"]).to(u.dtype)
+    deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u_c[:, None])     # seq dim 1
+    h = deltaA[:, 0] * h + deltaBu[:, 0]                           # (B, di, n)
+    y = torch.einsum("bdn,bn->bd", h, Cmat[:, 0]) + p["D"] * u_c.to(torch.float32)
+    out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+    return out[:, None], (window[:, 1:], h)

@@ -1,15 +1,21 @@
-"""Decoder transformer: the dense architectures of ``repro.models.transformer``.
+"""Decoder stack: the dense and SSM architectures of ``repro.models.transformer``.
 
 Layer parameters are stacked on a leading ``n_layers`` axis, as the
 reference's ``vmap`` init makes them, so a JAX ``init_model`` tree carries
 over leaf for leaf (``repro_torch.convert``).  A Python loop over the layers
 takes the place of ``lax.scan``; per-layer windows are Python ints
-(``FULL_WINDOW`` = 2**30 means no window).  KV caches are updated in place.
+(``FULL_WINDOW`` = 2**30 means no window).  Caches (attention's k and v, the
+SSM's conv and ssm states) are updated in place.
 
-Ported: ``arch_type="dense"`` with ``frontend="none"``: the forward pass,
-prefill and decode for serving.  MoE, SSM and hybrid layers and the vision
-and audio frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 11);
-the loss comes with the trainer, ``launch/train.py`` (the same item).
+Ported: ``arch_type`` ``"dense"`` and ``"ssm"`` (mamba-1 layers,
+``models.ssm``) with ``frontend="none"``: the forward pass, prefill and
+decode for serving.  MoE and hybrid layers and the vision and audio
+frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 11); the loss
+comes with the trainer, ``launch/train.py`` (the same item).
+
+Entry points that make tensors (``init_model``, ``init_caches``) run on the
+card unless the caller asks for ``device="cpu"``; without a card the default
+raises (``device.resolve_device``).
 """
 from __future__ import annotations
 
@@ -19,7 +25,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -36,11 +44,11 @@ FULL_WINDOW = 1 << 30
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.frontend != "none":
+    if cfg.arch_type not in ("dense", "ssm") or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r}, frontend={cfg.frontend!r} is "
-            "not ported yet (ROADMAP Queue 1 item 11: moe.py, ssm.py, hybrid "
-            "layers and the vision/audio frontends); dense decoders are")
+            "not ported yet (ROADMAP Queue 1 item 11: moe.py, hybrid layers and "
+            "the vision/audio frontends); dense and SSM decoders are")
 
 
 def windows_array(cfg: ModelConfig) -> torch.Tensor:
@@ -75,17 +83,22 @@ def _init_layer(gen, cfg: ModelConfig, dtype, device) -> Params:
     if cfg.post_norms:
         p["post_norm1"] = init_norm(cfg, cfg.d_model, device)
         p["post_norm2"] = init_norm(cfg, cfg.d_model, device)
-    p["attn"] = attn.init_attention(gen, cfg, dtype, device)
+    if cfg.has_attention:
+        p["attn"] = attn.init_attention(gen, cfg, dtype, device)
+    if cfg.has_ssm:
+        p["mamba"] = ssm_mod.init_mamba(gen, cfg, dtype, device)
     if cfg.d_ff:
         p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
     return p
 
 
-def init_model(gen, cfg: ModelConfig, device="cpu") -> Params:
+def init_model(gen, cfg: ModelConfig, device="cuda") -> Params:
     """Random parameters from ``gen`` (a ``torch.Generator`` or an int seed),
-    drawn on the generator's device.  The stacked layer tensors are filled
-    one layer at a time, so the largest temporary is one layer's matrix."""
+    drawn on the generator's device and placed on ``device``.  The stacked
+    layer tensors are filled one layer at a time, so the largest temporary
+    is one layer's matrix."""
     check_supported(cfg)
+    device = resolve_device(device)
     gen = as_generator(gen)
     dtype = getattr(torch, cfg.dtype)
     params: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device)}
@@ -112,8 +125,15 @@ def _ffn(cfg: ModelConfig, lp: Params, xn: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(xn)
 
 
+def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int) -> torch.Tensor:
+    """Sequence-mixing sublayer: attention or mamba."""
+    if cfg.arch_type == "ssm":
+        return ssm_mod.mamba_forward(cfg, lp["mamba"], xn)
+    return attn.attention_forward(cfg, lp["attn"], xn, window)
+
+
 def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int):
-    mix = attn.attention_forward(cfg, lp["attn"], apply_norm(cfg, lp["norm1"], x), window)
+    mix = _mix(cfg, lp, apply_norm(cfg, lp["norm1"], x), window)
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
     x = x + mix
@@ -161,19 +181,41 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: Dict):
 # serving: prefill + single-token decode with stacked per-layer caches
 # --------------------------------------------------------------------------- #
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype,
-                device="cpu") -> Dict:
+                device="cuda") -> Dict:
+    """Zero caches, stacked over the layers: attention's k and v ``(L,
+    batch, seq_len, KV, hd)``; an SSM's conv state ``(L, batch, K - 1,
+    d_inner)`` in ``dtype`` and ssm state ``(L, batch, d_inner, n)`` in
+    float32 (no sequence axis: ``seq_len`` does not size them)."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    device = resolve_device(device)
+    L = cfg.n_layers
+    caches: Dict = {}
+    if cfg.has_attention:
+        shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        caches["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        caches["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.has_ssm:
+        caches["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                     dtype=dtype, device=device)
+        caches["ssm"] = torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
+                                    dtype=torch.float32, device=device)
+    return caches
 
 
 def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: int):
-    """One layer of decode; writes this layer's cache rows in place."""
+    """One layer of decode; writes this layer's cache rows (attention) or
+    states (SSM: every row, an inactive slot's too, as in the reference) in
+    place."""
     xn = apply_norm(cfg, lp["norm1"], x)
-    mix, _ = attn.attention_decode(
-        cfg, lp["attn"], xn, (cache_l["k"], cache_l["v"]), pos, window,
-        static_window=uniform_static_window(cfg))
+    if cfg.arch_type == "ssm":
+        mix, (conv, h) = ssm_mod.mamba_decode(cfg, lp["mamba"], xn,
+                                              (cache_l["conv"], cache_l["ssm"]))
+        cache_l["conv"].copy_(conv)
+        cache_l["ssm"].copy_(h)
+    else:
+        mix, _ = attn.attention_decode(
+            cfg, lp["attn"], xn, (cache_l["k"], cache_l["v"]), pos, window,
+            static_window=uniform_static_window(cfg))
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
     x = x + mix
@@ -186,8 +228,7 @@ def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: i
 def _decode(cfg: ModelConfig, params: Params, tokens, pos, caches: Dict):
     h = params["embed"][tokens][:, None, :] * math.sqrt(cfg.d_model)  # (B, 1, D)
     for i, (lp, win) in enumerate(_layers(cfg, params)):
-        h, _ = _block_decode(cfg, lp, h, pos,
-                             {"k": caches["k"][i], "v": caches["v"][i]}, win)
+        h, _ = _block_decode(cfg, lp, h, pos, {k: c[i] for k, c in caches.items()}, win)
     return compute_logits(cfg, params, h)[:, 0], caches
 
 
@@ -230,14 +271,20 @@ def prefill_at(cfg: ModelConfig, params: Params, batch: Dict, last_idx: torch.Te
 
 
 def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
-    """Full-sequence hidden states + per-layer caches, stacked (L, B, S, KV, hd)."""
+    """Full-sequence hidden states + per-layer caches, stacked over the
+    layers: k and v (L, B, S, KV, hd), or an SSM's conv and ssm states."""
     h = embed_batch(cfg, params, batch)
-    ks, vs = [], []
+    caches: Dict = {}
     for lp, win in _layers(cfg, params):
         xn = apply_norm(cfg, lp["norm1"], h)
-        mix, (k, v) = attn.attention_prefill(cfg, lp["attn"], xn, win)
-        ks.append(k)
-        vs.append(v)
+        if cfg.arch_type == "ssm":
+            mix = ssm_mod.mamba_forward(cfg, lp["mamba"], xn)
+            layer = dict(zip(("conv", "ssm"), _mamba_tail_state(cfg, lp["mamba"], xn)))
+        else:
+            mix, kv = attn.attention_prefill(cfg, lp["attn"], xn, win)
+            layer = dict(zip(("k", "v"), kv))
+        for name, c in layer.items():
+            caches.setdefault(name, []).append(c)
         if cfg.post_norms:
             mix = apply_norm(cfg, lp["post_norm1"], mix)
         h = h + mix
@@ -245,4 +292,21 @@ def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
         if cfg.post_norms:
             ff = apply_norm(cfg, lp["post_norm2"], ff)
         h = h + ff
-    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return h, {name: torch.stack(cs) for name, cs in caches.items()}
+
+
+def _mamba_tail_state(cfg: ModelConfig, mp: Params, xn: torch.Tensor):
+    """Recompute the post-prompt (conv, ssm) state for decode continuation,
+    as the reference does: the plain associative scan over the whole
+    prompt, whatever ``use_pallas`` is.  The conv state is the prompt's last
+    ``K - 1`` rows of u, or all of them when the prompt is shorter; the
+    slot write then fills only that many rows (a reference behaviour the
+    port keeps: a prompt under ``K - 1`` tokens decodes from a misaligned
+    conv window)."""
+    u, _ = torch.chunk(xn @ mp["in_proj"], 2, dim=-1)
+    K = cfg.ssm_conv
+    # copies, so that no cached view keeps a layer's u or (B, S, di, n) state alive
+    conv_state = u[:, -(K - 1):, :].clone()
+    u_c = ssm_mod.silu(ssm_mod._causal_conv(mp, u, K))
+    deltaA, deltaBu, _ = ssm_mod._ssm_inputs(cfg, mp, u_c)
+    return conv_state, ssm_mod._assoc_scan(deltaA, deltaBu)[:, -1].clone()

@@ -7,7 +7,9 @@ request owns exactly one slot from admission to retirement.
 single-request prefill cache into its slot, and the decode batch is the
 whole pool driven with a per-slot position vector (``-1`` for free slots),
 so admission and eviction never change the decode's shapes.  ``gather``
-pulls per-slot copies back out for inspection and tests.
+pulls per-slot copies back out for inspection and tests.  An SSM's pool holds
+per-slot conv and ssm states instead of (or beside) k and v.  The pool is on
+the card unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -23,8 +25,11 @@ from repro_torch.models import transformer as T
 def _scatter_slot(pool: Dict, prefill: Dict, slot: int) -> Dict:
     """Write a B=1 prefill cache tree into pool row ``slot``, IN PLACE (the
     reference donates the pool and returns a new one; here the pool's own
-    storage is written).  Leaves are layer-stacked ``(L, B, S, ...)``: the
-    slot axis is 1, and the prefill fills positions ``[0, bucket)``."""
+    storage is written).  Leaves are layer-stacked ``(L, B, ...)`` with the
+    slot axis 1, and the prefill's leaf fills the leading rows of axis 2, as
+    the reference's ``dynamic_update_slice`` at ``(0, slot, 0, ...)`` does:
+    k and v positions ``[0, bucket)``, the whole ``(d_inner, n)`` ssm state,
+    and the first ``min(prompt_len, K - 1)`` rows of the conv state."""
     for name, p in pool.items():
         c = prefill[name]
         p[:, slot, :c.shape[2]].copy_(c[:, 0])
@@ -34,7 +39,7 @@ def _scatter_slot(pool: Dict, prefill: Dict, slot: int) -> Dict:
 class SlotKVCache:
     """Fixed pool of ``slots`` KV-cache rows, each ``max_seq`` long."""
 
-    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int, device="cpu"):
+    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int, device="cuda"):
         assert slots >= 1 and max_seq >= 1
         self.cfg = cfg
         self.slots = slots

@@ -1,7 +1,8 @@
 """Continuous-batching scheduler over the slotted KV cache.
 
 Counterpart of ``repro.serving.scheduler``: a FIFO admission queue,
-prefill-length bucketing, admission of new requests into free slots
+prefill-length bucketing (exact lengths for SSM configs, whose post-prompt
+state would integrate the pad tokens), admission of new requests into free slots
 mid-decode, retirement on EOS or ``max_new``, and one
 ``decode_step_slots`` over the packed slot pool (per-slot positions, ``-1``
 marking free slots) whose shapes never change as requests come and go.
@@ -93,7 +94,9 @@ class Scheduler:
         self.queue: Deque[Request] = deque()
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
-        self._buckets = tuple(sorted(sc.buckets or default_buckets(sc.max_seq)))
+        self._exact = cfg.has_ssm   # pad tokens would corrupt the SSM state
+        self._buckets = (None if self._exact else
+                         tuple(sorted(sc.buckets or default_buckets(sc.max_seq))))
         self._used_buckets: Set[int] = set()
         self._decode: Callable = (
             lambda p, tok, pos, caches: T.decode_step_slots(cfg, p, tok, pos, caches))
@@ -117,10 +120,13 @@ class Scheduler:
         return bool(self.queue) or bool(self.pool.live_slots())
 
     def prefill_buckets(self) -> Tuple[int, ...]:
-        """Bucket lengths that prefills have used so far."""
+        """Bucket lengths (exact prompt lengths for SSM configs) that
+        prefills have used so far."""
         return tuple(sorted(self._used_buckets))
 
     def bucket_for(self, prompt_len: int) -> int:
+        if self._exact:
+            return prompt_len
         for b in self._buckets:
             if b >= prompt_len:
                 return b

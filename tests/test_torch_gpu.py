@@ -12,7 +12,10 @@ per element with at most 0.1% of the elements differing at all; an fp32
 accumulator fails that check.  Flash attention is held to its plain version
 in float32 to rtol 1e-5 / atol 1e-5 and in bf16 to one bf16 ulp per element
 (values under 1e-3 of the largest count as 1e-3 of it): both compute in
-float32 in other summation orders and round once.
+float32 in other summation orders and round once.  The selective scan and
+RMSNorm are held the same way in bf16, and in float32 to 1e-4 of the
+largest output value (the kernel sums over the state axis, and over a row,
+in another order than the plain version).
 """
 import numpy as np
 import pytest
@@ -271,3 +274,102 @@ def test_serving_on_card_samples_independently_of_slots():
         outs.append(eng.generate(prompts, max_new=6, key=7))
         assert ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers
     assert outs[0] == outs[1]
+
+
+def _close_to_max(got, want, rel=1e-4):
+    """float32: within ``rel`` of the largest |want|; bf16: one bf16 ulp per
+    element (floor 1e-3 of the largest), as ``_attn_close``."""
+    if want.dtype == torch.bfloat16:
+        return _attn_close(got, want)
+    err = (got.float() - want.float()).abs().max()
+    return bool(err <= rel * want.float().abs().max())
+
+
+def _scan_inputs(B, S, di, n, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)   # noqa: E731
+    u = 0.5 * r(B, S, di)
+    dt = 0.1 * torch.nn.functional.softplus(r(B, S, di))
+    Bm, Cm = r(B, S, n), r(B, S, n)
+    A = -torch.exp(0.2 * r(di, n))
+    D = torch.ones(di)
+    return ([t.to(dev, dtype) for t in (u, dt, Bm, Cm)] + [A.to(dev), D.to(dev)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,n", [
+    (1, 64, 8192, 16), (1, 256, 8192, 16),     # the served shape (falcon-mamba-7b)
+    (2, 100, 200, 16),                          # ragged di and S
+    (2, 33, 64, 4), (1, 40, 96, 8), (1, 70, 64, 24), (1, 37, 64, 64),   # every n template
+])
+def test_selective_scan_kernel_matches_plain_version(B, S, di, n, dtype):
+    from repro_torch.kernels import selective_scan as ss
+
+    dev = _cuda()
+    args = _scan_inputs(B, S, di, n, dtype, dev)
+    before = ss.LAUNCHES["selective_scan"]
+    got = ss.selective_scan(*args)
+    assert ss.LAUNCHES["selective_scan"] == before + 1
+    want = ref.ref_selective_scan(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, di)
+    assert _close_to_max(got, want)
+    # control: the D * u term dropped fails the check
+    u, D = args[0], args[5]
+    assert not _close_to_max((want.float() - D * u.float()).to(dtype), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,D,dtype", [
+    (1024, 4096, torch.bfloat16), (1000, 5120, torch.float32),
+    (3, 8192, torch.float32), (5, 1, torch.bfloat16), (7, 333, torch.float32),
+])
+def test_rmsnorm_kernel_matches_plain_version(R, D, dtype):
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(R + D)
+    x = torch.randn(R, D, generator=g).to(dev, dtype)
+    scale = (0.1 * torch.randn(D, generator=g)).to(dev)
+    before = rn.LAUNCHES["rmsnorm"]
+    got = rn.rmsnorm(x, scale, 1e-6)
+    assert rn.LAUNCHES["rmsnorm"] == before + 1
+    want = ref.ref_rmsnorm(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _close_to_max(got, want)
+    if D > 1:   # control: no (1 + scale) fails the check (one value may be ~0)
+        assert not _close_to_max(ref.ref_rmsnorm(x, torch.zeros_like(scale)), want)
+
+
+@pytest.mark.gpu
+def test_ssm_prefill_through_the_kernel_matches_plain_path():
+    """falcon-mamba-7b.reduced() in bf16, prefilled on the card through the
+    scan kernel (use_pallas) and through the plain scan: one launch per
+    layer, logits within 2% of their largest, and served tokens through
+    the engine's exact-length prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, ServeConfig
+
+    dev = _cuda()
+    cfg = get_config("falcon-mamba-7b").reduced().with_(dtype="bfloat16")
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
+    toks, last = toks.to(dev), torch.tensor([127], device=dev)
+    ops.reset_launch_counts()
+    fast, _ = T.prefill_at(cfg.with_(use_pallas=True), params, {"tokens": toks}, last)
+    assert ops.launch_counts()["selective_scan"] == cfg.n_layers
+    plain, _ = T.prefill_at(cfg, params, {"tokens": toks}, last)
+    assert ops.launch_counts()["selective_scan"] == cfg.n_layers
+    torch.cuda.synchronize()
+    err = float((fast.float() - plain.float()).abs().max())
+    assert err <= 0.02 * float(plain.float().abs().max()), err
+    ops.reset_launch_counts()
+    eng = Engine(cfg.with_(use_pallas=True), params, ServeConfig(max_seq=140, slots=2))
+    outs = eng.generate([toks[0].tolist(), [1, 2, 3], toks[0, :64].tolist()], max_new=4)
+    assert ops.launch_counts()["selective_scan"] == 2 * cfg.n_layers
+    assert eng.scheduler.prefill_buckets() == (3, 64, 128)
+    assert all(len(o) == n + 4 for o, n in zip(outs, (128, 3, 64)))

@@ -11,7 +11,11 @@ within the port: batched and deterministic generation, prefill buckets,
 prefill + decode against teacher forcing, randomized slot invariants, EOS
 freeing its slot, the early-exit step count, and sampling that does not
 depend on the slot count.  Logit comparisons use atol 1e-4, as the
-reference's own test does.
+reference's own test does.  ``falcon-mamba-7b.reduced()`` (SSM) prefills at
+exact length: token identity with the reference on the plain path and
+through the selective-scan kernel path (64-aligned prompts), the slot
+writes of its conv and ssm states, and the reference's decode after a
+prompt shorter than the conv window, which the port mirrors.
 """
 import subprocess
 import sys
@@ -26,6 +30,7 @@ from repro.configs import get_config as jget_config
 from repro.models import transformer as J
 from repro.serving import Engine as JEngine
 from repro.serving import ServeConfig as JServeConfig
+from repro.serving import SlotKVCache as JSlotKVCache
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as serve_cli
@@ -71,6 +76,92 @@ def test_token_identity_vs_reference_engine(arch, seed):
     # buckets 64 and 128 are multiples of 64: the flash path (for qwen3; gemma2's
     # mixed windows keep even those on the plain path, as in the reference)
     assert eng.scheduler.prefill_buckets() == (8, 16, 64, 128, 150)
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    return setup("falcon-mamba-7b", 2)
+
+
+def test_token_identity_ssm_exact_length_prefill(mamba):
+    """SSM configs prefill at exact length (pad tokens would corrupt the
+    post-prompt state); the slot-pool decode gives the reference engine's
+    tokens (``tests/test_serving.py``'s case, against the JAX engine)."""
+    jcfg, jp, cfg, tp = mamba
+    prompts = mixed_prompts(cfg, (5, 9, 3), seed=4)
+    want = JEngine(jcfg, jp, JServeConfig(max_seq=32, slots=2)).generate(prompts, max_new=6)
+    eng = Engine(cfg, tp, ServeConfig(max_seq=32, slots=2))
+    assert eng.generate(prompts, max_new=6) == want
+    assert eng.scheduler.prefill_buckets() == (3, 5, 9)  # exact, not bucketed
+
+
+def test_token_identity_ssm_kernel_path():
+    """With ``use_pallas``, the 64- and 128-token prompts' prefills run the
+    selective-scan path (the reference's Pallas kernel in interpret mode,
+    the port's plain version), the 5-token one the plain scan."""
+    jcfg, jp, cfg, tp = setup("falcon-mamba-7b", 3, use_pallas=True)
+    prompts = mixed_prompts(cfg, (64, 5, 128), seed=9)
+    want = JEngine(jcfg, jp, JServeConfig(max_seq=140, slots=2)).generate(prompts, max_new=6)
+    eng = Engine(cfg, tp, ServeConfig(max_seq=140, slots=2))
+    assert eng.generate(prompts, max_new=6) == want
+    assert eng.scheduler.prefill_buckets() == (5, 64, 128)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5])
+def test_ssm_short_prompt_decode_mirrors_reference(L, mamba):
+    """A reference behaviour the port keeps: after a prefill of fewer than
+    ``ssm_conv - 1 = 3`` tokens, the prompt's rows fill the TOP of the
+    slot's conv state (not ``[0, u0, u1]``), so the first decode step
+    departs from the teacher-forced forward pass.  The port equals the
+    reference either way; from 3 tokens on both equal teacher forcing."""
+    jcfg, jp, cfg, tp = mamba
+    prompt = mixed_prompts(cfg, (L + 1,), seed=10)[0]
+    tf, _ = T.forward_logits(cfg, tp, {"tokens": torch.tensor([prompt])})
+    jpool = JSlotKVCache(jcfg, slots=2, max_seq=16)
+    tpool = SlotKVCache(cfg, slots=2, max_seq=16, device="cpu")
+    _, jc = J.prefill(jcfg, jp, {"tokens": np.asarray([prompt[:L]], np.int32)})
+    _, tc = T.prefill(cfg, tp, {"tokens": torch.tensor([prompt[:L]])})
+    for pool, c in ((jpool, jc), (tpool, tc)):
+        pool.alloc(0)
+        pool.assign(0, c, L)
+    tok, pos = np.array([prompt[L], 0], np.int32), np.array([L, -1], np.int32)
+    want, _ = J.decode_step_slots(jcfg, jp, tok, pos, jpool.caches)
+    got, _ = T.decode_step_slots(cfg, tp, torch.from_numpy(tok).long(),
+                                 torch.from_numpy(pos), tpool.caches)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want)[0], atol=1e-4)
+    gap = float((got[0] - tf[0, L]).abs().max())
+    if L < cfg.ssm_conv - 1:
+        assert gap > 0.05, gap       # the misaligned conv window shows
+    else:
+        assert gap < 1e-4, gap
+
+
+@pytest.mark.parametrize("L", [2, 5])
+def test_slot_assign_writes_ssm_states(L, mamba):
+    """``assign`` writes a prefill's ssm state whole and its conv state into
+    the leading ``min(L, K - 1)`` rows of the slot, and nothing else."""
+    _, _, cfg, tp = mamba
+    pool = SlotKVCache(cfg, slots=3, max_seq=16, device="cpu")
+    for c in pool.caches.values():
+        c.fill_(7.0)
+    _, tc = T.prefill(cfg, tp, {"tokens": torch.arange(1, L + 1)[None]})
+    slot = pool.alloc(0)
+    slot = pool.alloc(1)
+    pool.assign(slot, tc, L)
+    assert slot == 1 and sorted(pool.caches) == ["conv", "ssm"]
+    rows = min(L, cfg.ssm_conv - 1)
+    assert torch.equal(pool.caches["ssm"][:, 1], tc["ssm"][:, 0])
+    assert torch.equal(pool.caches["conv"][:, 1, :rows], tc["conv"][:, 0])
+    assert bool((pool.caches["conv"][:, 1, rows:] == 7.0).all())
+    for k in ("conv", "ssm"):
+        assert bool((pool.caches[k][:, [0, 2]] == 7.0).all())
+
+
+def test_slot_cache_defaults_to_the_card(qwen):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SlotKVCache(qwen[0], slots=2, max_seq=8)
 
 
 # --------------------------------------------------------------------------- #
@@ -124,7 +215,7 @@ def test_prefill_decode_matches_teacher_forced(qwen):
     assert int(lg[0].argmax()) == int(ref_logits[0, L0 - 1].argmax())
     np.testing.assert_allclose(lg[0].numpy(), ref_logits[0, L0 - 1].numpy(), atol=1e-4)
     # teacher-force the rest through the slot pool (slot 1 of 3, others idle)
-    pool = T.init_caches(cfg, 3, S, torch.float32)
+    pool = T.init_caches(cfg, 3, S, torch.float32, device="cpu")
     for k in pool:
         pool[k][:, 1, :bucket] = caches[k][:, 0]
     for step in range(L0, len(prompt)):
@@ -137,7 +228,7 @@ def test_prefill_decode_matches_teacher_forced(qwen):
 
 def test_slot_invariants_randomized(qwen):
     cfg, params = qwen
-    pool = SlotKVCache(cfg, slots=4, max_seq=16)
+    pool = SlotKVCache(cfg, slots=4, max_seq=16, device="cpu")
     rng = np.random.default_rng(0)
     live = {}
     next_rid = 0
@@ -241,6 +332,13 @@ def test_serve_cli_offline_on_cpu(capsys):
     assert out.count("req") == 3 and "decoded 12 tokens" in out
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 13"):
         serve_cli.main(["--device", "cpu", "--traffic", "poisson:10"])
+
+
+def test_serve_cli_ssm_offline_on_cpu(capsys):
+    serve_cli.main(["--device", "cpu", "--arch", "falcon-mamba-7b", "--reduce", "smoke",
+                    "--batch", "3", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert out.count("req") == 3 and "decoded 12 tokens" in out and "tok/s" in out
 
 
 def test_serving_imports_no_jax():

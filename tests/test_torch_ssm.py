@@ -1,0 +1,148 @@
+"""The port's mamba block (``repro_torch.models.ssm``) against the JAX package.
+
+The same parameters (``repro.models.ssm.init_mamba``, carried across with
+``repro_torch.convert``) and the same numpy inputs go through both
+packages' ``mamba_forward`` on each of its paths: the plain associative
+scan (a 64-aligned length and an odd one), the ``ssm_chunk`` scan over
+sequence chunks, and the kernel path (``use_pallas`` at d_model=128, S=128:
+the reference's Pallas kernel in interpret mode, the port's plain version
+of its CUDA kernel); then ``mamba_decode`` step by step.  Tolerance rtol =
+atol = 2e-4 (outputs reach ~1.2; the two frameworks round the matrix
+products in other orders, ~1e-7 relative when measured).  The associative
+scan itself keeps the reference's combination order, so it is held bitwise.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import ssm as JS
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import ssm as S
+from repro_torch.tree import tree_leaves
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+D_MODEL = 128
+
+
+def configs(**kw):
+    kw = dict(kw, d_model=D_MODEL)
+    return (jget_config("falcon-mamba-7b").reduced().with_(**kw),
+            get_config("falcon-mamba-7b").reduced().with_(**kw))
+
+
+@pytest.fixture(scope="module")
+def params():
+    jcfg, _ = configs()
+    jp = JS.init_mamba(jax.random.key(0), jcfg, jnp.float32)
+    return jp, params_from_numpy(jp, device="cpu")
+
+
+@pytest.mark.parametrize("path,seq,kw", [
+    ("plain", 128, {}),
+    ("plain-odd-length", 37, {}),
+    ("ssm_chunk", 128, {"ssm_chunk": 32}),
+    ("kernel", 128, {"use_pallas": True}),
+])
+def test_mamba_forward_matches_jax(path, seq, kw, params):
+    jcfg, cfg = configs(**kw)
+    jp, tp = params
+    x = np.random.default_rng(seq).standard_normal((2, seq, D_MODEL)).astype(np.float32)
+    want = JS.mamba_forward(jcfg, jp, jnp.asarray(x))
+    got = S.mamba_forward(cfg, tp, torch.from_numpy(x))
+    assert got.shape == (2, seq, D_MODEL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ssm_chunk_requires_whole_chunks(params):
+    _, cfg = configs(ssm_chunk=32)
+    with pytest.raises(ValueError, match="ssm_chunk"):
+        S.mamba_forward(cfg, params[1], torch.zeros(1, 48, D_MODEL))
+
+
+def test_mamba_decode_step_by_step_matches_jax(params):
+    """Eight single-token steps from the zero state, then the states."""
+    jcfg, cfg = configs()
+    jp, tp = params
+    jstate = JS.init_mamba_state(jcfg, 3, jnp.float32)
+    tstate = S.init_mamba_state(cfg, 3, torch.float32)
+    xs = np.random.default_rng(5).standard_normal((8, 3, 1, D_MODEL)).astype(np.float32)
+    for x in xs:
+        want, jstate = JS.mamba_decode(jcfg, jp, jnp.asarray(x), jstate)
+        got, tstate = S.mamba_decode(cfg, tp, torch.from_numpy(x), tstate)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for a, b in zip(tstate, jstate):
+        assert a.dtype == (torch.float32)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_decode_continues_the_forward_pass(params):
+    """The recurrence of ``mamba_decode``, fed one token at a time, gives
+    the full-sequence ``mamba_forward`` (the plain scan) row by row."""
+    _, cfg = configs()
+    tp = params[1]
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 12, D_MODEL))
+                         .astype(np.float32))
+    full = S.mamba_forward(cfg, tp, x)
+    state = S.init_mamba_state(cfg, 2, torch.float32)
+    for t in range(12):
+        out, state = S.mamba_decode(cfg, tp, x[:, t:t + 1], state)
+        np.testing.assert_allclose(out[:, 0].numpy(), full[:, t].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 64, 100])
+def test_assoc_scan_matches_jax_bitwise(n):
+    rng = np.random.default_rng(n)
+    a = np.exp(-rng.random((2, n, 8, 4))).astype(np.float32)
+    b = rng.standard_normal((2, n, 8, 4)).astype(np.float32)
+    h0 = rng.standard_normal((2, 8, 4)).astype(np.float32)
+    for init in (None, h0):
+        want = JS._assoc_scan(jnp.asarray(a), jnp.asarray(b),
+                              None if init is None else jnp.asarray(init))
+        got = S._assoc_scan(torch.from_numpy(a), torch.from_numpy(b),
+                            None if init is None else torch.from_numpy(init))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_activations_match_jax():
+    """softplus is logaddexp(x, 0) with no threshold; silu is x sigmoid(x)."""
+    x = np.linspace(-60, 60, 2401).astype(np.float32)
+    np.testing.assert_allclose(S.softplus(torch.from_numpy(x)).numpy(),
+                               np.asarray(jax.nn.softplus(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(S.silu(torch.from_numpy(x)).numpy(),
+                               np.asarray(jax.nn.silu(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+
+
+def test_causal_conv_and_ssm_inputs_match_jax(params):
+    jcfg, cfg = configs()
+    jp, tp = params
+    u = np.random.default_rng(7).standard_normal((2, 10, cfg.d_inner)).astype(np.float32)
+    np.testing.assert_allclose(S._causal_conv(tp, torch.from_numpy(u), cfg.ssm_conv).numpy(),
+                               np.asarray(JS._causal_conv(jp, jnp.asarray(u), jcfg.ssm_conv)),
+                               rtol=1e-6, atol=1e-6)
+    for got, want in zip(S._ssm_inputs(cfg, tp, torch.from_numpy(u)),
+                         JS._ssm_inputs(jcfg, jp, jnp.asarray(u))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_init_mamba_matches_jax_structure():
+    """The port's own init: the reference's keys, shapes and dtypes (bf16
+    matrices, float32 conv_b / dt_b / A_log / D), with the deterministic
+    leaves equal to the reference's (A_log to an ulp)."""
+    jcfg, cfg = configs()
+    jp = JS.init_mamba(jax.random.key(1), jcfg, jnp.bfloat16)
+    tp = S.init_mamba(torch.Generator().manual_seed(1), cfg, torch.bfloat16)
+    assert sorted(tp) == sorted(jp)
+    for k in jp:
+        assert tuple(tp[k].shape) == tuple(jp[k].shape), k
+        assert str(tp[k].dtype).endswith(str(jp[k].dtype)), k
+    for k in ("conv_b", "dt_b", "D"):
+        np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
+    # log(1..n): the two libraries' logf differ by an ulp at one n
+    np.testing.assert_allclose(tp["A_log"].numpy(), np.asarray(jp["A_log"]), rtol=1e-6, atol=0)
+    assert len(tree_leaves(tp)) == 9

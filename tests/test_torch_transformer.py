@@ -10,7 +10,11 @@ plain version, as on any CPU tensor).  Configs: ``qwen3-14b.reduced()``
 gives 4/4), ``gemma2-2b.reduced()`` with ``long_context`` (one window over
 every layer: the kernel path with window and softcap) and without (mixed
 windows: the plain path even with ``use_pallas``), ``starcoder2-3b.reduced()``
-(layernorm, gelu, GQA 4/2) and ``phi3-mini-3.8b.reduced()``.  All float32.
+(layernorm, gelu, GQA 4/2), ``phi3-mini-3.8b.reduced()`` and
+``falcon-mamba-7b.reduced()`` (mamba layers: with ``use_pallas`` an aligned
+length takes the selective-scan path, the reference's Pallas kernel in
+interpret mode and the port's plain version of its CUDA kernel; SSM prefills
+run at exact length and carry conv and ssm states).  All float32.
 
 Tolerance: logits and caches within rtol 1e-5 / atol 1e-5 of the
 reference's (logits reach 1.5 here).  The two frameworks sum the matrix
@@ -45,6 +49,7 @@ CASES = {
     "gemma2": ("gemma2-2b", {}),
     "starcoder2": ("starcoder2-3b", {}),
     "phi3": ("phi3-mini-3.8b", {}),
+    "falcon-mamba": ("falcon-mamba-7b", {}),
 }
 
 
@@ -107,7 +112,7 @@ def test_prefill_then_slot_decode_matches_jax(case, use_pallas, jparams):
         close(tc[k], jc[k])
 
     jpool = J.init_caches(jcfg, 3, max_seq, jnp.float32)
-    tpool = T.init_caches(cfg, 3, max_seq, torch.float32)
+    tpool = T.init_caches(cfg, 3, max_seq, torch.float32, device="cpu")
     for row, slot in ((0, 0), (1, 2)):
         jpool = jax.tree.map(
             lambda p, c: p.at[:, slot, :S].set(c[:, row]), jpool, jc)
@@ -127,15 +132,56 @@ def test_prefill_then_slot_decode_matches_jax(case, use_pallas, jparams):
         close(tpool[k], jpool[k])
 
 
-@pytest.mark.parametrize("case", ["gemma2-long", "qwen3-gqa"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("S", [64, 5])
+def test_ssm_prefill_then_slot_decode_matches_jax(S, use_pallas, jparams):
+    """falcon-mamba: an exact-length prefill of two prompts (logits at the
+    last token, conv and ssm states), its states placed in slots 0 and 2 of
+    a 3-slot pool (slot 1 inactive: its state is updated all the same, as in
+    the reference), then three decode steps.  S=64 with ``use_pallas`` runs
+    the scan through the kernel path."""
+    jcfg, cfg = configs("falcon-mamba", use_pallas)
+    jp, tp = jparams("falcon-mamba")
+    toks = tokens(cfg, 2, S, seed=8)
+    last = np.array([S - 1, S - 1], np.int32)
+    want, jc = J.prefill_at(jcfg, jp, {"tokens": jnp.asarray(toks)}, jnp.asarray(last))
+    got, tc = T.prefill_at(cfg, tp, {"tokens": torch.from_numpy(toks).long()},
+                           torch.from_numpy(last))
+    close(got, want)
+    assert sorted(tc) == sorted(jc) == ["conv", "ssm"]
+    assert tc["ssm"].dtype == torch.float32
+    assert tuple(tc["conv"].shape) == (cfg.n_layers, 2, cfg.ssm_conv - 1, cfg.d_inner)
+    for k in jc:
+        close(tc[k], jc[k])
+    jpool = J.init_caches(jcfg, 3, 80, jnp.float32)
+    tpool = T.init_caches(cfg, 3, 80, torch.float32, device="cpu")
+    for row, slot in ((0, 0), (1, 2)):
+        jpool = jax.tree.map(lambda p, c: p.at[:, slot].set(c[:, row]), jpool, jc)
+        for k in jc:
+            tpool[k][:, slot] = tc[k][:, row]
+    pos = np.array([S, -1, S], np.int32)
+    cur = np.array([5, 0, 7], np.int32)
+    for _ in range(3):
+        want, jpool = J.decode_step_slots(jcfg, jp, jnp.asarray(cur), jnp.asarray(pos), jpool)
+        got, tpool = T.decode_step_slots(cfg, tp, torch.from_numpy(cur).long(),
+                                         torch.from_numpy(pos), tpool)
+        close(got, want)
+        cur = np.asarray(want).argmax(-1).astype(np.int32)
+        pos = np.where(pos >= 0, pos + 1, -1).astype(np.int32)
+    for k in jc:
+        close(tpool[k], jpool[k])
+
+
+@pytest.mark.parametrize("case", ["gemma2-long", "qwen3-gqa", "falcon-mamba"])
 def test_scalar_position_decode_matches_jax(case, jparams):
     """``decode_step`` (one position for the whole batch): with a uniform
-    static window, which reads only the last W cache rows, and without."""
+    static window, which reads only the last W cache rows, and without; and
+    the SSM's recurrence from the zero state."""
     jcfg, cfg = configs(case, False)
     jp, tp = jparams(case)
     B, S = 2, 16
     jcache = J.init_caches(jcfg, B, S, jnp.float32)
-    tcache = T.init_caches(cfg, B, S, torch.float32)
+    tcache = T.init_caches(cfg, B, S, torch.float32, device="cpu")
     toks = tokens(cfg, B, 12, seed=2)
     for t in range(12):
         want, jcache = J.decode_step(jcfg, jp, jnp.asarray(toks[:, t]), jnp.int32(t), jcache)
@@ -189,12 +235,13 @@ def test_bf16_tree_carries_bit_for_bit():
     assert tp["layers"]["attn"]["q_norm"].dtype == torch.float32
 
 
-def test_port_init_shapes_dtypes_and_count():
+@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+def test_port_init_shapes_dtypes_and_count(arch):
     """The port's own init gives the reference's tree structure, shapes and
     dtypes, and ``param_count()`` counts its parameters."""
-    cfg = get_config("qwen3-14b").reduced().with_(dtype="bfloat16")
-    jcfg = jget_config("qwen3-14b").reduced().with_(dtype="bfloat16")
-    tp = T.init_model(torch.Generator().manual_seed(0), cfg)
+    cfg = get_config(arch).reduced().with_(dtype="bfloat16")
+    jcfg = jget_config(arch).reduced().with_(dtype="bfloat16")
+    tp = T.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
     jshapes = jax.eval_shape(lambda k: J.init_model(k, jcfg), jax.random.key(0))
     assert jax.tree.structure(jshapes) == jax.tree.structure(
         jax.tree.map(lambda t: 0, tp))
@@ -202,13 +249,26 @@ def test_port_init_shapes_dtypes_and_count():
         assert tuple(a.shape) == tuple(b.shape) and str(b.dtype).endswith(str(a.dtype))
     assert sum(t.numel() for t in tree_leaves(tp)) == cfg.param_count()
     # a seed gives the same parameters every time
-    again = T.init_model(torch.Generator().manual_seed(0), cfg)
+    again = T.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tp), tree_leaves(again)))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "falcon-mamba-7b",
-                                  "hymba-1.5b", "pixtral-12b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "hymba-1.5b", "pixtral-12b",
+                                  "hubert-xlarge"])
 def test_unported_architectures_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         T.init_model(0, cfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "falcon-mamba-7b"])
+def test_entry_points_default_to_the_card(arch):
+    """Without a device argument the model stack asks for the card, and
+    raises where there is none rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    cfg = get_config(arch).reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_model(0, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_caches(cfg, 2, 16, torch.float32)
