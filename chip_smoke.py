@@ -35,17 +35,22 @@ Phases (any failed check exits non-zero):
      against its round program, comm_bytes and CommLedger totals against
      the closed forms, the analytic meters, and port against port at
      hidden=64 (card against CPU); then a profile of the pallas ZO step;
-  9. flash attention: the CUDA kernel against its plain version at the
-     serving shapes (B=1, H=40, KV=8, hd=128, bf16, causal, S in {64, 512,
-     1024, 2048}) and the feature shapes (gemma2's hd=256 with window 4096
-     and softcap 50, phi3's hd=96, causal off, float32), with controls (the
-     KV head h % KV, the causal mask dropped); kernel, plain and
-     ``scaled_dot_product_attention`` times and the bound;
+  9. flash attention: both kernels against the plain version: the bf16
+     tensor-core kernel at the serving shapes (B=1, H=40, KV=8, hd=128,
+     causal, S in {64, 512, 1024, 2048}) and at every head width (gemma2's
+     hd=256 with window 4096 and softcap 50, phi3's hd=96, hd=64, hd=32 with
+     a window, causal off, tiles half past Sq, Sq != Sk), the float32 SIMT
+     kernel at three shapes; each launch counted under its variant; controls
+     (the KV head h % KV, the causal mask dropped, the probabilities rounded
+     to bf16 once instead of split); kernel, plain and
+     ``scaled_dot_product_attention`` times, TFLOP/s and the bound, bf16 at
+     every serving S and float32 at S=2048;
   10. serving qwen3-14b at full width and depth (random bf16 weights from a
      seeded generator on the card): 8 seeded prompts of 65-1000 tokens
      through ``Engine.generate`` at temperature 0, 8 slots, 32 new tokens,
      once through the kernel (use_pallas) and once through the plain path,
-     with launch counts, logits and greedy tokens held against each other,
+     with launch counts (every flash launch the bf16 tensor-core kernel's),
+     logits and greedy tokens held against each other,
      prefill and decode times, and profiles of one prefill and one decode
      step;
   11. the selective scan and RMSNorm: each CUDA kernel against its plain
@@ -978,25 +983,52 @@ def flash_bound(B, Sq, Sk, H, KV, hd, dtype_bytes, causal, window):
     return ((tb, "bytes") if tb >= to else (to, "operations")), n_bytes, ops_
 
 
+def unsplit_p_attention(torch, q, k, v):
+    """The bf16 kernel's arithmetic with the probabilities rounded to bf16
+    once, not split into two halves (causal, plain PyTorch on the card): the
+    control that shows the check guards the split."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q.float().reshape(B, Sq, KV, H // KV, hd),
+                     k.float()) * (1.0 / hd ** 0.5)
+    keep = (torch.arange(Sq, device=q.device)[:, None]
+            >= torch.arange(Sk, device=q.device)[None, :])
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), v.float()) / l
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
+    """Each variant of the kernel against the plain version (bf16 on the
+    tensor cores at every head width, float32 on the SIMT kernel), with
+    controls; then times beside the plain version, SDPA and the bound: bf16
+    at the serving shape for every S in ``serve_shapes``, float32 at the
+    largest."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     g = torch.Generator().manual_seed(11)
 
     def qkv(S, H_, KV_, hd_, dtype, B=1):
-        return [torch.randn(B, S, n, hd_, generator=g).to(dev, dtype) for n in (H_, KV_, KV_)]
+        Sq, Sk = S if isinstance(S, tuple) else (S, S)
+        return [torch.randn(B, n_s, n, hd_, generator=g).to(dev, dtype)
+                for n_s, n in ((Sq, H_), (Sk, KV_), (Sk, KV_))]
 
-    worst = 0.0
+    worst = {"wgmma": 0.0, "simt": 0.0}
 
     def compare(what, args, causal=True, window=None, softcap=None):
-        nonlocal worst
+        variant = fa.variant(args[0].dtype, args[0].shape[3])
+        before = dict(fa.LAUNCHES)
         got = fa.flash_attention(*args, causal, window, softcap)
+        check(fa.LAUNCHES[f"flash_attention_{variant}"] == before[f"flash_attention_{variant}"] + 1,
+              f"flash_attention {what}: the {variant} kernel was not launched")
         want = ref.ref_flash_attention(*args, causal, window, softcap)
         ok, err, tol = attn_agree(torch, got, want)
-        print(f"  flash_attention {what:52s} max_abs_err={err:.3e} ({tol})")
+        print(f"  flash_attention [{variant}] {what:52s} max_abs_err={err:.3e} ({tol})")
         check(ok, f"flash_attention {what}: kernel and plain version disagree ({err})")
-        worst = max(worst, err)
+        worst[variant] = max(worst[variant], err)
         return want
 
     def control(what, bad, want):
@@ -1014,20 +1046,32 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
             idx = torch.arange(H, device=dev) % KV
             control("KV head h % KV", ref.ref_flash_attention(q, k[:, :, idx], v[:, :, idx]), want)
             control("causal mask dropped", ref.ref_flash_attention(q, k, v, causal=False), want)
+        if S == serve_shapes[-1]:
+            control(f"probabilities rounded to bf16 once, not split (S={S})",
+                    unsplit_p_attention(torch, *inputs[S]), want)
     compare("gemma2 S=4608 H=8 KV=4 hd=256 bf16 window=4096 softcap=50",
             qkv(4608, 8, 4, 256, bf), window=4096, softcap=50.0)
     compare("phi3 S=512 H=32 KV=32 hd=96 bf16", qkv(512, 32, 32, 96, bf))
     compare("S=512 H=8 KV=2 hd=128 bf16 causal off", qkv(512, 8, 2, 128, bf), causal=False)
+    compare("S=256 H=8 KV=2 hd=64 bf16 B=2", qkv(256, 8, 2, 64, bf, B=2))
+    compare("S=256 H=4 KV=2 hd=32 bf16 window=8", qkv(256, 4, 2, 32, bf), window=8)
+    compare("S=576 H=8 KV=2 hd=128 bf16 (tile half past Sq)", qkv(576, 8, 2, 128, bf))
+    compare("S=64 H=4 KV=1 hd=256 bf16 (tile half past Sq)", qkv(64, 4, 1, 256, bf))
+    compare("Sq=128 Sk=512 H=8 KV=2 hd=128 bf16 causal", qkv((128, 512), 8, 2, 128, bf, B=2))
+    compare("Sq=128 Sk=512 H=8 KV=2 hd=128 bf16 causal off", qkv((128, 512), 8, 2, 128, bf, B=2),
+            causal=False)
+    compare("Sq=512 Sk=128 H=4 KV=4 hd=96 bf16 causal", qkv((512, 128), 4, 4, 96, bf))
     compare("S=512 H=8 KV=2 hd=64 float32", qkv(512, 8, 2, 64, torch.float32))
     compare("S=256 H=8 KV=2 hd=128 float32 window=100 softcap=30 B=2",
             qkv(256, 8, 2, 128, torch.float32, B=2), window=100, softcap=30.0)
+    compare("Sq=128 Sk=512 H=4 KV=2 hd=96 float32 causal", qkv((128, 512), 4, 2, 96, torch.float32))
     torch.cuda.synchronize()
+    print(f"  launches per variant in these checks: {fa.LAUNCHES}")
 
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    rows = []
-    for S in serve_shapes:
-        q, k, v = inputs[S]
+    def timed(S, args, dtype_bytes):
+        q, k, v = args
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         kern = lambda: fa.flash_attention(q, k, v)                      # noqa: E731
         plain = lambda: ref.ref_flash_attention(q, k, v)                # noqa: E731
@@ -1035,18 +1079,29 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
         lib_err = float((lib().transpose(1, 2).float() - plain().float()).abs().max())
         p1, k1, l1 = cuda_ms(torch, plain), cuda_ms(torch, kern), cuda_ms(torch, lib)
         l2, k2, p2 = cuda_ms(torch, lib), cuda_ms(torch, kern), cuda_ms(torch, plain)
-        (b, by), n_bytes, n_ops = flash_bound(1, S, S, H, KV, hd, 2, True, None)
-        row = {"S": S, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-               "library_ms": (l1 + l2) / 2, "bound_ms": b, "bound_by": by,
-               "bytes": n_bytes, "operations": n_ops}
-        rows.append(row)
-        print(f"  flash_attention S={S:5d}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} (scaled_dot_product_attention, "
-              f"max |diff| to plain {lib_err:.3e}) bound_ms={b:.5f} ({by}; bytes "
-              f"{n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, operations {n_ops:.3e} at 989 T/s "
-              f"{n_ops / BF16_OPS_PER_S * 1e3:.5f}); kernel at "
-              f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s")
-    return {"max_abs_err": worst, "rows": rows}
+        (b, by), n_bytes, n_ops = flash_bound(1, S, S, H, KV, hd, dtype_bytes, True, None)
+        row = {"S": S, "variant": fa.variant(q.dtype, hd), "ms": (k1 + k2) / 2,
+               "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2, "bound_ms": b,
+               "bound_by": by, "bytes": n_bytes, "operations": n_ops}
+        rate = BF16_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+        issued = f"; {1.5 * n_ops / row['ms'] / 1e9:.1f} TFLOP/s issued (6 hd per pair: P split)" \
+            if dtype_bytes == 2 else ""
+        print(f"  flash_attention [{row['variant']}] S={S:5d} {'bf16' if dtype_bytes == 2 else 'float32'}:"
+              f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
+              f"{row['library_ms']:.4f} (scaled_dot_product_attention, max |diff| to plain "
+              f"{lib_err:.3e}) bound_ms={b:.5f} ({by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, "
+              f"operations {n_ops:.3e} at {rate / 1e12:.0f} T/s {n_ops / rate * 1e3:.5f}); kernel at "
+              f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s of the bound's work{issued}, SDPA at "
+              f"{n_ops / row['library_ms'] / 1e9:.1f}; kernel / SDPA "
+              f"{row['ms'] / row['library_ms']:.2f}")
+        return row
+
+    print(f"  times on {smi_line()}:")
+    rows = [timed(S, inputs[S], 2) for S in serve_shapes]
+    S = serve_shapes[-1]
+    simt = timed(S, [t.float() for t in inputs[S]], 4)
+    return {"max_abs_err": worst["wgmma"], "simt_max_abs_err": worst["simt"], "rows": rows,
+            "simt": simt}
 
 
 # --------------------------------------------------------------------------- #
@@ -1166,6 +1221,11 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
     check(fast["launches"][kernel] == want_launches == n_prefill * cfg.n_layers,
           f"{kernel} launches != admitted prefills x layers")
     check(plain["launches"][kernel] == 0, "the plain run launched the kernel")
+    if kernel == "flash_attention":
+        per_variant = {k: n for k, n in fast["launches"].items() if k.startswith("flash_attention_")}
+        print(f"  flash launches by variant: {per_variant}")
+        check(fast["launches"]["flash_attention_wgmma"] == fast["launches"][kernel],
+              "not every serving flash launch ran the bf16 tensor-core kernel")
 
     # last-prompt-token logits of the two runs
     top = max(float(lg.abs().max()) for _, _, lg, _ in plain["prefill"])
@@ -1394,7 +1454,8 @@ def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "fl
 
     worst = 0.0
     for R, D, dt_ in shapes + ((3, 8192, "float32"), (5, 1, "bfloat16"), (7, 333, "bfloat16"),
-                               (1, 8192, "bfloat16"), (2, 4097, "float32")):
+                               (1, 8192, "bfloat16"), (2, 4097, "float32"), (9, 1004, "bfloat16"),
+                               (8192, 128, "bfloat16"), (4, 8192, "float32")):
         x, s = inputs(R, D, dt_)
         got, want = rn.rmsnorm(x, s, 1e-6), ref.ref_rmsnorm(x, s, 1e-6)
         ok, err, tol = max_agree(torch, got, want)
@@ -1429,7 +1490,9 @@ def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "fl
         rows.append(row)
         print(f"  rmsnorm {row['shape']}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} (F.rms_norm in float32, max |diff| to "
-              f"plain {lib_err:.3e}) bound_ms={b:.5f} ({by}; {n_bytes:,} bytes)")
+              f"plain {lib_err:.3e}) bound_ms={b:.5f} ({by}; {n_bytes:,} bytes); kernel / "
+              f"F.rms_norm {row['ms'] / row['library_ms']:.3f}, kernel / bound "
+              f"{row['ms'] / b:.3f}")
 
     # the path: the public wrapper on a (batch, seq, D) tensor and on each timed shape
     xs = [inputs(R, D, dt_) for R, D, dt_ in shapes]
@@ -1606,15 +1669,22 @@ def main() -> None:
         })
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
+    simt = flash["simt"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_REPLACES, "launches": serve["launches"]["flash_attention"],
+        "variant": head["variant"],
+        "variant_launches": {k: serve["launches"][f"flash_attention_{k}"] for k in ("wgmma", "simt")},
         "max_abs_err": flash["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "path": "serve qwen3-14b prefill",
         "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for r in flash["rows"]],
+        "float32": {"variant": simt["variant"], "shape": "B=1 S=2048 H=40 KV=8 hd=128 float32 "
+                    "causal", "max_abs_err": flash["simt_max_abs_err"],
+                    **{k: simt[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")}},
     })
     check(mamba["launches"]["selective_scan"] > 0, "selective_scan was not launched")
     head = scan["rows"][-1]                   # falcon-mamba-7b's width at S=1024

@@ -8,7 +8,7 @@ stream and returns ``cudaGetLastError()``; ``launch`` raises when that is not
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -32,12 +32,15 @@ def library(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib: ctypes.CDLL, counts: Dict[str, int], counter: str, entry: str,
-           *args) -> None:
+def launch(lib: ctypes.CDLL, counts: Dict[str, int], counter: Union[str, Tuple[str, ...]],
+           entry: str, *args) -> None:
+    """Call ``entry``; on success add one to ``counts[counter]`` (to each
+    name, when ``counter`` is a tuple)."""
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")
-    counts[counter] += 1
+    for name in (counter,) if isinstance(counter, str) else counter:
+        counts[name] += 1
 
 
 def check(t, what: str, dtype: torch.dtype, device: torch.device, shape=None) -> int:

@@ -6,7 +6,13 @@ the model's layout: q ``(B, Sq, H, hd)``, k and v ``(B, Sk, KV, hd)``, output
 only: it checks them (``check_inputs``), allocates the output, launches on
 PyTorch's current stream and raises if the launch was refused.  The plain
 version is ``kernels.ref.ref_flash_attention``; ``kernels.ops`` picks between
-the two by the tensors' device.  ``LAUNCHES`` counts launches, here only.
+the two by the tensors' device.
+
+Two kernels, picked by ``variant(dtype, hd)`` with no fallback: bf16 inputs
+run ``"wgmma"`` (the tensor cores, P split into two bf16 halves), float32
+inputs ``"simt"`` (the float32 pipes).  ``LAUNCHES`` counts launches, here
+only: the total under ``"flash_attention"`` and each variant's under
+``"flash_attention_<variant>"``.
 """
 from __future__ import annotations
 
@@ -17,14 +23,27 @@ import torch
 
 from repro_torch.kernels.binding import check, cuda_device, launch, library, stream
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_simt": 0}
 TILE = 64                            # query and key rows per tile of the kernel
 HEAD_DIMS = (32, 64, 96, 128, 256)   # the dense configs' widths (and reduced())
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                          _I, _I, _I, _F, _F, _I, _P]}
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
+_SIGNATURES = {"flash_attention_wgmma_launch": _ARGS, "flash_attention_simt_launch": _ARGS}
+
+
+def variant(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel takes inputs of ``dtype`` and head width ``hd``: bf16 the
+    tensor-core kernel at every width of ``HEAD_DIMS``, float32 the SIMT one
+    (the tensor cores cannot reproduce float32 products)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"dtype {dtype}, expected one of {DTYPES}")
 
 
 def check_inputs(q, k, v, window: Optional[int], softcap: Optional[float]) -> None:
@@ -59,7 +78,7 @@ def check_inputs(q, k, v, window: Optional[int], softcap: Optional[float]) -> No
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """``softmax(mask(softcap(q k^T / sqrt(hd)))) v`` per query head, reading
-    KV head ``h // (H // KV)``; one launch."""
+    KV head ``h // (H // KV)``; one launch of ``variant(q.dtype, hd)``."""
     dev = cuda_device(q)
     check_inputs(q, k, v, window, softcap)
     B, Sq, H, hd = q.shape
@@ -70,9 +89,10 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     out = torch.empty_like(q)
     # the Pallas kernel's scale: the float32 of 1/sqrt(hd)
     scale = 1.0 / hd ** 0.5
-    launch(library("flash_attention", _SIGNATURES), LAUNCHES, "flash_attention",
-           "flash_attention_launch", *ptrs, out.data_ptr(), B, Sq, Sk, H, KV, hd,
-           int(q.dtype == torch.bfloat16), int(bool(causal)),
+    name = variant(q.dtype, hd)
+    launch(library("flash_attention", _SIGNATURES), LAUNCHES,
+           ("flash_attention", f"flash_attention_{name}"), f"flash_attention_{name}_launch",
+           *ptrs, out.data_ptr(), B, Sq, Sk, H, KV, hd, int(bool(causal)),
            -1 if window is None else min(int(window), 2 ** 31 - 1),
            0.0 if softcap is None else float(softcap), scale, dev.index, stream(dev))
     return out

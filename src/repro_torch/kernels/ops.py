@@ -111,8 +111,10 @@ def zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32"):
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """GQA attention in the model's layout: q ``(B, Sq, H, hd)``, k and v
-    ``(B, Sk, KV, hd)`` -> ``(B, Sq, H, hd)``.  The reference's ``block_q`` /
-    ``block_k`` have no counterpart: the CUDA kernel's tiles are its own."""
+    ``(B, Sk, KV, hd)`` -> ``(B, Sq, H, hd)``.  On the card bf16 runs the
+    tensor-core kernel and float32 the SIMT one (``flash_attention.variant``).
+    The reference's ``block_q`` / ``block_k`` have no counterpart: the CUDA
+    kernels' tiles are their own."""
     if _on_cpu(q, "flash_attention"):
         return ref.ref_flash_attention(q, k, v, causal, window, softcap)
     return _fa.flash_attention(q, k, v, causal, window, softcap)
@@ -130,8 +132,8 @@ def selective_scan(u, dt, Bmat, Cmat, A, D) -> torch.Tensor:
 
 def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis, any leading shape; the reference's
-    ``block_rows`` has no counterpart (the CUDA kernel takes a row per
-    block)."""
+    ``block_rows`` has no counterpart (the CUDA kernel picks its own rows
+    per block)."""
     if _on_cpu(x, "rmsnorm"):
         return ref.ref_rmsnorm(x, scale, eps)
     flat = x.reshape(-1, x.shape[-1])

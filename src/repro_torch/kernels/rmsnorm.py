@@ -7,7 +7,7 @@ allocates the output, launches on PyTorch's current stream and raises if the
 launch was refused.  The plain version is ``kernels.ref.ref_rmsnorm``;
 ``kernels.ops`` picks between the two by the tensors' device.  ``LAUNCHES``
 counts launches, here only.  The reference's ``block_rows`` has no
-counterpart: the kernel takes one row per block.
+counterpart: the kernel picks its own rows per block from D.
 """
 from __future__ import annotations
 

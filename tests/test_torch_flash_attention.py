@@ -16,6 +16,13 @@ keeps only float32's absolute accuracy; measured: 1.1e-8 apart).
 
 The CUDA wrapper's input checks run on CPU tensors too: what the kernel
 cannot take raises, and a CPU tensor never reaches the kernel.
+
+The bf16 kernel's rounding (products on the tensor cores, exp in base 2,
+probabilities split into two bf16 halves) is emulated in plain PyTorch and
+held to the plain version by the same one-bf16-ulp rule; the emulation with
+probabilities rounded to bf16 once fails it (~10% of the elements at these
+shapes), which shows that the rule guards the split.  ``variant`` sends bf16
+to the tensor-core kernel and float32 to the SIMT one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +33,7 @@ from repro.configs import get_config as jget_config
 from repro.kernels import ops as jops
 from repro.models import attention as JA
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 # the test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -127,3 +134,92 @@ def test_window_and_softcap_must_be_positive():
     with pytest.raises(ValueError, match="softcap"):
         fa.check_inputs(q, k, v, None, 0.0)
     fa.check_inputs(q, k, v, 8, 50.0)
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 tensor-core kernel's rounding, emulated
+# --------------------------------------------------------------------------- #
+def _emulate_tensor_core_kernel(q, k, v, causal=True, window=None, softcap=None, split=True):
+    """What the bf16 kernel rounds, in plain float32 PyTorch (a test aid, on
+    no path of the port): the bf16 products q.k summed in float32 and scaled
+    after (by the float32 of 1/sqrt(hd) times log2(e)), softcap and mask, p
+    = 2^(s - m) in float32 with l summed from the unrounded p, and p
+    multiplied by v as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi),
+    summed in float32; ``split=False`` multiplies by bf16(p) alone."""
+    B_, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    log2e = np.float32(1.4426950408889634)
+    scale = float(np.float32(np.float32(1.0 / hd ** 0.5) * log2e))
+    qg = q.float().reshape(B_, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+    if softcap is not None:
+        c = float(np.float32(softcap) * log2e)
+        s = c * torch.tanh(s / c)
+    rel = torch.arange(Sq)[:, None] - torch.arange(Sk)[None, :]
+    mask = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
+    o = sum(torch.einsum("bgrqk,bkgd->bgrqd", x, v.float()) for x in parts) / l
+    return o.permute(0, 3, 1, 2, 4).reshape(B_, Sq, H, hd).to(torch.bfloat16)
+
+
+def _bf16_inputs(S, H, KV, hd, seed):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in inputs(S, H, KV, hd, seed)]
+
+
+def _out_of_tolerance(got, want):
+    """Share of elements more than one bf16 ulp (floor 1e-3 of the largest)
+    from the plain version: ``assert_match``'s rule, which the card's check
+    (``attn_agree`` in chip_smoke.py) also applies."""
+    got, want = got.float().numpy(), want.float().numpy()
+    mag = np.maximum(np.abs(want), 1e-3 * np.abs(want).max())
+    _, e = np.frexp(mag)
+    return float(np.mean(np.abs(got - want) > np.ldexp(1.0, e - 8)))
+
+
+@pytest.mark.parametrize("S,hd,window,softcap", [
+    (256, 128, None, None), (256, 64, None, None), (128, 256, None, None),
+    (256, 128, 100, None), (192, 64, None, 50.0), (128, 256, 64, 50.0),
+])
+def test_split_probabilities_meet_the_bf16_check(S, hd, window, softcap):
+    """P split into two bf16 halves keeps the kernel within one bf16 ulp of
+    the plain version: the design's premise, held at small shapes."""
+    q, k, v = _bf16_inputs(S, 4, 2, hd, seed=3)
+    want = ref.ref_flash_attention(q, k, v, True, window, softcap)
+    got = _emulate_tensor_core_kernel(q, k, v, True, window, softcap)
+    assert_match(got.float().numpy(), want.float().numpy(), "bfloat16")
+
+
+@pytest.mark.parametrize("S,hd", [(256, 128), (256, 64), (128, 256)])
+def test_unsplit_bf16_probabilities_fail_the_check(S, hd):
+    """Control: P rounded to bf16 once puts many elements outside one bf16
+    ulp (~10% at these shapes), so the check guards the split."""
+    q, k, v = _bf16_inputs(S, 4, 4, hd, seed=4)
+    want = ref.ref_flash_attention(q, k, v)
+    assert _out_of_tolerance(_emulate_tensor_core_kernel(q, k, v), want) == 0.0
+    assert _out_of_tolerance(_emulate_tensor_core_kernel(q, k, v, split=False), want) > 0.02
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_variant_follows_dtype(hd):
+    assert fa.variant(torch.bfloat16, hd) == "wgmma"
+    assert fa.variant(torch.float32, hd) == "simt"
+
+
+def test_variant_rejects_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="dtype"):
+        fa.variant(torch.float16, 128)
+    with pytest.raises(ValueError, match="head width"):
+        fa.variant(torch.bfloat16, 48)
+
+
+def test_launch_counters_name_every_variant():
+    assert set(fa.LAUNCHES) == {"flash_attention"} | {
+        f"flash_attention_{fa.variant(dt, 128)}" for dt in fa.DTYPES}

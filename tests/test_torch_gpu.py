@@ -187,17 +187,27 @@ def _attn_close(got, want):
     (128, 4, 4, 96, True, None, None),     # phi3's head width
     (64, 4, 1, 64, False, None, None),
     (128, 4, 2, 32, True, 8, None),        # reduced() configs
+    (64, 8, 2, 128, True, None, None),     # a 128-row tile half past Sq
+    (576, 4, 2, 128, True, None, None),    # the last tile half past Sq
+    ((128, 512), 4, 2, 128, True, None, None),    # Sq != Sk
+    ((128, 512), 4, 2, 64, False, None, None),
 ])
 def test_flash_attention_kernel_matches_plain_version(S, H, KV, hd, causal, window,
                                                        softcap, dtype):
     from repro_torch.kernels import flash_attention as fa
 
     dev = _cuda()
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(2, S, n, hd, generator=g).to(dev, dtype) for n in (H, KV, KV))
-    before = fa.LAUNCHES["flash_attention"]
+    q = torch.randn(2, Sq, H, hd, generator=g).to(dev, dtype)
+    k, v = (torch.randn(2, Sk, KV, hd, generator=g).to(dev, dtype) for _ in range(2))
+    name = f"flash_attention_{fa.variant(dtype, hd)}"
+    before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, causal, window, softcap)
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    launched = {c: n - before[c] for c, n in fa.LAUNCHES.items() if n != before[c]}
+    assert launched == {"flash_attention": 1, name: 1}
+    assert name == ("flash_attention_wgmma" if dtype == torch.bfloat16 else
+                    "flash_attention_simt")
     want = ref.ref_flash_attention(q, k, v, causal, window, softcap)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -324,6 +334,8 @@ def test_selective_scan_kernel_matches_plain_version(B, S, di, n, dtype):
 @pytest.mark.parametrize("R,D,dtype", [
     (1024, 4096, torch.bfloat16), (1000, 5120, torch.float32),
     (3, 8192, torch.float32), (5, 1, torch.bfloat16), (7, 333, torch.float32),
+    (7, 333, torch.bfloat16), (9, 1004, torch.bfloat16),   # D not a multiple of 8
+    (8192, 128, torch.bfloat16),           # many rows: several rows per block step
 ])
 def test_rmsnorm_kernel_matches_plain_version(R, D, dtype):
     from repro_torch.kernels import rmsnorm as rn
