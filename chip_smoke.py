@@ -6,7 +6,9 @@
 Phases (any failed check exits non-zero):
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: nvcc compiles the kernels from ``src/repro_torch/kernels/csrc``,
-     and cuobjdump's SASS gives the instructions of one Gaussian;
+     and cuobjdump's SASS gives the instructions of one Gaussian, of one
+     expf, and the scan kernel's own instructions per (t, d, s) in its step
+     loop (each n = 16 variant) beside the bound's count;
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at the Fig. 2 packed shape (437 blocks of 4096, m=4) and a ragged layout
      (leaves of 1, 7, 4095, 4097 and 70200 values, one bf16), over
@@ -40,7 +42,8 @@ Phases (any failed check exits non-zero):
      causal, S in {64, 512, 1024, 2048}) and at every head width (gemma2's
      hd=256 with window 4096 and softcap 50, phi3's hd=96, hd=64, hd=32 with
      a window, causal off, tiles half past Sq, Sq != Sk), the float32 SIMT
-     kernel at three shapes; each launch counted under its variant; controls
+     kernel at three shapes; hubert-xlarge's head width 80 (causal and not)
+     and B * H = 70,400 on both kernels; each launch counted under its variant; controls
      (the KV head h % KV, the causal mask dropped, the probabilities rounded
      to bf16 once instead of split); kernel, plain and
      ``scaled_dot_product_attention`` times, TFLOP/s and the bound, bf16 at
@@ -53,20 +56,27 @@ Phases (any failed check exits non-zero):
      logits and greedy tokens held against each other,
      prefill and decode times, and profiles of one prefill and one decode
      step;
-  11. the selective scan and RMSNorm: each CUDA kernel against its plain
-     version (the scan at falcon-mamba-7b's width, B=1, di=8192, n=16, S in
-     {64, 256, 1024}, bf16, ragged di and S, every n template; RMSNorm at
-     (1024, 4096) bf16, (1000, 5120) float32 and ragged rows), with controls
-     (the scan's state reset at every tile, D*u dropped, C_t read a step
-     late; RMSNorm without (1 + scale), or over all rows); kernel, plain and
-     (for RMSNorm) ``F.rms_norm`` times and the bound, the scan's expf
-     counted from its SASS; RMSNorm's path, ``ops.rmsnorm``, with launches;
+  11. the selective scan, RMSNorm and flash attention at hd=80: each CUDA
+     kernel against its plain version (the scan's y and final state at
+     falcon-mamba-7b's width, B=1, di=8192, n=16, S in {64, 256, 1024},
+     bf16, ragged di and S, every n template, n = 96 and 128 in groups, B =
+     70,000; RMSNorm at (1024, 4096) bf16, (1000, 5120) float32, (1024,
+     12288) bf16, ragged rows and rows past 8192), with controls (the scan's
+     state reset at every tile, D*u dropped, C_t read a step late, the final
+     state one step early; RMSNorm without (1 + scale), or over all rows);
+     the scan's n = 16 variants (2, 4, 8 lanes per channel) timed in turns
+     at every S; kernel, plain and (for RMSNorm) ``F.rms_norm`` times and
+     the bound, the scan's expf counted from its SASS; RMSNorm's path,
+     ``ops.rmsnorm``, with launches; flash attention at hubert-xlarge's
+     widths (B=1, S=1024, H=16, hd=80, no causal mask, bf16) beside SDPA;
   12. serving falcon-mamba-7b at full width and depth (7,006,588,928 random
      bf16 parameters, after qwen3-14b's are freed): 8 seeded prompts whose
      lengths are multiples of 64 in [64, 1024], exact-length prefills, as
      in phase 10 through the scan kernel and through the plain path;
-  13. profiles of one 1024-token falcon-mamba prefill (the scan kernel's and
-     the plain tail-state scan's shares) and one decode step over 8 slots.
+  13. profiles of one 1024-token falcon-mamba prefill on each path (the
+     scan kernel's share; the plain tail-state scan's calls, 0 through the
+     kernel, which gives the state, and one per layer on the plain path;
+     device time and peak memory of each) and one decode step over 8 slots.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it.
 """
@@ -105,7 +115,6 @@ SERVE_SHAPES = (64, 512, 1024, 2048)     # prefill lengths timed at the serving 
 SCAN_SRC = "src/repro_torch/kernels/csrc/selective_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/selective_scan.py:72"
 SCAN_SHAPES = (64, 256, 1024)            # prefill lengths timed at falcon-mamba-7b's width
-SCAN_TILE = 32                           # time steps per tile of the scan kernel (kTT)
 RMSNORM_SRC = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 RMSNORM_REPLACES = "src/repro/kernels/rmsnorm.py:28"
 # what each serving kernel's output is, for the tolerance note
@@ -256,6 +265,65 @@ def gauss_instructions(lib: Path) -> int:
     """Instructions of one IEEE Gaussian (probes ``zo_probe_gauss`` and
     ``zo_probe_base``)."""
     return probe_instructions(lib, "zo_probe_gauss", "zo_probe_base", "one Gaussian", 10)
+
+
+def scan_loop_instructions(lib: Path, lanes: int, states: int, exp_instr: int, n: int) -> dict:
+    """The scan kernel's own SASS per (t, d, s), for the float32 template
+    with ``lanes`` lanes per channel and ``states`` states per lane.
+
+    How it is counted: the step loop is the innermost backward branch of the
+    kernel whose body holds MUFU.EX2 (the special-function instruction of
+    each expf); every instruction of the body (predicated ones too: they take
+    an issue slot) is divided by the body's MUFU.EX2, one per (t, d, s) a
+    lane runs.  The tile loop around it (staging, the barrier, the write-back
+    of y) is the innermost backward branch that holds the step loop; its
+    other instructions are spread over the tile's kTT * states triples a
+    lane runs, kTT (time steps per tile) read from the template's name.  The
+    bound counts exp_instr + 6 per triple and 2 per (t, d)."""
+    from repro_torch.kernels.build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    key = re.compile(rf"selective_scan_kernelIfLi{lanes}ELi{states}ELi(\d+)ELb0E")
+    funcs = sass_functions(out.stdout)
+    names = [(f, m) for f in funcs for m in [key.search(f)] if m]
+    check(len(names) == 1, f"the scan template {key.pattern} is not in the SASS once "
+          f"({[f for f, _ in names]})")
+    kTT = int(names[0][1].group(1))
+    instrs = funcs[names[0][0]]
+    index = {addr: k for k, (addr, *_) in enumerate(instrs)}
+    loops = []                              # (first, last) index of each backward branch
+    for k, (addr, _, op, args) in enumerate(instrs):
+        hexes = re.findall(r"0x[0-9a-f]+", args)
+        if op.startswith("BRA") and hexes and int(hexes[-1], 16) < addr:
+            loops.append((index[int(hexes[-1], 16)], k))
+
+    def count(lo, hi):
+        body = [op for _, _, op, _ in instrs[lo:hi + 1] if not op.startswith("NOP")]
+        return len(body), sum(op.startswith("MUFU.EX2") for op in body)
+
+    steps = [(hi - lo, lo, hi) for lo, hi in loops if count(lo, hi)[1] > 0]
+    check(bool(steps), "no loop with an expf in the scan kernel's SASS")
+    _, lo, hi = min(steps)
+    n_in, ex_in = count(lo, hi)
+    tiles = [(h2 - l2, l2, h2) for l2, h2 in loops if l2 <= lo and h2 >= hi and (l2, h2) != (lo, hi)]
+    per_step = n_in / ex_in
+    with_tile = None
+    if tiles:
+        _, l2, h2 = min(tiles)
+        trips = kTT * states / ex_in
+        with_tile = ((count(l2, h2)[0] - n_in) + n_in * trips) / (kTT * states)
+    bound = exp_instr + 6 + 2 / n
+    tile_text = (f"{with_tile:.3f} with the tile loop's staging, barrier and write-back"
+                 if with_tile is not None else "the step loop is the tile loop")
+    print(f"# scan kernel SASS (float32, {lanes} lanes x {states} states): step loop "
+          f"{n_in} instructions for {ex_in} expf = {per_step:.3f} per (t, d, s); "
+          f"{tile_text}; the bound counts {exp_instr} + 6 + 2/{n} = {bound:.3f} "
+          f"(ratio {per_step / bound:.3f})")
+    return {"lanes": lanes, "states": states, "tile_steps": kTT, "step_loop": n_in, "expf": ex_in,
+            "per_triple": per_step, "per_triple_with_tile": with_tile, "bound_per_triple": bound}
 
 
 # --------------------------------------------------------------------------- #
@@ -1000,6 +1068,72 @@ def unsplit_p_attention(torch, q, k, v):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def time_flash(torch, q, k, v, causal=True):
+    """Kernel, plain and SDPA times (in turns) of one attention call on the
+    card, with the bound and the rates, printed; the row for the JSON."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    dtype_bytes = q.element_size()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kern = lambda: fa.flash_attention(q, k, v, causal)                      # noqa: E731
+    plain = lambda: ref.ref_flash_attention(q, k, v, causal)                # noqa: E731
+    lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)       # noqa: E731
+    lib_err = float((lib().transpose(1, 2).float() - plain().float()).abs().max())
+    p1, k1, l1 = cuda_ms(torch, plain), cuda_ms(torch, kern), cuda_ms(torch, lib)
+    l2, k2, p2 = cuda_ms(torch, lib), cuda_ms(torch, kern), cuda_ms(torch, plain)
+    (b, by), n_bytes, n_ops = flash_bound(B, S, S, H, KV, hd, dtype_bytes, causal, None)
+    row = {"S": S, "H": H, "KV": KV, "hd": hd, "causal": causal,
+           "variant": fa.variant(q.dtype, hd), "ms": (k1 + k2) / 2,
+           "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2, "bound_ms": b,
+           "bound_by": by, "bytes": n_bytes, "operations": n_ops}
+    rate = BF16_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
+    issued = f"; {1.5 * n_ops / row['ms'] / 1e9:.1f} TFLOP/s issued (6 hd per pair: P split)" \
+        if dtype_bytes == 2 else ""
+    print(f"  flash_attention [{row['variant']}] S={S:5d} H={H} KV={KV} hd={hd} "
+          f"{'bf16' if dtype_bytes == 2 else 'float32'}{'' if causal else ' causal off'}:"
+          f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
+          f"{row['library_ms']:.4f} (scaled_dot_product_attention, max |diff| to plain "
+          f"{lib_err:.3e}) bound_ms={b:.5f} ({by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, "
+          f"operations {n_ops:.3e} at {rate / 1e12:.0f} T/s {n_ops / rate * 1e3:.5f}); kernel at "
+          f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s of the bound's work{issued}, SDPA at "
+          f"{n_ops / row['library_ms'] / 1e9:.1f}; kernel / SDPA "
+          f"{row['ms'] / row['library_ms']:.2f}")
+    return row
+
+
+def hubert_flash_phase(torch, dev, S=1024, H=16, hd=80):
+    """Flash attention at hubert-xlarge's widths (head_dim 80, 16 heads, no
+    causal mask, B=1), held against the plain version and timed beside SDPA
+    and the bound: bf16 on the tensor-core kernel, then float32 on the SIMT
+    one.  No served model runs this width yet: the serve runs count its
+    launches (``flash_attention_hd80``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(1, S, H, hd, generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    got, want = fa.flash_attention(q, k, v, False), ref.ref_flash_attention(q, k, v, False)
+    ok, err, tol = attn_agree(torch, got, want)
+    print(f"  flash_attention [{fa.variant(q.dtype, hd)}] B=1 S={S} H={H} KV={H} hd={hd} bf16 "
+          f"causal off max_abs_err={err:.3e} ({tol})")
+    check(ok, f"flash_attention at hd={hd}: kernel and plain version disagree ({err})")
+    row = time_flash(torch, q, k, v, causal=False)
+    row["max_abs_err"] = err
+    q, k, v = (t.float() for t in (q, k, v))
+    ok, err, tol = attn_agree(torch, fa.flash_attention(q, k, v, False),
+                              ref.ref_flash_attention(q, k, v, False))
+    print(f"  flash_attention [{fa.variant(q.dtype, hd)}] B=1 S={S} H={H} KV={H} hd={hd} "
+          f"float32 causal off max_abs_err={err:.3e} ({tol})")
+    check(ok, f"flash_attention at hd={hd} float32: kernel and plain version disagree ({err})")
+    row["float32"] = dict(time_flash(torch, q, k, v, causal=False), max_abs_err=err)
+    return row
+
+
 def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
     """Each variant of the kernel against the plain version (bf16 on the
     tensor cores at every head width, float32 on the SIMT kernel), with
@@ -1022,8 +1156,10 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
         variant = fa.variant(args[0].dtype, args[0].shape[3])
         before = dict(fa.LAUNCHES)
         got = fa.flash_attention(*args, causal, window, softcap)
-        check(fa.LAUNCHES[f"flash_attention_{variant}"] == before[f"flash_attention_{variant}"] + 1,
-              f"flash_attention {what}: the {variant} kernel was not launched")
+        launched = {c: n - before[c] for c, n in fa.LAUNCHES.items() if n != before[c]}
+        check(launched == {"flash_attention": 1, f"flash_attention_{variant}": 1,
+                           f"flash_attention_hd{args[0].shape[3]}": 1},
+              f"flash_attention {what}: not one launch of the {variant} kernel ({launched})")
         want = ref.ref_flash_attention(*args, causal, window, softcap)
         ok, err, tol = attn_agree(torch, got, want)
         print(f"  flash_attention [{variant}] {what:52s} max_abs_err={err:.3e} ({tol})")
@@ -1065,41 +1201,19 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
     compare("S=256 H=8 KV=2 hd=128 float32 window=100 softcap=30 B=2",
             qkv(256, 8, 2, 128, torch.float32, B=2), window=100, softcap=30.0)
     compare("Sq=128 Sk=512 H=4 KV=2 hd=96 float32 causal", qkv((128, 512), 4, 2, 96, torch.float32))
+    for dt_ in (bf, torch.float32):      # hubert-xlarge's head width, both variants
+        name = "bf16" if dt_ == bf else "float32"
+        compare(f"S=512 H=16 KV=16 hd=80 {name} causal off", qkv(512, 16, 16, 80, dt_),
+                causal=False)
+        compare(f"S=192 H=8 KV=2 hd=80 {name} causal", qkv(192, 8, 2, 80, dt_))
+        compare(f"B=1100 S=64 H=64 KV=8 hd=32 {name} (B*H = 70400 > 65535)",
+                qkv(64, 64, 8, 32, dt_, B=1100))
     torch.cuda.synchronize()
     print(f"  launches per variant in these checks: {fa.LAUNCHES}")
 
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    def timed(S, args, dtype_bytes):
-        q, k, v = args
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kern = lambda: fa.flash_attention(q, k, v)                      # noqa: E731
-        plain = lambda: ref.ref_flash_attention(q, k, v)                # noqa: E731
-        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
-        lib_err = float((lib().transpose(1, 2).float() - plain().float()).abs().max())
-        p1, k1, l1 = cuda_ms(torch, plain), cuda_ms(torch, kern), cuda_ms(torch, lib)
-        l2, k2, p2 = cuda_ms(torch, lib), cuda_ms(torch, kern), cuda_ms(torch, plain)
-        (b, by), n_bytes, n_ops = flash_bound(1, S, S, H, KV, hd, dtype_bytes, True, None)
-        row = {"S": S, "variant": fa.variant(q.dtype, hd), "ms": (k1 + k2) / 2,
-               "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2, "bound_ms": b,
-               "bound_by": by, "bytes": n_bytes, "operations": n_ops}
-        rate = BF16_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
-        issued = f"; {1.5 * n_ops / row['ms'] / 1e9:.1f} TFLOP/s issued (6 hd per pair: P split)" \
-            if dtype_bytes == 2 else ""
-        print(f"  flash_attention [{row['variant']}] S={S:5d} {'bf16' if dtype_bytes == 2 else 'float32'}:"
-              f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
-              f"{row['library_ms']:.4f} (scaled_dot_product_attention, max |diff| to plain "
-              f"{lib_err:.3e}) bound_ms={b:.5f} ({by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, "
-              f"operations {n_ops:.3e} at {rate / 1e12:.0f} T/s {n_ops / rate * 1e3:.5f}); kernel at "
-              f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s of the bound's work{issued}, SDPA at "
-              f"{n_ops / row['library_ms'] / 1e9:.1f}; kernel / SDPA "
-              f"{row['ms'] / row['library_ms']:.2f}")
-        return row
-
     print(f"  times on {smi_line()}:")
-    rows = [timed(S, inputs[S], 2) for S in serve_shapes]
-    S = serve_shapes[-1]
-    simt = timed(S, [t.float() for t in inputs[S]], 4)
+    rows = [time_flash(torch, *inputs[S]) for S in serve_shapes]
+    simt = time_flash(torch, *(t.float() for t in inputs[serve_shapes[-1]]))
     return {"max_abs_err": worst["wgmma"], "simt_max_abs_err": worst["simt"], "rows": rows,
             "simt": simt}
 
@@ -1221,11 +1335,13 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
     check(fast["launches"][kernel] == want_launches == n_prefill * cfg.n_layers,
           f"{kernel} launches != admitted prefills x layers")
     check(plain["launches"][kernel] == 0, "the plain run launched the kernel")
+    flash = {k[len("flash_attention_"):]: n for k, n in fast["launches"].items()
+             if k.startswith("flash_attention_")}
+    print(f"  flash launches of the kernel run by variant and by head width: {flash}")
     if kernel == "flash_attention":
-        per_variant = {k: n for k, n in fast["launches"].items() if k.startswith("flash_attention_")}
-        print(f"  flash launches by variant: {per_variant}")
-        check(fast["launches"]["flash_attention_wgmma"] == fast["launches"][kernel],
-              "not every serving flash launch ran the bf16 tensor-core kernel")
+        check(flash["wgmma"] == flash[f"hd{cfg.head_dim}"] == fast["launches"][kernel],
+              f"not every serving flash launch ran the bf16 tensor-core kernel at "
+              f"hd={cfg.head_dim}")
 
     # last-prompt-token logits of the two runs
     top = max(float(lg.abs().max()) for _, _, lg, _ in plain["prefill"])
@@ -1331,7 +1447,7 @@ def serve_profiles(torch, cfg, params, tokens, slots=8, max_seq=1056):
 # --------------------------------------------------------------------------- #
 # phase 11: the selective scan and RMSNorm against their plain versions
 # --------------------------------------------------------------------------- #
-def max_agree(torch, got, want, rel=1e-4):
+def max_agree(torch, got, want, rel=1e-4, of="y"):
     """(ok, max abs error, tolerance text): float32 within ``rel`` of the
     largest |want|; bf16 within one bf16 ulp per element, where values under
     1e-3 of the largest count as 1e-3 of it (both sides compute in float32,
@@ -1343,7 +1459,8 @@ def max_agree(torch, got, want, rel=1e-4):
         _, e = torch.frexp(torch.maximum(want32.abs(), 1e-3 * top))
         ok = bool((err <= torch.ldexp(torch.ones_like(want32), e - 8)).all())
         return ok, float(err.max()), "1 bf16 ulp each (floor 1e-3 of max)"
-    return bool((err <= rel * top).all()), float(err.max()), f"{rel:g}*max|y| = {float(rel * top):.3e}"
+    return (bool((err <= rel * top).all()), float(err.max()),
+            f"{rel:g}*max|{of}| = {float(rel * top):.3e}")
 
 
 def scan_inputs(torch, dev, B, S, di, n, dtype, seed=0):
@@ -1356,15 +1473,15 @@ def scan_inputs(torch, dev, B, S, di, n, dtype, seed=0):
     return [t.to(dev, dtype) for t in (u, dt, Bm, Cm)] + [A.to(dev), torch.ones(di, device=dev)]
 
 
-def faulty_scan(torch, u, dt, Bm, Cm, A, D, fault):
+def faulty_scan(torch, u, dt, Bm, Cm, A, D, fault, tile):
     """The plain recurrence with one fault: ``reset`` (h = 0 at every tile
-    of SCAN_TILE steps), ``no_du`` (the D u term dropped) or ``c_late``
+    of ``tile`` steps), ``no_du`` (the D u term dropped) or ``c_late``
     (C_{t-1} read at step t, zeros at t = 0)."""
     uf, dtf, Bf, Cf = (t.float() for t in (u, dt, Bm, Cm))
     h = torch.zeros((u.shape[0], u.shape[2], A.shape[1]), device=u.device)
     ys = []
     for t in range(u.shape[1]):
-        if fault == "reset" and t % SCAN_TILE == 0:
+        if fault == "reset" and t % tile == 0:
             h = torch.zeros_like(h)
         h = torch.exp(dtf[:, t, :, None] * A) * h + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None]
         if fault == "c_late":
@@ -1377,69 +1494,113 @@ def faulty_scan(torch, u, dt, Bm, Cm, A, D, fault):
 
 def scan_bound(S, di, n, exp_instr, B=1, dtype_bytes=4):
     """(bound ms, by), bytes, instructions: u and dt read and y written
-    (B, S, di), B and C read (B, S, n), A and D read; one expf plus six
+    (B, S, di), B and C read (B, S, n), A and D read, the float32 final
+    state written (B, di, n); one expf plus six
     multiplies and adds per (t, d, s) (dt*A, dA*h, dtu*B, +, h*C, + into the
     sum) and two more per (t, d) (dt*u, D*u and its add, less the first
     add of the sum), over the issue rate."""
-    n_bytes = (3 * B * S * di + 2 * B * S * n) * dtype_bytes + (di * n + di) * 4
+    n_bytes = (3 * B * S * di + 2 * B * S * n) * dtype_bytes + (di * n + di + B * di * n) * 4
     n_instr = B * S * di * (n * (exp_instr + 6) + 2)
     return bound_ms(n_bytes, n_instr), n_bytes, n_instr
 
 
-def scan_phase(torch, dev, exp_instr, di=8192, n=16, shapes=SCAN_SHAPES):
+def scan_phase(torch, dev, exp_instr, tile, di=8192, n=16, shapes=SCAN_SHAPES,
+               big_b=(70000, 3, 8, 16), margin=0.05):
+    """The kernel's y and final state against the plain version's (the
+    served width at every S of ``shapes``, bf16, ragged S and di, every n
+    template, n past 64 in groups, a B past 65535), with controls (the
+    state reset every ``tile`` steps, the served template's tile); then each
+    n = 16 lane variant held and timed at every S, in turns, beside the
+    plain version and the bound.  Fails if, at the longest S, another
+    variant beats the served one (``SERVED_LANES``) by more than ``margin``
+    of its time; a smaller lead is flagged."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import selective_scan as ss
 
-    worst = 0.0
+    worst = {"y": 0.0, "h": 0.0}
 
-    def compare(what, args):
-        nonlocal worst
-        got, want = ss.selective_scan(*args), ref.ref_selective_scan(*args)
+    def compare(what, args, lanes=None):
+        got, h = ss.selective_scan(*args, return_state=True, _lanes=lanes)
+        want, h_want = ref.ref_selective_scan(*args, return_state=True)
         ok, err, tol = max_agree(torch, got, want)
-        print(f"  selective_scan {what:44s} max_abs_err={err:.3e} ({tol})")
+        ok_h, err_h, tol_h = max_agree(torch, h, h_want, rel=1e-5, of="h")
+        print(f"  selective_scan {what:48s} y max_abs_err={err:.3e} ({tol}); final state "
+              f"max_abs_err={err_h:.3e} ({tol_h})")
         check(ok, f"selective_scan {what}: kernel and plain version disagree ({err})")
-        worst = max(worst, err)
-        return want
+        check(ok_h, f"selective_scan {what}: final states disagree ({err_h})")
+        check(tuple(h.shape) == tuple(h_want.shape) and h.dtype == torch.float32,
+              f"selective_scan {what}: final state of shape {tuple(h.shape)}, {h.dtype}")
+        worst["y"], worst["h"] = max(worst["y"], err), max(worst["h"], err_h)
+        return want, h_want
 
     inputs = {S: scan_inputs(torch, dev, 1, S, di, n, torch.float32, seed=S) for S in shapes}
     for S in shapes:
-        want = compare(f"B=1 S={S} di={di} n={n} float32", inputs[S])
+        want, h_want = compare(f"B=1 S={S} di={di} n={n} float32", inputs[S])
         if S == shapes[1]:
-            for fault, text in (("reset", f"state reset every {SCAN_TILE}-step tile"),
+            for fault, text in (("reset", f"state reset every {tile}-step tile"),
                                 ("no_du", "D*u dropped"), ("c_late", "C_t read one step late")):
-                bad = faulty_scan(torch, *inputs[S], fault)
+                bad = faulty_scan(torch, *inputs[S], fault, tile)
                 ok, err, _ = max_agree(torch, bad, want)
                 print(f"  selective_scan control, {text}: fails the check (max_abs_err={err:.3e})")
                 check(not ok, f"selective_scan: the check lets a faulty output pass ({text})")
+            early = ref.ref_selective_scan(*(t[:, :-1] for t in inputs[S][:4]), *inputs[S][4:],
+                                           return_state=True)[1]
+            ok, err, _ = max_agree(torch, early, h_want, rel=1e-5)
+            print(f"  selective_scan control, final state one step early: fails the check "
+                  f"(max_abs_err={err:.3e})")
+            check(not ok, "selective_scan: the state check lets a state one step early pass")
     compare(f"B=1 S=256 di={di} n={n} bf16", scan_inputs(torch, dev, 1, 256, di, n, torch.bfloat16))
     for B, S, d_, n_ in ((2, 100, 200, 16), (2, 33, 64, 4), (1, 40, 96, 8), (1, 70, 64, 24),
-                         (1, 37, 64, 64), (3, 1, 8192, 16)):
+                         (1, 37, 64, 64), (1, 50, 72, 96), (2, 33, 64, 128), (3, 1, 8192, 16),
+                         big_b):
         for dt_ in (torch.float32, torch.bfloat16):
             compare(f"B={B} S={S} di={d_} n={n_} {str(dt_)[6:]}",
                     scan_inputs(torch, dev, B, S, d_, n_, dt_))
+    for lanes in ss.LANES:
+        compare(f"B=2 S=130 di=200 n=16 float32, {lanes} lanes",
+                scan_inputs(torch, dev, 2, 130, 200, 16, torch.float32), lanes=lanes)
     torch.cuda.synchronize()
 
     rows = []
     for S in shapes:
         args = inputs[S]
-        kern = lambda: ss.selective_scan(*args)       # noqa: E731
+        for lanes in ss.LANES:
+            compare(f"B=1 S={S} di={di} n={n} float32, {lanes} lanes", args, lanes=lanes)
         plain = lambda: ref.ref_selective_scan(*args)  # noqa: E731
-        p1, k1 = cuda_ms(torch, plain, reps=5), cuda_ms(torch, kern)
-        k2, p2 = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
+        kern = {L: (lambda L=L: ss.selective_scan(*args, return_state=True, _lanes=L))
+                for L in ss.LANES}
+        p1 = cuda_ms(torch, plain, reps=5)
+        t1 = {L: cuda_ms(torch, kern[L]) for L in ss.LANES}            # in turns:
+        t2 = {L: cuda_ms(torch, kern[L]) for L in reversed(ss.LANES)}  # plain, 2 4 8 8 4 2, plain
+        p2 = cuda_ms(torch, plain, reps=5)
+        by_lanes = {L: (t1[L] + t2[L]) / 2 for L in ss.LANES}
         (b, by), n_bytes, n_instr = scan_bound(S, di, n, exp_instr)
-        row = {"S": S, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
-               "bound_ms": b, "bound_by": by}
+        fastest = min(by_lanes, key=by_lanes.get)
+        row = {"S": S, "ms": by_lanes[ss.SERVED_LANES], "plain_ms": (p1 + p2) / 2,
+               "library_ms": None, "bound_ms": b, "bound_by": by,
+               "ms_by_lanes": {str(L): t for L, t in by_lanes.items()}, "fastest_lanes": fastest}
         rows.append(row)
-        print(f"  selective_scan S={S:5d}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+        print(f"  selective_scan S={S:5d} (final state written): ms by lanes per channel "
+              f"{ {L: round(t, 5) for L, t in by_lanes.items()} } (fastest {fastest}, the "
+              f"dispatch serves {ss.SERVED_LANES}); plain_ms={row['plain_ms']:.3f} "
               f"bound_ms={b:.5f} ({by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, "
-              f"{n_instr:.3e} instructions {n_instr / INSTR_PER_S * 1e3:.5f}); kernel at "
-              f"{b / row['ms']:.3f} of its bound; no library call computes the scan")
-    return {"max_abs_err": worst, "rows": rows}
+              f"{n_instr:.3e} instructions {n_instr / INSTR_PER_S * 1e3:.5f}); served "
+              f"kernel at {b / row['ms']:.3f} of its bound; no library call computes the scan")
+    head = rows[-1]
+    lead = head["ms"] / by_lanes[head["fastest_lanes"]] - 1
+    if head["fastest_lanes"] != ss.SERVED_LANES:
+        print(f"  WARNING selective_scan S={head['S']}: {head['fastest_lanes']} lanes per "
+              f"channel beat the served {ss.SERVED_LANES} by {lead:.3%} of its time")
+    check(lead <= margin, f"selective_scan: the dispatch serves {ss.SERVED_LANES} lanes, "
+          f"{head['fastest_lanes']} are faster by {lead:.3%} at S={head['S']} (over {margin:.0%})")
+    return {"max_abs_err": worst["y"], "state_max_abs_err": worst["h"], "rows": rows}
 
 
-def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "float32"))):
-    """The kernel against its plain version (timed shapes and ragged ones),
-    with controls; times beside ``F.rms_norm`` and the bound; then the path
+def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "float32"),
+                                      (1024, 12288, "bfloat16"))):
+    """The kernel against its plain version (timed shapes and ragged ones,
+    rows wider than 8192 on the second shape), with controls; times beside
+    ``F.rms_norm`` and the bound; then the path
     (``ops.rmsnorm`` on any leading shape) with its launches counted."""
     from torch.nn.functional import rms_norm
 
@@ -1455,7 +1616,9 @@ def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "fl
     worst = 0.0
     for R, D, dt_ in shapes + ((3, 8192, "float32"), (5, 1, "bfloat16"), (7, 333, "bfloat16"),
                                (1, 8192, "bfloat16"), (2, 4097, "float32"), (9, 1004, "bfloat16"),
-                               (8192, 128, "bfloat16"), (4, 8192, "float32")):
+                               (8192, 128, "bfloat16"), (4, 8192, "float32"),
+                               (4, 8193, "bfloat16"), (5, 8193, "float32"),
+                               (3, 12288, "float32"), (2, 16384, "bfloat16")):
         x, s = inputs(R, D, dt_)
         got, want = rn.rmsnorm(x, s, 1e-6), ref.ref_rmsnorm(x, s, 1e-6)
         ok, err, tol = max_agree(torch, got, want)
@@ -1514,18 +1677,20 @@ def rmsnorm_phase(torch, dev, shapes=((1024, 4096, "bfloat16"), (1000, 5120, "fl
 
 
 def mamba_profiles(torch, cfg, params, tokens, slots=8):
-    """One kernel-path prefill of ``tokens`` (exact length, as the scheduler
-    runs it) and one decode step over a full pool of ``slots`` slots, each
-    under the profiler, with the scan kernel's share and, timed by CUDA
-    events around each call, the share of the plain tail-state scan
-    (``transformer._mamba_tail_state``, run whatever ``use_pallas`` is)."""
+    """One prefill of ``tokens`` (exact length, as the scheduler runs it) on
+    each path under the profiler, with the scan kernel's share, the plain
+    tail-state scan's calls and time (``transformer._mamba_tail_state``,
+    CUDA events around each call: none on the kernel path, which takes the
+    state from the kernel, one per layer on the plain path) and the peak
+    memory above what was allocated before the call; then one decode step
+    over a full pool of ``slots`` slots."""
     from repro_torch.models import transformer as T
 
-    cfg = cfg.with_(use_pallas=True)
     dev = params["embed"].device
     toks = torch.tensor([tokens], device=dev)
     last = torch.tensor([len(tokens) - 1], device=dev)
-    spans, tail = [], T._mamba_tail_state
+    tail = T._mamba_tail_state
+    spans, paths, mem = [], {}, {}
 
     def timed_tail(*args):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1535,26 +1700,48 @@ def mamba_profiles(torch, cfg, params, tokens, slots=8):
         spans.append((s, e))
         return out
 
-    T._mamba_tail_state = timed_tail
-    try:
-        busy = profile_call(torch, f"prefill of {len(tokens)} tokens (exact length)",
-                            lambda: T.prefill_at(cfg, params, {"tokens": toks}, last),
-                            key="selective_scan_kernel", label="scan kernel",
-                            after_warmup=spans.clear)
-    finally:
-        T._mamba_tail_state = tail
-    torch.cuda.synchronize()
-    tail_ms = sum(s.elapsed_time(e) for s, e in spans)
-    check(len(spans) == cfg.n_layers, f"{len(spans)} tail-state calls in one prefill")
-    share = f" = {tail_ms / busy:.3f} of device busy" if busy else ""
-    print(f"  plain tail-state scan (CUDA events around its {len(spans)} calls): "
-          f"{tail_ms:.3f} ms{share}")
-    caches = T.init_caches(cfg, slots, len(tokens) + 1, getattr(torch, cfg.dtype), dev)
+    def reset():
+        spans.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem["base"] = torch.cuda.memory_allocated(dev)
+
+    for use_pallas, name in ((True, "kernel"), (False, "plain")):
+        c = cfg.with_(use_pallas=use_pallas)
+        T._mamba_tail_state = timed_tail
+        try:
+            busy = profile_call(torch, f"{name} path: prefill of {len(tokens)} tokens (exact length)",
+                                lambda: T.prefill_at(c, params, {"tokens": toks}, last),
+                                key="selective_scan_kernel", label="scan kernel",
+                                after_warmup=reset)
+        finally:
+            T._mamba_tail_state = tail
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - mem["base"]) / 2 ** 30
+        tail_ms = sum(s.elapsed_time(e) for s, e in spans)
+        want = 0 if use_pallas else cfg.n_layers
+        check(len(spans) == want, f"{name} path: {len(spans)} tail-state calls in one prefill, "
+              f"expected {want}")
+        share = f" = {tail_ms / busy:.3f} of device busy" if busy else ""
+        print(f"  {name} path: plain tail-state scan {len(spans)} calls (CUDA events), "
+              f"{tail_ms:.3f} ms{share}; peak memory of the prefill {peak:.3f} GiB above "
+              f"the {mem['base'] / 2 ** 30:.3f} GiB allocated before it")
+        paths[name] = {"device_ms": busy, "tail_calls": len(spans), "tail_ms": tail_ms,
+                       "peak_gib": peak}
+    k, pl = paths["kernel"], paths["plain"]
+    if k["device_ms"] and pl["device_ms"]:
+        print(f"  prefill of {len(tokens)} tokens: device time {k['device_ms']:.3f} ms through "
+              f"the kernel vs {pl['device_ms']:.3f} ms on the plain path "
+              f"({pl['device_ms'] / k['device_ms']:.2f}x); peak memory {k['peak_gib']:.3f} vs "
+              f"{pl['peak_gib']:.3f} GiB")
+    c = cfg.with_(use_pallas=True)
+    caches = T.init_caches(c, slots, len(tokens) + 1, getattr(torch, c.dtype), dev)
     cur = torch.arange(slots, device=dev)
     pos = torch.full((slots,), len(tokens), dtype=torch.int32, device=dev)
     profile_call(torch, f"decode step over {slots} slots",
-                 lambda: T.decode_step_slots(cfg, params, cur, pos, caches),
+                 lambda: T.decode_step_slots(c, params, cur, pos, caches),
                  key="selective_scan_kernel", label="scan kernel")
+    return paths
 
 
 def main() -> None:
@@ -1584,6 +1771,12 @@ def main() -> None:
                                                 build.SOURCES)))
     print(f"# build: {time.perf_counter() - t0:.1f} s ({', '.join(sorted(libs))})")
     gauss_instr = gauss_instructions(libs["zo_direction"])
+    exp_instr = probe_instructions(libs["selective_scan"], "ss_probe_exp", "ss_probe_base",
+                                   "one expf", 3)
+    from repro_torch.kernels import selective_scan as ss
+
+    scan_sass = {L: scan_loop_instructions(libs["selective_scan"], L, 16 // L, exp_instr, 16)
+                 for L in ss.LANES}
 
     from repro_torch.core.engine import FlatEngine
     from repro_torch.models.mlp import init_mlp_classifier
@@ -1621,11 +1814,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("# phase: selective scan and rmsnorm vs their plain versions on the card")
-    exp_instr = probe_instructions(libs["selective_scan"], "ss_probe_exp", "ss_probe_base",
-                                   "one expf", 3)
-    scan = scan_phase(torch, dev, exp_instr)
+    print("# phase: selective scan, rmsnorm and flash at hd=80 vs their plain versions on the card")
+    scan = scan_phase(torch, dev, exp_instr, scan_sass[ss.SERVED_LANES]["tile_steps"])
     norm = rmsnorm_phase(torch, dev)
+    hubert = hubert_flash_phase(torch, dev)
     print("# phase: serving falcon-mamba-7b at full width and depth (kernel vs plain path)")
     import numpy as np
 
@@ -1635,8 +1827,10 @@ def main() -> None:
     lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)]
     mamba = serve_phase(torch, dev, cfg=get_config("falcon-mamba-7b"), lens=lens,
                         kernel="selective_scan")
-    print("# phase: profiles of one 1024-token prefill and one decode step (falcon-mamba-7b)")
-    mamba_profiles(torch, mamba["cfg"], mamba["params"], max(mamba["prompts"], key=len))
+    print("# phase: profiles of one 1024-token prefill on each path and one decode step "
+          "(falcon-mamba-7b)")
+    prefill_paths = mamba_profiles(torch, mamba["cfg"], mamba["params"],
+                                   max(mamba["prompts"], key=len))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -1685,6 +1879,16 @@ def main() -> None:
                     "causal", "max_abs_err": flash["simt_max_abs_err"],
                     **{k: simt[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                             "bound_by")}},
+        "hd80": {"variant": hubert["variant"], "shape": "B=1 S=1024 H=16 KV=16 hd=80 bf16 "
+                 "causal off (hubert-xlarge's widths)",
+                 "launches": sum(run["launches"]["flash_attention_hd80"] for run in (serve, mamba)),
+                 "launches_by_run": {run["cfg"].name: run["launches"]["flash_attention_hd80"]
+                                     for run in (serve, mamba)},
+                 **{k: hubert[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")},
+                 "float32": {k: hubert["float32"][k] for k in (
+                     "variant", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")}},
     })
     check(mamba["launches"]["selective_scan"] > 0, "selective_scan was not launched")
     head = scan["rows"][-1]                   # falcon-mamba-7b's width at S=1024
@@ -1693,9 +1897,12 @@ def main() -> None:
         "replaces": SCAN_REPLACES, "launches": mamba["launches"]["selective_scan"],
         "max_abs_err": scan["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
-        "path": "serve falcon-mamba-7b prefill", "shape": "B=1 S=1024 di=8192 n=16 float32",
-        "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "bound_ms")}
-                      for r in scan["rows"]],
+        "path": "serve falcon-mamba-7b prefill",
+        "shape": "B=1 S=1024 di=8192 n=16 float32, final state written",
+        "lanes": ss.SERVED_LANES, "state_max_abs_err": scan["state_max_abs_err"],
+        "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "bound_ms", "ms_by_lanes",
+                                         "fastest_lanes")} for r in scan["rows"]],
+        "sass": scan_sass[ss.SERVED_LANES], "prefill_1024": prefill_paths,
     })
     check(norm["launches"] > 0, "rmsnorm was not launched")
     head = norm["rows"][0]

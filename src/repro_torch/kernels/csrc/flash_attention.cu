@@ -26,8 +26,8 @@
 // bf16 -> tc::flash_fwd_wgmma_kernel, on the tensor cores.  A block owns 128
 // query rows of one head: warpgroup 0 is the producer, whose one thread brings
 // the Q tile once and then K and V tiles through a ring of 3 stages (2 at
-// hd=256) in shared memory with TMA (cp.async.bulk.tensor, 128- or 64-byte
-// swizzle, an mbarrier per stage); warpgroups 1 and 2 each compute 64 of the
+// hd=256) in shared memory with TMA (cp.async.bulk.tensor, 128-, 64- or
+// 32-byte swizzle by the width of a row, an mbarrier per stage); warpgroups 1 and 2 each compute 64 of the
 // rows (setmaxnreg: 24 registers for the producer, 240 for them).  S = Q K^T
 // is wgmma bf16 -> float32 with both operands in shared memory; the softmax
 // runs in float32 registers (scale after the product, softcap, mask, running
@@ -45,7 +45,8 @@
 // float32 -> simt::flash_fwd_kernel on the float32 pipes (67 TFLOP/s): the
 // tensor cores cannot reproduce float32 products without splitting q, k and
 // v three ways, and no served configuration runs float32.  One block of 256
-// threads per (batch*head, 64-row query tile); the sequential key-block axis
+// threads per (64-row query tile, batch*head); batch*head goes on grid.x in
+// both kernels, which takes up to 2^31 - 1 of them; the sequential key-block axis
 // of the TPU grid becomes a loop over 64-row key tiles inside the block, up
 // to the causal and window limits.  The scaled q tile stays in shared memory
 // (transposed) for the whole loop; each key tile's k (transposed) and v are
@@ -125,8 +126,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + (HD > kTile ? HD : kTile) * kLd;
   float* ps = ks;  // p^T takes k^T's place once the scores are made
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KV);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t q_ld = static_cast<int64_t>(H) * HD;
@@ -238,7 +239,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Sq / kTile, B * H);
+  const dim3 grid(B * H, Sq / kTile);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV, causal,
@@ -259,17 +260,20 @@ constexpr float kMasked = -1e30f;
 
 // The per-head-width constants.  kBN: key rows per tile (64 at hd=256, where O
 // alone takes 128 registers a thread).  kSW: the swizzle span of a tile row in
-// bytes, 128 where hd is a multiple of 64, else 64 (hd = 32, 96), so that a
-// tile is kChunks column chunks of kCW values.  kNP: output columns per P.V
-// instruction (wgmma's N).
+// bytes, the widest of 128, 64 and 32 that divides a row of hd bf16 values
+// (hd = 32 and 96 take 64, hd = 80, a 160-byte row, takes 32), so that a tile
+// is kChunks column chunks of kCW values.  kNP: output columns per P.V
+// instruction (wgmma's N: hd itself up to 128 where it is a multiple of 64 or
+// 16 columns short of one, which m64n80k16 takes at hd = 80).
 template <int HD>
 struct Cfg {
   static constexpr int kBN = HD > 128 ? 64 : 128;
-  static constexpr int kSW = HD % 64 == 0 ? 128 : 64;
+  static constexpr int kSW = HD % 64 == 0 ? 128 : (HD % 32 == 0 ? 64 : 32);
   static constexpr int kCW = kSW / 2;
   static constexpr int kChunks = HD / kCW;
   static constexpr int kKS = kCW / 16;  // k16 steps per chunk
-  static constexpr int kNP = HD > 128 ? 128 : (HD % 64 == 0 ? HD : 32);
+  static constexpr int kNP = HD > 128 ? 128 : (HD % 64 == 0 ? HD : (HD % 32 == 0 ? 32 : HD));
+  static_assert(HD % kCW == 0 && HD % kNP == 0 && kNP % kCW == 0, "head width");
   static constexpr int kStages = HD > 128 ? 2 : 3;  // K and V tiles in flight
   static constexpr int kQBytes = kRows * HD * 2;
   static constexpr int kKVBytes = kBN * HD * 2;
@@ -326,10 +330,11 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
 }
 
 // wgmma's shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B)
+// byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B, 3: 32 B)
 template <int SW>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  constexpr uint64_t kLayout = SW == 128 ? 1 : 2;
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle");
+  constexpr uint64_t kLayout = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (kLayout << 62);
@@ -406,6 +411,18 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64
       "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, "
       "%35}, %36, p, 1, 1, 1; }"
       : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %45, 0; "
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, "
+      "%5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -784,7 +801,9 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, in
   const cuuint32_t estr[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                 strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                C::kSW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                C::kSW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : (C::kSW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -818,12 +837,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 // stream) on `device` and returns a CUDA error code as an int (0 =
 // launched).  The wrapper (kernels/flash_attention.py) has checked shapes,
 // dtypes, alignment: Sq and Sk multiples of 64, H a multiple of KV, hd in
-// {32, 64, 96, 128, 256}.
+// {32, 64, 80, 96, 128, 256}.
 #define FA_DISPATCH(NS)                                                                  \
   switch (hd) {                                                                          \
     case 32: return NS::launch_hd<32>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,    \
                                       softcap, scale, s);                                \
     case 64: return NS::launch_hd<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,    \
+                                      softcap, scale, s);                                \
+    case 80: return NS::launch_hd<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,    \
                                       softcap, scale, s);                                \
     case 96: return NS::launch_hd<96>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,    \
                                       softcap, scale, s);                                \

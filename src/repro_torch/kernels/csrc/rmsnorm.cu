@@ -4,7 +4,7 @@
 // :28), reached through repro.kernels.ops.rmsnorm.  For every row of x (R, D)
 //     y = x * rsqrt(mean(x^2) + eps) * (1 + scale)
 // in float32 from float32 or bf16 x (scale float32), written in x's dtype.
-// Any R >= 1 and 1 <= D <= 8192; x and y contiguous.
+// Any R >= 1 and D >= 1; x and y contiguous.
 //
 // What bounds it on an H100 SXM (data-sheet rates, 700 W): each element is
 // read once and written once, with ~5 operations on it, far under the ~20
@@ -24,9 +24,14 @@
 // registers few and the blocks per SM many.  The sum of squares is reduced
 // in a fixed order: in the thread, over the warp with xor shuffles, then
 // over the group's warps in shared memory in warp order.  Deterministic, no
-// atomics.  Built with -fmad=false and
-// without fast math, so the products round as the plain version's do; only
-// the sum of squares has another order.
+// atomics.  That shape holds a row in registers and (1 + scale) in shared
+// memory, up to D = 8192.  Wider rows take a second shape, rmsnorm_wide_kernel:
+// a block of 256 threads per row (the grid walking the rows), which sums the
+// squares over the row in a fixed order (each thread a strided run of
+// vectors, then the warp, then the warps in order) and reads the row a
+// second time (mostly from L2) to write it; (1 + scale) is formed per element.
+// Built with -fmad=false and without fast math, so the products round as the
+// plain version's do; only the sum of squares has another order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -211,17 +216,87 @@ int launch_dtype(const void* x, const float* scale, void* out, int R, int D, flo
   return launch_vec<T, 1>(x, scale, out, R, D, eps, device, s);
 }
 
+// One row per block step, any D: two passes over the row, VEC elements a
+// load.  The sum is each thread's (in its order), then the warp's xor tree,
+// then the warps' in warp order: fixed.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_wide_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                    T* __restrict__ out, int R, int D, float eps) {
+  __shared__ float partial[kWarps];
+  __shared__ float total;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nvec = D / VEC;                 // VEC divides D
+  for (int row = blockIdx.x; row < R; row += gridDim.x) {
+    const T* xr = x + static_cast<int64_t>(row) * D;
+    float ss = 0.0f;
+    for (int j = threadIdx.x; j < nvec; j += kThreads) {
+      float v[VEC];
+      load<VEC>(xr + static_cast<int64_t>(j) * VEC, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ss += v[e] * v[e];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) partial[warp] = ss;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) t += partial[w];
+      total = t;
+    }
+    __syncthreads();
+    const float r = rsqrtf(total / static_cast<float>(D) + eps);
+    T* yr = out + static_cast<int64_t>(row) * D;
+    for (int j = threadIdx.x; j < nvec; j += kThreads) {
+      float v[VEC], g[VEC], y[VEC];
+      load<VEC>(xr + static_cast<int64_t>(j) * VEC, v);
+      load<VEC>(scale + static_cast<int64_t>(j) * VEC, g);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) y[e] = v[e] * r * (1.0f + g[e]);
+      store<VEC>(yr + static_cast<int64_t>(j) * VEC, y);
+    }
+    __syncthreads();  // partial and total are free for the next row
+  }
+}
+
+template <typename T>
+int launch_wide(const void* x, const float* scale, void* out, int R, int D, float eps,
+                int device, cudaStream_t s) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = R < sms * 8 ? R : sms * 8;
+  constexpr int kVec = 16 / sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(scale) % 16 == 0 && D % kVec == 0;
+  if (aligned)
+    rmsnorm_wide_kernel<T, kVec><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), scale, static_cast<T*>(out), R, D, eps);
+  else
+    rmsnorm_wide_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), scale, static_cast<T*>(out), R, D, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry point: launches the kernel on `stream` (PyTorch's current stream)
 // on `device` and returns a CUDA error code as an int (0 = launched).  The
 // wrapper (kernels/rmsnorm.py) has checked shapes, dtypes and contiguity:
-// 1 <= R <= 2**31 - 1, 1 <= D <= 8192, scale float32 of length D.
+// 1 <= R <= 2**31 - 1, 1 <= D <= 2**31 - 1, scale float32 of length D.  D >
+// 8192 takes the wide shape.
 extern "C" int rmsnorm_launch(const void* x, const float* scale, void* out, int R,
                               int D, float eps, int is_bf16, int device, void* stream) {
   cudaSetDevice(device);
-  if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (R < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > kMaxD) {
+    if (is_bf16) return launch_wide<__nv_bfloat16>(x, scale, out, R, D, eps, device, s);
+    return launch_wide<float>(x, scale, out, R, D, eps, device, s);
+  }
   if (is_bf16) return launch_dtype<__nv_bfloat16>(x, scale, out, R, D, eps, device, s);
   return launch_dtype<float>(x, scale, out, R, D, eps, device, s);
 }

@@ -11,8 +11,9 @@ the two by the tensors' device.
 Two kernels, picked by ``variant(dtype, hd)`` with no fallback: bf16 inputs
 run ``"wgmma"`` (the tensor cores, P split into two bf16 halves), float32
 inputs ``"simt"`` (the float32 pipes).  ``LAUNCHES`` counts launches, here
-only: the total under ``"flash_attention"`` and each variant's under
-``"flash_attention_<variant>"``.
+only: the total under ``"flash_attention"``, each variant's under
+``"flash_attention_<variant>"`` and each head width's under
+``"flash_attention_hd<hd>"``.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ import torch
 
 from repro_torch.kernels.binding import check, cuda_device, launch, library, stream
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_simt": 0}
 TILE = 64                            # query and key rows per tile of the kernel
-HEAD_DIMS = (32, 64, 96, 128, 256)   # the dense configs' widths (and reduced())
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)   # every config's head width (and reduced())
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_simt": 0,
+            **{f"flash_attention_hd{hd}": 0 for hd in HEAD_DIMS}}
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -50,7 +52,9 @@ def check_inputs(q, k, v, window: Optional[int], softcap: Optional[float]) -> No
     """Raise unless the kernel takes these arguments: 4-d tensors of one
     dtype (float32 or bfloat16) on one device, k and v of one shape, equal
     batch and head width, H a multiple of KV, hd in ``HEAD_DIMS``, Sq and Sk
-    multiples of ``TILE``, a positive window and softcap when given."""
+    multiples of ``TILE``, a positive window and softcap when given, and a
+    grid the card takes (B * H blocks on x under 2**31, Sq / ``TILE`` on y
+    under 65536)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name}: expected a 4-d tensor")
@@ -71,8 +75,8 @@ def check_inputs(q, k, v, window: Optional[int], softcap: Optional[float]) -> No
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} blocks exceed the grid's 65535 rows")
+    if B * H >= 2 ** 31 or Sq // TILE > 65535:
+        raise ValueError(f"B * H = {B * H} or Sq = {Sq} exceed the card's grid")
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
@@ -91,7 +95,8 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     scale = 1.0 / hd ** 0.5
     name = variant(q.dtype, hd)
     launch(library("flash_attention", _SIGNATURES), LAUNCHES,
-           ("flash_attention", f"flash_attention_{name}"), f"flash_attention_{name}_launch",
+           ("flash_attention", f"flash_attention_{name}", f"flash_attention_hd{hd}"),
+           f"flash_attention_{name}_launch",
            *ptrs, out.data_ptr(), B, Sq, Sk, H, KV, hd, int(bool(causal)),
            -1 if window is None else min(int(window), 2 ** 31 - 1),
            0.0 if softcap is None else float(softcap), scale, dev.index, stream(dev))

@@ -120,14 +120,15 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     return _fa.flash_attention(q, k, v, causal, window, softcap)
 
 
-def selective_scan(u, dt, Bmat, Cmat, A, D) -> torch.Tensor:
+def selective_scan(u, dt, Bmat, Cmat, A, D, return_state: bool = False):
     """The Mamba-1 scan: u and dt ``(B, S, di)``, Bmat and Cmat ``(B, S, n)``,
-    A ``(di, n)``, D ``(di,)`` -> ``(B, S, di)`` in u's dtype.  The
+    A ``(di, n)``, D ``(di,)`` -> ``(B, S, di)`` in u's dtype; with
+    ``return_state`` also the final state ``(B, di, n)`` in float32.  The
     reference's ``block_d`` / ``block_s`` have no counterpart: the CUDA
     kernel's tiles are its own."""
     if _on_cpu(u, "selective_scan"):
-        return ref.ref_selective_scan(u, dt, Bmat, Cmat, A, D)
-    return _ss.selective_scan(u, dt, Bmat, Cmat, A, D)
+        return ref.ref_selective_scan(u, dt, Bmat, Cmat, A, D, return_state)
+    return _ss.selective_scan(u, dt, Bmat, Cmat, A, D, return_state)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:

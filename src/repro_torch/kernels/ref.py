@@ -43,11 +43,13 @@ def ref_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
-def ref_selective_scan(u, dt, Bmat, Cmat, A, D) -> torch.Tensor:
+def ref_selective_scan(u, dt, Bmat, Cmat, A, D, return_state: bool = False):
     """The Mamba-1 recurrence, one time step after another: u and dt
     ``(B, S, di)``, Bmat and Cmat ``(B, S, n)``, A ``(di, n)``, D ``(di,)``;
     ``h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t`` and ``y_t = h_t . C_t +
-    D u_t``, with a float32 state from 0 and the output in u's dtype."""
+    D u_t``, with a float32 state from 0 and the output in u's dtype.  With
+    ``return_state``, ``(y, h_S)``: the float32 ``(B, di, n)`` state it ends
+    with."""
     uf, dtf = u.to(torch.float32), dt.to(torch.float32)
     Bf, Cf = Bmat.to(torch.float32), Cmat.to(torch.float32)
     A, D = A.to(torch.float32), D.to(torch.float32)
@@ -60,7 +62,8 @@ def ref_selective_scan(u, dt, Bmat, Cmat, A, D) -> torch.Tensor:
         dBu = (dt_t * u_t)[..., None] * Bf[:, t, None, :]
         h = dA * h + dBu
         ys.append(torch.sum(h * Cf[:, t, None, :], dim=-1) + D * u_t)
-    return torch.stack(ys, dim=1).to(u.dtype)
+    y = torch.stack(ys, dim=1).to(u.dtype)
+    return (y, h) if return_state else y
 
 
 # --------------------------------------------------------------------------- #

@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels.binding import check, cuda_device, launch, library, stream
 
 LAUNCHES = {"rmsnorm": 0}
-MAX_D = 8192
+MAX_D = 8192                         # widest row of the one-pass shape; wider rows take the second
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -27,7 +27,7 @@ _SIGNATURES = {"rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _I, _P]}
 
 def check_inputs(x, scale) -> None:
     """Raise unless the kernel takes these arguments: x ``(R, D)`` float32 or
-    bfloat16 with R >= 1 and 1 <= D <= ``MAX_D``, scale ``(D,)`` float32."""
+    bfloat16 with 1 <= R, D <= 2**31 - 1, scale ``(D,)`` float32."""
     for name, t in (("x", x), ("scale", scale)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -36,14 +36,15 @@ def check_inputs(x, scale) -> None:
     if x.dtype not in DTYPES:
         raise TypeError(f"x: dtype {x.dtype}, expected one of {DTYPES}")
     R, D = x.shape
-    if R < 1 or not 1 <= D <= MAX_D or R > 2 ** 31 - 1:
-        raise ValueError(f"R={R} must be in [1, 2**31 - 1] and D={D} in [1, {MAX_D}]")
+    if not (1 <= R <= 2 ** 31 - 1 and 1 <= D <= 2 ** 31 - 1):
+        raise ValueError(f"R={R} and D={D} must be in [1, 2**31 - 1]")
     if tuple(scale.shape) != (D,):
         raise ValueError(f"scale: shape {tuple(scale.shape)}, expected ({D},)")
 
 
 def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` per row; one launch."""
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` per row; one launch (rows
+    wider than ``MAX_D`` take the kernel's second shape)."""
     dev = cuda_device(x)
     check_inputs(x, scale)
     R, D = x.shape

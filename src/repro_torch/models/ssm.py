@@ -7,7 +7,9 @@ that by scanning over sequence chunks.  With ``cfg.use_pallas``, a length and
 a ``d_inner`` that are multiples of 64 send the scan to the selective-scan
 kernel (``kernels.ops.selective_scan``), which keeps the state out of memory.
 That dispatch is the reference's, not a fallback: a CUDA tensor that reaches
-the kernel launches it or raises.
+the kernel launches it or raises.  On that path the kernel also gives the
+final state, which ``mamba_prefill`` hands to the prefill's caches; off it
+the caller recomputes the state with the plain scan, as the reference does.
 
 Softplus is ``jax.nn.softplus``'s ``logaddexp(x, 0)`` (no threshold) and SiLU
 ``x * sigmoid(x)``, each in its input's dtype, as in the reference.
@@ -112,15 +114,36 @@ def _assoc_scan(deltaA: torch.Tensor, deltaBu: torch.Tensor,
     return _scan_pairs(deltaA, deltaBu)
 
 
-def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
-    """Sequence mixing only (conv + selective scan), u (B, S, di) -> (B, S, di)."""
+def kernel_path(cfg: ModelConfig, seq_len: int) -> bool:
+    """Whether a length-``seq_len`` scan goes to the selective-scan kernel:
+    ``use_pallas`` with a length and a ``d_inner`` that are multiples of 64,
+    the reference's gate."""
+    return bool(cfg.use_pallas) and seq_len % 64 == 0 and cfg.d_inner % 64 == 0
+
+
+def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, return_state: bool = False):
+    """Sequence mixing only (conv + selective scan), u (B, S, di) -> (B, S, di).
+
+    With ``return_state``, ``(y, h_S)``: on the kernel path the kernel's final
+    ``(B, di, n)`` float32 state, elsewhere None (the plain path keeps the
+    reference's structure, which recomputes the state apart)."""
     u = silu(_causal_conv(p, u, cfg.ssm_conv))
-    if cfg.use_pallas and u.shape[1] % 64 == 0 and cfg.d_inner % 64 == 0:
+    if kernel_path(cfg, u.shape[1]):
         # the kernel path: its inputs, without the (B, S, di, n) state
         dt, Bm, Cm = _split_x(cfg, p, u)
         A = -torch.exp(p["A_log"])
-        return ops.selective_scan(u.to(torch.float32), dt, Bm.contiguous(),
-                                  Cm.contiguous(), A, p["D"]).to(u.dtype)
+        y = ops.selective_scan(u.to(torch.float32), dt, Bm.contiguous(), Cm.contiguous(),
+                               A, p["D"], return_state)
+        if return_state:
+            return y[0].to(u.dtype), y[1]
+        return y.to(u.dtype)
+    y = _plain_mix(cfg, p, u)
+    return (y, None) if return_state else y
+
+
+def _plain_mix(cfg: ModelConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
+    """The plain scan of the conv output u: the associative scan over the
+    (B, S, di, n) state, by ``cfg.ssm_chunk`` chunks when set."""
     deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u)
     if cfg.ssm_chunk and u.shape[1] > cfg.ssm_chunk:
         S, ck = u.shape[1], cfg.ssm_chunk
@@ -141,11 +164,32 @@ def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
     return y.to(u.dtype)
 
 
+def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: bool):
+    """in_proj, the mix, the silu(z) gate and out_proj: x (B, S, D) -> (out
+    (B, S, D), u (B, S, di), the mix's final state or None)."""
+    u, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    y = mamba_mix(cfg, p, u, return_state)
+    y, h = y if return_state else (y, None)
+    return (y * silu(z)) @ p["out_proj"], u, h
+
+
 def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Full mamba block: x (B, S, D) -> (B, S, D)."""
-    u, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
-    y = mamba_mix(cfg, p, u)
-    return (y * silu(z)) @ p["out_proj"]
+    return _block(cfg, p, x, return_state=False)[0]
+
+
+def mamba_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The mamba block over a prompt, with the state a decode continues from:
+    x (B, S, D) -> (out (B, S, D), (conv_state (B, K-1, di), ssm_state (B,
+    di, n)) or None).  On the kernel path the ssm state is the kernel's final
+    state and the conv state the last K-1 rows of the same ``in_proj``
+    output; off it the state is None, and the caller recomputes it as the
+    reference does."""
+    out, u, h = _block(cfg, p, x, return_state=True)
+    if h is None:
+        return out, None
+    # a copy, so that no cached view keeps the layer's u alive
+    return out, (u[:, -(cfg.ssm_conv - 1):, :].clone(), h)
 
 
 # --------------------------------------------------------------------------- #

@@ -278,8 +278,10 @@ def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
     for lp, win in _layers(cfg, params):
         xn = apply_norm(cfg, lp["norm1"], h)
         if cfg.arch_type == "ssm":
-            mix = ssm_mod.mamba_forward(cfg, lp["mamba"], xn)
-            layer = dict(zip(("conv", "ssm"), _mamba_tail_state(cfg, lp["mamba"], xn)))
+            mix, state = ssm_mod.mamba_prefill(cfg, lp["mamba"], xn)
+            if state is None:           # the plain path: the reference's recomputation
+                state = _mamba_tail_state(cfg, lp["mamba"], xn)
+            layer = dict(zip(("conv", "ssm"), state))
         else:
             mix, kv = attn.attention_prefill(cfg, lp["attn"], xn, win)
             layer = dict(zip(("k", "v"), kv))
@@ -298,11 +300,12 @@ def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
 def _mamba_tail_state(cfg: ModelConfig, mp: Params, xn: torch.Tensor):
     """Recompute the post-prompt (conv, ssm) state for decode continuation,
     as the reference does: the plain associative scan over the whole
-    prompt, whatever ``use_pallas`` is.  The conv state is the prompt's last
-    ``K - 1`` rows of u, or all of them when the prompt is shorter; the
-    slot write then fills only that many rows (a reference behaviour the
-    port keeps: a prompt under ``K - 1`` tokens decodes from a misaligned
-    conv window)."""
+    prompt.  Only the plain path calls it; the kernel path takes the state
+    from the scan kernel (``ssm.mamba_prefill``).  The conv state is the
+    prompt's last ``K - 1`` rows of u, or all of them when the prompt is
+    shorter; the slot write then fills only that many rows (a reference
+    behaviour the port keeps: a prompt under ``K - 1`` tokens decodes from
+    a misaligned conv window)."""
     u, _ = torch.chunk(xn @ mp["in_proj"], 2, dim=-1)
     K = cfg.ssm_conv
     # copies, so that no cached view keeps a layer's u or (B, S, di, n) state alive

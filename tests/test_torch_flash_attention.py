@@ -5,7 +5,8 @@ JAX package's Pallas kernel in interpret mode and against the model's
 Inputs are numpy draws from a seed, in the model's layout (q ``(B, S, H,
 hd)``, k and v ``(B, S, KV, hd)``).  The sweep, as small as the reference's
 own (``tests/test_kernels.py``): S in {64, 128}, (H, KV) in {(4, 4), (4, 2),
-(4, 1)}, hd in {32, 64}, float32 and bfloat16 at the causal default; and the
+(4, 1)}, hd in {32, 64} and hubert-xlarge's 80, float32 and bfloat16 at the
+causal default (hd=80 also without it); and the
 features (causal on and off, window {None, 8}, softcap {None, 50}) at each
 (H, KV).  Tolerances: float32 outputs within rtol 1e-5 / atol 1e-6 (both
 compute in float32, in other summation orders: ~1e-7 apart); bfloat16
@@ -22,7 +23,8 @@ probabilities split into two bf16 halves) is emulated in plain PyTorch and
 held to the plain version by the same one-bf16-ulp rule; the emulation with
 probabilities rounded to bf16 once fails it (~10% of the elements at these
 shapes), which shows that the rule guards the split.  ``variant`` sends bf16
-to the tensor-core kernel and float32 to the SIMT one.
+to the tensor-core kernel and float32 to the SIMT one, at every head width
+of every registered config.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.kernels import ops as jops
 from repro.models import attention as JA
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
@@ -71,10 +74,17 @@ def assert_match(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,KV,hd", [
-    (64, 4, 4, 32), (128, 4, 2, 64), (64, 4, 1, 64), (128, 4, 1, 32),
+    (64, 4, 4, 32), (128, 4, 2, 64), (64, 4, 1, 64), (128, 4, 1, 32), (128, 4, 2, 80),
 ])
 def test_flash_matches_pallas_kernel(S, H, KV, hd, dtype):
     assert_match(*both(inputs(S, H, KV, hd), dtype, causal=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_hd80_non_causal_matches_pallas_kernel(dtype):
+    """hubert-xlarge's width (head_dim 80) in its encoder's form: no causal
+    mask, H = KV."""
+    assert_match(*both(inputs(128, 4, 4, 80, seed=5), dtype, causal=False), dtype)
 
 
 @pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1)])
@@ -125,6 +135,15 @@ def test_inputs_the_kernel_cannot_take_raise(change, err):
     q, k, v = change(*(torch.from_numpy(a) for a in inputs(128, 4, 2, 32)))
     with pytest.raises((ValueError, TypeError), match=err):
         fa.check_inputs(q, k, v, None, None)
+
+
+@pytest.mark.parametrize("B_,H", [(1, 65536), (4097, 16)])
+def test_inputs_past_65535_heads_are_taken(B_, H):
+    """B * H over 65535 goes on the grid's x axis in both kernels: the
+    checks take it (only grid sizes the card cannot launch raise)."""
+    q = torch.zeros(1, 1, 1, 1).expand(B_, 64, H, 32)     # shapes only: no memory
+    k = v = torch.zeros(1, 1, 1, 1).expand(B_, 64, 1, 32)
+    fa.check_inputs(q, k, v, None, None)
 
 
 def test_window_and_softcap_must_be_positive():
@@ -187,6 +206,7 @@ def _out_of_tolerance(got, want):
 @pytest.mark.parametrize("S,hd,window,softcap", [
     (256, 128, None, None), (256, 64, None, None), (128, 256, None, None),
     (256, 128, 100, None), (192, 64, None, 50.0), (128, 256, 64, 50.0),
+    (256, 80, None, None), (192, 80, 100, 50.0),
 ])
 def test_split_probabilities_meet_the_bf16_check(S, hd, window, softcap):
     """P split into two bf16 halves keeps the kernel within one bf16 ulp of
@@ -197,7 +217,7 @@ def test_split_probabilities_meet_the_bf16_check(S, hd, window, softcap):
     assert_match(got.float().numpy(), want.float().numpy(), "bfloat16")
 
 
-@pytest.mark.parametrize("S,hd", [(256, 128), (256, 64), (128, 256)])
+@pytest.mark.parametrize("S,hd", [(256, 128), (256, 64), (128, 256), (256, 80)])
 def test_unsplit_bf16_probabilities_fail_the_check(S, hd):
     """Control: P rounded to bf16 once puts many elements outside one bf16
     ulp (~10% at these shapes), so the check guards the split."""
@@ -213,6 +233,19 @@ def test_variant_follows_dtype(hd):
     assert fa.variant(torch.float32, hd) == "simt"
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_head_width_has_a_kernel(arch):
+    """Each registered config's head width (0 for a pure SSM, which has no
+    attention) is one the kernels take, in both variants."""
+    hd = get_config(arch).head_dim
+    if hd == 0:
+        assert get_config(arch).arch_type == "ssm"
+        return
+    assert hd in fa.HEAD_DIMS
+    assert fa.variant(torch.bfloat16, hd) == "wgmma"
+    assert fa.variant(torch.float32, hd) == "simt"
+
+
 def test_variant_rejects_what_no_kernel_takes():
     with pytest.raises(TypeError, match="dtype"):
         fa.variant(torch.float16, 128)
@@ -222,4 +255,5 @@ def test_variant_rejects_what_no_kernel_takes():
 
 def test_launch_counters_name_every_variant():
     assert set(fa.LAUNCHES) == {"flash_attention"} | {
-        f"flash_attention_{fa.variant(dt, 128)}" for dt in fa.DTYPES}
+        f"flash_attention_{fa.variant(dt, 128)}" for dt in fa.DTYPES} | {
+        f"flash_attention_hd{hd}" for hd in fa.HEAD_DIMS}

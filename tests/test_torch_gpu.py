@@ -15,7 +15,10 @@ in float32 to rtol 1e-5 / atol 1e-5 and in bf16 to one bf16 ulp per element
 float32 in other summation orders and round once.  The selective scan and
 RMSNorm are held the same way in bf16, and in float32 to 1e-4 of the
 largest output value (the kernel sums over the state axis, and over a row,
-in another order than the plain version).
+in another order than the plain version).  The scan's final state is held
+to 1e-5 of max|h|: each h rounds as the plain version's does (the same
+float32 operations in the same order), so only the two libraries' expf may
+part them, by an ulp; a state one step early fails that check.
 """
 import numpy as np
 import pytest
@@ -187,6 +190,8 @@ def _attn_close(got, want):
     (128, 4, 4, 96, True, None, None),     # phi3's head width
     (64, 4, 1, 64, False, None, None),
     (128, 4, 2, 32, True, 8, None),        # reduced() configs
+    (128, 4, 4, 80, False, None, None),    # hubert-xlarge's head width, its encoder's mask
+    (192, 4, 2, 80, True, None, None),
     (64, 8, 2, 128, True, None, None),     # a 128-row tile half past Sq
     (576, 4, 2, 128, True, None, None),    # the last tile half past Sq
     ((128, 512), 4, 2, 128, True, None, None),    # Sq != Sk
@@ -205,7 +210,7 @@ def test_flash_attention_kernel_matches_plain_version(S, H, KV, hd, causal, wind
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, causal, window, softcap)
     launched = {c: n - before[c] for c, n in fa.LAUNCHES.items() if n != before[c]}
-    assert launched == {"flash_attention": 1, name: 1}
+    assert launched == {"flash_attention": 1, name: 1, f"flash_attention_hd{hd}": 1}
     assert name == ("flash_attention_wgmma" if dtype == torch.bfloat16 else
                     "flash_attention_simt")
     want = ref.ref_flash_attention(q, k, v, causal, window, softcap)
@@ -221,6 +226,26 @@ def test_flash_attention_kernel_matches_plain_version(S, H, KV, hd, causal, wind
                                         v[:, :, torch.arange(H) % KV], causal, window,
                                         softcap)
         assert not _attn_close(wrong, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_past_65535_heads(dtype):
+    """B * H = 70,400 blocks of heads (the grid's x axis in both kernels),
+    S=64, hd=32: the kernel against its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(1100, 64, 64, 32, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(1100, 64, 8, 32, generator=g, device=dev).to(dtype) for _ in range(2))
+    got = fa.flash_attention(q, k, v, True)
+    want = ref.ref_flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _attn_close(got, want)
 
 
 @pytest.mark.gpu
@@ -331,11 +356,55 @@ def test_selective_scan_kernel_matches_plain_version(B, S, di, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,n", [
+    (1, 256, 8192, 16),                         # the served shape (falcon-mamba-7b)
+    (2, 100, 200, 4), (2, 37, 96, 16), (1, 70, 72, 64),   # ragged S and di
+    (1, 50, 72, 96), (2, 33, 64, 128),          # more than 64 states: groups of 64
+    (70000, 3, 8, 16),                          # B past 65535
+])
+def test_selective_scan_final_state_matches_plain_version(B, S, di, n, dtype):
+    """y and the final state (``return_state``) against the plain version's;
+    the state one step early (the plain scan over S - 1 steps) fails."""
+    from repro_torch.kernels import selective_scan as ss
+
+    dev = _cuda()
+    args = _scan_inputs(B, S, di, n, dtype, dev, seed=n)
+    got, h = ss.selective_scan(*args, return_state=True)
+    want, h_want = ref.ref_selective_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float32 and h.shape == (B, di, n)
+    assert _close_to_max(got, want)
+    assert _close_to_max(h, h_want, rel=1e-5)
+    if S > 1:
+        early = ref.ref_selective_scan(*(t[:, :-1] for t in args[:4]), *args[4:],
+                                       return_state=True)[1]
+        assert not _close_to_max(early, h_want, rel=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_lane_variants_match_plain_version(lanes, dtype):
+    """Each n = 16 variant (2, 4 or 8 lanes per channel) at a ragged shape."""
+    from repro_torch.kernels import selective_scan as ss
+
+    dev = _cuda()
+    args = _scan_inputs(2, 130, 200, 16, dtype, dev, seed=lanes)
+    got, h = ss.selective_scan(*args, return_state=True, _lanes=lanes)
+    want, h_want = ref.ref_selective_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert _close_to_max(got, want) and _close_to_max(h, h_want, rel=1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("R,D,dtype", [
     (1024, 4096, torch.bfloat16), (1000, 5120, torch.float32),
     (3, 8192, torch.float32), (5, 1, torch.bfloat16), (7, 333, torch.float32),
     (7, 333, torch.bfloat16), (9, 1004, torch.bfloat16),   # D not a multiple of 8
     (8192, 128, torch.bfloat16),           # many rows: several rows per block step
+    (4, 8193, torch.bfloat16), (3, 12288, torch.float32), (2, 16384, torch.bfloat16),
+    (5, 8193, torch.float32),              # wider than 8192: the second shape
 ])
 def test_rmsnorm_kernel_matches_plain_version(R, D, dtype):
     from repro_torch.kernels import rmsnorm as rn
@@ -355,12 +424,23 @@ def test_rmsnorm_kernel_matches_plain_version(R, D, dtype):
         assert not _close_to_max(ref.ref_rmsnorm(x, torch.zeros_like(scale)), want)
 
 
+def _caches_agree(fast, plain, layers, rel):
+    """The decode caches of two prefills: ``ssm`` and ``conv`` of the same
+    shapes and dtypes, and over ``layers`` within ``rel`` of each one's
+    largest value on the plain path."""
+    for name in ("ssm", "conv"):
+        got, want = fast[name][layers].float(), plain[name][layers].float()
+        assert fast[name].shape == plain[name].shape and fast[name].dtype == plain[name].dtype
+        assert float((got - want).abs().max()) <= rel * float(want.abs().max()), name
+
+
 @pytest.mark.gpu
 def test_ssm_prefill_through_the_kernel_matches_plain_path():
     """falcon-mamba-7b.reduced() in bf16, prefilled on the card through the
     scan kernel (use_pallas) and through the plain scan: one launch per
-    layer, logits within 2% of their largest, and served tokens through
-    the engine's exact-length prefills."""
+    layer, logits within 2% of their largest, the decode caches (the
+    kernel's final state and conv rows against the plain tail-state scan's),
+    and served tokens through the engine's exact-length prefills."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -372,16 +452,45 @@ def test_ssm_prefill_through_the_kernel_matches_plain_path():
     toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
     toks, last = toks.to(dev), torch.tensor([127], device=dev)
     ops.reset_launch_counts()
-    fast, _ = T.prefill_at(cfg.with_(use_pallas=True), params, {"tokens": toks}, last)
+    fast, fast_caches = T.prefill_at(cfg.with_(use_pallas=True), params, {"tokens": toks}, last)
     assert ops.launch_counts()["selective_scan"] == cfg.n_layers
-    plain, _ = T.prefill_at(cfg, params, {"tokens": toks}, last)
+    plain, plain_caches = T.prefill_at(cfg, params, {"tokens": toks}, last)
     assert ops.launch_counts()["selective_scan"] == cfg.n_layers
     torch.cuda.synchronize()
     err = float((fast.float() - plain.float()).abs().max())
     assert err <= 0.02 * float(plain.float().abs().max()), err
+    # layer 0 reads the same input on both paths: the conv rows are equal, the
+    # states within 1e-5 of max|h| (sequential and associative orders round
+    # apart by a few float32 ulp); later layers read inputs that already part
+    # by bf16 roundings, so they get the logits' 2%
+    assert torch.equal(fast_caches["conv"][0], plain_caches["conv"][0])
+    _caches_agree(fast_caches, plain_caches, slice(0, 1), rel=1e-5)
+    _caches_agree(fast_caches, plain_caches, slice(None), rel=0.02)
     ops.reset_launch_counts()
     eng = Engine(cfg.with_(use_pallas=True), params, ServeConfig(max_seq=140, slots=2))
     outs = eng.generate([toks[0].tolist(), [1, 2, 3], toks[0, :64].tolist()], max_new=4)
     assert ops.launch_counts()["selective_scan"] == 2 * cfg.n_layers
     assert eng.scheduler.prefill_buckets() == (3, 64, 128)
     assert all(len(o) == n + 4 for o, n in zip(outs, (128, 3, 64)))
+
+
+@pytest.mark.gpu
+def test_ssm_prefill_caches_through_the_kernel_match_plain_path_float32():
+    """falcon-mamba-7b.reduced() in float32: every layer's decode caches
+    through the scan kernel against the plain tail-state scan's, the states
+    within 1e-5 of max|h| and the conv rows within 1e-5 of their largest
+    (layers past the first read inputs that part by the y sums' order,
+    ~1e-7 relative)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    dev = _cuda()
+    cfg = get_config("falcon-mamba-7b").reduced().with_(dtype="float32")
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 192), generator=torch.Generator().manual_seed(2))
+    toks, last = toks.to(dev), torch.tensor([191, 191], device=dev)
+    _, fast = T.prefill_at(cfg.with_(use_pallas=True), params, {"tokens": toks}, last)
+    _, plain = T.prefill_at(cfg, params, {"tokens": toks}, last)
+    torch.cuda.synchronize()
+    assert torch.equal(fast["conv"][0], plain["conv"][0])
+    _caches_agree(fast, plain, slice(None), rel=1e-5)

@@ -5,7 +5,11 @@ run their kernels' plain versions (``kernels.ref``); the reference runs its
 Pallas kernels in interpret mode.  The same numpy inputs go through both,
 over the reference's own sweeps (``tests/test_kernels.py``) and tolerances:
 the scan to rtol/atol 1e-4 in float32 and 2e-2 in bf16, RMSNorm to 2e-4 in
-float32 and 2e-2 in bf16.  The kernels' input checks run here too; the CUDA
+float32 and 2e-2 in bf16.  The plain scan's final state (``return_state``,
+what the CUDA kernel also writes) is held against the last step of the
+reference model's associative scan (``repro.models.ssm._assoc_scan``) within
+1e-5 of max|h|: the sequential and the associative orders round differently,
+by a few float32 ulp.  The kernels' input checks run here too; the CUDA
 kernels themselves are held against the same plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
@@ -16,6 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import ssm as JS
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import selective_scan as ss
@@ -80,6 +85,37 @@ def test_ref_selective_scan_matches_jax_ref(S):
     np.testing.assert_allclose(got.numpy(), y, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("S,n", [(1, 5), (7, 16), (64, 16), (33, 3)])
+def test_ref_selective_scan_final_state_matches_jax_assoc_scan(S, n):
+    """``return_state`` gives the plain scan's last h, the state the reference
+    model keeps for decode: the last step of its associative scan over
+    ``exp(dt A)`` and ``(dt u) B``, from the same numpy inputs.  The output
+    itself does not change."""
+    u, dt, Bm, Cm, A, D = scan_inputs(S, 24, n, seed=10 + S)
+    args = [torch.from_numpy(a) for a in (u, dt, Bm, Cm, A, D)]
+    y, h = ref.ref_selective_scan(*args, return_state=True)
+    assert torch.equal(y, ref.ref_selective_scan(*args))
+    assert h.dtype == torch.float32 and tuple(h.shape) == (2, 24, n)
+    dA = jnp.exp(jnp.asarray(dt)[..., None] * jnp.asarray(A))
+    dBu = (jnp.asarray(dt) * jnp.asarray(u))[..., None] * jnp.asarray(Bm)[:, :, None, :]
+    want = np.asarray(JS._assoc_scan(dA, dBu)[:, -1])
+    np.testing.assert_allclose(h.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ops_selective_scan_returns_the_state_on_cpu(bf16):
+    """``ops.selective_scan(..., return_state=True)`` on CPU tensors: the
+    plain version's y (in u's dtype) and its float32 final state."""
+    u, dt, Bm, Cm, A, D = scan_inputs(16, 8, 4, seed=3)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    args = [torch.from_numpy(a).to(dtype) for a in (u, dt, Bm, Cm)]
+    args += [torch.from_numpy(A), torch.from_numpy(D)]
+    y, h = ops.selective_scan(*args, return_state=True)
+    assert y.dtype == dtype and h.dtype == torch.float32 and tuple(h.shape) == (2, 8, 4)
+    y2, h2 = ref.ref_selective_scan(*args, return_state=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
 @pytest.mark.parametrize("rows,d", [(8, 64), (64, 256), (32, 1024), (128, 80)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_rmsnorm_matches_pallas_kernel(rows, d, bf16):
@@ -119,7 +155,7 @@ def _bad_scan_args():
         ((u, dt, Bm[..., :3], Cm, A, D), ValueError),         # B's n
         ((u, dt, Bm, Cm, A[:8], D), ValueError),              # A's di
         ((u, dt, Bm, Cm, A, D[:3]), ValueError),              # D's shape
-        ((u, dt, Bm, Cm, torch.zeros(16, 65), D), ValueError),  # n > 64
+        ((u, dt, Bm[..., :0], Cm[..., :0], torch.zeros(16, 0), D), ValueError),  # n = 0
         ((u, dt, Bm, Cm, "A", D), TypeError),
     ]
 
@@ -129,6 +165,15 @@ def test_selective_scan_kernel_rejects_what_it_cannot_take(case):
     args, err = _bad_scan_args()[case]
     with pytest.raises(err):
         ss.check_inputs(*args)
+
+
+@pytest.mark.parametrize("B,S,di,n", [(2, 8, 16, 65), (1, 4, 8, 128), (1, 2, 8, 300),
+                                      (70000, 2, 8, 4), (3, 5, 7, 1)])
+def test_selective_scan_kernel_takes_any_n_and_b(B, S, di, n):
+    """The kernel has no state or batch limit of its own: more than 64
+    states go in groups, and B goes on the grid's x axis."""
+    f = lambda *s: torch.zeros(*s)   # noqa: E731
+    ss.check_inputs(f(B, S, di), f(B, S, di), f(B, S, n), f(B, S, n), f(di, n), f(di))
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
@@ -143,7 +188,9 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         rn.rmsnorm(u[0], torch.zeros(16))
     for x, s, err in ((u, torch.zeros(16), ValueError),
                       (u[0].double(), torch.zeros(16), TypeError),
-                      (torch.zeros(2, 8193), torch.zeros(8193), ValueError),
                       (u[0], torch.zeros(15), ValueError)):
         with pytest.raises(err):
             rn.check_inputs(x, s)
+    # rows wider than the one-pass shape's MAX_D take the kernel's second shape
+    for D in (rn.MAX_D + 1, 12288, 16384):
+        rn.check_inputs(torch.zeros(2, D), torch.zeros(D))

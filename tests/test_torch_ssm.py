@@ -10,6 +10,16 @@ of its CUDA kernel); then ``mamba_decode`` step by step.  Tolerance rtol =
 atol = 2e-4 (outputs reach ~1.2; the two frameworks round the matrix
 products in other orders, ~1e-7 relative when measured).  The associative
 scan itself keeps the reference's combination order, so it is held bitwise.
+
+The prefill's decode state (``falcon-mamba-7b.reduced()``, the whole model):
+on the kernel path the ssm state is the scan kernel's final state (here its
+plain version, the sequential recurrence) and the plain tail-state scan is
+not run; the caches are held against the reference's ``prefill``, which
+takes the state from its associative scan, within 1e-5 of max|h| (the two
+orders round differently, by a few float32 ulp; the matrix products add
+~1e-7 relative).  Off the kernel path (``use_pallas`` off, or a length that
+is not a multiple of 64) the tail-state scan runs once per layer, as in the
+reference.
 """
 import jax
 import jax.numpy as jnp
@@ -19,9 +29,11 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.models import ssm as JS
+from repro.models import transformer as JT
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -146,3 +158,82 @@ def test_init_mamba_matches_jax_structure():
     # log(1..n): the two libraries' logf differ by an ulp at one n
     np.testing.assert_allclose(tp["A_log"].numpy(), np.asarray(jp["A_log"]), rtol=1e-6, atol=0)
     assert len(tree_leaves(tp)) == 9
+
+
+# --------------------------------------------------------------------------- #
+# the prefill's decode state: from the kernel on the kernel path
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def model():
+    jcfg = jget_config("falcon-mamba-7b").reduced().with_(remat=False)
+    jp = JT.init_model(jax.random.key(4), jcfg)
+    return jcfg, jp, params_from_numpy(jp, device="cpu")
+
+
+def _prefill_pair(model, S_, use_pallas, seed=0):
+    jcfg, jp, tp = model
+    cfg = get_config("falcon-mamba-7b").reduced().with_(remat=False, use_pallas=use_pallas)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, S_)).astype(np.int32)
+    want, jc = JT.prefill(jcfg.with_(use_pallas=use_pallas), jp, {"tokens": jnp.asarray(toks)})
+    got, tc = T.prefill(cfg, tp, {"tokens": torch.from_numpy(toks).long()})
+    return cfg, (got, tc), (want, jc)
+
+
+@pytest.mark.parametrize("S_", [64, 128])
+def test_kernel_path_prefill_caches_match_jax(S_, model):
+    """The kernel path's caches (the kernel's final state, the conv rows of
+    the same ``in_proj`` output) against the reference's prefill caches."""
+    cfg, (got, tc), (want, jc) = _prefill_pair(model, S_, True, seed=S_)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert tc["ssm"].dtype == torch.float32
+    assert tuple(tc["ssm"].shape) == (cfg.n_layers, 2, cfg.d_inner, cfg.ssm_state)
+    assert tuple(tc["conv"].shape) == (cfg.n_layers, 2, cfg.ssm_conv - 1, cfg.d_inner)
+    h = np.asarray(jc["ssm"])
+    np.testing.assert_allclose(tc["ssm"].numpy(), h, rtol=0, atol=1e-5 * np.abs(h).max())
+    np.testing.assert_allclose(tc["conv"].numpy(), np.asarray(jc["conv"]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S_,use_pallas,runs", [
+    (64, True, False), (128, True, False), (64, False, True), (37, True, True),
+])
+def test_tail_state_scan_runs_only_off_the_kernel_path(S_, use_pallas, runs, model,
+                                                       monkeypatch):
+    """``_mamba_tail_state`` (the plain scan over the whole prompt) is not
+    called where the kernel gives the state, and is called once per layer
+    on the plain path and at a length that is not a multiple of 64."""
+    calls = []
+    tail = T._mamba_tail_state
+
+    def counted(*args):
+        calls.append(1)
+        return tail(*args)
+
+    monkeypatch.setattr(T, "_mamba_tail_state", counted)
+    cfg, (got, tc), (want, jc) = _prefill_pair(model, S_, use_pallas, seed=1)
+    assert len(calls) == (cfg.n_layers if runs else 0)
+    assert S.kernel_path(cfg, S_) == (not runs)
+    h = np.asarray(jc["ssm"])
+    np.testing.assert_allclose(tc["ssm"].numpy(), h, rtol=0, atol=1e-5 * np.abs(h).max())
+
+
+@pytest.mark.parametrize("use_pallas,seq", [(True, 128), (False, 128), (True, 37)])
+def test_mamba_prefill_state_only_on_the_kernel_path(use_pallas, seq, params):
+    """``mamba_prefill`` gives ``mamba_forward``'s output, and the (conv, ssm)
+    state only on the kernel path: the conv state is the prompt's last K-1
+    rows of u, the ssm state the last step of the plain recurrence."""
+    _, cfg = configs(use_pallas=use_pallas)
+    tp = params[1]
+    x = torch.from_numpy(np.random.default_rng(seq).standard_normal((2, seq, D_MODEL))
+                         .astype(np.float32))
+    out, state = S.mamba_prefill(cfg, tp, x)
+    assert torch.equal(out, S.mamba_forward(cfg, tp, x))
+    if not (use_pallas and seq % 64 == 0):
+        assert state is None
+        return
+    conv, h = state
+    u = torch.chunk(x @ tp["in_proj"], 2, dim=-1)[0]
+    assert torch.equal(conv, u[:, -(cfg.ssm_conv - 1):])
+    deltaA, deltaBu, _ = S._ssm_inputs(cfg, tp, S.silu(S._causal_conv(tp, u, cfg.ssm_conv)))
+    want = S._assoc_scan(deltaA, deltaBu)[:, -1]
+    np.testing.assert_allclose(h.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
