@@ -9,13 +9,18 @@ Phases (any failed check exits non-zero):
      and cuobjdump's SASS gives the instructions of one Gaussian, of one
      expf, and the scan kernel's own instructions per (t, d, s) in its step
      loop (each n = 16 variant) beside the bound's count;
-  3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-     at the Fig. 2 packed shape (437 blocks of 4096, m=4) and a ragged layout
-     (leaves of 1, 7, 4095, 4097 and 70200 values, one bf16), over
-     acc_dtype {fp32, bf16} and momentum {0, 0.9}, with controls (faulty
-     outputs that must fail each check); kernel and plain times (CUDA
-     events, median of 20 after warm-up) and the bound, the larger of bytes
-     over the HBM rate and Gaussians x instructions over the issue rate;
+  3. kernels: the kernels' Gaussian against libdevice's logf/sqrtf/cosf on
+     all 2^24 values of each uniform (with a control); each CUDA kernel
+     against its plain PyTorch version on the card, at the Fig. 2 packed
+     shape (437 blocks of 4096, m=4) and a ragged layout (leaves of 1, 7,
+     4095, 4097 and 70200 values, one bf16), over acc_dtype {fp32, bf16} and
+     momentum {0, 0.9}; zo_perturb_sumsq also at a block of 257, past the L2
+     (4096 blocks of 4096) and off a 16-byte boundary; with controls (faulty
+     outputs that must fail each check, among them another worker's v);
+     kernel and plain times (CUDA events, median of 20 after warm-up; for
+     zo_perturb_sumsq also back to back, and the per-call floor) and the
+     bound, the larger of bytes over the HBM rate and Gaussians x
+     instructions over the issue rate;
   4. Fig. 2 main path: HO-SGD on covtype at hidden=1300 (d=1,771,907), m=4,
      B=64, tau=8, 32 steps, engine="flat" with plain SGD, through
      ``apps.classification.run_comparison``; held against engine="fused"
@@ -28,9 +33,11 @@ Phases (any failed check exits non-zero):
      plain versions at the Fig. 2 leaf sizes (7, 1300, 1300, 9100, 70200,
      1690000) and ragged ones (1, 4095, 4097, 5000), offsets 0 and 12345,
      x in float32/bfloat16, acc_dtype float32/bfloat16, m in {1, 4}, a
-     split leaf, with controls (tail mask dropped, stores past the leaf,
-     offset ignored, float32 accumulator for bfloat16), and their times at
-     the w2 leaf (n=1,690,000);
+     split leaf, zo_perturb on views off a 16-byte boundary, with controls
+     (tail mask dropped, stores past the leaf, offset ignored, float32
+     accumulator for bfloat16), and their times at the w2 leaf
+     (n=1,690,000; zo_perturb also at every Fig. 2 leaf size and back to
+     back);
   8. the Fig. 2 method set: all seven methods through
      ``run_comparison(..., engine="pallas")`` at hidden=1300, 32 steps, with
      HO-SGD's per-leaf launch counts, HO-SGD pallas against fused and
@@ -134,6 +141,10 @@ LEAF_REPLACES = {
 }
 FIG2_LEAVES = (7, 1300, 1300, 9100, 70200, 1690000)   # the MLP's six leaves
 RAGGED_LEAVES = (1, 4095, 4097, 5000)
+# what a ZO kernel's row carries beside the contract's keys, where it has it
+EXTRA_KEYS = ("sumsq_rel_err", "gauss_instructions", "launches_per_call", "stream_ms",
+              "floor_ms", "mu_fill_stream_ms", "launch_stream_ms", "compute_only_ms",
+              "uniforms_only_ms", "by_size")
 METHODS = ["ho_sgd", "sync_sgd", "ri_sgd", "pa_sgd", "zo_sgd", "zo_svrg_ave", "qsgd"]
 SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -167,6 +178,36 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def stream_ms(torch, fn, calls: int = 50, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` when ``calls`` of them run back to
+    back (CUDA events around the run, behind a sleep kernel; median of
+    ``reps`` runs): each launch is set up while the one before it runs, so
+    this leaves out the per-call floor that ``cuda_ms`` includes.  The
+    buffers stay in the L2 from call to call where they fit."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    return statistics.median(times)
+
+
+def floor_ms(torch, dev) -> float:
+    """``cuda_ms`` of a fill of one value: what the timing gives a kernel that
+    does next to nothing (its launch and the events)."""
+    one = torch.empty(1, device=dev)
+    return cuda_ms(torch, lambda: one.fill_(1.0))
 
 
 def bound_ms(n_bytes: float, n_instr: float):
@@ -267,6 +308,13 @@ def gauss_instructions(lib: Path) -> int:
     return probe_instructions(lib, "zo_probe_gauss", "zo_probe_base", "one Gaussian", 10)
 
 
+def uniforms_instructions(lib: Path) -> int:
+    """Instructions of the Gaussian's hash and two uniforms alone (probes
+    ``zo_probe_uniforms`` and ``zo_probe_base``)."""
+    return probe_instructions(lib, "zo_probe_uniforms", "zo_probe_base",
+                              "the hash and two uniforms", 5)
+
+
 def scan_loop_instructions(lib: Path, lanes: int, states: int, exp_instr: int, n: int) -> dict:
     """The scan kernel's own SASS per (t, d, s), for the float32 template
     with ``lanes`` lanes per channel and ``states`` states per lane.
@@ -354,12 +402,40 @@ def agree(torch, got, want, base=None, rtol=1e-5, bf16=False):
     return ok, float(err.max()), tol
 
 
-def kernel_phase(torch, dev, fig2_params, gauss_instr):
+def sumsq_launches_ms(torch, cu, x, salts, ctrs, nvalid, block):
+    """``stream_ms`` of each of zo_perturb_sumsq's two launches alone, called
+    as the binding calls them."""
+    dev = x.device
+    v, out = cu._aligned_like(x), cu._aligned_like(x)
+    parts = torch.empty(cu.PERTURB_SUMSQ_PARTIALS, dtype=torch.float32, device=dev)
+    ss = torch.empty(1, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    first = lambda: cu._launch(                                           # noqa: E731
+        "zo_perturb_sumsq", "zo_sumsq_v_launch", x.data_ptr(), salts.data_ptr(),
+        ctrs.data_ptr(), nvalid.data_ptr(), v.data_ptr(), parts.data_ptr(),
+        cu.PERTURB_SUMSQ_PARTIALS, x.numel(), block, dev.index, stream)
+    second = lambda: cu._launch(                                          # noqa: E731
+        "zo_perturb_sumsq", "zo_apply_v_launch", x.data_ptr(), v.data_ptr(), parts.data_ptr(),
+        cu.PERTURB_SUMSQ_PARTIALS, 1e-3, out.data_ptr(), ss.data_ptr(), x.numel(), dev.index,
+        stream)
+    return [stream_ms(torch, first), stream_ms(torch, second)]
+
+
+def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
     import numpy as np
 
     from repro_torch.core.engine import FlatEngine
     from repro_torch.kernels import ref
     from repro_torch.kernels import zo_direction as cu
+
+    radii, cosines = cu.check_gauss(dev)
+    print(f"  {'gauss':22s} radii and cosines that differ from libdevice's logf/sqrtf/cosf "
+          f"over all 2^24 values of each uniform: {radii}, {cosines} (must be 0, 0)")
+    check(radii == 0 and cosines == 0, f"the kernels' Gaussian is not libdevice's: {radii} "
+          f"radii and {cosines} cosines differ")
+    ctl = cu.check_gauss(dev, control=True)[1]
+    print(f"  {'gauss':22s} control, cosf one ulp further on: {ctl} cosines differ (must be > 0)")
+    check(ctl > 0, "the Gaussian check lets a faulty cosine pass")
 
     g = torch.Generator().manual_seed(7)
     sizes = {"a": 1, "b": 7, "c": 4095, "d": 4097, "e": 70200}
@@ -426,6 +502,8 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr):
         ctr0 = torch.from_numpy(np.full(nb, int(ctr[0]), np.uint32)).to(dev)
         control("zo_perturb_sumsq", ref.ref_zo_perturb_sumsq(x, salt0, ctr0, nv, 1e-3, B)[0],
                 want, f"{lname} block 0's salt and counter in every block", base=x)
+        stale = ref.ref_zo_perturb_sumsq(x, eng.blk_salts(t, 2), ctr, nv, 1e-3, B)[0]
+        control("zo_perturb_sumsq", stale, want, f"{lname} another worker's v (stale)", base=x)
         mu1 = math.sqrt(eng.dim)                      # scale * v is O(1)
         compare("zo_perturb_sumsq", cu.zo_perturb_sumsq(x, s1, ctr, nv, mu1, B)[0],
                 ref.ref_zo_perturb_sumsq(x, s1, ctr, nv, mu1, B)[0],
@@ -460,6 +538,28 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr):
                         x, None, sm, ctr, nv, torch.zeros_like(bf), coeffs, lr, 0.0, B, acc)
                     control("zo_reconstruct_update", p_nb[bfe], p_r[bfe],
                             f"{lname} acc={acc} no bf16 round-trip", bf16=True)
+    # zo_perturb_sumsq at a block that is not a multiple of 4, in a buffer that
+    # starts off a 16-byte boundary, and past the L2 (4096 blocks of 4096)
+    nbig, bbig = big
+    for what, sizes_, blk, shift in (("block=257", [1000, 261, 1, 5], 257, 0),
+                                     ("block=257, x at +4 bytes", [1000, 261, 1, 5], 257, 1),
+                                     (f"{nbig} blocks of {bbig}", [nbig * bbig - 5], bbig, 0),
+                                     (f"{nbig} blocks of {bbig}, x at +12 bytes",
+                                      [nbig * bbig - 5], bbig, 3)):
+        tree = {f"l{i}": torch.randn(n, generator=g).to(dev) for i, n in enumerate(sizes_)}
+        eng = FlatEngine(tree, seed=0, block=blk)
+        x = torch.cat([torch.zeros(shift, device=dev), eng.pack(tree)])[shift:]
+        s1, ctr, nv = eng.blk_salts(t, 1), eng._blk_ctr, eng._blk_nv
+        out, ss = cu.zo_perturb_sumsq(x, s1, ctr, nv, 1e-3, blk)
+        want, wss = ref.ref_zo_perturb_sumsq(x, s1, ctr, nv, 1e-3, blk)
+        compare("zo_perturb_sumsq", out, want, what, base=x)
+        rel = float((ss / wss - 1.0).abs().max())
+        out2, ss2 = cu.zo_perturb_sumsq(x, s1, ctr, nv, 1e-3, blk)
+        print(f"  {'zo_perturb_sumsq':22s} {what + ' sumsq':42s} relative error {rel:.3e} "
+              f"(tol 1e-5), the same run to run: {torch.equal(out, out2) and torch.equal(ss, ss2)}")
+        check(rel <= 1e-5 and torch.equal(out, out2) and torch.equal(ss, ss2),
+              f"zo_perturb_sumsq {what}: sumsq off by {rel} or not the same run to run")
+        sumsq_rel = max(sumsq_rel, rel)
     torch.cuda.synchronize()
 
     # times at the Fig. 2 shape, main-path configuration (fp32 acc, no momentum)
@@ -470,8 +570,7 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr):
     P, nb, d = eng.padded_dim, eng.n_blocks, eng.dim
     p_work = x.clone()
     meta = nb * 12                       # salts, counters, valid lanes
-    # instructions: one Gaussian per valid lane and worker (the function needs
-    # each once, though zo_perturb_sumsq's two launches make it twice)
+    # instructions: one Gaussian per valid lane and worker
     runs = {
         "zo_perturb_sumsq": (
             lambda: cu.zo_perturb_sumsq(x, s1, ctr, nv, 1e-3, B),
@@ -502,9 +601,23 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr):
         p2 = cuda_ms(torch, plain)
         b, by = bound_ms(nbytes, ninstr)
         rows[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                      "bound_ms": b, "bound_by": by, "max_abs_err": errs[name]}
+                      "bound_ms": b, "bound_by": by, "max_abs_err": errs[name],
+                      "gauss_instructions": gauss_instr}
         if name == "zo_perturb_sumsq":
             rows[name]["sumsq_rel_err"] = sumsq_rel
+            rows[name]["stream_ms"] = stream_ms(torch, kern)
+            rows[name]["floor_ms"] = floor_ms(torch, dev)
+            mu_fill = lambda: torch.full((1,), 1e-3, device=dev)      # noqa: E731
+            rows[name]["mu_fill_stream_ms"] = stream_ms(torch, mu_fill)
+            rows[name]["launches_per_call"] = cu.LAUNCHES_PER_CALL[name]
+            rows[name]["launch_stream_ms"] = sumsq_launches_ms(torch, cu, x, s1, ctr, nv, B)
+            print(f"  {name:22s} back to back: {rows[name]['stream_ms']:.5f} ms per call, its "
+                  f"launches apart {rows[name]['launch_stream_ms'][0]:.5f} (Gaussians, v and "
+                  f"partial sums) and {rows[name]['launch_stream_ms'][1]:.5f} (the sum and the "
+                  f"stream of x and v); the per-call floor (a one-value fill by the same "
+                  f"timing): {rows[name]['floor_ms']:.5f} ms; the fill of mu that the "
+                  f"binding no longer runs, back to back: "
+                  f"{rows[name]['mu_fill_stream_ms']:.5f} ms")
         print(f"  {name:22s} ms={rows[name]['ms']:.4f} plain_ms="
               f"{rows[name]['plain_ms']:.4f} bound_ms={b:.4f} ({by}; bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
@@ -519,6 +632,7 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr):
 def fig2_phase(torch, dev, hidden=1300):
     from repro_torch.apps.classification import run_comparison
     from repro_torch.kernels import ops
+    from repro_torch.kernels import zo_direction as cu
 
     kw = dict(n_iters=32, m=4, B=64, tau=8, hidden=hidden, lr=0.05, mu=1e-3,
               methods=["ho_sgd"], seed=0, eval_every=32)
@@ -536,9 +650,10 @@ def fig2_phase(torch, dev, hidden=1300):
     check(flat["order"] == fused["order"], "FO/ZO order sequences differ")
     check(flat["order"] == [1 if t % 8 == 0 else 0 for t in range(32)],
           f"unexpected order sequence {flat['order']}")
-    check(launches["zo_perturb_sumsq"] == 2 * 4 * n_zo,
-          f"zo_perturb_sumsq launched {launches['zo_perturb_sumsq']} times, "
-          f"expected 2 per worker per ZO step = {2 * 4 * n_zo}")
+    per_call = cu.LAUNCHES_PER_CALL["zo_perturb_sumsq"]
+    check(launches["zo_perturb_sumsq"] == per_call * 4 * n_zo,
+          f"zo_perturb_sumsq launched {launches['zo_perturb_sumsq']} times, expected "
+          f"{per_call} per call, one call per worker per ZO step = {per_call * 4 * n_zo}")
     check(launches["zo_reconstruct_update"] == n_zo,
           f"zo_reconstruct_update launched {launches['zo_reconstruct_update']} "
           f"times, expected {n_zo}")
@@ -709,7 +824,8 @@ def perturb_into(torch, x, out, salt, scale, offset):
                torch.cuda.current_stream(dev).cuda_stream)
 
 
-def leaf_kernel_phase(torch, dev, gauss_instr, sizes=FIG2_LEAVES + RAGGED_LEAVES):
+def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
+                      sizes=FIG2_LEAVES + RAGGED_LEAVES, timed_sizes=FIG2_LEAVES):
     from repro_torch.kernels import ref
     from repro_torch.kernels import zo_direction as cu
 
@@ -746,6 +862,18 @@ def leaf_kernel_phase(torch, dev, gauss_instr, sizes=FIG2_LEAVES + RAGGED_LEAVES
               "zo_sumsq is not the same run to run")
         sumsq_rel = max(sumsq_rel, rel)
         errs["zo_sumsq"] = max(errs["zo_sumsq"], float(abs(got - want)))
+
+    # zo_perturb on views off a 16-byte boundary (x[1:], x[3:]): small leaves
+    # take the scalar lanes, the w2 size the vectors with a scalar head and tail
+    for n in (1, 3, 5, 4097, 70201, max(sizes) + 1):
+        base = torch.randn(n + 3, generator=g).to(dev)
+        for k in (1, 3):
+            x, xb = base[k:k + n], base.to(torch.bfloat16)[k:k + n]
+            what = f"n={n} view x[{k}:] (+{4 * k} bytes)"
+            same("zo_perturb", cu.zo_perturb(x, salt, scale, off1),
+                 ref.ref_zo_perturb(x, salt, scale, off1), what + " float32")
+            same("zo_perturb", cu.zo_perturb(xb, salt, scale, off1),
+                 ref.ref_zo_perturb(xb, salt, scale, off1), what + " bfloat16", bf16=True)
 
     for n in sizes:
         x = torch.randn(n, generator=g).to(dev)
@@ -789,18 +917,20 @@ def leaf_kernel_phase(torch, dev, gauss_instr, sizes=FIG2_LEAVES + RAGGED_LEAVES
     bad = ref.ref_zo_sumsq(n_up, salt, 0, device=dev)
     control("zo_sumsq", float(abs(bad / want - 1.0)) <= 1e-6,
             f"tail mask dropped ({n_up - n} lanes past n={n})", float(abs(bad / want - 1.0)))
-    buf = torch.full((n + 256,), 7.0, device=dev)
-    perturb_into(torch, x, buf, salt, scale, 0)
-    torch.cuda.synchronize()
-    canary = lambda b: bool((b[n:] == 7.0).all())           # noqa: E731
-    check(canary(buf) and torch.equal(buf[:n], ref.ref_zo_perturb(x, salt, scale, 0)),
-          "zo_perturb wrote past the leaf or wrote wrong values")
-    print(f"  {'zo_perturb':15s} canary of 256 values after the leaf (n={n}) untouched")
+    canary = lambda b, n: bool((b[n:] == 7.0).all())        # noqa: E731
+    for nc in (max(sizes) + 3, n):           # the vector lanes' ragged tail; scalar lanes only
+        xc = torch.randn(nc, generator=g).to(dev)
+        buf = torch.full((nc + 256,), 7.0, device=dev)
+        perturb_into(torch, xc, buf, salt, scale, 0)
+        torch.cuda.synchronize()
+        check(canary(buf, nc) and torch.equal(buf[:nc], ref.ref_zo_perturb(xc, salt, scale, 0)),
+              "zo_perturb wrote past the leaf or wrote wrong values")
+        print(f"  {'zo_perturb':15s} canary of 256 values after the leaf (n={nc}) untouched")
     lanes = -(-n // 256) * 256                          # what unmasked 256-thread blocks store
     bad = buf.clone()
     x_up = torch.cat([x, torch.zeros(lanes - n, device=dev)])
     bad[:lanes] = ref.ref_zo_perturb(x_up, salt, scale, 0)
-    control("zo_perturb", canary(bad), f"stores past n ({lanes - n} lanes into the canary)",
+    control("zo_perturb", canary(bad, n), f"stores past n ({lanes - n} lanes into the canary)",
             float((bad[n:] - 7.0).abs().max()))
     for name, got, want in (
             ("zo_perturb", ref.ref_zo_perturb(x, salt, scale, 0),
@@ -836,13 +966,43 @@ def leaf_kernel_phase(torch, dev, gauss_instr, sizes=FIG2_LEAVES + RAGGED_LEAVES
         p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kern, kern, plain))
         b, by = bound_ms(nbytes, ninstr)
         rows[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b,
-                      "bound_by": by, "max_abs_err": errs[name], "n": n}
+                      "bound_by": by, "max_abs_err": errs[name], "n": n,
+                      "gauss_instructions": gauss_instr}
         if name == "zo_sumsq":
             rows[name]["sumsq_rel_err"] = sumsq_rel
         print(f"  {name:15s} n={n}: ms={rows[name]['ms']:.4f} plain_ms="
               f"{rows[name]['plain_ms']:.4f} bound_ms={b:.4f} ({by}; bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
               f"{ninstr / INSTR_PER_S * 1e3:.4f}) library_ms=none")
+    # zo_perturb at each of the MLP's leaf sizes (each launched m times per ZO
+    # step), and at w2 back to back
+    by_size = []
+    for nl in sorted(set(timed_sizes)):
+        xl = torch.randn(nl, generator=g).to(dev)
+        kern = lambda: cu.zo_perturb(xl, salt, scale, 0)            # noqa: E731
+        plain = lambda: ref.ref_zo_perturb(xl, salt, scale, 0)      # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain, kern, kern, plain))
+        b, by = bound_ms(8 * nl + 4, nl * gauss_instr)
+        by_size.append({"n": nl, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "bound_ms": b, "bound_by": by})
+        print(f"  {'zo_perturb':15s} n={nl}: ms={(k1 + k2) / 2:.5f} plain_ms="
+              f"{(p1 + p2) / 2:.5f} bound_ms={b:.5f} ({by})")
+    rows["zo_perturb"]["by_size"] = by_size
+    rows["zo_perturb"]["stream_ms"] = stream_ms(torch, runs["zo_perturb"][0])
+    rows["zo_perturb"]["floor_ms"] = floor_ms(torch, dev)
+    # what holds it back: the same loop and grid with no load or store, with
+    # the whole Gaussian and with its hash and uniforms alone, back to back
+    full = rows["zo_perturb"]["stream_ms"]
+    compute, hashed = (stream_ms(torch, lambda h=h: cu.probe_leaf(n, h, dev)) for h in (False, True))
+    rest = gauss_instr - uniform_instr
+    issue = n * rest / INSTR_PER_S * 1e3
+    print(f"  {'zo_perturb':15s} n={n} back to back: {full:.5f} ms with its loads and stores, "
+          f"{compute:.5f} without them, {hashed:.5f} with only the hash and uniforms "
+          f"({uniform_instr} of the Gaussian's {gauss_instr} instructions); the other {rest} "
+          f"instructions a lane take {compute - hashed:.5f} ms (their issue time "
+          f"{issue:.5f}); the per-call floor {rows['zo_perturb']['floor_ms']:.5f} ms")
+    rows["zo_perturb"]["compute_only_ms"] = compute
+    rows["zo_perturb"]["uniforms_only_ms"] = hashed
     return rows
 
 
@@ -876,6 +1036,7 @@ def method_set_phase(torch, dev, hidden=1300, n_iters=32, small_hidden=64):
     from repro_torch.data.synthetic import batches
     from repro_torch.dist.compress import qsgd
     from repro_torch.kernels import ops
+    from repro_torch.kernels import zo_direction as cu
     from repro_torch.models.mlp import init_mlp_classifier, mlp_loss
 
     m, B, tau, lr, mu, seed = 4, 64, 8, 0.05, 1e-3, 0
@@ -906,14 +1067,14 @@ def method_set_phase(torch, dev, hidden=1300, n_iters=32, small_hidden=64):
     n_zo = order.count(0)
     check(ho["order"] == order, f"unexpected HO-SGD order {ho['order']}")
     want = {"zo_perturb": n_leaves * m * n_zo, "zo_reconstruct": n_leaves * n_zo,
-            "zo_sumsq": 2 * n_leaves}
+            "zo_sumsq": cu.LAUNCHES_PER_CALL["zo_sumsq"] * n_leaves}
     for name, n in want.items():
         check(launches[name] == n, f"{name} launched {launches[name]} times, expected {n}")
     others = {k: v for k, v in launches.items() if k not in want}
     check(not any(others.values()), f"kernels off the pallas path launched: {others}")
     print(f"  HO-SGD: {n_leaves} leaves x m={m} x {n_zo} ZO steps = {want['zo_perturb']} "
           f"zo_perturb, {n_leaves} x {n_zo} = {want['zo_reconstruct']} zo_reconstruct; "
-          f"zo_sumsq 2 launches x {n_leaves} leaves")
+          f"zo_sumsq {cu.LAUNCHES_PER_CALL['zo_sumsq']} launches x {n_leaves} leaves")
 
     for name in METHODS:
         h = res[name]
@@ -1771,6 +1932,7 @@ def main() -> None:
                                                 build.SOURCES)))
     print(f"# build: {time.perf_counter() - t0:.1f} s ({', '.join(sorted(libs))})")
     gauss_instr = gauss_instructions(libs["zo_direction"])
+    uniform_instr = uniforms_instructions(libs["zo_direction"])
     exp_instr = probe_instructions(libs["selective_scan"], "ss_probe_exp", "ss_probe_base",
                                    "one expf", 3)
     from repro_torch.kernels import selective_scan as ss
@@ -1799,7 +1961,7 @@ def main() -> None:
     print("# phase: Fig. 1 universal attack (engine=flat)")
     fig1_phase(torch, dev)
     print("# phase: per-leaf kernels vs plain versions on the card")
-    leaf_rows = leaf_kernel_phase(torch, dev, gauss_instr)
+    leaf_rows = leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr)
     print("# phase: the Fig. 2 method set at hidden=1300 (engine=pallas)")
     method_launches = method_set_phase(torch, dev)
     print("# phase: profile of the ZO step with engine=pallas")
@@ -1848,8 +2010,10 @@ def main() -> None:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "path": "fig2 flat+sgd" if main else "fig2 flat+adam",
-            **({"sumsq_rel_err": row["sumsq_rel_err"]} if "sumsq_rel_err" in row else {}),
+            **{k: row[k] for k in EXTRA_KEYS if k in row},
         })
+        if "launches_per_call" in row:
+            kernels[-1]["calls"] = launches // row["launches_per_call"]
     for name, row in leaf_rows.items():
         check(method_launches[name] > 0, f"{name} was not launched on its path")
         kernels.append({
@@ -1859,7 +2023,7 @@ def main() -> None:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "path": "fig2 method set, ho_sgd engine=pallas",
             "shape": f"w2 leaf n={row['n']}" + (", m=4" if name == "zo_reconstruct" else ""),
-            **({"sumsq_rel_err": row["sumsq_rel_err"]} if "sumsq_rel_err" in row else {}),
+            **{k: row[k] for k in EXTRA_KEYS if k in row},
         })
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")

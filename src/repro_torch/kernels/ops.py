@@ -9,8 +9,9 @@ hand-written kernel (``kernels.zo_direction``, ``kernels.flash_attention``,
 back.
 
 Metadata dtypes: ``salts``/``ctrs`` are ``torch.uint32``, ``nvalid`` and
-``bf16_mask`` ``torch.int32``, everything else float32.  ``scale``, ``mu`` and
-``lr`` may be Python floats or tensors.  ``zo_reconstruct_update`` updates
+``bf16_mask`` ``torch.int32``, everything else float32.  ``scale`` and ``lr``
+may be Python floats or tensors; ``mu`` too on the CPU, but the card takes
+``zo_perturb_sumsq``'s ``mu`` by value, as a host number.  ``zo_reconstruct_update`` updates
 ``p`` and ``mom`` in place on both paths and returns them.  A per-leaf salt
 and counter offset are Python ints; ``zo_reconstruct`` takes its m salts as
 a uint32 tensor on the coefficients' device.  The reference's ``block``

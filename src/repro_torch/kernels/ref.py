@@ -146,8 +146,9 @@ def ref_zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block: int = 4096,
 
 def ref_zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
     """Fused perturb + norm: ``(x + mu*rsqrt(sumsq + 1e-30)*v, sumsq)`` with
-    ``sumsq`` of shape (1,).  The sum is taken as the kernel takes it: one
-    partial per block, then one sum over the partials."""
+    ``sumsq`` of shape (1,).  The sum is taken as the reference's Pallas
+    kernel takes it: one partial per block, then one sum over the partials
+    (the CUDA kernel sums in an order of its own, as fixed)."""
     nb = int(salts.shape[0])
     xb = _blocks(x, nb, block)
     g, valid = _flat_gauss(salts, ctrs, nvalid, block)

@@ -10,12 +10,15 @@ the plain versions live in ``repro_torch.kernels.ref`` and
 
 The library is built (``kernels.build``) and loaded at the first launch, never
 at import (``kernels.binding``).  ``LAUNCHES`` counts kernel launches per
-function, and only here, where they happen; ``zo_perturb_sumsq`` and
-``zo_sumsq`` make two launches per call.
+function, and only here, where they happen; ``LAUNCHES_PER_CALL`` says how
+many one call makes (two for ``zo_perturb_sumsq`` and ``zo_sumsq``, one for
+every other function).
 
 A leaf's salt and counter offset are Python ints and go to the kernel by
-value; a scale is read from device memory (``_scalar``), so a scale computed
-on the card is never synced to the host.
+value, as does ``zo_perturb_sumsq``'s ``mu`` (a host number: every caller has
+one, and no fill kernel runs for it); any other scale is read from device
+memory (``_scalar``), so a scale computed on the card is never synced to the
+host.
 """
 from __future__ import annotations
 
@@ -31,8 +34,11 @@ from repro_torch.kernels.binding import stream as _stream
 
 LAUNCHES = {"zo_perturb_flat": 0, "zo_reconstruct_flat": 0,
             "zo_perturb_sumsq": 0, "zo_reconstruct_update": 0,
-            "zo_perturb": 0, "zo_reconstruct": 0, "zo_sumsq": 0}
+            "zo_perturb": 0, "zo_reconstruct": 0, "zo_sumsq": 0,
+            "zo_check_gauss": 0, "zo_probe_leaf": 0}
+LAUNCHES_PER_CALL = {k: 1 for k in LAUNCHES} | {"zo_perturb_sumsq": 2, "zo_sumsq": 2}
 SUMSQ_CHUNK = 4096     # lanes per partial sum of zo_sumsq's first launch
+PERTURB_SUMSQ_PARTIALS = 2048   # zo_perturb_sumsq's partial sums: cap its first grid
 LEAF_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
@@ -40,14 +46,16 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "zo_perturb_flat_launch": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "zo_reconstruct_flat_launch": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
-    "zo_sumsq_partials_launch": [_P, _P, _P, _P, _I, _I, _P],
-    "zo_perturb_sumsq_apply_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
+    "zo_sumsq_v_launch": [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _P],
+    "zo_apply_v_launch": [_P, _P, _P, _I, _F, _P, _P, _I64, _I, _P],
     "zo_reconstruct_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _I64, _I,
                                      _I, _I, _I, _P],
     "zo_perturb_leaf_launch": [_P, _P, _I64, _U32, _U32, _P, _I, _I, _P],
     "zo_reconstruct_leaf_launch": [_P, _P, _P, _I64, _U32, _I, _I, _I, _P],
     "zo_sumsq_leaf_partials_launch": [_P, _I, _I64, _U32, _U32, _I, _I, _P],
     "zo_sum_partials_launch": [_P, _I, _P, _I, _P],
+    "zo_check_gauss_launch": [_P, _I, _I, _P],
+    "zo_probe_leaf_launch": [_P, _I64, _I, _I, _P],
 }
 
 
@@ -62,6 +70,18 @@ def _scalar(v, device: torch.device) -> torch.Tensor:
     if isinstance(v, torch.Tensor) and v.device == device:
         return v.to(torch.float32).reshape(1).contiguous()
     return torch.full((1,), float(v), dtype=torch.float32, device=device)
+
+
+def _aligned_like(x: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor shaped and typed like ``x`` whose data has
+    x's alignment mod 16 bytes, so that a kernel's 16-byte accesses line up
+    in both (a fresh allocation is 16-byte aligned; a view of one need not
+    be)."""
+    shift = (x.data_ptr() % 16) // x.element_size()
+    if shift == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    flat = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    return flat[shift:].view(x.shape)
 
 
 def _meta(salts, ctrs, nvalid, device, m=None):
@@ -104,21 +124,24 @@ def zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block: int = 4096,
 
 
 def zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
-    """``(x + mu*rsqrt(sum v^2)*v, sum v^2)``: two launches, per-block
-    partials then a fixed-order reduce inside every block of the apply."""
+    """``(x + mu*rsqrt(sum v^2)*v, sum v^2)``, ``sum v^2`` a (1,) tensor:
+    two launches, each Gaussian computed once into a scratch buffer with one
+    partial sum of v^2 per block, then a fixed-order sum of the partials and
+    the stream of x and v.  ``mu`` is a host number, passed by value."""
     dev = _cuda_device(x)
     nb, ps, pc, pn = _meta(salts, ctrs, nvalid, dev)
     px = _check(x, "x", torch.float32, dev, (nb * block,))
-    mu_t = _scalar(mu, dev)
-    partials = torch.empty(nb, dtype=torch.float32, device=dev)
-    out = torch.empty_like(x)
+    if isinstance(mu, torch.Tensor) and mu.device.type != "cpu":
+        raise TypeError("mu: zo_perturb_sumsq takes it by value; give a host number")
+    out, v = _aligned_like(x), _aligned_like(x)
+    partials = torch.empty(PERTURB_SUMSQ_PARTIALS, dtype=torch.float32, device=dev)
     ss = torch.empty(1, dtype=torch.float32, device=dev)
     stream = _stream(dev)
-    _launch("zo_perturb_sumsq", "zo_sumsq_partials_launch", ps, pc, pn,
-            partials.data_ptr(), nb, dev.index, stream)
-    _launch("zo_perturb_sumsq", "zo_perturb_sumsq_apply_launch", px, ps, pc,
-            pn, partials.data_ptr(), nb, mu_t.data_ptr(), out.data_ptr(),
-            ss.data_ptr(), block, dev.index, stream)
+    _launch("zo_perturb_sumsq", "zo_sumsq_v_launch", px, ps, pc, pn, v.data_ptr(),
+            partials.data_ptr(), PERTURB_SUMSQ_PARTIALS, x.numel(), block, dev.index, stream)
+    _launch("zo_perturb_sumsq", "zo_apply_v_launch", px, v.data_ptr(), partials.data_ptr(),
+            PERTURB_SUMSQ_PARTIALS, float(mu), out.data_ptr(), ss.data_ptr(), x.numel(),
+            dev.index, stream)
     return out, ss
 
 
@@ -160,14 +183,16 @@ def _u32(v) -> int:
 
 def zo_perturb(x, salt, scale, offset=0):
     """``(f32(x) + scale * v).to(x.dtype)`` for one flat leaf of float32 or
-    bfloat16 values, out of place; one launch."""
+    bfloat16 values, out of place; one launch.  The output has x's alignment
+    mod 16 bytes, so a view of a leaf (``x[1:]``) still takes the kernel's
+    16-byte accesses."""
     dev = _cuda_device(x)
     if x.dtype not in LEAF_DTYPES:
         raise TypeError(f"x: dtype {x.dtype}, expected one of {LEAF_DTYPES}")
     n = _leaf_size(x.numel())
     px = _check(x, "x", x.dtype, dev, (n,))
     sc = _scalar(scale, dev)
-    out = torch.empty_like(x)
+    out = _aligned_like(x)
     _launch("zo_perturb", "zo_perturb_leaf_launch", px, out.data_ptr(), n,
             _u32(salt), _u32(offset), sc.data_ptr(), int(x.dtype == torch.bfloat16),
             dev.index, _stream(dev))
@@ -209,3 +234,36 @@ def zo_sumsq(n, salt, offset=0, device="cuda"):
     _launch("zo_sumsq", "zo_sum_partials_launch", partials.data_ptr(), nb,
             out.data_ptr(), dev.index, stream)
     return out
+
+
+def check_gauss(device="cuda", control: bool = False):
+    """``(radii, cosines)``: how many of the 2^24 values each uniform can take
+    give a different radius ``sqrtf(-2 logf(u1))`` or cosine ``cosf(2 pi u2)``
+    in the kernels' Gaussian than in libdevice's functions; ``(0, 0)`` proves
+    the Gaussian bit for bit.  ``control`` holds the cosines against cosf one
+    ulp further on, which must differ.  One launch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    bad = torch.zeros(2, dtype=torch.int32, device=dev)
+    _launch("zo_check_gauss", "zo_check_gauss_launch", bad.data_ptr(), int(control),
+            dev.index, _stream(dev))
+    radii, cosines = bad.tolist()
+    return radii, cosines
+
+
+def probe_leaf(n: int, hash_only: bool = False, device="cuda") -> None:
+    """A timing probe: ``zo_perturb``'s float32 vector loop over ``n`` lanes
+    on its grid, with no load and no store, computing the whole Gaussian or
+    (``hash_only``) the hash and its uniforms alone.  One launch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the CUDA kernels take a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n = _leaf_size(n)
+    sink = torch.empty(max(1, n // 4), dtype=torch.float32, device=dev)
+    _launch("zo_probe_leaf", "zo_probe_leaf_launch", sink.data_ptr(), n, int(hash_only),
+            dev.index, _stream(dev))

@@ -5,7 +5,8 @@ Run on a GPU machine from the repository root with
 This file imports no JAX (the GPU machine has none): each kernel is held
 against its plain PyTorch version on the same inputs.  Per-leaf kernels: fp32
 outputs bitwise, bf16 ones to one bf16 ulp, the sum of squares to rtol
-1e-6.  Flat kernels: fp32 outputs to
+1e-6; zo_perturb also on views off a 16-byte boundary.  The Gaussian is
+held to libdevice's on every value of its two uniforms.  Flat kernels: fp32 outputs to
 rtol 1e-5 / atol 1e-6 (the two differ at most by ulps of logf/cosf and by
 the order of the sum of squares) and bf16-rounded outputs to one bf16 ulp
 per element with at most 0.1% of the elements differing at all; an fp32
@@ -150,6 +151,69 @@ def test_per_leaf_kernels_match_plain_versions(n, offset):
     assert torch.equal(buf[:n], ref.ref_zo_perturb(x, 99, scale, offset))
     assert bool((buf[n:] == 7.0).all())
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 5, 4097, 70201, 1690001])
+@pytest.mark.parametrize("shift", [1, 3])
+def test_zo_perturb_on_views_off_a_16_byte_boundary(n, shift):
+    """zo_perturb on ``x[shift:]`` (4 * shift bytes past a boundary): float32
+    bitwise, bfloat16 within one bf16 ulp.  Leaves past one lane per thread
+    of the whole card take 16-byte vectors after a scalar head and before a
+    scalar tail; nothing is stored past the leaf."""
+    dev = _cuda()
+    base = to_t(leaf(n + shift + 1)).to(dev)
+    scale = torch.tensor(0.37, device=dev)
+    for xs in (base, base.to(torch.bfloat16)):
+        x = xs[shift:shift + n]
+        got, want = cu.zo_perturb(x, 7, scale, 12345), ref.ref_zo_perturb(x, 7, scale, 12345)
+        assert got.dtype == x.dtype and got.shape == x.shape
+        if x.dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert bf16_match(got, want)
+    # a caller's buffer at a boundary and one value past it (then x's and the
+    # buffer's alignments differ), with canaries around the leaf
+    x = base[:n]
+    for at in (0, 1):
+        buf = torch.full((n + 257,), 7.0, device=dev)
+        cu._launch("zo_perturb", "zo_perturb_leaf_launch", x.data_ptr(), buf[at:].data_ptr(),
+                   n, 7, 0, scale.reshape(1).data_ptr(), 0, x.device.index,
+                   torch.cuda.current_stream(x.device).cuda_stream)
+        assert torch.equal(buf[at:at + n], ref.ref_zo_perturb(x, 7, scale, 0))
+        assert bool((buf[:at] == 7.0).all()) and bool((buf[at + n:] == 7.0).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,block,shift", [
+    ([1000, 261, 1, 5], 257, 0), ([1000, 261, 1, 5], 257, 1),
+    ([4096 * 4096 - 5], 4096, 0), ([4096 * 4096 - 5], 4096, 3)])
+def test_zo_perturb_sumsq_ragged_blocks_and_past_the_l2(sizes, block, shift):
+    """zo_perturb_sumsq at a block that is not a multiple of 4 and on a
+    buffer past the L2 (4096 blocks of 4096), each also starting off a
+    16-byte boundary: sum v^2 to rtol 1e-5 of the plain version, the output
+    to FP32_TOL, and both bitwise the same run to run."""
+    dev = _cuda()
+    salts, ctrs, nvalid = (to_t(a).to(dev) for a in flat_meta(sizes, block))
+    x = torch.cat([torch.zeros(shift), to_t(packed(sizes, block))]).to(dev)[shift:]
+    out, ss = cu.zo_perturb_sumsq(x, salts, ctrs, nvalid, 1e-3, block)
+    want, wss = ref.ref_zo_perturb_sumsq(x, salts, ctrs, nvalid, 1e-3, block)
+    torch.testing.assert_close(ss, wss, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(out, want, **FP32_TOL)
+    out2, ss2 = cu.zo_perturb_sumsq(x, salts, ctrs, nvalid, 1e-3, block)
+    assert torch.equal(out, out2) and torch.equal(ss, ss2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gauss_is_libdevice_on_every_uniform():
+    """The kernels' Gaussian against libdevice's logf/sqrtf/cosf on all 2^24
+    values of each uniform: none differs; the control (cosf one ulp further
+    on) differs."""
+    dev = _cuda()
+    assert cu.check_gauss(dev) == (0, 0)
+    assert cu.check_gauss(dev, control=True)[1] > 0
 
 
 @pytest.mark.gpu

@@ -180,3 +180,18 @@ def test_cpu_path_launches_no_kernel_and_checks_devices():
     with pytest.raises(ValueError, match="not 2 blocks"):
         ops.zo_perturb_flat(torch.zeros(100), salts, ctrs, nvalid, 1.0, 64)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 1, 3])
+def test_outputs_take_the_input_alignment(dtype, shift):
+    """The buffers the CUDA wrappers allocate for zo_perturb and
+    zo_perturb_sumsq (output, scratch) start at x's address mod 16 bytes,
+    so a view off a 16-byte boundary still takes 16-byte accesses; every
+    function counted in LAUNCHES says how many launches a call makes."""
+    x = torch.zeros(64, dtype=dtype)[shift:shift + 40]
+    out = cu._aligned_like(x)
+    assert out.data_ptr() % 16 == x.data_ptr() % 16
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+    assert set(cu.LAUNCHES_PER_CALL) == set(cu.LAUNCHES)
+    assert cu.LAUNCHES_PER_CALL["zo_perturb_sumsq"] == 2
