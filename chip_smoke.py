@@ -8,19 +8,36 @@ Phases (any failed check exits non-zero):
   2. build: nvcc compiles the kernels from ``src/repro_torch/kernels/csrc``,
      and cuobjdump's SASS gives the instructions of one Gaussian, of one
      expf, and the scan kernel's own instructions per (t, d, s) in its step
-     loop (each n = 16 variant) beside the bound's count;
+     loop (each n = 16 variant) beside the bound's count; ptxas's registers
+     and spills of every ZO kernel (the two redesigned kernels must not
+     spill); then the Gaussian's parts timed apart: probes on zo_perturb's
+     grid with no load and no store (the loop alone, the two hashes, the
+     hashes and uniforms, log and sqrt, cos, the whole Gaussian with 1, 2, 4
+     and 8 lanes per thread) back to back at n = 1,690,000 and 4n, each
+     beside its instructions per lane by pipe from its loop in the SASS and
+     the share of the issue rate at the SM clock measured here;
   3. kernels: the kernels' Gaussian against libdevice's logf/sqrtf/cosf on
      all 2^24 values of each uniform (with a control); each CUDA kernel
      against its plain PyTorch version on the card, at the Fig. 2 packed
      shape (437 blocks of 4096, m=4) and a ragged layout (leaves of 1, 7,
      4095, 4097 and 70200 values, one bf16), over acc_dtype {fp32, bf16} and
      momentum {0, 0.9}; zo_perturb_sumsq also at a block of 257, past the L2
-     (4096 blocks of 4096) and off a 16-byte boundary; with controls (faulty
-     outputs that must fail each check, among them another worker's v);
-     kernel and plain times (CUDA events, median of 20 after warm-up; for
-     zo_perturb_sumsq also back to back, and the per-call floor) and the
-     bound, the larger of bytes over the HBM rate and Gaussians x
-     instructions over the issue rate;
+     (4096 blocks of 4096) and off a 16-byte boundary; zo_reconstruct_update
+     at m in {1, 2, 3, 4, 5, 8} and, with zo_perturb_flat, at a block of 257
+     on a buffer whose 16-byte vectors cross blocks' edges (random salts,
+     counters, valid lanes and bf16 blocks; at a 16-byte boundary and 4
+     bytes past one; zo_perturb_flat into a caller's buffer with canaries),
+     both required bit for bit equal to their plain versions; with controls
+     (faulty outputs that must fail each check, among them another worker's
+     v, workers 0 and 1's coefficients swapped, and the next block's salts
+     across a vector's edge); kernel and plain times (CUDA events, median of
+     20 after warm-up; for the redesigned ZO kernels also back to back, the
+     per-call floor and the fills of mu and lr that the binding no longer
+     runs) and the bound, the larger of bytes over the HBM rate and
+     Gaussians x instructions over the issue rate; zo_reconstruct_update's
+     unrolled kernel for m = 4 against its runtime-m kernel (a build of the
+     same source that sends every m there; the same output bit for bit,
+     timed in turns; fails if the runtime-m kernel is more than 5% faster);
   4. Fig. 2 main path: HO-SGD on covtype at hidden=1300 (d=1,771,907), m=4,
      B=64, tau=8, 32 steps, engine="flat" with plain SGD, through
      ``apps.classification.run_comparison``; held against engine="fused"
@@ -89,6 +106,7 @@ are set to 0 just before each path and read just after it.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -143,8 +161,10 @@ FIG2_LEAVES = (7, 1300, 1300, 9100, 70200, 1690000)   # the MLP's six leaves
 RAGGED_LEAVES = (1, 4095, 4097, 5000)
 # what a ZO kernel's row carries beside the contract's keys, where it has it
 EXTRA_KEYS = ("sumsq_rel_err", "gauss_instructions", "launches_per_call", "stream_ms",
-              "floor_ms", "mu_fill_stream_ms", "launch_stream_ms", "compute_only_ms",
-              "uniforms_only_ms", "by_size")
+              "floor_ms", "mu_fill_stream_ms", "lr_fill_stream_ms", "launch_stream_ms",
+              "compute_only_ms", "uniforms_only_ms", "by_size", "bitwise_diff_lanes",
+              "host_scale_ms", "lanes_compared", "registers", "gauss_probes", "runtime_m_ab")
+UNROLLED_M = 4               # zo_reconstruct_update's m with a kernel of its own (kUnrolledM)
 METHODS = ["ho_sgd", "sync_sgd", "ri_sgd", "pa_sgd", "zo_sgd", "zo_svrg_ave", "qsgd"]
 SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -285,13 +305,7 @@ def probe_instructions(lib: Path, probe: str, base: str, what: str, least: int) 
     """Instructions of ``what``: the shortest SASS path of the kernel
     ``probe`` less that of ``base`` (the same kernel without it), read from
     the library that was just built."""
-    from repro_torch.kernels.build import find_nvcc
-
-    tool = Path(find_nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
-    funcs = sass_functions(out.stdout)
+    funcs = sass_functions(sass_text(lib))
     check({probe, base} <= set(funcs),
           f"probe kernels missing from the SASS ({sorted(funcs)[:8]})")
     g, b = shortest_path(funcs[probe]), shortest_path(funcs[base])
@@ -328,14 +342,8 @@ def scan_loop_instructions(lib: Path, lanes: int, states: int, exp_instr: int, n
     other instructions are spread over the tile's kTT * states triples a
     lane runs, kTT (time steps per tile) read from the template's name.  The
     bound counts exp_instr + 6 per triple and 2 per (t, d)."""
-    from repro_torch.kernels.build import find_nvcc
-
-    tool = Path(find_nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                         timeout=300)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
     key = re.compile(rf"selective_scan_kernelIfLi{lanes}ELi{states}ELi(\d+)ELb0E")
-    funcs = sass_functions(out.stdout)
+    funcs = sass_functions(sass_text(lib))
     names = [(f, m) for f in funcs for m in [key.search(f)] if m]
     check(len(names) == 1, f"the scan template {key.pattern} is not in the SASS once "
           f"({[f for f, _ in names]})")
@@ -372,6 +380,279 @@ def scan_loop_instructions(lib: Path, lanes: int, states: int, exp_instr: int, n
           f"(ratio {per_step / bound:.3f})")
     return {"lanes": lanes, "states": states, "tile_steps": kTT, "step_loop": n_in, "expf": ex_in,
             "per_triple": per_step, "per_triple_with_tile": with_tile, "bound_per_triple": bound}
+
+
+@functools.lru_cache(maxsize=None)
+def sass_text(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library (read once per library)."""
+    from repro_torch.kernels.build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    return out.stdout
+
+
+def pipe_of(op: str) -> str:
+    """The unit a SASS instruction issues to, by our reading of NVIDIA's
+    throughput table for compute capability 9.0 (per SM and clock): "fma"
+    (float32 add, multiply, multiply-add at 128; integer multiply-add at 64),
+    "alu" (integer add, logic, shift, compare, select, and I2FP, at 64),
+    "xu" (MUFU and the other conversions, at 16), "other" (branches, memory,
+    uniform-datapath and special registers)."""
+    base = op.split(".")[0]
+    if base in ("MUFU", "F2I", "I2F", "F2F", "FRND", "I2I"):
+        return "xu"
+    if base in ("FFMA", "FMUL", "FADD", "IMAD", "HFMA2", "IMUL", "IDP"):
+        return "fma"
+    if base in ("LOP3", "IADD3", "SHF", "ISETP", "FSETP", "FSEL", "SEL", "LEA", "PRMT", "I2FP",
+                "F2FP", "FMNMX", "IMNMX", "IABS", "PLOP3", "P2R", "R2P", "MOV", "VIADD",
+                "IADD", "SHL", "SHR", "LOP", "FLO", "POPC", "BREV", "VIMNMX"):
+        return "alu"
+    return "other"
+
+
+def loop_trip(instrs) -> list:
+    """The opcodes of one trip of a probe kernel's loop: the shortest cycle
+    from the loop's head (the earliest target of a backward branch) back to
+    it, so the rarely taken store is left out wherever the compiler put it;
+    predicated instructions count (they take an issue slot), NOPs do not."""
+    import heapq
+
+    index = {addr: k for k, (addr, *_) in enumerate(instrs)}
+
+    def target(args):
+        return index[int(re.findall(r"0x[0-9a-f]+", args)[-1], 16)]
+
+    backs = [target(args) for k, (addr, _, op, args) in enumerate(instrs)
+             if op.startswith("BRA") and re.findall(r"0x[0-9a-f]+", args) and target(args) < k]
+    check(bool(backs), "a probe kernel has no loop in its SASS")
+    head = min(backs)
+    dist, prev, heap, best = {head: 0}, {}, [(0, head)], None
+    while heap:
+        d, k = heapq.heappop(heap)
+        if d > dist[k]:
+            continue
+        _, pred, op, args = instrs[k]
+        base = op.split(".")[0]
+        cost = 0 if base == "NOP" else 1
+        nxt = []
+        if base == "BRA":
+            nxt.append(target(args))
+            if pred or "," in args:
+                nxt.append(k + 1)
+        elif base not in ("EXIT", "RET") or pred:
+            nxt.append(k + 1)
+        for j in nxt:
+            if j == head:
+                if best is None or d + cost < best[0]:
+                    best = (d + cost, k)
+            elif j < len(instrs) and d + cost < dist.get(j, math.inf):
+                dist[j], prev[j] = d + cost, k
+                heapq.heappush(heap, (d + cost, j))
+    check(best is not None, "no cycle through a probe kernel's loop head")
+    path, k = [], best[1]
+    while True:
+        path.append(instrs[k][2])
+        if k == head:
+            break
+        k = prev[k]
+    return [op for op in path if not op.startswith("NOP")]
+
+
+def probe_loops(lib: Path) -> dict:
+    """{(part, k): (instructions per lane on one trip, {pipe: per lane})} of
+    the timing probes ``probe_part_kernel<part, k>`` in the built SASS."""
+    from repro_torch.kernels import zo_direction as cu
+
+    names = {v: k for k, v in cu.PROBE_PARTS.items()}
+    key = re.compile(r"probe_part_kernelILi(\d+)ELi(\d+)E")
+    out = {}
+    for fname, instrs in sass_functions(sass_text(lib)).items():
+        m = key.search(fname)
+        if not m:
+            continue
+        part, k = names[int(m.group(1))], int(m.group(2))
+        trip = loop_trip(instrs)
+        pipes = {}
+        for op in trip:
+            pipes[pipe_of(op)] = pipes.get(pipe_of(op), 0) + 1 / k
+        out[(part, k)] = (len(trip) / k, pipes)
+    return out
+
+
+def ptxas_lines(name: str) -> dict:
+    """Print and return each kernel's registers and spills (``-Xptxas -v``),
+    names demangled with the toolkit's cu++filt where it has one."""
+    from repro_torch.kernels.build import find_nvcc, ptxas_usage
+
+    usage = ptxas_usage(name)
+    filt = Path(find_nvcc()).parent / "cu++filt"
+    names = list(usage)
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True,
+                             timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    rows = {}
+    for mangled, pretty in zip(usage, names):
+        short = re.sub(r"\((?:int|bool|unsigned int)\)|^void |\(anonymous namespace\)::|"
+                       r"<unnamed>::", "", pretty).split("(")[0]
+        u = usage[mangled]
+        rows[short] = u
+        print(f"#   ptxas {short}: {u.get('registers')} registers, stack {u.get('stack')} B, "
+              f"spill stores {u.get('spill_stores')} B, loads {u.get('spill_loads')} B")
+    return rows
+
+
+def build_runtime_m() -> Path:
+    """``zo_direction.cu`` with every m sent to zo_reconstruct_update's
+    runtime-m kernel (the unrolled one for ``UNROLLED_M`` left out), built
+    with the port's flags beside its libraries: the A/B that keeps the
+    unrolled kernel."""
+    import hashlib
+
+    from repro_torch.kernels import build as kb
+
+    src = kb.SOURCES["zo_direction"].read_text()
+    old = "  const bool unrolled = m == kUnrolledM;\n"
+    check(src.count(old) == 1 and f"constexpr int kUnrolledM = {UNROLLED_M};" in src,
+          f"the runtime-m build does not find zo_reconstruct_update's dispatch to its "
+          f"unrolled kernel for m = {UNROLLED_M} in zo_direction.cu")
+    src = src.replace(old, "  const bool unrolled = false;\n")
+    h = hashlib.sha256((src + " ".join(kb.NVCC_FLAGS)).encode()).hexdigest()[:16]
+    out = kb.build_dir() / f"libzo_direction_runtime_m_{h}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.with_suffix(".cu").write_text(src)
+        proc = subprocess.run([kb.find_nvcc(), *kb.NVCC_FLAGS, "-o", str(out),
+                               str(out.with_suffix(".cu"))], capture_output=True, text=True,
+                              timeout=900)
+        check(proc.returncode == 0, f"the runtime-m build failed: {proc.stderr[-3000:]}")
+    return out
+
+
+def runtime_m_ab(torch, lib: Path, x, sm, ctr, nv, bf, coeffs, lr, block, margin=0.05) -> dict:
+    """zo_reconstruct_update's unrolled kernel (the shipped one at m =
+    ``UNROLLED_M``) against its runtime-m kernel (``build_runtime_m``) at the
+    Fig. 2 shape: bit for bit the same output, then both timed in turns
+    (runtime, unrolled, unrolled, runtime), back to back and one call at a
+    time.  Fails when the runtime-m kernel is more than ``margin`` faster
+    back to back, and warns when the unrolled one leads by under 1%: then
+    the unrolled kernel no longer pays for itself."""
+    import ctypes
+
+    from repro_torch.kernels import zo_direction as cu
+
+    m = int(coeffs.numel())
+    check(m == UNROLLED_M, f"the runtime-m A/B needs m = {UNROLLED_M}, got {m}")
+    fn = ctypes.CDLL(str(lib)).zo_reconstruct_update_launch
+    fn.argtypes, fn.restype = cu._SIGNATURES["zo_reconstruct_update_launch"], ctypes.c_int
+    dev = x.device
+
+    def runtime(p):
+        rc = fn(p.data_ptr(), None, sm.data_ptr(), ctr.data_ptr(), nv.data_ptr(), bf.data_ptr(),
+                coeffs.data_ptr(), lr, 0.0, p.numel(), block, m, 0, dev.index, cu._stream(dev))
+        check(rc == 0, f"the runtime-m kernel's launch failed: CUDA error {rc}")
+
+    def unrolled(p):
+        cu.zo_reconstruct_update(p, None, sm, ctr, nv, bf, coeffs, lr, 0.0, block, "float32")
+
+    a, b = x.clone(), x.clone()
+    runtime(a)
+    unrolled(b)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "the runtime-m kernel's output differs from the unrolled kernel's")
+    work = x.clone()
+    r1, u1 = stream_ms(torch, lambda: runtime(work)), stream_ms(torch, lambda: unrolled(work))
+    u2, r2 = stream_ms(torch, lambda: unrolled(work)), stream_ms(torch, lambda: runtime(work))
+    c_r1, c_u1 = cuda_ms(torch, lambda: runtime(work)), cuda_ms(torch, lambda: unrolled(work))
+    c_u2, c_r2 = cuda_ms(torch, lambda: unrolled(work)), cuda_ms(torch, lambda: runtime(work))
+    ab = {"m": m, "runtime_m_stream_ms": (r1 + r2) / 2, "unrolled_stream_ms": (u1 + u2) / 2,
+          "runtime_m_ms": (c_r1 + c_r2) / 2, "unrolled_ms": (c_u1 + c_u2) / 2,
+          "turns_stream_ms": [r1, u1, u2, r2]}
+    lead = ab["runtime_m_stream_ms"] / ab["unrolled_stream_ms"] - 1
+    print(f"  {'zo_reconstruct_update':22s} m = {m}, the unrolled kernel vs the runtime-m kernel "
+          f"(same output bit for bit): back to back {ab['unrolled_stream_ms']:.5f} vs "
+          f"{ab['runtime_m_stream_ms']:.5f} ms (turns runtime/unrolled/unrolled/runtime "
+          f"{r1:.5f} {u1:.5f} {u2:.5f} {r2:.5f}), one call {ab['unrolled_ms']:.4f} vs "
+          f"{ab['runtime_m_ms']:.4f} ms; the unrolled kernel leads by {lead:.2%}")
+    if lead < 0.01:
+        print(f"  WARNING zo_reconstruct_update: the unrolled kernel for m = {m} leads the "
+              f"runtime-m kernel by {lead:.2%} only")
+    check(lead >= -margin, f"zo_reconstruct_update: the runtime-m kernel is {-lead:.2%} faster "
+          f"than the unrolled one it ships for m = {m} (more than {margin:.0%})")
+    return ab
+
+
+def sm_clock_ghz(torch) -> float:
+    """The SM clock the card runs at, from a spin of 20M clock cycles
+    (``torch.cuda._sleep``) timed with CUDA events."""
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(cycles)
+    e.record()
+    torch.cuda.synchronize()
+    return cycles / (s.elapsed_time(e) * 1e-3) / 1e9
+
+
+PROBES = [("loop", 4), ("hashes", 4), ("uniforms", 4), ("log_sqrt", 4), ("cos", 4),
+          ("gauss", 1), ("gauss", 2), ("gauss", 4), ("gauss", 8)]
+SMSPS = 132 * 4               # the H100 SXM's SM sub-partitions, one warp issued per clock each
+
+
+def gauss_probe_phase(torch, dev, lib: Path, n=1_690_000):
+    """What holds the Gaussian: each part of gauss() alone, and the whole
+    Gaussian with 1, 2, 4 and 8 independent lanes per thread, on
+    zo_perturb's grid with no load and no store, timed back to back at n and
+    4n lanes; the difference gives the rate without the launch's fixed cost.
+    Beside each: its own instructions per lane on one trip of its loop in
+    the SASS, by pipe, and the share of the issue rate it runs at (one warp
+    instruction per sub-partition and clock, at the clock measured here)."""
+    from repro_torch.kernels import zo_direction as cu
+
+    loops = probe_loops(lib)
+    check(set(PROBES) <= set(loops), f"probe kernels missing from the SASS: {sorted(loops)}")
+    ghz = sm_clock_ghz(torch)
+    print(f"  SM clock {ghz:.3f} GHz (a spin of 20M cycles); one warp instruction per "
+          f"sub-partition and clock is {SMSPS * 32 * ghz / 1e3:.2f}T lane-instructions/s")
+    rows = []
+    for part, k in PROBES:
+        t1, t4 = (stream_ms(torch, lambda nn=nn: cu.probe_part(nn, part, k, dev))
+                  for nn in (n, 4 * n))
+        per_lane, pipes = loops[(part, k)]
+        slope_ns = (t4 - t1) * 1e6 / (3 * n)              # ns per lane, fixed cost out
+        cycles = slope_ns * ghz * SMSPS * 32             # sub-partition cycles per 32 lanes
+        row = {"part": part, "k": k, "instructions_per_lane": per_lane,
+               "by_pipe": {p: round(v, 3) for p, v in sorted(pipes.items())},
+               "ms_n": t1, "ms_4n": t4, "ns_per_lane": slope_ns,
+               "cycles_per_warp_lane": cycles, "issue_share": per_lane / cycles}
+        rows.append(row)
+        print(f"  probe {part:9s} k={k}: {per_lane:6.2f} instructions per lane "
+              f"({', '.join(f'{p} {v:.2f}' for p, v in sorted(pipes.items()))}); back to back "
+              f"{t1:.5f} ms at n={n}, {t4:.5f} at 4n: {slope_ns * 1e3:.3f} ps per lane = "
+              f"{cycles:.1f} sub-partition cycles per 32 lanes, {row['issue_share']:.3f} of "
+              f"the issue rate")
+    least = {"hashes": 12, "uniforms": 16, "log_sqrt": 12, "cos": 12, "gauss": 50}
+    base = next(r for r in rows if r["part"] == "loop")
+    for r in rows:               # no part may have been folded away by the compiler
+        if r["part"] in least:
+            check(r["instructions_per_lane"] - (base["instructions_per_lane"] if r["k"] == 4 else 0)
+                  > least[r["part"]], f"probe {r['part']} k={r['k']}: too few instructions "
+                  f"({r['instructions_per_lane']:.2f} per lane); was its work dropped?")
+    for r in rows:
+        if r["part"] != "loop" and r["k"] == 4:
+            d_instr = r["instructions_per_lane"] - base["instructions_per_lane"]
+            d_cyc = r["cycles_per_warp_lane"] - base["cycles_per_warp_lane"]
+            r["over_loop"] = {"instructions": d_instr, "cycles": d_cyc}
+            print(f"  probe {r['part']:9s} over the loop alone: {d_instr:6.2f} instructions, "
+                  f"{d_cyc:6.1f} cycles per 32 lanes ({d_instr / d_cyc if d_cyc > 0 else 0:.3f} "
+                  f"of the issue rate)")
+    return {"sm_clock_ghz": ghz, "n": n, "rows": rows}
 
 
 # --------------------------------------------------------------------------- #
@@ -421,7 +702,49 @@ def sumsq_launches_ms(torch, cu, x, salts, ctrs, nvalid, block):
     return [stream_ms(torch, first), stream_ms(torch, second)]
 
 
-def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
+def bit_diff(torch, got, want) -> int:
+    """Lanes whose float32 bits differ."""
+    g, w = got.float().contiguous(), want.float().contiguous()
+    return int((g.view(torch.int32) != w.view(torch.int32)).sum())
+
+
+def per_lane(torch, salts, ctrs, nvalid, bf16_mask, block, n):
+    """The packed layout as blocks of one lane each: lane i's salts, counter,
+    valid flag and bf16 flag, so a plain version at block=1 can give a
+    single lane other salts than its block's."""
+    lanes = torch.arange(n, device=ctrs.device)
+    b, l = lanes // block, lanes % block
+    lc = ((ctrs.to(torch.int64)[b] + l) & 0xFFFFFFFF).to(torch.uint32)
+    return (salts.to(torch.int64)[b], lc, (l < nvalid.to(torch.int64)[b]).to(torch.int32),
+            bf16_mask[b])
+
+
+def edge_fault(torch, lane_salts, salts, block, head, n):
+    """A kernel's fault, as per-lane salts: every lane of a 16-byte vector
+    (lanes head + 4j .. head + 4j + 3) that crosses a packed block's edge
+    takes the salts of the block after the vector's first lane's.  Returns
+    the faulty salts and the count of vectors that cross."""
+    i0 = head + 4 * torch.arange((n - head) // 4, device=salts.device)
+    starts = i0[(i0 // block) != ((i0 + 3) // block)]
+    bad = lane_salts.clone()
+    for k in range(4):
+        bad[starts + k] = salts.to(torch.int64)[starts // block + 1]
+    return bad, int(starts.numel())
+
+
+def flat_perturb_into(torch, x, salts, ctrs, nvalid, scale, out, block):
+    """Launch zo_perturb_flat's kernel writing into ``out`` (a caller's
+    buffer, longer than x): the canary check's way in."""
+    from repro_torch.kernels import zo_direction as cu
+
+    dev = x.device
+    cu._launch("zo_perturb_flat", "zo_perturb_flat_launch", x.data_ptr(), salts.data_ptr(),
+               ctrs.data_ptr(), nvalid.data_ptr(), scale.reshape(1).data_ptr(), out.data_ptr(),
+               x.numel(), block, dev.index, cu._stream(dev))
+
+
+def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_blocks=1300,
+                 edge_ms=(1, 2, 3, 4, 5, 8), runtime_m_lib=None):
     import numpy as np
 
     from repro_torch.core.engine import FlatEngine
@@ -430,7 +753,8 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
 
     radii, cosines = cu.check_gauss(dev)
     print(f"  {'gauss':22s} radii and cosines that differ from libdevice's logf/sqrtf/cosf "
-          f"over all 2^24 values of each uniform: {radii}, {cosines} (must be 0, 0)")
+          f"on the reference's uniform, over all 2^24 values of each: {radii}, {cosines} "
+          f"(must be 0, 0)")
     check(radii == 0 and cosines == 0, f"the kernels' Gaussian is not libdevice's: {radii} "
           f"radii and {cosines} cosines differ")
     ctl = cu.check_gauss(dev, control=True)[1]
@@ -448,13 +772,21 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
 
     m, t = 4, 3
     coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1], device=dev)
+    coeffs8 = torch.tensor([0.5, -1.0, 2.0, 0.1, 0.7, -0.3, 1.2, -0.8], device=dev)
     lr = 0.05
     errs = {k: 0.0 for k in REPLACES}
+    bits = {k: [0, 0] for k in ("zo_perturb_flat", "zo_reconstruct_update")}  # differ, lanes
     sumsq_rel = 0.0
 
     def compare(name, got, want, what, **kw):
         ok, err, tol = agree(torch, got, want, **kw)
-        print(f"  {name:22s} {what:42s} max_abs_err={err:.3e} {tol}")
+        extra = ""
+        if name in bits:
+            nd = bit_diff(torch, got, want)
+            bits[name][0] += nd
+            bits[name][1] += got.numel()
+            extra = f", {nd} of {got.numel()} lanes differ bitwise"
+        print(f"  {name:22s} {what:42s} max_abs_err={err:.3e} {tol}{extra}")
         check(ok, f"{name} {what}: kernel and plain version disagree ({err}, {tol})")
         errs[name] = max(errs[name], err)
 
@@ -462,6 +794,23 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
         ok, err, _ = agree(torch, bad, want, **kw)
         print(f"  {name:22s} control, {what}: fails the check (max_abs_err={err:.3e})")
         check(not ok, f"{name}: the check lets a faulty output pass ({what})")
+
+    def update_case(x, mom, salts, ctr, nv, bf, cw, momentum, B, acc, what):
+        """zo_reconstruct_update on copies of x (and mom) at x's alignment
+        against its plain version: p outside and inside bf16 blocks, mom."""
+        bfe = (bf != 0).repeat_interleave(B)
+        p_k = cu._aligned_like(x).copy_(x)
+        m_k = None if mom is None else cu._aligned_like(x).copy_(mom)
+        cu.zo_reconstruct_update(p_k, m_k, salts, ctr, nv, bf, cw, lr, momentum, B, acc)
+        p_r, m_r = ref.ref_zo_reconstruct_update(x, mom, salts, ctr, nv, bf, cw, lr, momentum,
+                                                 B, acc)
+        compare("zo_reconstruct_update", p_k[~bfe], p_r[~bfe], what + " p", base=x[~bfe])
+        if bool(bfe.any()):
+            compare("zo_reconstruct_update", p_k[bfe], p_r[bfe], what + " p, bf16 blocks",
+                    bf16=True)
+        if mom is not None:
+            compare("zo_reconstruct_update", m_k, m_r, what + " mom", base=mom)
+        return p_r
 
     for lname, eng in layouts.items():
         x = eng.pack(inputs[lname])
@@ -515,19 +864,8 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
         for acc in ("float32", "bfloat16"):
             for momentum in (0.0, 0.9):
                 mom = None if momentum == 0.0 else torch.full_like(x, 0.1)
-                p_k, m_k = cu.zo_reconstruct_update(
-                    x.clone(), None if mom is None else mom.clone(), sm, ctr, nv,
-                    bf, coeffs, lr, momentum, B, acc)
-                p_r, m_r = ref.ref_zo_reconstruct_update(
-                    x, mom, sm, ctr, nv, bf, coeffs, lr, momentum, B, acc)
-                what = f"{lname} acc={acc} momentum={momentum}"
-                compare("zo_reconstruct_update", p_k[~bfe], p_r[~bfe], what + " p",
-                        base=x[~bfe])
-                if bool(bfe.any()):
-                    compare("zo_reconstruct_update", p_k[bfe], p_r[bfe],
-                            what + " p, bf16 blocks", bf16=True)
-                if mom is not None:
-                    compare("zo_reconstruct_update", m_k, m_r, what + " mom", base=mom)
+                p_r = update_case(x, mom, sm, ctr, nv, bf, coeffs, momentum, B, acc,
+                                     f"{lname} acc={acc} momentum={momentum}")
                 if momentum == 0.0 and acc == "bfloat16":
                     p32, _ = ref.ref_zo_reconstruct_update(
                         x, None, sm, ctr, nv, bf, coeffs, lr, 0.0, B, "float32")
@@ -538,6 +876,19 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
                         x, None, sm, ctr, nv, torch.zeros_like(bf), coeffs, lr, 0.0, B, acc)
                     control("zo_reconstruct_update", p_nb[bfe], p_r[bfe],
                             f"{lname} acc={acc} no bf16 round-trip", bf16=True)
+                if momentum == 0.0 and acc == "float32":
+                    p_sw, _ = ref.ref_zo_reconstruct_update(
+                        x, None, sm, ctr, nv, bf, coeffs[[1, 0, 2, 3]], lr, 0.0, B, acc)
+                    control("zo_reconstruct_update", p_sw[~bfe], p_r[~bfe],
+                            f"{lname} workers 0 and 1's coefficients swapped", base=x[~bfe])
+        if lname == "ragged":                         # every other m the kernel takes
+            for m_ in (k for k in edge_ms if k != m):
+                for acc in ("float32", "bfloat16"):
+                    for momentum in (0.0, 0.9):
+                        mom = None if momentum == 0.0 else torch.full_like(x, 0.1)
+                        update_case(x, mom, eng.blk_salts_multi(t, range(m_)), ctr, nv, bf,
+                                    coeffs8[:m_], momentum, B, acc,
+                                    f"{lname} m={m_} acc={acc} momentum={momentum}")
     # zo_perturb_sumsq at a block that is not a multiple of 4, in a buffer that
     # starts off a 16-byte boundary, and past the L2 (4096 blocks of 4096)
     nbig, bbig = big
@@ -560,6 +911,76 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
         check(rel <= 1e-5 and torch.equal(out, out2) and torch.equal(ss, ss2),
               f"zo_perturb_sumsq {what}: sumsq off by {rel} or not the same run to run")
         sumsq_rel = max(sumsq_rel, rel)
+        if blk == 257:                                # the two redesigned kernels too
+            compare("zo_perturb_flat", cu.zo_perturb_flat(x, s1, ctr, nv, 1e-2, blk),
+                    ref.ref_zo_perturb_flat(x, s1, ctr, nv, 1e-2, blk), what, base=x)
+            update_case(x, None, eng.blk_salts_multi(t, range(m)), ctr, nv, eng._blk_bf16,
+                        coeffs, 0.0, blk, "float32", what)
+
+    # both redesigned kernels at a block of 257 on a buffer past one lane per
+    # thread of the whole card, so they take 16-byte vectors and some cross a
+    # block's edge: random salts, counters (wrapping) and valid lanes per
+    # block, one block in 8 bf16, at a 16-byte boundary and 4 bytes past one
+    rng = np.random.default_rng(5)
+    eb, nbe = 257, edge_blocks
+    ne = eb * nbe
+    nv_e = torch.from_numpy(np.where(rng.random(nbe) < 0.75, eb, rng.integers(1, eb + 1, nbe))
+                            .astype(np.int32)).to(dev)
+    ctr_e = torch.from_numpy(rng.integers(0, 2 ** 32, nbe, dtype=np.uint64)
+                             .astype(np.uint32)).to(dev)
+    salts_e = torch.from_numpy(rng.integers(0, 2 ** 32, (nbe, max(edge_ms)), dtype=np.uint64)
+                               .astype(np.uint32)).to(dev)
+    bf_e = torch.from_numpy((rng.random(nbe) < 0.125).astype(np.int32)).to(dev)
+    x0 = torch.randn(ne, generator=g).to(dev)
+    for shift in (0, 1):
+        x = torch.cat([torch.zeros(shift, device=dev), x0])[shift:]
+        where = f"block=257 x{nbe}" + (f", x at +{4 * shift} bytes" if shift else "")
+        s1 = salts_e[:, 0].contiguous()
+        compare("zo_perturb_flat", cu.zo_perturb_flat(x, s1, ctr_e, nv_e, 1e-2, eb),
+                ref.ref_zo_perturb_flat(x, s1, ctr_e, nv_e, 1e-2, eb), where, base=x)
+        for m_ in edge_ms:
+            for acc in ("float32", "bfloat16"):
+                for momentum in (0.0, 0.9):
+                    mom = None if momentum == 0.0 else torch.full_like(x, 0.1)
+                    update_case(x, mom, salts_e[:, :m_].contiguous(), ctr_e, nv_e, bf_e,
+                                coeffs8[:m_], momentum, eb, acc,
+                                f"{where} m={m_} acc={acc} momentum={momentum}")
+    # controls at shift 0 (head 0): the next block's salts across a vector's edge
+    ls, lc, lv, lb = per_lane(torch, salts_e[:, :m], ctr_e, nv_e, bf_e, eb, ne)
+    bad_s, crossing = edge_fault(torch, ls, salts_e[:, :m], eb, 0, ne)
+    want = ref.ref_zo_perturb_flat(x0, s1, ctr_e, nv_e, 1e-2, eb)
+    check(torch.equal(ref.ref_zo_perturb_flat(x0, ls[:, 0].contiguous(), lc, lv, 1e-2, 1), want),
+          "the per-lane layout does not give the plain version's output")
+    control("zo_perturb_flat", ref.ref_zo_perturb_flat(x0, bad_s[:, 0].contiguous(), lc, lv,
+                                                       1e-2, 1), want,
+            f"block=257 the next block's salt across {crossing} vectors' edges", base=x0)
+    sm_e = salts_e[:, :m].contiguous()
+    want, _ = ref.ref_zo_reconstruct_update(x0, None, sm_e, ctr_e, nv_e, bf_e, coeffs, lr, 0.0,
+                                            eb, "float32")
+    keep = ~(bf_e != 0).repeat_interleave(eb)
+    bad, _ = ref.ref_zo_reconstruct_update(x0, None, bad_s, lc, lv, lb, coeffs, lr, 0.0, 1,
+                                           "float32")
+    control("zo_reconstruct_update", bad[keep], want[keep],
+            f"block=257 the next block's salts across {crossing} vectors' edges", base=x0[keep])
+    # zo_perturb_flat into a caller's buffer off a 16-byte boundary, x at the
+    # same alignment (vectors between a scalar head and tail) or another one
+    # (scalar lanes only): canaries of 256 values around it stay untouched
+    scale_t = torch.tensor(1e-2, device=dev)
+    want = ref.ref_zo_perturb_flat(x0, s1, ctr_e, nv_e, 1e-2, eb)
+    for xs, at in ((1, 1), (3, 3), (0, 1)):
+        x = torch.cat([torch.zeros(xs, device=dev), x0])[xs:]
+        buf = torch.full((ne + at + 256,), 7.0, device=dev)
+        flat_perturb_into(torch, x, s1, ctr_e, nv_e, scale_t, buf[at:], eb)
+        torch.cuda.synchronize()
+        compare("zo_perturb_flat", buf[at:at + ne], want,
+                f"x at +{4 * xs} bytes into a buffer at +{4 * at}", base=x0)
+        ok = bool((buf[:at] == 7.0).all()) and bool((buf[at + ne:] == 7.0).all())
+        print(f"  {'zo_perturb_flat':22s} the canaries around that buffer untouched: {ok}")
+        check(ok, "zo_perturb_flat wrote past its output")
+    for name, (nd, lanes) in bits.items():
+        print(f"  {name:22s} {nd} of {lanes} output lanes differ bitwise from the plain "
+              f"version over every case above (must be 0)")
+        check(nd == 0, f"{name}: {nd} lanes differ bitwise from the plain version")
     torch.cuda.synchronize()
 
     # times at the Fig. 2 shape, main-path configuration (fp32 acc, no momentum)
@@ -581,10 +1002,10 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
                                              lr, 0.0, B, "float32"),
             lambda: ref.ref_zo_reconstruct_update(x, None, sm, ctr, nv, bf, coeffs,
                                                   lr, 0.0, B, "float32"),
-            2 * P * 4 + nb * (8 + 4 * m) + 4 * m + 4, d * m * gauss_instr),
-        "zo_perturb_flat": (
-            lambda: cu.zo_perturb_flat(x, s1, ctr, nv, 1e-2, B),
-            lambda: ref.ref_zo_perturb_flat(x, s1, ctr, nv, 1e-2, B),
+            2 * P * 4 + nb * (8 + 4 * m) + 4 * m, d * m * gauss_instr),
+        "zo_perturb_flat": (        # FlatEngine.perturb's scale is a tensor on the card
+            lambda: cu.zo_perturb_flat(x, s1, ctr, nv, scale_t, B),
+            lambda: ref.ref_zo_perturb_flat(x, s1, ctr, nv, scale_t, B),
             2 * P * 4 + meta + 4, d * gauss_instr),
         "zo_reconstruct_flat": (
             lambda: cu.zo_reconstruct_flat(sm, coeffs, ctr, nv, B, "float32"),
@@ -603,9 +1024,12 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
         rows[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                       "bound_ms": b, "bound_by": by, "max_abs_err": errs[name],
                       "gauss_instructions": gauss_instr}
+        if name in bits:
+            rows[name]["bitwise_diff_lanes"], rows[name]["lanes_compared"] = bits[name]
+        if name != "zo_reconstruct_flat":
+            rows[name]["stream_ms"] = stream_ms(torch, kern)
         if name == "zo_perturb_sumsq":
             rows[name]["sumsq_rel_err"] = sumsq_rel
-            rows[name]["stream_ms"] = stream_ms(torch, kern)
             rows[name]["floor_ms"] = floor_ms(torch, dev)
             mu_fill = lambda: torch.full((1,), 1e-3, device=dev)      # noqa: E731
             rows[name]["mu_fill_stream_ms"] = stream_ms(torch, mu_fill)
@@ -618,6 +1042,23 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096)):
                   f"timing): {rows[name]['floor_ms']:.5f} ms; the fill of mu that the "
                   f"binding no longer runs, back to back: "
                   f"{rows[name]['mu_fill_stream_ms']:.5f} ms")
+        if name == "zo_reconstruct_update":
+            lr_fill = lambda: torch.full((1,), lr, device=dev)        # noqa: E731
+            rows[name]["lr_fill_stream_ms"] = stream_ms(torch, lr_fill)
+            print(f"  {name:22s} back to back: {rows[name]['stream_ms']:.5f} ms per call; the "
+                  f"fill of lr that the binding no longer runs, back to back: "
+                  f"{rows[name]['lr_fill_stream_ms']:.5f} ms")
+            if runtime_m_lib is not None:
+                rows[name]["runtime_m_ab"] = runtime_m_ab(torch, runtime_m_lib, x, sm, ctr, nv,
+                                                          bf, coeffs, lr, B)
+        if name == "zo_perturb_flat":
+            # and with a host scale, which the binding writes to the card
+            # with a fill kernel per call (the earlier timing's call)
+            rows[name]["host_scale_ms"] = cuda_ms(torch, lambda: cu.zo_perturb_flat(
+                x, s1, ctr, nv, 1e-2, B))
+            print(f"  {name:22s} back to back: {rows[name]['stream_ms']:.5f} ms per call; one "
+                  f"call with a host scale (a fill kernel first): "
+                  f"{rows[name]['host_scale_ms']:.4f} ms")
         print(f"  {name:22s} ms={rows[name]['ms']:.4f} plain_ms="
               f"{rows[name]['plain_ms']:.4f} bound_ms={b:.4f} ({by}; bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
@@ -724,9 +1165,10 @@ def profile_phase(torch, dev, hidden=1300, engine="flat"):
               "no device time)")
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
+    fills = sum(r[1] for r in rows if "Fill" in r[2]) / n
     print(f"  device busy {busy_ms / n:.3f} ms/step, device idle share "
           f"{1.0 - busy_ms / (1e3 * wall):.3f}, {sum(r[1] for r in rows) / n:.0f} device "
-          f"kernels and copies per step")
+          f"kernels and copies per step, {fills:.0f} of them fills")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"    {us / 1e3 / n:8.4f} ms/step  {count // n:4d} calls/step  {key[:90]}")
 
@@ -992,8 +1434,10 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
     rows["zo_perturb"]["floor_ms"] = floor_ms(torch, dev)
     # what holds it back: the same loop and grid with no load or store, with
     # the whole Gaussian and with its hash and uniforms alone, back to back
+    # (the Gaussian probes of the build phase take the parts apart)
     full = rows["zo_perturb"]["stream_ms"]
-    compute, hashed = (stream_ms(torch, lambda h=h: cu.probe_leaf(n, h, dev)) for h in (False, True))
+    compute, hashed = (stream_ms(torch, lambda part=part: cu.probe_part(n, part, 4, dev))
+                       for part in ("gauss", "uniforms"))
     rest = gauss_instr - uniform_instr
     issue = n * rest / INSTR_PER_S * 1e3
     print(f"  {'zo_perturb':15s} n={n} back to back: {full:.5f} ms with its loads and stores, "
@@ -1927,12 +2371,22 @@ def main() -> None:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(build.SOURCES)) as pool:     # one nvcc per source
+    with ThreadPoolExecutor(len(build.SOURCES) + 1) as pool:     # one nvcc per source
+        runtime_m = pool.submit(build_runtime_m)                  # and the m A/B's variant
         libs = dict(zip(build.SOURCES, pool.map(lambda n: build.build(n, verbose=True),
                                                 build.SOURCES)))
+        runtime_m_lib = runtime_m.result()
     print(f"# build: {time.perf_counter() - t0:.1f} s ({', '.join(sorted(libs))})")
     gauss_instr = gauss_instructions(libs["zo_direction"])
     uniform_instr = uniforms_instructions(libs["zo_direction"])
+    print("# the ZO kernels' registers and spills (-Xptxas -v):")
+    zo_regs = ptxas_lines("zo_direction")
+    redesigned = {name: {k: u for k, u in zo_regs.items() if kern in k}
+                  for name, kern in (("zo_reconstruct_update", "reconstruct_update_kernel"),
+                                     ("zo_perturb_flat", "perturb_flat_kernel"))}
+    for name, usage in redesigned.items():
+        check(bool(usage) and all(u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+                                  for u in usage.values()), f"{name}'s kernels spill: {usage}")
     exp_instr = probe_instructions(libs["selective_scan"], "ss_probe_exp", "ss_probe_base",
                                    "one expf", 3)
     from repro_torch.kernels import selective_scan as ss
@@ -1950,8 +2404,13 @@ def main() -> None:
     check(fig2_layout.n_blocks == 437 and fig2_layout.padded_dim == 1_789_952,
           "the Fig. 2 packed buffer is not 437 blocks, P=1,789,952")
 
+    print("# phase: the Gaussian's parts, timed apart (probes, back to back)")
+    probes = gauss_probe_phase(torch, dev, libs["zo_direction"])
     print("# phase: kernels vs plain versions on the card")
-    rows = kernel_phase(torch, dev, fig2_params, gauss_instr)
+    rows = kernel_phase(torch, dev, fig2_params, gauss_instr, runtime_m_lib=runtime_m_lib)
+    rows["zo_reconstruct_update"]["gauss_probes"] = probes
+    for name, usage in redesigned.items():
+        rows[name]["registers"] = {k: u["registers"] for k, u in usage.items()}
     print("# phase: Fig. 2 main path (engine=flat, SGD) vs engine=fused")
     main_launches = fig2_phase(torch, dev)
     print("# phase: profile of the main path's ZO step")

@@ -9,12 +9,15 @@ the flags, so a changed source is rebuilt and an unchanged one is reused.
 Flags: ``sm_90a`` (Hopper), no ``--use_fast_math`` (IEEE ``logf``/``cosf``/
 ``sqrtf``, no flush to zero) and ``-fmad=false`` (no multiply-add
 contraction), so the kernels round as their plain PyTorch versions do
-(flash attention asks for its multiply-adds with ``fmaf``).
+(flash attention asks for its multiply-adds with ``fmaf``).  ``-Xptxas -v``
+reports each kernel's registers and spills; the report is kept beside the
+library (``<library>.log``) and read by ``ptxas_usage``.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -69,8 +72,30 @@ def build(name: str = "zo_direction", verbose: bool = False) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, out)
     if verbose:
         print(f"# built {out.name} in {time.perf_counter() - t0:.1f} s")
         print(proc.stderr.strip())
     return out
+
+
+def ptxas_usage(name: str) -> dict:
+    """{mangled kernel: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from ``-Xptxas -v``'s report of the library ``name`` (built first)."""
+    text = build(name).with_suffix(".log").read_text()
+    usage, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return usage

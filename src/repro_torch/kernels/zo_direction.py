@@ -15,10 +15,11 @@ many one call makes (two for ``zo_perturb_sumsq`` and ``zo_sumsq``, one for
 every other function).
 
 A leaf's salt and counter offset are Python ints and go to the kernel by
-value, as does ``zo_perturb_sumsq``'s ``mu`` (a host number: every caller has
-one, and no fill kernel runs for it); any other scale is read from device
-memory (``_scalar``), so a scale computed on the card is never synced to the
-host.
+value, as do ``zo_perturb_sumsq``'s ``mu`` and ``zo_reconstruct_update``'s
+``lr`` (host numbers: every caller has one, a schedule's value is a CPU
+tensor, and no fill kernel runs for them; ``_host_f32``); any other scale is
+read from device memory (``_scalar``), so a scale computed on the card is
+never synced to the host.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from repro_torch.kernels.binding import stream as _stream
 LAUNCHES = {"zo_perturb_flat": 0, "zo_reconstruct_flat": 0,
             "zo_perturb_sumsq": 0, "zo_reconstruct_update": 0,
             "zo_perturb": 0, "zo_reconstruct": 0, "zo_sumsq": 0,
-            "zo_check_gauss": 0, "zo_probe_leaf": 0}
+            "zo_check_gauss": 0, "zo_probe_part": 0}
 LAUNCHES_PER_CALL = {k: 1 for k in LAUNCHES} | {"zo_perturb_sumsq": 2, "zo_sumsq": 2}
 SUMSQ_CHUNK = 4096     # lanes per partial sum of zo_sumsq's first launch
 PERTURB_SUMSQ_PARTIALS = 2048   # zo_perturb_sumsq's partial sums: cap its first grid
@@ -48,14 +49,14 @@ _SIGNATURES = {
     "zo_reconstruct_flat_launch": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
     "zo_sumsq_v_launch": [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _P],
     "zo_apply_v_launch": [_P, _P, _P, _I, _F, _P, _P, _I64, _I, _P],
-    "zo_reconstruct_update_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _I64, _I,
+    "zo_reconstruct_update_launch": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I64, _I,
                                      _I, _I, _I, _P],
     "zo_perturb_leaf_launch": [_P, _P, _I64, _U32, _U32, _P, _I, _I, _P],
     "zo_reconstruct_leaf_launch": [_P, _P, _P, _I64, _U32, _I, _I, _I, _P],
     "zo_sumsq_leaf_partials_launch": [_P, _I, _I64, _U32, _U32, _I, _I, _P],
     "zo_sum_partials_launch": [_P, _I, _P, _I, _P],
     "zo_check_gauss_launch": [_P, _I, _I, _P],
-    "zo_probe_leaf_launch": [_P, _I64, _I, _I, _P],
+    "zo_probe_part_launch": [_P, _I64, _I, _I, _U32, _I, _P],
 }
 
 
@@ -70,6 +71,19 @@ def _scalar(v, device: torch.device) -> torch.Tensor:
     if isinstance(v, torch.Tensor) and v.device == device:
         return v.to(torch.float32).reshape(1).contiguous()
     return torch.full((1,), float(v), dtype=torch.float32, device=device)
+
+
+def _host_f32(v, what: str) -> float:
+    """``v`` as the float32 number a kernel takes by value: a Python number
+    or a one-value CPU tensor (a schedule's value), rounded to float32 as
+    ``c_float`` passes it.  A tensor on any other device raises TypeError:
+    reading it would sync the host with the card."""
+    if isinstance(v, torch.Tensor):
+        if v.device.type != "cpu":
+            raise TypeError(f"{what}: taken by value; give a host number or a CPU "
+                            f"tensor, not a tensor on {v.device}")
+        v = v.item()
+    return _F(float(v)).value
 
 
 def _aligned_like(x: torch.Tensor) -> torch.Tensor:
@@ -96,12 +110,14 @@ def _meta(salts, ctrs, nvalid, device, m=None):
 
 
 def zo_perturb_flat(x, salts, ctrs, nvalid, scale, block: int = 4096):
-    """Whole-buffer ``x + scale * v`` (padding lanes unchanged); one launch."""
+    """Whole-buffer ``x + scale * v`` (padding lanes unchanged); one launch.
+    ``scale`` may be a tensor on the card (read there) or a host number; the
+    output has x's alignment mod 16 bytes, so both take 16-byte accesses."""
     dev = _cuda_device(x)
     nb, ps, pc, pn = _meta(salts, ctrs, nvalid, dev)
     px = _check(x, "x", torch.float32, dev, (nb * block,))
     sc = _scalar(scale, dev)
-    out = torch.empty_like(x)
+    out = _aligned_like(x)
     _launch("zo_perturb_flat", "zo_perturb_flat_launch", px, ps, pc, pn,
             sc.data_ptr(), out.data_ptr(), x.numel(), block, dev.index,
             _stream(dev))
@@ -131,8 +147,7 @@ def zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
     dev = _cuda_device(x)
     nb, ps, pc, pn = _meta(salts, ctrs, nvalid, dev)
     px = _check(x, "x", torch.float32, dev, (nb * block,))
-    if isinstance(mu, torch.Tensor) and mu.device.type != "cpu":
-        raise TypeError("mu: zo_perturb_sumsq takes it by value; give a host number")
+    mu = _host_f32(mu, "mu")
     out, v = _aligned_like(x), _aligned_like(x)
     partials = torch.empty(PERTURB_SUMSQ_PARTIALS, dtype=torch.float32, device=dev)
     ss = torch.empty(1, dtype=torch.float32, device=dev)
@@ -140,7 +155,7 @@ def zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
     _launch("zo_perturb_sumsq", "zo_sumsq_v_launch", px, ps, pc, pn, v.data_ptr(),
             partials.data_ptr(), PERTURB_SUMSQ_PARTIALS, x.numel(), block, dev.index, stream)
     _launch("zo_perturb_sumsq", "zo_apply_v_launch", px, v.data_ptr(), partials.data_ptr(),
-            PERTURB_SUMSQ_PARTIALS, float(mu), out.data_ptr(), ss.data_ptr(), x.numel(),
+            PERTURB_SUMSQ_PARTIALS, mu, out.data_ptr(), ss.data_ptr(), x.numel(),
             dev.index, stream)
     return out, ss
 
@@ -150,7 +165,8 @@ def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr,
                           acc_dtype="float32"):
     """Fused reconstruct + SGD(+momentum) commit, IN PLACE on ``p`` (and
     ``mom``); returns ``(p, mom)``.  The caller owns both buffers: no tree
-    visible to a user may alias them (FlatEngine packs a fresh copy)."""
+    visible to a user may alias them (FlatEngine packs a fresh copy).
+    ``lr`` is a host number or a CPU tensor, passed by value."""
     dev = _cuda_device(p)
     m = int(coeffs.shape[0])
     nb, ps, pc, pn = _meta(salts, ctrs, nvalid, dev, m)
@@ -158,10 +174,10 @@ def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr,
     pm = None if mom is None else _check(mom, "mom", torch.float32, dev, (nb * block,))
     pb = _check(bf16_mask, "bf16_mask", torch.int32, dev, (nb,))
     pco = _check(coeffs, "coeffs", torch.float32, dev, (m,))
-    lr_t = _scalar(lr, dev)
+    lr = _host_f32(lr, "lr")
     acc_bf16 = int(acc_dtype_of(acc_dtype) == torch.bfloat16)
     _launch("zo_reconstruct_update", "zo_reconstruct_update_launch", pp, pm,
-            ps, pc, pn, pb, pco, lr_t.data_ptr(), float(momentum), p.numel(),
+            ps, pc, pn, pb, pco, lr, float(momentum), p.numel(),
             block, m, acc_bf16, dev.index, _stream(dev))
     return p, mom
 
@@ -254,16 +270,23 @@ def check_gauss(device="cuda", control: bool = False):
     return radii, cosines
 
 
-def probe_leaf(n: int, hash_only: bool = False, device="cuda") -> None:
-    """A timing probe: ``zo_perturb``'s float32 vector loop over ``n`` lanes
-    on its grid, with no load and no store, computing the whole Gaussian or
-    (``hash_only``) the hash and its uniforms alone.  One launch."""
+PROBE_PARTS = {"loop": 0, "hashes": 1, "uniforms": 2, "log_sqrt": 3, "cos": 4, "gauss": 5}
+# a NaN's bits: no float part gives them, a hash once in 2^32 lanes (which
+# only writes the probe's scratch)
+PROBE_KEY = 0x7FC12345
+
+
+def probe_part(n: int, part: str, k: int = 4, device="cuda") -> None:
+    """A timing probe: one part of the Gaussian (``PROBE_PARTS``) on ``n``
+    lanes, ``k`` per thread and trip (1, 2, 4 or 8 for ``"gauss"``, 4 for
+    every other part), on zo_perturb's grid with no load and no store.  One
+    launch."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take a CUDA device")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     n = _leaf_size(n)
-    sink = torch.empty(max(1, n // 4), dtype=torch.float32, device=dev)
-    _launch("zo_probe_leaf", "zo_probe_leaf_launch", sink.data_ptr(), n, int(hash_only),
-            dev.index, _stream(dev))
+    sink = torch.empty(max(1, n // k), dtype=torch.float32, device=dev)
+    _launch("zo_probe_part", "zo_probe_part_launch", sink.data_ptr(), n, PROBE_PARTS[part], k,
+            PROBE_KEY, dev.index, _stream(dev))

@@ -5,7 +5,9 @@ Run on a GPU machine from the repository root with
 This file imports no JAX (the GPU machine has none): each kernel is held
 against its plain PyTorch version on the same inputs.  Per-leaf kernels: fp32
 outputs bitwise, bf16 ones to one bf16 ulp, the sum of squares to rtol
-1e-6; zo_perturb also on views off a 16-byte boundary.  The Gaussian is
+1e-6; zo_perturb also on views off a 16-byte boundary.  zo_reconstruct_update
+and zo_perturb_flat are held bit for bit at every m, at blocks of 256, 257 and
+4096 and off 16-byte boundaries.  The Gaussian is
 held to libdevice's on every value of its two uniforms.  Flat kernels: fp32 outputs to
 rtol 1e-5 / atol 1e-6 (the two differ at most by ulps of logf/cosf and by
 the order of the sum of squares) and bf16-rounded outputs to one bf16 ulp
@@ -206,11 +208,112 @@ def test_zo_perturb_sumsq_ragged_blocks_and_past_the_l2(sizes, block, shift):
     torch.cuda.synchronize()
 
 
+def _random_layout(block, n_min=300_000, m=8, seed=0):
+    """A packed layout past one lane per thread of the whole card (so the
+    kernels take 16-byte vectors): random salts (n_blocks, m), counters
+    (wrapping), valid lanes (three blocks in four full) and one block in 8
+    bf16, on the card."""
+    rng = np.random.default_rng(seed)
+    nb = -(-n_min // block)
+    nv = np.where(rng.random(nb) < 0.75, block, rng.integers(1, block + 1, nb)).astype(np.int32)
+    ctrs = rng.integers(0, 2 ** 32, nb, dtype=np.uint64).astype(np.uint32)
+    salts = rng.integers(0, 2 ** 32, (nb, m), dtype=np.uint64).astype(np.uint32)
+    bf16 = (rng.random(nb) < 0.125).astype(np.int32)
+    return [to_t(a).to(_cuda()) for a in (salts, ctrs, nv, bf16)]
+
+
+def _at(x, shift):
+    """A copy of x whose data starts ``shift`` values past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    return buf[shift:shift + x.numel()].copy_(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("acc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [256, 257, 4096])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8])
+def test_zo_reconstruct_update_matches_plain_version(m, block, acc_dtype, momentum):
+    """zo_reconstruct_update at the worker counts the repository's methods
+    use (1, 2, 4, 5, 8) and another (3), at blocks of 256, 257 (vectors crossing
+    blocks' edges) and 4096 with random valid lanes and bf16 blocks, p and
+    mom at a 16-byte boundary and 4 bytes past one: bit for bit the plain
+    version (the same float32 operations in the same order)."""
+    dev = _cuda()
+    salts, ctrs, nvalid, bf16 = _random_layout(block, seed=block + m)
+    sm = salts[:, :m].contiguous()
+    coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1, 0.7, -0.3, 1.2, -0.8][:m], device=dev)
+    x = torch.randn(salts.shape[0] * block, generator=torch.Generator().manual_seed(m)).to(dev)
+    mom = None if momentum == 0.0 else torch.full_like(x, 0.1)
+    p_r, m_r = ref.ref_zo_reconstruct_update(x, mom, sm, ctrs, nvalid, bf16, coeffs, 0.05,
+                                             momentum, block, acc_dtype)
+    for shift in (0, 1):
+        p_k = _at(x, shift)
+        m_k = None if mom is None else _at(mom, shift)
+        cu.zo_reconstruct_update(p_k, m_k, sm, ctrs, nvalid, bf16, coeffs, 0.05, momentum,
+                                 block, acc_dtype)
+        assert torch.equal(p_k, p_r)
+        if mom is not None:
+            assert torch.equal(m_k, m_r)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("block", [256, 257, 4096])
+def test_zo_perturb_flat_matches_plain_version(block, shift):
+    """zo_perturb_flat on x at ``shift`` values past a 16-byte boundary:
+    bit for bit the plain version; launched into a caller's buffer at x's
+    alignment and at another one, with canaries of 256 values around it that
+    stay untouched."""
+    dev = _cuda()
+    salts, ctrs, nvalid, _ = _random_layout(block, seed=block)
+    s1 = salts[:, 0].contiguous()
+    n = salts.shape[0] * block
+    x = _at(torch.randn(n, generator=torch.Generator().manual_seed(block)).to(dev), shift)
+    want = ref.ref_zo_perturb_flat(x, s1, ctrs, nvalid, 0.01, block)
+    got = cu.zo_perturb_flat(x, s1, ctrs, nvalid, 0.01, block)
+    assert got.data_ptr() % 16 == x.data_ptr() % 16
+    assert torch.equal(got, want)
+    scale = torch.tensor([0.01], device=dev)
+    for at in (shift, (shift + 1) % 4):
+        buf = torch.full((n + 512,), 7.0, device=dev)
+        out = buf[256 + at:]               # `at` values past a 16-byte boundary
+        cu._launch("zo_perturb_flat", "zo_perturb_flat_launch", x.data_ptr(), s1.data_ptr(),
+                   ctrs.data_ptr(), nvalid.data_ptr(), scale.data_ptr(), out.data_ptr(), n,
+                   block, x.device.index, cu._stream(x.device))
+        assert torch.equal(out[:n], want)
+        assert bool((buf[:256 + at] == 7.0).all())
+        assert bool((out[n:] == 7.0).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_zo_reconstruct_update_takes_lr_by_value():
+    """lr as a float and as a CPU float32 tensor (a schedule's value) give
+    the same update; a tensor on the card raises TypeError (no sync)."""
+    dev = _cuda()
+    salts, ctrs, nvalid, bf16 = _random_layout(4096, n_min=100_000)
+    sm = salts[:, :4].contiguous()
+    coeffs = torch.tensor([0.25, -0.75, 1.5, 0.3], device=dev)
+    x = torch.randn(salts.shape[0] * 4096, generator=torch.Generator().manual_seed(3)).to(dev)
+    outs = []
+    for lr in (0.05, torch.tensor(0.05, dtype=torch.float32)):
+        p = x.clone()
+        cu.zo_reconstruct_update(p, None, sm, ctrs, nvalid, bf16, coeffs, lr, 0.0, 4096)
+        outs.append(p)
+    assert torch.equal(outs[0], outs[1])
+    with pytest.raises(TypeError, match="lr: taken by value"):
+        cu.zo_reconstruct_update(x.clone(), None, sm, ctrs, nvalid, bf16, coeffs,
+                                 torch.tensor(0.05, device=dev), 0.0, 4096)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_gauss_is_libdevice_on_every_uniform():
     """The kernels' Gaussian against libdevice's logf/sqrtf/cosf on all 2^24
-    values of each uniform: none differs; the control (cosf one ulp further
-    on) differs."""
+    values of each uniform, taken as the reference computes it: none
+    differs; the control (cosf one ulp further on) differs."""
     dev = _cuda()
     assert cu.check_gauss(dev) == (0, 0)
     assert cu.check_gauss(dev, control=True)[1] > 0

@@ -4,7 +4,9 @@
 ``repro.kernels.ops`` runs the Pallas kernel in interpret mode.  Both get the
 same inputs, made with numpy.  Sweeps follow tests/test_kernels.py: uneven
 tail blocks, scalar-sized leaves, the bf16 mask, a bf16 accumulator and
-momentum 0 / 0.9.  Tolerances: sum of squares rtol 1e-5; other outputs
+momentum 0 / 0.9, m in {1, 3, 4, 8} and a block of 257, so that a CUDA
+kernel's 16-byte vectors would cross blocks' edges.  Tolerances: sum of
+squares rtol 1e-5; other outputs
 rtol 1e-5 / atol 1e-6 (Gaussians differ by ulps between the two math
 libraries), loosened only where a bf16 rounding can flip on such an ulp.
 Inside PyTorch, the fused commit is pinned bitwise to the unfused
@@ -28,6 +30,7 @@ FLAT_LAYOUTS = [
     ([1000, 261], 256),   # tail blocks on both leaves
     ([37, 3, 1], 8),      # tiny leaves incl. a scalar-sized one
     ([129], 64),          # single leaf, odd tail
+    ([771, 514, 1, 5], 257),   # whole blocks, leaf edges off a multiple of 4
 ]
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)   # one bf16 ulp of the values here
 
@@ -85,11 +88,24 @@ def test_zo_perturb_sumsq_matches_jax(sizes, block):
 def test_zo_reconstruct_update_matches_jax(momentum, acc_dtype):
     """The fused commit, incl. the bf16-leaf rounding path (the second
     leaf's two blocks are flagged bf16)."""
-    sizes, block, m = [1000, 261], 256, 4
+    _update_matches_jax([1000, 261], 256, 4, momentum, acc_dtype)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("acc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("sizes,block", [([1000, 261], 256), ([771, 514], 257)])
+def test_zo_reconstruct_update_matches_jax_at_m_and_block(sizes, block, m, acc_dtype, momentum):
+    """The same at one, three and eight workers, and at a block of 257."""
+    _update_matches_jax(sizes, block, m, momentum, acc_dtype)
+
+
+def _update_matches_jax(sizes, block, m, momentum, acc_dtype):
     salts1, ctrs, nvalid = flat_meta(sizes, block)
     msalts = multi_salts(salts1, m, 613)
-    bf16 = np.asarray([0, 0, 0, 0, 1, 1], np.int32)
-    coeffs = np.asarray([0.25, -0.75, 1.5, 0.3], np.float32)
+    nb0 = -(-sizes[0] // block)                   # the fp32 leaf's blocks
+    bf16 = np.asarray([0] * nb0 + [1] * (len(salts1) - nb0), np.int32)
+    coeffs = np.asarray([0.25, -0.75, 1.5, 0.3, -1.1, 0.6, 2.2, -0.4][:m], np.float32)
     p = packed(sizes, block)
     mom = None if momentum == 0.0 else np.full_like(p, 0.1)
     lr = 0.05
@@ -103,7 +119,7 @@ def test_zo_reconstruct_update_matches_jax(momentum, acc_dtype):
         momentum, block, acc_dtype)
     assert got_p is tp and got_m is tm            # in place, like the aliases
     fp32 = acc_dtype == "float32"
-    n0 = 4 * block                                # the fp32 leaf's blocks
+    n0 = nb0 * block
     np.testing.assert_allclose(got_p.numpy()[:n0], np.asarray(want_p)[:n0],
                                **(dict(rtol=1e-5, atol=1e-6) if fp32 else BF16_TOL))
     np.testing.assert_allclose(got_p.numpy()[n0:], np.asarray(want_p)[n0:], **BF16_TOL)
@@ -195,3 +211,19 @@ def test_outputs_take_the_input_alignment(dtype, shift):
     assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
     assert set(cu.LAUNCHES_PER_CALL) == set(cu.LAUNCHES)
     assert cu.LAUNCHES_PER_CALL["zo_perturb_sumsq"] == 2
+
+
+def test_lr_and_mu_go_to_the_kernels_by_value():
+    """The CUDA wrappers pass zo_reconstruct_update's lr and
+    zo_perturb_sumsq's mu by value: a Python number and a CPU tensor give
+    the same float32 (a schedule's value is a CPU float32 tensor), a float64
+    tensor is rounded like a number, and a tensor on another device raises
+    TypeError rather than syncing the host with it."""
+    want = float(np.float32(0.05))
+    assert cu._host_f32(0.05, "lr") == want
+    assert cu._host_f32(torch.tensor(0.05, dtype=torch.float32), "lr") == want
+    assert cu._host_f32(torch.tensor([0.05], dtype=torch.float64), "lr") == want
+    assert cu._host_f32(np.float32(0.05), "lr") == want
+    assert cu._host_f32(3, "mu") == 3.0
+    with pytest.raises(TypeError, match="lr: taken by value"):
+        cu._host_f32(torch.tensor(0.05, device="meta"), "lr")
