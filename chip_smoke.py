@@ -9,8 +9,9 @@ Phases (any failed check exits non-zero):
      and cuobjdump's SASS gives the instructions of one Gaussian, of one
      expf, and the scan kernel's own instructions per (t, d, s) in its step
      loop (each n = 16 variant) beside the bound's count; ptxas's registers
-     and spills of every ZO kernel (the two redesigned kernels must not
-     spill); then the Gaussian's parts timed apart: probes on zo_perturb's
+     and spills of every ZO kernel (the kernels of zo_reconstruct_update,
+     zo_reconstruct_flat, zo_perturb_flat and zo_sumsq must not spill); then
+     the Gaussian's parts timed apart: probes on zo_perturb's
      grid with no load and no store (the loop alone, the two hashes, the
      hashes and uniforms, log and sqrt, cos, the whole Gaussian with 1, 2, 4
      and 8 lanes per thread) back to back at n = 1,690,000 and 4n, each
@@ -23,11 +24,12 @@ Phases (any failed check exits non-zero):
      4095, 4097 and 70200 values, one bf16), over acc_dtype {fp32, bf16} and
      momentum {0, 0.9}; zo_perturb_sumsq also at a block of 257, past the L2
      (4096 blocks of 4096) and off a 16-byte boundary; zo_reconstruct_update
-     at m in {1, 2, 3, 4, 5, 8} and, with zo_perturb_flat, at a block of 257
-     on a buffer whose 16-byte vectors cross blocks' edges (random salts,
-     counters, valid lanes and bf16 blocks; at a 16-byte boundary and 4
-     bytes past one; zo_perturb_flat into a caller's buffer with canaries),
-     both required bit for bit equal to their plain versions; with controls
+     and zo_reconstruct_flat at m in {1, 2, 3, 4, 5, 8} and, with
+     zo_perturb_flat, at a block of 257 on a buffer whose 16-byte vectors
+     cross blocks' edges (random salts, counters, valid lanes and bf16
+     blocks; at a 16-byte boundary and 4 bytes past one; zo_perturb_flat
+     into a caller's buffer with canaries), all three required bit for bit
+     equal to their plain versions; with controls
      (faulty outputs that must fail each check, among them another worker's
      v, workers 0 and 1's coefficients swapped, and the next block's salts
      across a vector's edge); kernel and plain times (CUDA events, median of
@@ -35,9 +37,11 @@ Phases (any failed check exits non-zero):
      per-call floor and the fills of mu and lr that the binding no longer
      runs) and the bound, the larger of bytes over the HBM rate and
      Gaussians x instructions over the issue rate; zo_reconstruct_update's
-     unrolled kernel for m = 4 against its runtime-m kernel (a build of the
-     same source that sends every m there; the same output bit for bit,
-     timed in turns; fails if the runtime-m kernel is more than 5% faster);
+     and zo_reconstruct_flat's unrolled kernels for m = 4 against their
+     runtime-m kernels (a build of the same source with the other choice
+     for each, the update shipping the unrolled kernel and the sum the
+     runtime loop; the same output bit for bit, timed in turns; fails if
+     the choice not shipped is more than 5% faster);
   4. Fig. 2 main path: HO-SGD on covtype at hidden=1300 (d=1,771,907), m=4,
      B=64, tau=8, 32 steps, engine="flat" with plain SGD, through
      ``apps.classification.run_comparison``; held against engine="fused"
@@ -50,11 +54,12 @@ Phases (any failed check exits non-zero):
      plain versions at the Fig. 2 leaf sizes (7, 1300, 1300, 9100, 70200,
      1690000) and ragged ones (1, 4095, 4097, 5000), offsets 0 and 12345,
      x in float32/bfloat16, acc_dtype float32/bfloat16, m in {1, 4}, a
-     split leaf, zo_perturb on views off a 16-byte boundary, with controls
-     (tail mask dropped, stores past the leaf, offset ignored, float32
-     accumulator for bfloat16), and their times at the w2 leaf
-     (n=1,690,000; zo_perturb also at every Fig. 2 leaf size and back to
-     back);
+     split leaf, zo_sumsq also at an offset where its counters wrap (2^32 -
+     1000, and a split leaf there), zo_perturb on views off a 16-byte
+     boundary, with controls (tail mask dropped, stores past the leaf,
+     offset ignored, float32 accumulator for bfloat16), and their times at
+     the w2 leaf (n=1,690,000; zo_perturb also at every Fig. 2 leaf size and
+     back to back, zo_sumsq back to back and each of its launches alone);
   8. the Fig. 2 method set: all seven methods through
      ``run_comparison(..., engine="pallas")`` at hidden=1300, 32 steps, with
      HO-SGD's per-leaf launch counts, HO-SGD pallas against fused and
@@ -163,8 +168,8 @@ RAGGED_LEAVES = (1, 4095, 4097, 5000)
 EXTRA_KEYS = ("sumsq_rel_err", "gauss_instructions", "launches_per_call", "stream_ms",
               "floor_ms", "mu_fill_stream_ms", "lr_fill_stream_ms", "launch_stream_ms",
               "compute_only_ms", "uniforms_only_ms", "by_size", "bitwise_diff_lanes",
-              "host_scale_ms", "lanes_compared", "registers", "gauss_probes", "runtime_m_ab")
-UNROLLED_M = 4               # zo_reconstruct_update's m with a kernel of its own (kUnrolledM)
+              "host_scale_ms", "lanes_compared", "registers", "gauss_probes", "unrolled_m_ab")
+UNROLLED_M = 4               # the reconstruct kernels' m with kernels of its own (kUnrolledM)
 METHODS = ["ho_sgd", "sync_sgd", "ri_sgd", "pa_sgd", "zo_sgd", "zo_svrg_ave", "qsgd"]
 SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
@@ -506,84 +511,112 @@ def ptxas_lines(name: str) -> dict:
     return rows
 
 
-def build_runtime_m() -> Path:
-    """``zo_direction.cu`` with every m sent to zo_reconstruct_update's
-    runtime-m kernel (the unrolled one for ``UNROLLED_M`` left out), built
-    with the port's flags beside its libraries: the A/B that keeps the
-    unrolled kernel."""
+def build_m_variant() -> Path:
+    """``zo_direction.cu`` with the other choice of kernel for each
+    reconstruct epilogue at m = ``UNROLLED_M`` (``unrolled_m``, the one place
+    both dispatches ask): the update's runtime loop, the stored sum's
+    unrolled kernel.  Built with the port's flags beside its libraries: the
+    A/B that keeps each shipped choice."""
     import hashlib
 
     from repro_torch.kernels import build as kb
 
     src = kb.SOURCES["zo_direction"].read_text()
-    old = "  const bool unrolled = m == kUnrolledM;\n"
+    old = ("inline bool unrolled_m(int m, int epi) { return m == kUnrolledM && "
+           "epi != kStoreSum; }\n")
     check(src.count(old) == 1 and f"constexpr int kUnrolledM = {UNROLLED_M};" in src,
-          f"the runtime-m build does not find zo_reconstruct_update's dispatch to its "
-          f"unrolled kernel for m = {UNROLLED_M} in zo_direction.cu")
-    src = src.replace(old, "  const bool unrolled = false;\n")
+          f"the m-variant build does not find the reconstruct kernels' dispatch (unrolled "
+          f"kernel for the update at m = {UNROLLED_M}, runtime loop for the sum) in "
+          f"zo_direction.cu")
+    src = src.replace(old, old.replace("epi != kStoreSum", "epi == kStoreSum"))
     h = hashlib.sha256((src + " ".join(kb.NVCC_FLAGS)).encode()).hexdigest()[:16]
-    out = kb.build_dir() / f"libzo_direction_runtime_m_{h}.so"
+    out = kb.build_dir() / f"libzo_direction_m_variant_{h}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         out.with_suffix(".cu").write_text(src)
         proc = subprocess.run([kb.find_nvcc(), *kb.NVCC_FLAGS, "-o", str(out),
                                str(out.with_suffix(".cu"))], capture_output=True, text=True,
                               timeout=900)
-        check(proc.returncode == 0, f"the runtime-m build failed: {proc.stderr[-3000:]}")
+        check(proc.returncode == 0, f"the m-variant build failed: {proc.stderr[-3000:]}")
     return out
 
 
-def runtime_m_ab(torch, lib: Path, x, sm, ctr, nv, bf, coeffs, lr, block, margin=0.05) -> dict:
-    """zo_reconstruct_update's unrolled kernel (the shipped one at m =
-    ``UNROLLED_M``) against its runtime-m kernel (``build_runtime_m``) at the
-    Fig. 2 shape: bit for bit the same output, then both timed in turns
+def unrolled_m_ab(torch, lib: Path, x, sm, ctr, nv, bf, coeffs, lr, block, margin=0.05) -> dict:
+    """At the Fig. 2 shape (m = ``UNROLLED_M``), each reconstruct kernel's
+    shipped choice against the other one (``build_m_variant``):
+    zo_reconstruct_update ships the unrolled kernel, zo_reconstruct_flat the
+    runtime-m one.  Bit for bit the same output, then the two timed in turns
     (runtime, unrolled, unrolled, runtime), back to back and one call at a
-    time.  Fails when the runtime-m kernel is more than ``margin`` faster
-    back to back, and warns when the unrolled one leads by under 1%: then
-    the unrolled kernel no longer pays for itself."""
+    time.  Fails when the choice not shipped is more than ``margin`` faster
+    back to back, and warns when the shipped one leads by under 1%.
+    Returns {kernel name: its A/B}."""
     import ctypes
 
     from repro_torch.kernels import zo_direction as cu
 
     m = int(coeffs.numel())
-    check(m == UNROLLED_M, f"the runtime-m A/B needs m = {UNROLLED_M}, got {m}")
-    fn = ctypes.CDLL(str(lib)).zo_reconstruct_update_launch
-    fn.argtypes, fn.restype = cu._SIGNATURES["zo_reconstruct_update_launch"], ctypes.c_int
+    check(m == UNROLLED_M, f"the m A/B needs m = {UNROLLED_M}, got {m}")
+    variant = ctypes.CDLL(str(lib))
+    for entry in ("zo_reconstruct_update_launch", "zo_reconstruct_flat_launch"):
+        fn = getattr(variant, entry)
+        fn.argtypes, fn.restype = cu._SIGNATURES[entry], ctypes.c_int
     dev = x.device
 
-    def runtime(p):
-        rc = fn(p.data_ptr(), None, sm.data_ptr(), ctr.data_ptr(), nv.data_ptr(), bf.data_ptr(),
-                coeffs.data_ptr(), lr, 0.0, p.numel(), block, m, 0, dev.index, cu._stream(dev))
-        check(rc == 0, f"the runtime-m kernel's launch failed: CUDA error {rc}")
+    def ran(rc):
+        check(rc == 0, f"the m-variant kernel's launch failed: CUDA error {rc}")
 
-    def unrolled(p):
-        cu.zo_reconstruct_update(p, None, sm, ctr, nv, bf, coeffs, lr, 0.0, block, "float32")
-
-    a, b = x.clone(), x.clone()
-    runtime(a)
-    unrolled(b)
-    torch.cuda.synchronize()
-    check(torch.equal(a, b), "the runtime-m kernel's output differs from the unrolled kernel's")
-    work = x.clone()
-    r1, u1 = stream_ms(torch, lambda: runtime(work)), stream_ms(torch, lambda: unrolled(work))
-    u2, r2 = stream_ms(torch, lambda: unrolled(work)), stream_ms(torch, lambda: runtime(work))
-    c_r1, c_u1 = cuda_ms(torch, lambda: runtime(work)), cuda_ms(torch, lambda: unrolled(work))
-    c_u2, c_r2 = cuda_ms(torch, lambda: unrolled(work)), cuda_ms(torch, lambda: runtime(work))
-    ab = {"m": m, "runtime_m_stream_ms": (r1 + r2) / 2, "unrolled_stream_ms": (u1 + u2) / 2,
-          "runtime_m_ms": (c_r1 + c_r2) / 2, "unrolled_ms": (c_u1 + c_u2) / 2,
-          "turns_stream_ms": [r1, u1, u2, r2]}
-    lead = ab["runtime_m_stream_ms"] / ab["unrolled_stream_ms"] - 1
-    print(f"  {'zo_reconstruct_update':22s} m = {m}, the unrolled kernel vs the runtime-m kernel "
-          f"(same output bit for bit): back to back {ab['unrolled_stream_ms']:.5f} vs "
-          f"{ab['runtime_m_stream_ms']:.5f} ms (turns runtime/unrolled/unrolled/runtime "
-          f"{r1:.5f} {u1:.5f} {u2:.5f} {r2:.5f}), one call {ab['unrolled_ms']:.4f} vs "
-          f"{ab['runtime_m_ms']:.4f} ms; the unrolled kernel leads by {lead:.2%}")
-    if lead < 0.01:
-        print(f"  WARNING zo_reconstruct_update: the unrolled kernel for m = {m} leads the "
-              f"runtime-m kernel by {lead:.2%} only")
-    check(lead >= -margin, f"zo_reconstruct_update: the runtime-m kernel is {-lead:.2%} faster "
-          f"than the unrolled one it ships for m = {m} (more than {margin:.0%})")
-    return ab
+    flat_args = lambda o: (sm.data_ptr(), coeffs.data_ptr(), ctr.data_ptr(),   # noqa: E731
+                           nv.data_ptr(), o.data_ptr(), o.numel(), block, m, 0, x.device.index,
+                           cu._stream(dev))
+    shipped_unrolled = {"zo_reconstruct_update": True, "zo_reconstruct_flat": False}
+    pairs = {       # (shipped, variant), each writing into the buffer it is given
+        "zo_reconstruct_update": (
+            lambda p: cu.zo_reconstruct_update(p, None, sm, ctr, nv, bf, coeffs, lr, 0.0, block,
+                                               "float32"),
+            lambda p: ran(variant.zo_reconstruct_update_launch(
+                p.data_ptr(), None, sm.data_ptr(), ctr.data_ptr(), nv.data_ptr(), bf.data_ptr(),
+                coeffs.data_ptr(), lr, 0.0, p.numel(), block, m, 0, x.device.index,
+                cu._stream(dev)))),
+        "zo_reconstruct_flat": (
+            lambda o: cu._launch("zo_reconstruct_flat", "zo_reconstruct_flat_launch",
+                                 *flat_args(o)),
+            lambda o: ran(variant.zo_reconstruct_flat_launch(*flat_args(o)))),
+    }
+    abs_ = {}
+    for name, (shipped, other) in pairs.items():
+        unrolled, runtime = (shipped, other) if shipped_unrolled[name] else (other, shipped)
+        a, b = x.clone(), x.clone()
+        runtime(a)
+        unrolled(b)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{name}: the runtime-m kernel's output differs from the "
+              f"unrolled kernel's")
+        work = x.clone()
+        r1, u1 = stream_ms(torch, lambda: runtime(work)), stream_ms(torch, lambda: unrolled(work))
+        u2, r2 = stream_ms(torch, lambda: unrolled(work)), stream_ms(torch, lambda: runtime(work))
+        c_r1, c_u1 = cuda_ms(torch, lambda: runtime(work)), cuda_ms(torch, lambda: unrolled(work))
+        c_u2, c_r2 = cuda_ms(torch, lambda: unrolled(work)), cuda_ms(torch, lambda: runtime(work))
+        ab = {"m": m, "shipped": "unrolled" if shipped_unrolled[name] else "runtime_m",
+              "runtime_m_stream_ms": (r1 + r2) / 2, "unrolled_stream_ms": (u1 + u2) / 2,
+              "runtime_m_ms": (c_r1 + c_r2) / 2, "unrolled_ms": (c_u1 + c_u2) / 2,
+              "turns_stream_ms": [r1, u1, u2, r2]}
+        lead = ab["runtime_m_stream_ms"] / ab["unrolled_stream_ms"] - 1
+        ab["unrolled_lead"] = lead
+        shipped_lead = lead if shipped_unrolled[name] else -lead
+        print(f"  {name:22s} m = {m}, the unrolled kernel vs the runtime-m kernel (same output "
+              f"bit for bit; {ab['shipped']} ships): back to back "
+              f"{ab['unrolled_stream_ms']:.5f} vs {ab['runtime_m_stream_ms']:.5f} ms (turns "
+              f"runtime/unrolled/unrolled/runtime {r1:.5f} {u1:.5f} {u2:.5f} {r2:.5f}), one call "
+              f"{ab['unrolled_ms']:.4f} vs {ab['runtime_m_ms']:.4f} ms; the unrolled kernel "
+              f"leads by {lead:.2%}")
+        if shipped_lead < 0.01:
+            print(f"  WARNING {name}: the shipped {ab['shipped']} kernel for m = {m} leads the "
+                  f"other by {shipped_lead:.2%} only")
+        check(shipped_lead >= -margin, f"{name}: the kernel not shipped for m = {m} is "
+              f"{-shipped_lead:.2%} faster than the shipped {ab['shipped']} one (more than "
+              f"{margin:.0%})")
+        abs_[name] = ab
+    return abs_
 
 
 def sm_clock_ghz(torch) -> float:
@@ -688,17 +721,32 @@ def sumsq_launches_ms(torch, cu, x, salts, ctrs, nvalid, block):
     as the binding calls them."""
     dev = x.device
     v, out = cu._aligned_like(x), cu._aligned_like(x)
-    parts = torch.empty(cu.PERTURB_SUMSQ_PARTIALS, dtype=torch.float32, device=dev)
+    parts = torch.empty(cu.MAX_PARTIALS, dtype=torch.float32, device=dev)
     ss = torch.empty(1, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     first = lambda: cu._launch(                                           # noqa: E731
         "zo_perturb_sumsq", "zo_sumsq_v_launch", x.data_ptr(), salts.data_ptr(),
         ctrs.data_ptr(), nvalid.data_ptr(), v.data_ptr(), parts.data_ptr(),
-        cu.PERTURB_SUMSQ_PARTIALS, x.numel(), block, dev.index, stream)
+        cu.MAX_PARTIALS, x.numel(), block, dev.index, stream)
     second = lambda: cu._launch(                                          # noqa: E731
         "zo_perturb_sumsq", "zo_apply_v_launch", x.data_ptr(), v.data_ptr(), parts.data_ptr(),
-        cu.PERTURB_SUMSQ_PARTIALS, 1e-3, out.data_ptr(), ss.data_ptr(), x.numel(), dev.index,
+        cu.MAX_PARTIALS, 1e-3, out.data_ptr(), ss.data_ptr(), x.numel(), dev.index,
         stream)
+    return [stream_ms(torch, first), stream_ms(torch, second)]
+
+
+def leaf_sumsq_launches_ms(torch, cu, n, salt, dev):
+    """``stream_ms`` of each of zo_sumsq's two launches alone at a leaf of
+    ``n``, called as the binding calls them."""
+    parts = torch.empty(cu.MAX_PARTIALS, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    index, stream = parts.device.index, cu._stream(parts.device)
+    first = lambda: cu._launch(                                           # noqa: E731
+        "zo_sumsq", "zo_sumsq_partials_launch", parts.data_ptr(), cu.MAX_PARTIALS, n, salt, 0,
+        index, stream)
+    second = lambda: cu._launch(                                          # noqa: E731
+        "zo_sumsq", "zo_sumsq_total_launch", parts.data_ptr(), cu.MAX_PARTIALS, n,
+        out.data_ptr(), index, stream)
     return [stream_ms(torch, first), stream_ms(torch, second)]
 
 
@@ -744,7 +792,7 @@ def flat_perturb_into(torch, x, salts, ctrs, nvalid, scale, out, block):
 
 
 def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_blocks=1300,
-                 edge_ms=(1, 2, 3, 4, 5, 8), runtime_m_lib=None):
+                 edge_ms=(1, 2, 3, 4, 5, 8), m_variant_lib=None):
     import numpy as np
 
     from repro_torch.core.engine import FlatEngine
@@ -775,7 +823,8 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
     coeffs8 = torch.tensor([0.5, -1.0, 2.0, 0.1, 0.7, -0.3, 1.2, -0.8], device=dev)
     lr = 0.05
     errs = {k: 0.0 for k in REPLACES}
-    bits = {k: [0, 0] for k in ("zo_perturb_flat", "zo_reconstruct_update")}  # differ, lanes
+    bits = {k: [0, 0] for k in ("zo_perturb_flat", "zo_reconstruct_update",   # differ, lanes
+                                "zo_reconstruct_flat")}
     sumsq_rel = 0.0
 
     def compare(name, got, want, what, **kw):
@@ -911,11 +960,15 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
         check(rel <= 1e-5 and torch.equal(out, out2) and torch.equal(ss, ss2),
               f"zo_perturb_sumsq {what}: sumsq off by {rel} or not the same run to run")
         sumsq_rel = max(sumsq_rel, rel)
-        if blk == 257:                                # the two redesigned kernels too
+        if blk == 257:                                # the vector kernels too
             compare("zo_perturb_flat", cu.zo_perturb_flat(x, s1, ctr, nv, 1e-2, blk),
                     ref.ref_zo_perturb_flat(x, s1, ctr, nv, 1e-2, blk), what, base=x)
-            update_case(x, None, eng.blk_salts_multi(t, range(m)), ctr, nv, eng._blk_bf16,
-                        coeffs, 0.0, blk, "float32", what)
+            smb = eng.blk_salts_multi(t, range(m))
+            update_case(x, None, smb, ctr, nv, eng._blk_bf16, coeffs, 0.0, blk, "float32", what)
+            for acc in ("float32", "bfloat16"):
+                compare("zo_reconstruct_flat", cu.zo_reconstruct_flat(smb, coeffs, ctr, nv, blk, acc),
+                        ref.ref_zo_reconstruct_flat(smb, coeffs, ctr, nv, blk, acc),
+                        f"{what} acc={acc}", bf16=acc == "bfloat16")
 
     # both redesigned kernels at a block of 257 on a buffer past one lane per
     # thread of the whole card, so they take 16-byte vectors and some cross a
@@ -945,6 +998,13 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
                     update_case(x, mom, salts_e[:, :m_].contiguous(), ctr_e, nv_e, bf_e,
                                 coeffs8[:m_], momentum, eb, acc,
                                 f"{where} m={m_} acc={acc} momentum={momentum}")
+    for m_ in edge_ms:                          # its output is a fresh, aligned buffer
+        for acc in ("float32", "bfloat16"):
+            se = salts_e[:, :m_].contiguous()
+            compare("zo_reconstruct_flat", cu.zo_reconstruct_flat(se, coeffs8[:m_], ctr_e, nv_e,
+                                                                  eb, acc),
+                    ref.ref_zo_reconstruct_flat(se, coeffs8[:m_], ctr_e, nv_e, eb, acc),
+                    f"block=257 x{nbe} m={m_} acc={acc}", bf16=acc == "bfloat16")
     # controls at shift 0 (head 0): the next block's salts across a vector's edge
     ls, lc, lv, lb = per_lane(torch, salts_e[:, :m], ctr_e, nv_e, bf_e, eb, ne)
     bad_s, crossing = edge_fault(torch, ls, salts_e[:, :m], eb, 0, ne)
@@ -962,6 +1022,9 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
                                            "float32")
     control("zo_reconstruct_update", bad[keep], want[keep],
             f"block=257 the next block's salts across {crossing} vectors' edges", base=x0[keep])
+    control("zo_reconstruct_flat", ref.ref_zo_reconstruct_flat(bad_s, coeffs, lc, lv, 1),
+            ref.ref_zo_reconstruct_flat(sm_e, coeffs, ctr_e, nv_e, eb),
+            f"block=257 the next block's salts across {crossing} vectors' edges")
     # zo_perturb_flat into a caller's buffer off a 16-byte boundary, x at the
     # same alignment (vectors between a scalar head and tail) or another one
     # (scalar lanes only): canaries of 256 values around it stay untouched
@@ -1026,8 +1089,7 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
                       "gauss_instructions": gauss_instr}
         if name in bits:
             rows[name]["bitwise_diff_lanes"], rows[name]["lanes_compared"] = bits[name]
-        if name != "zo_reconstruct_flat":
-            rows[name]["stream_ms"] = stream_ms(torch, kern)
+        rows[name]["stream_ms"] = stream_ms(torch, kern)
         if name == "zo_perturb_sumsq":
             rows[name]["sumsq_rel_err"] = sumsq_rel
             rows[name]["floor_ms"] = floor_ms(torch, dev)
@@ -1048,9 +1110,6 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
             print(f"  {name:22s} back to back: {rows[name]['stream_ms']:.5f} ms per call; the "
                   f"fill of lr that the binding no longer runs, back to back: "
                   f"{rows[name]['lr_fill_stream_ms']:.5f} ms")
-            if runtime_m_lib is not None:
-                rows[name]["runtime_m_ab"] = runtime_m_ab(torch, runtime_m_lib, x, sm, ctr, nv,
-                                                          bf, coeffs, lr, B)
         if name == "zo_perturb_flat":
             # and with a host scale, which the binding writes to the card
             # with a fill kernel per call (the earlier timing's call)
@@ -1059,11 +1118,17 @@ def kernel_phase(torch, dev, fig2_params, gauss_instr, big=(4096, 4096), edge_bl
             print(f"  {name:22s} back to back: {rows[name]['stream_ms']:.5f} ms per call; one "
                   f"call with a host scale (a fill kernel first): "
                   f"{rows[name]['host_scale_ms']:.4f} ms")
+        if name == "zo_reconstruct_flat":
+            print(f"  {name:22s} back to back: {rows[name]['stream_ms']:.5f} ms per call")
         print(f"  {name:22s} ms={rows[name]['ms']:.4f} plain_ms="
               f"{rows[name]['plain_ms']:.4f} bound_ms={b:.4f} ({by}; bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
               f"{ninstr / INSTR_PER_S * 1e3:.4f}) library_ms=none (no PyTorch "
               f"call computes the hashed Gaussian)")
+    if m_variant_lib is not None:
+        for name, ab in unrolled_m_ab(torch, m_variant_lib, x, sm, ctr, nv, bf, coeffs, lr,
+                                      B).items():
+            rows[name]["unrolled_m_ab"] = ab
     return rows
 
 
@@ -1273,6 +1338,7 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
 
     g = torch.Generator().manual_seed(13)
     salt, off1, k_split = 0x2545F491, 12345, 1234567
+    wrap = 2 ** 32 - 1000            # zo_sumsq's counters wrap inside a leaf past 1000 values
     scale = torch.tensor(0.37, device=dev)    # an O(1) perturbation: every bit shows
     salts = torch.tensor([101, 202, 303, 404], dtype=torch.int64).to(torch.uint32)
     coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1], device=dev)
@@ -1333,6 +1399,7 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
                          ref.ref_zo_reconstruct(n, s, coeffs[:m], off, acc, device=dev),
                          f"{what} m={m} acc={acc}", bf16=acc == "bfloat16")
             sumsq_check(n, off)
+        sumsq_check(n, wrap)
 
     # the split leaf: two calls at offsets 0 and k equal one call
     n = max(sizes)
@@ -1345,20 +1412,23 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
     check(torch.equal(torch.cat([cu.zo_reconstruct(k, s4, coeffs, 0),
                                  cu.zo_reconstruct(n - k, s4, coeffs, k)]),
                       cu.zo_reconstruct(n, s4, coeffs, 0)), "zo_reconstruct: split leaf differs")
-    parts = cu.zo_sumsq(k, salt, 0, dev) + cu.zo_sumsq(n - k, salt, k, dev)
-    rel = float(abs(parts / cu.zo_sumsq(n, salt, 0, dev) - 1.0))
-    check(rel <= 1e-6, f"zo_sumsq: split leaf differs by {rel}")
+    rels = []
+    for off in (0, wrap):                   # at `wrap` the counter wraps in the first part
+        parts = cu.zo_sumsq(k, salt, off, dev) + cu.zo_sumsq(n - k, salt, (off + k) % 2 ** 32, dev)
+        rels.append(float(abs(parts / cu.zo_sumsq(n, salt, off, dev) - 1.0)))
+        check(rels[-1] <= 1e-6, f"zo_sumsq: split leaf at offset {off} differs by {rels[-1]}")
     print(f"  split leaf n={n} at k={k}: zo_perturb and zo_reconstruct bitwise equal to "
-          f"one call, zo_sumsq within {rel:.2e}")
+          f"one call, zo_sumsq within {rels[0]:.2e} (offset 0) and {rels[1]:.2e} (offset "
+          f"{wrap})")
 
     # controls: each check above must reject these faulty outputs
     n = 5000                                           # a ragged tail
     x = torch.randn(n, generator=g).to(dev)
-    n_up = -(-n // cu.SUMSQ_CHUNK) * cu.SUMSQ_CHUNK
+    lanes = -(-n // 256) * 256                          # what unmasked 256-thread blocks take
     want = ref.ref_zo_sumsq(n, salt, 0, device=dev)
-    bad = ref.ref_zo_sumsq(n_up, salt, 0, device=dev)
+    bad = ref.ref_zo_sumsq(lanes, salt, 0, device=dev)
     control("zo_sumsq", float(abs(bad / want - 1.0)) <= 1e-6,
-            f"tail mask dropped ({n_up - n} lanes past n={n})", float(abs(bad / want - 1.0)))
+            f"tail mask dropped ({lanes - n} lanes past n={n})", float(abs(bad / want - 1.0)))
     canary = lambda b, n: bool((b[n:] == 7.0).all())        # noqa: E731
     for nc in (max(sizes) + 3, n):           # the vector lanes' ragged tail; scalar lanes only
         xc = torch.randn(nc, generator=g).to(dev)
@@ -1368,7 +1438,6 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
         check(canary(buf, nc) and torch.equal(buf[:nc], ref.ref_zo_perturb(xc, salt, scale, 0)),
               "zo_perturb wrote past the leaf or wrote wrong values")
         print(f"  {'zo_perturb':15s} canary of 256 values after the leaf (n={nc}) untouched")
-    lanes = -(-n // 256) * 256                          # what unmasked 256-thread blocks store
     bad = buf.clone()
     x_up = torch.cat([x, torch.zeros(lanes - n, device=dev)])
     bad[:lanes] = ref.ref_zo_perturb(x_up, salt, scale, 0)
@@ -1412,6 +1481,13 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
                       "gauss_instructions": gauss_instr}
         if name == "zo_sumsq":
             rows[name]["sumsq_rel_err"] = sumsq_rel
+            rows[name]["launches_per_call"] = cu.LAUNCHES_PER_CALL[name]
+            rows[name]["stream_ms"] = stream_ms(torch, kern)
+            rows[name]["launch_stream_ms"] = leaf_sumsq_launches_ms(torch, cu, n, salt, dev)
+            print(f"  {name:15s} n={n} back to back: {rows[name]['stream_ms']:.5f} ms per call, "
+                  f"its launches apart {rows[name]['launch_stream_ms'][0]:.5f} (the Gaussians "
+                  f"and partial sums) and {rows[name]['launch_stream_ms'][1]:.5f} (the sum of "
+                  f"the partials)")
         print(f"  {name:15s} n={n}: ms={rows[name]['ms']:.4f} plain_ms="
               f"{rows[name]['plain_ms']:.4f} bound_ms={b:.4f} ({by}; bytes "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
@@ -2372,18 +2448,21 @@ def main() -> None:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(build.SOURCES) + 1) as pool:     # one nvcc per source
-        runtime_m = pool.submit(build_runtime_m)                  # and the m A/B's variant
+        m_variant = pool.submit(build_m_variant)                  # and the m A/B's variant
         libs = dict(zip(build.SOURCES, pool.map(lambda n: build.build(n, verbose=True),
                                                 build.SOURCES)))
-        runtime_m_lib = runtime_m.result()
+        m_variant_lib = m_variant.result()
     print(f"# build: {time.perf_counter() - t0:.1f} s ({', '.join(sorted(libs))})")
     gauss_instr = gauss_instructions(libs["zo_direction"])
     uniform_instr = uniforms_instructions(libs["zo_direction"])
     print("# the ZO kernels' registers and spills (-Xptxas -v):")
     zo_regs = ptxas_lines("zo_direction")
-    redesigned = {name: {k: u for k, u in zo_regs.items() if kern in k}
-                  for name, kern in (("zo_reconstruct_update", "reconstruct_update_kernel"),
-                                     ("zo_perturb_flat", "perturb_flat_kernel"))}
+    redesigned = {name: {k: u for k, u in zo_regs.items() if re.fullmatch(kern, k)}
+                  for name, kern in (
+                      ("zo_reconstruct_update", r"reconstruct_kernel<\d+, \d+, [12]>"),
+                      ("zo_reconstruct_flat", r"reconstruct_kernel<\d+, \d+, 0>"),
+                      ("zo_perturb_flat", "perturb_flat_kernel"),
+                      ("zo_sumsq", "sumsq_leaf_kernel|sumsq_total_kernel"))}
     for name, usage in redesigned.items():
         check(bool(usage) and all(u.get("spill_stores") == 0 and u.get("spill_loads") == 0
                                   for u in usage.values()), f"{name}'s kernels spill: {usage}")
@@ -2407,10 +2486,8 @@ def main() -> None:
     print("# phase: the Gaussian's parts, timed apart (probes, back to back)")
     probes = gauss_probe_phase(torch, dev, libs["zo_direction"])
     print("# phase: kernels vs plain versions on the card")
-    rows = kernel_phase(torch, dev, fig2_params, gauss_instr, runtime_m_lib=runtime_m_lib)
+    rows = kernel_phase(torch, dev, fig2_params, gauss_instr, m_variant_lib=m_variant_lib)
     rows["zo_reconstruct_update"]["gauss_probes"] = probes
-    for name, usage in redesigned.items():
-        rows[name]["registers"] = {k: u["registers"] for k, u in usage.items()}
     print("# phase: Fig. 2 main path (engine=flat, SGD) vs engine=fused")
     main_launches = fig2_phase(torch, dev)
     print("# phase: profile of the main path's ZO step")
@@ -2421,6 +2498,9 @@ def main() -> None:
     fig1_phase(torch, dev)
     print("# phase: per-leaf kernels vs plain versions on the card")
     leaf_rows = leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr)
+    for name, usage in redesigned.items():
+        row = rows[name] if name in rows else leaf_rows[name]
+        row["registers"] = {k: u["registers"] for k, u in usage.items()}
     print("# phase: the Fig. 2 method set at hidden=1300 (engine=pallas)")
     method_launches = method_set_phase(torch, dev)
     print("# phase: profile of the ZO step with engine=pallas")
@@ -2484,6 +2564,8 @@ def main() -> None:
             "shape": f"w2 leaf n={row['n']}" + (", m=4" if name == "zo_reconstruct" else ""),
             **{k: row[k] for k in EXTRA_KEYS if k in row},
         })
+        if "launches_per_call" in row:
+            kernels[-1]["calls"] = method_launches[name] // row["launches_per_call"]
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
     simt = flash["simt"]

@@ -14,6 +14,12 @@ function, and only here, where they happen; ``LAUNCHES_PER_CALL`` says how
 many one call makes (two for ``zo_perturb_sumsq`` and ``zo_sumsq``, one for
 every other function).
 
+``zo_reconstruct_flat`` and ``zo_reconstruct_update`` run one kernel, which
+stores the m-worker sum or commits it to ``p``.  Each sum of squares is two
+launches: one partial sum per block of a grid that the card holds at once
+(at most ``MAX_PARTIALS`` blocks), then a programmatic dependent launch that
+sums the partials in one fixed order, the same result run to run.
+
 A leaf's salt and counter offset are Python ints and go to the kernel by
 value, as do ``zo_perturb_sumsq``'s ``mu`` and ``zo_reconstruct_update``'s
 ``lr`` (host numbers: every caller has one, a schedule's value is a CPU
@@ -38,8 +44,7 @@ LAUNCHES = {"zo_perturb_flat": 0, "zo_reconstruct_flat": 0,
             "zo_perturb": 0, "zo_reconstruct": 0, "zo_sumsq": 0,
             "zo_check_gauss": 0, "zo_probe_part": 0}
 LAUNCHES_PER_CALL = {k: 1 for k in LAUNCHES} | {"zo_perturb_sumsq": 2, "zo_sumsq": 2}
-SUMSQ_CHUNK = 4096     # lanes per partial sum of zo_sumsq's first launch
-PERTURB_SUMSQ_PARTIALS = 2048   # zo_perturb_sumsq's partial sums: cap its first grid
+MAX_PARTIALS = 2048   # the sums of squares' partial sums: cap their first grid
 LEAF_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
@@ -53,8 +58,8 @@ _SIGNATURES = {
                                      _I, _I, _I, _P],
     "zo_perturb_leaf_launch": [_P, _P, _I64, _U32, _U32, _P, _I, _I, _P],
     "zo_reconstruct_leaf_launch": [_P, _P, _P, _I64, _U32, _I, _I, _I, _P],
-    "zo_sumsq_leaf_partials_launch": [_P, _I, _I64, _U32, _U32, _I, _I, _P],
-    "zo_sum_partials_launch": [_P, _I, _P, _I, _P],
+    "zo_sumsq_partials_launch": [_P, _I, _I64, _U32, _U32, _I, _P],
+    "zo_sumsq_total_launch": [_P, _I, _I64, _P, _I, _P],
     "zo_check_gauss_launch": [_P, _I, _I, _P],
     "zo_probe_part_launch": [_P, _I64, _I, _I, _U32, _I, _P],
 }
@@ -126,7 +131,8 @@ def zo_perturb_flat(x, salts, ctrs, nvalid, scale, block: int = 4096):
 
 def zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block: int = 4096,
                         acc_dtype="float32"):
-    """Whole-buffer ``sum_w coeffs[w] * v_w``; padding lanes 0; one launch."""
+    """Whole-buffer ``sum_w coeffs[w] * v_w``; padding lanes 0; one launch
+    of zo_reconstruct_update's kernel with a store in place of the commit."""
     dev = _cuda_device(ctrs)
     m = int(coeffs.shape[0])
     nb, ps, pc, pn = _meta(salts, ctrs, nvalid, dev, m)
@@ -149,14 +155,13 @@ def zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
     px = _check(x, "x", torch.float32, dev, (nb * block,))
     mu = _host_f32(mu, "mu")
     out, v = _aligned_like(x), _aligned_like(x)
-    partials = torch.empty(PERTURB_SUMSQ_PARTIALS, dtype=torch.float32, device=dev)
+    partials = torch.empty(MAX_PARTIALS, dtype=torch.float32, device=dev)
     ss = torch.empty(1, dtype=torch.float32, device=dev)
     stream = _stream(dev)
     _launch("zo_perturb_sumsq", "zo_sumsq_v_launch", px, ps, pc, pn, v.data_ptr(),
-            partials.data_ptr(), PERTURB_SUMSQ_PARTIALS, x.numel(), block, dev.index, stream)
+            partials.data_ptr(), MAX_PARTIALS, x.numel(), block, dev.index, stream)
     _launch("zo_perturb_sumsq", "zo_apply_v_launch", px, v.data_ptr(), partials.data_ptr(),
-            PERTURB_SUMSQ_PARTIALS, mu, out.data_ptr(), ss.data_ptr(), x.numel(),
-            dev.index, stream)
+            MAX_PARTIALS, mu, out.data_ptr(), ss.data_ptr(), x.numel(), dev.index, stream)
     return out, ss
 
 
@@ -232,22 +237,23 @@ def zo_reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32"):
 
 
 def zo_sumsq(n, salt, offset=0, device="cuda"):
-    """``sum v^2`` over one hashed-Gaussian leaf of ``n`` values, a 0-d
-    float32 tensor on ``device``: per-chunk partials, then one fixed-order
-    sum (two launches; the same result run to run)."""
+    """``sum v^2`` over one hashed-Gaussian leaf of ``n`` values (counters
+    ``offset + i`` wrapping mod 2^32), a 0-d float32 tensor on ``device``:
+    one partial sum per block, then one fixed-order sum of the partials in
+    a programmatic dependent launch (two launches; the same result run to
+    run)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take a CUDA device")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     n = _leaf_size(n)
-    nb = -(-n // SUMSQ_CHUNK)
-    partials = torch.empty(nb, dtype=torch.float32, device=dev)
+    partials = torch.empty(MAX_PARTIALS, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     stream = _stream(dev)
-    _launch("zo_sumsq", "zo_sumsq_leaf_partials_launch", partials.data_ptr(), nb, n,
-            _u32(salt), _u32(offset), SUMSQ_CHUNK, dev.index, stream)
-    _launch("zo_sumsq", "zo_sum_partials_launch", partials.data_ptr(), nb,
+    _launch("zo_sumsq", "zo_sumsq_partials_launch", partials.data_ptr(), MAX_PARTIALS, n,
+            _u32(salt), _u32(offset), dev.index, stream)
+    _launch("zo_sumsq", "zo_sumsq_total_launch", partials.data_ptr(), MAX_PARTIALS, n,
             out.data_ptr(), dev.index, stream)
     return out
 

@@ -5,10 +5,11 @@ Run on a GPU machine from the repository root with
 This file imports no JAX (the GPU machine has none): each kernel is held
 against its plain PyTorch version on the same inputs.  Per-leaf kernels: fp32
 outputs bitwise, bf16 ones to one bf16 ulp, the sum of squares to rtol
-1e-6; zo_perturb also on views off a 16-byte boundary.  zo_reconstruct_update
-and zo_perturb_flat are held bit for bit at every m, at blocks of 256, 257 and
-4096 and off 16-byte boundaries.  The Gaussian is
-held to libdevice's on every value of its two uniforms.  Flat kernels: fp32 outputs to
+1e-6 (also where the counters wrap past 2^32, and over a split leaf);
+zo_perturb also on views off a 16-byte boundary.  zo_reconstruct_update,
+zo_reconstruct_flat and zo_perturb_flat are held bit for bit at every m, at
+blocks of 256, 257 and 4096 and off 16-byte boundaries.  The Gaussian is
+held to libdevice's on every value of its two uniforms.  Other flat kernels: fp32 outputs to
 rtol 1e-5 / atol 1e-6 (the two differ at most by ulps of logf/cosf and by
 the order of the sum of squares) and bf16-rounded outputs to one bf16 ulp
 per element with at most 0.1% of the elements differing at all; an fp32
@@ -58,11 +59,9 @@ def test_cuda_kernels_match_plain_versions(acc_dtype):
                                **FP32_TOL)
     got = cu.zo_reconstruct_flat(msalts, coeffs, ctrs, nvalid, block, acc_dtype)
     want = ref.ref_zo_reconstruct_flat(msalts, coeffs, ctrs, nvalid, block, acc_dtype)
-    if acc_dtype == "float32":
-        torch.testing.assert_close(got, want, **FP32_TOL)
-    else:
-        assert bf16_match(got, want)
-        # control: the fp32 accumulator's output fails the bf16 check
+    assert torch.equal(got, want)
+    if acc_dtype == "bfloat16":
+        # control: the fp32 accumulator's output fails even the bf16 check
         assert not bf16_match(
             ref.ref_zo_reconstruct_flat(msalts, coeffs, ctrs, nvalid, block), want)
     out, ss = cu.zo_perturb_sumsq(x, salts1, ctrs, nvalid, 1e-3, block)
@@ -256,6 +255,63 @@ def test_zo_reconstruct_update_matches_plain_version(m, block, acc_dtype, moment
         if mom is not None:
             assert torch.equal(m_k, m_r)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [256, 257, 4096])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8])
+def test_zo_reconstruct_flat_matches_plain_version(m, block, acc_dtype):
+    """zo_reconstruct_flat (zo_reconstruct_update's kernel with a store for
+    the commit) at the same m and blocks, random valid lanes: bit for bit
+    the plain version, padding lanes 0; launched into a caller's buffer one
+    value past a 16-byte boundary (a scalar head), with canaries of 256
+    values around it that stay untouched."""
+    dev = _cuda()
+    salts, ctrs, nvalid, _ = _random_layout(block, seed=3 * block + m)
+    sm = salts[:, :m].contiguous()
+    coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1, 0.7, -0.3, 1.2, -0.8][:m], device=dev)
+    want = ref.ref_zo_reconstruct_flat(sm, coeffs, ctrs, nvalid, block, acc_dtype)
+    assert torch.equal(cu.zo_reconstruct_flat(sm, coeffs, ctrs, nvalid, block, acc_dtype), want)
+    n = want.numel()
+    buf = torch.full((n + 512,), 7.0, device=dev)
+    out = buf[257:]                        # one value past a 16-byte boundary
+    cu._launch("zo_reconstruct_flat", "zo_reconstruct_flat_launch", sm.data_ptr(),
+               coeffs.data_ptr(), ctrs.data_ptr(), nvalid.data_ptr(), out.data_ptr(), n, block,
+               m, int(acc_dtype == "bfloat16"), buf.device.index, cu._stream(buf.device))
+    assert torch.equal(out[:n], want)
+    assert bool((buf[:257] == 7.0).all()) and bool((out[n:] == 7.0).all())
+    torch.cuda.synchronize()
+
+
+WRAP = 2 ** 32 - 1000          # counters offset + i wrap past 2^32 inside a leaf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 12345, WRAP])
+@pytest.mark.parametrize("n", [1, 3, 7, 4095, 4097, 70200, 1_690_000])
+def test_zo_sumsq_matches_plain_version(n, offset):
+    """zo_sumsq (a grid from occupancy, eight Gaussians a thread a trip, the
+    partials summed by a dependent launch) within rtol 1e-6 of the plain
+    sum, and bitwise the same run to run."""
+    dev = _cuda()
+    got = cu.zo_sumsq(n, 0x2545F491, offset, dev)
+    assert got.shape == () and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.ref_zo_sumsq(n, 0x2545F491, offset, device=dev),
+                               rtol=1e-6, atol=0.0)
+    assert torch.equal(got, cu.zo_sumsq(n, 0x2545F491, offset, dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, WRAP])
+def test_zo_sumsq_over_a_split_leaf(offset):
+    """Two calls over a leaf cut at k (the second at offset + k, mod 2^32)
+    sum to one call within rtol 1e-6; at WRAP the first part's counters
+    wrap."""
+    dev = _cuda()
+    n, k = 1_690_000, 1_234_567
+    parts = cu.zo_sumsq(k, 77, offset, dev) + cu.zo_sumsq(n - k, 77, (offset + k) % 2 ** 32, dev)
+    torch.testing.assert_close(parts, cu.zo_sumsq(n, 77, offset, dev), rtol=1e-6, atol=0.0)
 
 
 @pytest.mark.gpu

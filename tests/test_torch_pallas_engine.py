@@ -104,6 +104,22 @@ def test_split_leaf_calls_equal_one_call():
     assert float(parts) == pytest.approx(float(ops.zo_sumsq(n, 77, device="cpu")), rel=1e-6)
 
 
+@pytest.mark.parametrize("n,block,offset", [(5000, 4096, 2 ** 32 - 1000),
+                                            (3000, 1024, 2 ** 32 - 1)])
+def test_zo_sumsq_matches_jax_where_the_counter_wraps(n, block, offset):
+    """ops.zo_sumsq (its plain version here) against the JAX zo_sumsq at an
+    offset whose counters offset + i wrap past 2^32 inside the leaf (rtol
+    1e-5, the Gaussians' ulps), and the wrapped leaf as its two parts on
+    either side of the wrap (rtol 1e-6)."""
+    ss = ops.zo_sumsq(n, 1234, offset, device="cpu")
+    want = jops.zo_sumsq(n, 1234, offset=np.uint32(offset), block=block)   # past int32
+    np.testing.assert_allclose(float(ss), float(want), rtol=1e-5)
+    k = 2 ** 32 - offset                   # lanes before the counter wraps to 0
+    parts = ops.zo_sumsq(k, 1234, offset, device="cpu") + ops.zo_sumsq(n - k, 1234, 0,
+                                                                       device="cpu")
+    assert float(parts) == pytest.approx(float(ss), rel=1e-6)
+
+
 def test_cpu_path_launches_nothing_and_the_kernels_take_cuda_tensors():
     before = dict(cu.LAUNCHES)
     ops.zo_perturb(torch.zeros(8), 1, 0.1)
