@@ -70,13 +70,16 @@ Phases (any failed check exits non-zero):
      tensor-core kernel at the serving shapes (B=1, H=40, KV=8, hd=128,
      causal, S in {64, 512, 1024, 2048}) and at every head width (gemma2's
      hd=256 with window 4096 and softcap 50, phi3's hd=96, hd=64, hd=32 with
-     a window, causal off, tiles half past Sq, Sq != Sk), the float32 SIMT
-     kernel at three shapes; hubert-xlarge's head width 80 (causal and not)
-     and B * H = 70,400 on both kernels; each launch counted under its variant; controls
-     (the KV head h % KV, the causal mask dropped, the probabilities rounded
-     to bf16 once instead of split); kernel, plain and
-     ``scaled_dot_product_attention`` times, TFLOP/s and the bound, bf16 at
-     every serving S and float32 at S=2048;
+     a window, causal off, tiles half past Sq, Sq != Sk), the float32 TF32x3
+     kernel (three TF32 products per matrix product) at the serving shape
+     at S=2048, at S=4096 without a causal mask, gemma2's and three other
+     shapes; hubert-xlarge's head width
+     80 (causal and not) and B * H = 70,400 on both kernels; each launch
+     counted under its variant; controls (the KV head h % KV, the causal
+     mask dropped, the probabilities rounded to bf16 once instead of split,
+     and for float32 S or P.V with two TF32 products instead of three);
+     kernel, plain and ``scaled_dot_product_attention`` times, TFLOP/s and
+     the bound, bf16 at every serving S and float32 at S=2048;
   10. serving qwen3-14b at full width and depth (random bf16 weights from a
      seeded generator on the card): 8 seeded prompts of 65-1000 tokens
      through ``Engine.generate`` at temperature 0, 8 slots, 32 new tokens,
@@ -138,6 +141,7 @@ INSTR_PER_S = FP32_OPS_PER_S / 2
 # rounding); a skipped bf16 rounding changes far more of them
 MISMATCH_FRAC = 1e-3
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
 CUDA_SRC = "src/repro_torch/kernels/csrc/zo_direction.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:111"
@@ -1721,31 +1725,55 @@ def live_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return n
 
 
+def flash_ops_ms(ops_: float, dtype_bytes: int) -> float:
+    """The products' least time by the inputs' type: bf16 at the dense bf16
+    rate, float32 as three TF32 products on the tensor cores (one product
+    on the float32 pipes is always slower: 1/67 > 3/495)."""
+    if dtype_bytes == 2:
+        return ops_ / BF16_OPS_PER_S * 1e3
+    return 3 * ops_ / TF32_OPS_PER_S * 1e3
+
+
 def flash_bound(B, Sq, Sk, H, KV, hd, dtype_bytes, causal, window):
     """(bound ms, by): bytes of q, k, v read once and out written once over
     the HBM rate; the products' operations (2 * hd for q.k and 2 * hd for
-    p.v per live pair and head) over the dense rate of the inputs' type."""
+    p.v per live pair and head) at the rate of the inputs' type
+    (``flash_ops_ms``)."""
     n_bytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * dtype_bytes
     ops_ = 4 * hd * H * B * live_pairs(Sq, Sk, causal, window)
-    rate = BF16_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, ops_ / rate * 1e3
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, flash_ops_ms(ops_, dtype_bytes)
     return ((tb, "bytes") if tb >= to else (to, "operations")), n_bytes, ops_
 
 
-def unsplit_p_attention(torch, q, k, v):
-    """The bf16 kernel's arithmetic with the probabilities rounded to bf16
-    once, not split into two halves (causal, plain PyTorch on the card): the
-    control that shows the check guards the split."""
+def faulty_attention(torch, q, k, v, fault):
+    """Causal attention in plain PyTorch on the card with one of the
+    kernels' roundings done wrong, the controls that show the check guards
+    it.  ``"p_bf16"``: the bf16 kernel's probabilities rounded to bf16 once,
+    not split into two halves.  ``"s_tf32x2"`` / ``"pv_tf32x2"``: the float32
+    kernel's S or P.V as two TF32 products (hi*hi + hi*lo, hi = tf32(x)
+    rounded to nearest, lo = tf32(x - hi)) instead of three, the other
+    product as three; each summed in float32."""
+    def tf32(x):                            # cvt.rna.tf32.f32 on the bits
+        return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    def product(eq, a, b, what):
+        if q.dtype == torch.bfloat16:       # the bf16 kernel: products in float32
+            if what == "pv" and fault == "p_bf16":
+                a = a.to(torch.bfloat16)
+            return torch.einsum(eq, a.float(), b.float())
+        ah, bh = tf32(a), tf32(b)           # the float32 kernel: three TF32 products
+        pairs = [(ah, bh), (ah, tf32(b - bh)), (tf32(a - ah), bh)]
+        return sum(torch.einsum(eq, x, y)
+                   for x, y in pairs[:2 if fault == what + "_tf32x2" else 3])
+
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    s = torch.einsum("bqgrd,bkgd->bgrqk", q.float().reshape(B, Sq, KV, H // KV, hd),
-                     k.float()) * (1.0 / hd ** 0.5)
+    s = product("bqgrd,bkgd->bgrqk", q.reshape(B, Sq, KV, H // KV, hd), k, "s") * (1.0 / hd ** 0.5)
     keep = (torch.arange(Sq, device=q.device)[:, None]
             >= torch.arange(Sk, device=q.device)[None, :])
     s = torch.where(keep, s, torch.full_like(s, -1e30))
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), v.float()) / l
+    o = product("bgrqk,bkgd->bgrqd", p, v, "pv") / p.sum(-1, keepdim=True)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -1772,25 +1800,32 @@ def time_flash(torch, q, k, v, causal=True):
            "variant": fa.variant(q.dtype, hd), "ms": (k1 + k2) / 2,
            "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2, "bound_ms": b,
            "bound_by": by, "bytes": n_bytes, "operations": n_ops}
-    rate = BF16_OPS_PER_S if dtype_bytes == 2 else FP32_OPS_PER_S
-    issued = f"; {1.5 * n_ops / row['ms'] / 1e9:.1f} TFLOP/s issued (6 hd per pair: P split)" \
-        if dtype_bytes == 2 else ""
+    if dtype_bytes == 2:
+        ops_text = f"at {BF16_OPS_PER_S / 1e12:.0f} T/s {flash_ops_ms(n_ops, 2):.5f}"
+        issued = f"{1.5 * n_ops / row['ms'] / 1e9:.1f} TFLOP/s issued (6 hd per pair: P split)"
+    else:
+        ops_text = (f"x3 at {TF32_OPS_PER_S / 1e12:.0f} T/s TF32 {flash_ops_ms(n_ops, 4):.5f}, "
+                    f"x1 at {FP32_OPS_PER_S / 1e12:.0f} T/s on the float32 pipes "
+                    f"{n_ops / FP32_OPS_PER_S * 1e3:.5f}")
+        row["tf32_tflops_issued"] = 3 * n_ops / row["ms"] / 1e9
+        issued = (f"{row['tf32_tflops_issued']:.1f} TF32 TFLOP/s issued (12 hd per pair: three "
+                  f"products) of {TF32_OPS_PER_S / 1e12:.0f}")
     print(f"  flash_attention [{row['variant']}] S={S:5d} H={H} KV={KV} hd={hd} "
           f"{'bf16' if dtype_bytes == 2 else 'float32'}{'' if causal else ' causal off'}:"
           f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
           f"{row['library_ms']:.4f} (scaled_dot_product_attention, max |diff| to plain "
           f"{lib_err:.3e}) bound_ms={b:.5f} ({by}; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.5f}, "
-          f"operations {n_ops:.3e} at {rate / 1e12:.0f} T/s {n_ops / rate * 1e3:.5f}); kernel at "
-          f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s of the bound's work{issued}, SDPA at "
-          f"{n_ops / row['library_ms'] / 1e9:.1f}; kernel / SDPA "
-          f"{row['ms'] / row['library_ms']:.2f}")
+          f"operations {n_ops:.3e} {ops_text}); kernel at "
+          f"{n_ops / row['ms'] / 1e9:.1f} TFLOP/s of the function's work, {issued}, SDPA at "
+          f"{n_ops / row['library_ms'] / 1e9:.1f}; bound / kernel {b / row['ms']:.3f}, kernel / "
+          f"SDPA {row['ms'] / row['library_ms']:.2f}")
     return row
 
 
 def hubert_flash_phase(torch, dev, S=1024, H=16, hd=80):
     """Flash attention at hubert-xlarge's widths (head_dim 80, 16 heads, no
     causal mask, B=1), held against the plain version and timed beside SDPA
-    and the bound: bf16 on the tensor-core kernel, then float32 on the SIMT
+    and the bound: bf16 on the bf16 kernel, then float32 on the TF32x3
     one.  No served model runs this width yet: the serve runs count its
     launches (``flash_attention_hd80``)."""
     from repro_torch.kernels import flash_attention as fa
@@ -1805,7 +1840,9 @@ def hubert_flash_phase(torch, dev, S=1024, H=16, hd=80):
     check(ok, f"flash_attention at hd={hd}: kernel and plain version disagree ({err})")
     row = time_flash(torch, q, k, v, causal=False)
     row["max_abs_err"] = err
-    q, k, v = (t.float() for t in (q, k, v))
+    # float32 draws: bf16 values have no low TF32 half, so the three products
+    # would be exact
+    q, k, v = (torch.randn(1, S, H, hd, generator=g).to(dev) for _ in range(3))
     ok, err, tol = attn_agree(torch, fa.flash_attention(q, k, v, False),
                               ref.ref_flash_attention(q, k, v, False))
     print(f"  flash_attention [{fa.variant(q.dtype, hd)}] B=1 S={S} H={H} KV={H} hd={hd} "
@@ -1816,8 +1853,8 @@ def hubert_flash_phase(torch, dev, S=1024, H=16, hd=80):
 
 
 def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
-    """Each variant of the kernel against the plain version (bf16 on the
-    tensor cores at every head width, float32 on the SIMT kernel), with
+    """Each variant of the kernel against the plain version at every head
+    width (bf16 on the bf16 kernel, float32 on the TF32x3 one), with
     controls; then times beside the plain version, SDPA and the bound: bf16
     at the serving shape for every S in ``serve_shapes``, float32 at the
     largest."""
@@ -1831,7 +1868,7 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
         return [torch.randn(B, n_s, n, hd_, generator=g).to(dev, dtype)
                 for n_s, n in ((Sq, H_), (Sk, KV_), (Sk, KV_))]
 
-    worst = {"wgmma": 0.0, "simt": 0.0}
+    worst = {"wgmma": 0.0, "tf32x3": 0.0}
 
     def compare(what, args, causal=True, window=None, softcap=None):
         variant = fa.variant(args[0].dtype, args[0].shape[3])
@@ -1865,7 +1902,7 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
             control("causal mask dropped", ref.ref_flash_attention(q, k, v, causal=False), want)
         if S == serve_shapes[-1]:
             control(f"probabilities rounded to bf16 once, not split (S={S})",
-                    unsplit_p_attention(torch, *inputs[S]), want)
+                    faulty_attention(torch, *inputs[S], "p_bf16"), want)
     compare("gemma2 S=4608 H=8 KV=4 hd=256 bf16 window=4096 softcap=50",
             qkv(4608, 8, 4, 256, bf), window=4096, softcap=50.0)
     compare("phi3 S=512 H=32 KV=32 hd=96 bf16", qkv(512, 32, 32, 96, bf))
@@ -1878,6 +1915,19 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
     compare("Sq=128 Sk=512 H=8 KV=2 hd=128 bf16 causal off", qkv((128, 512), 8, 2, 128, bf, B=2),
             causal=False)
     compare("Sq=512 Sk=128 H=4 KV=4 hd=96 bf16 causal", qkv((512, 128), 4, 4, 96, bf))
+    S = serve_shapes[-1]
+    f32 = qkv(S, H, KV, hd, torch.float32)    # float32 draws: bf16 values have no TF32 low half
+    want = compare(f"serving S={S} H={H} KV={KV} hd={hd} float32 causal", f32)
+    for drop in ("s", "pv"):
+        control(f"float32 {'S' if drop == 's' else 'P.V'} with two TF32 products, not three "
+                f"(S={S})", faulty_attention(torch, *f32, f"{drop}_tf32x2"), want)
+    # rows of 4096 keys and no causal mask: a small largest value, so the
+    # tightest float32 tolerance, where O summed in place in the tensor
+    # cores' accumulator (which truncates) would drift past it
+    compare("S=4096 H=8 KV=8 hd=128 float32 causal off", qkv(4096, 8, 8, 128, torch.float32),
+            causal=False)
+    compare("gemma2 S=4608 H=8 KV=4 hd=256 float32 window=4096 softcap=50",
+            qkv(4608, 8, 4, 256, torch.float32), window=4096, softcap=50.0)
     compare("S=512 H=8 KV=2 hd=64 float32", qkv(512, 8, 2, 64, torch.float32))
     compare("S=256 H=8 KV=2 hd=128 float32 window=100 softcap=30 B=2",
             qkv(256, 8, 2, 128, torch.float32, B=2), window=100, softcap=30.0)
@@ -1894,9 +1944,9 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
 
     print(f"  times on {smi_line()}:")
     rows = [time_flash(torch, *inputs[S]) for S in serve_shapes]
-    simt = time_flash(torch, *(t.float() for t in inputs[serve_shapes[-1]]))
-    return {"max_abs_err": worst["wgmma"], "simt_max_abs_err": worst["simt"], "rows": rows,
-            "simt": simt}
+    float32 = time_flash(torch, *f32)
+    return {"max_abs_err": worst["wgmma"], "float32_max_abs_err": worst["tf32x3"], "rows": rows,
+            "float32": float32}
 
 
 # --------------------------------------------------------------------------- #
@@ -2568,22 +2618,23 @@ def main() -> None:
             kernels[-1]["calls"] = method_launches[name] // row["launches_per_call"]
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
-    simt = flash["simt"]
+    f32 = flash["float32"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_REPLACES, "launches": serve["launches"]["flash_attention"],
         "variant": head["variant"],
-        "variant_launches": {k: serve["launches"][f"flash_attention_{k}"] for k in ("wgmma", "simt")},
+        "variant_launches": {k: serve["launches"][f"flash_attention_{k}"]
+                             for k in ("wgmma", "tf32x3")},
         "max_abs_err": flash["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "path": "serve qwen3-14b prefill",
         "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for r in flash["rows"]],
-        "float32": {"variant": simt["variant"], "shape": "B=1 S=2048 H=40 KV=8 hd=128 float32 "
-                    "causal", "max_abs_err": flash["simt_max_abs_err"],
-                    **{k: simt[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "bound_by")}},
+        "float32": {"variant": f32["variant"], "shape": "B=1 S=2048 H=40 KV=8 hd=128 float32 "
+                    "causal", "max_abs_err": flash["float32_max_abs_err"],
+                    **{k: f32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                           "bound_by", "tf32_tflops_issued")}},
         "hd80": {"variant": hubert["variant"], "shape": "B=1 S=1024 H=16 KV=16 hd=80 bf16 "
                  "causal off (hubert-xlarge's widths)",
                  "launches": sum(run["launches"]["flash_attention_hd80"] for run in (serve, mamba)),
@@ -2593,7 +2644,7 @@ def main() -> None:
                                            "bound_ms", "bound_by")},
                  "float32": {k: hubert["float32"][k] for k in (
                      "variant", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                     "bound_by")}},
+                     "bound_by", "tf32_tflops_issued")}},
     })
     check(mamba["launches"]["selective_scan"] > 0, "selective_scan was not launched")
     head = scan["rows"][-1]                   # falcon-mamba-7b's width at S=1024

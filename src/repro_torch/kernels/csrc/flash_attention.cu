@@ -19,235 +19,65 @@
 // What bounds it on an H100: at the serving shape (B=1, H=40, KV=8, hd=128,
 // bf16, causal) it does ~2*S^2*hd*H operations on 2*S*hd*(H+KV)*2 bytes, 850
 // operations per byte at S=2048: far above the card's ~295 bf16 tensor-core
-// operations per byte, so the bound is operations.
+// operations per byte, so the bound is operations.  In float32 the same
+// holds on the tensor cores' TF32 rate (495 TFLOP/s) at three products for
+// one, 3 * 4 hd operations per live pair.
 //
-// Two kernels, one per input type (kernels/flash_attention.py's variant()):
+// Two kernels, one per input type (kernels/flash_attention.py's variant()),
+// both on the tensor cores; batch*head goes on grid.x, which takes up to
+// 2^31 - 1 of them, and the sequential key-block axis of the TPU grid
+// becomes a loop over key tiles inside the block, up to the causal and
+// window limits.
 //
-// bf16 -> tc::flash_fwd_wgmma_kernel, on the tensor cores.  A block owns 128
-// query rows of one head: warpgroup 0 is the producer, whose one thread brings
-// the Q tile once and then K and V tiles through a ring of 3 stages (2 at
-// hd=256) in shared memory with TMA (cp.async.bulk.tensor, 128-, 64- or
-// 32-byte swizzle by the width of a row, an mbarrier per stage); warpgroups 1 and 2 each compute 64 of the
-// rows (setmaxnreg: 24 registers for the producer, 240 for them).  S = Q K^T
-// is wgmma bf16 -> float32 with both operands in shared memory; the softmax
-// runs in float32 registers (scale after the product, softcap, mask, running
-// max, exp in base 2, and l summed from the unrounded p); O += P V takes P
-// from registers and V from shared memory (N-major, the transpose bit).  A
-// bf16 P would round each probability to 8 bits, which the one-bf16-ulp
-// check on the output rejects, so P is split into hi = bf16(p) and lo =
-// bf16(p - hi) and both are multiplied by V into one float32 O: 6 hd
+// bf16 -> tc::flash_fwd_wgmma_kernel.  A block owns 128 query rows of one
+// head: warpgroup 0 is the producer, whose one thread brings the Q tile once
+// and then K and V tiles through a ring of 3 stages (2 at hd=256) in shared
+// memory with TMA (cp.async.bulk.tensor, 128-, 64- or 32-byte swizzle by the
+// width of a row, an mbarrier per stage); warpgroups 1 and 2 each compute 64
+// of the rows (setmaxnreg: 24 registers for the producer, 240 for them).  S
+// = Q K^T is wgmma bf16 -> float32 with both operands in shared memory; the
+// softmax runs in float32 registers (scale after the product, softcap, mask,
+// running max, exp in base 2, and l summed from the unrounded p); O += P V
+// takes P from registers and V from shared memory (N-major, the transpose
+// bit).  A bf16 P would round each probability to 8 bits, which the
+// one-bf16-ulp check on the output rejects, so P is split into hi = bf16(p)
+// and lo = bf16(p - hi) and both are multiplied by V into one float32 O: 6 hd
 // operations per live pair instead of 4, with p's error down to ~2^-16 of p.
 // Each warpgroup overlaps the previous tile's P.V with this tile's softmax,
 // and the two take turns on the tensor cores.  The rows of a tile that lie
 // past Sq (Sq a multiple of 64, the tile 128) are computed on zeros and not
 // stored; key rows past Sk read as zeros and are masked.
 //
-// float32 -> simt::flash_fwd_kernel on the float32 pipes (67 TFLOP/s): the
-// tensor cores cannot reproduce float32 products without splitting q, k and
-// v three ways, and no served configuration runs float32.  One block of 256
-// threads per (64-row query tile, batch*head); batch*head goes on grid.x in
-// both kernels, which takes up to 2^31 - 1 of them; the sequential key-block axis
-// of the TPU grid becomes a loop over 64-row key tiles inside the block, up
-// to the causal and window limits.  The scaled q tile stays in shared memory
-// (transposed) for the whole loop; each key tile's k (transposed) and v are
-// staged through shared memory.  Thread (ty, tx) of the 16 x 16 grid owns a
-// 4 x 4 block of the score tile (rows 4*ty.., keys 4*tx..) and, in the
-// product with v, the same 4 rows times hd/16 output columns, so the running
-// max, denominator and accumulator of its rows live in its registers; a
-// row's max and sum are reduced across the 16 tx lanes with warp shuffles.
-// The probabilities go through shared memory (transposed, in the k tile's
-// place) to the product with v.  Products use fmaf explicitly: the library is
-// built with -fmad=false for the ZO kernels, and these sums have another
-// order than the plain version's anyway.
+// float32 -> tf32::flash_fwd_tf32x3_kernel.  One TF32 product keeps 11 bits
+// of each operand, far from float32's check (1e-5 of the largest output plus
+// 1e-5 of the element), so every operand x is split into hi = tf32(x) and lo
+// = tf32(x - hi), rounded to nearest (cvt.rna), and each product is three
+// wgmma m64nNk8 TF32 products: S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi (the
+// last two as one product of Q_hi with K_hi and K_lo stacked, which reads
+// Q_hi once for both) and O += P_lo V_hi + P_hi V_lo + P_hi V_hi (lo*lo is
+// below float32's rounding; two products are not enough).  TF32 has no
+// transpose bit, so both shared operands are K-major: K as it lies, V
+// transposed.  A block owns 64 query
+// rows of one head: warpgroup 0 loads Q once and then each key tile of K and
+// V from global memory, splits it into hi and lo and stores it in the
+// swizzled K-major layout wgmma reads (V^T with the keys of each group of 8
+// in the order 0, 2, 4, 6, 1, 3, 5, 7, which lets P go from the S
+// accumulator to the A fragment with no shuffle), through 2 stages of
+// shared memory; stage j holds K_j and V_{j-1}, the operands of the
+// consumer's step j.  Warpgroup 1 computes: it issues S_j and P_{j-1}.V_{j-1}
+// together, runs the softmax of tile j (as the bf16 kernel's) while the
+// tensor cores do the second, and splits P in registers.  The tensor cores
+// add into an accumulator with truncation, so each tile's P.V goes into a
+// fresh accumulator and O takes it with rounded float32 adds.  Shared memory
+// sets the key tile: Q's hi and lo take 512 hd bytes, a stage 16 hd bytes a
+// key (64 keys at hd <= 80, 32 at 96 and 128, 8 at 256).  Shared memory's
+// bandwidth is what holds it: at hd = 128 a key tile moves ~224 KiB through
+// it (the products' reads of Q, K and V^T, the split's stores), against ~1500
+// cycles of tensor work.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace simt {
-
-constexpr int kTile = 64;       // query rows and key rows per tile
-constexpr int kThreads = 256;   // 16 x 16: a 4 x 4 block of scores each
-constexpr int kLd = kTile + 4;  // row of a transposed tile in shared memory
-constexpr float kMasked = -1e30f;
-
-// kTile rows of HD values (row stride `ld` elements) into shared memory times
-// `scale`: transposed (dst[d * kLd + r]) or not (dst[r * HD + d]).  16-byte
-// loads; the caller guarantees 16-byte aligned rows.
-template <int HD, bool kTranspose>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int64_t ld, float scale) {
-  constexpr int kRowChunks = HD / 4;
-  for (int c = threadIdx.x; c < kTile * kRowChunks; c += kThreads) {
-    const int r = c / kRowChunks;
-    const int d0 = (c % kRowChunks) * 4;
-    const float4 w = *reinterpret_cast<const float4*>(src + r * ld + d0);
-    const float vals[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = vals[e] * scale;
-      if (kTranspose)
-        dst[(d0 + e) * kLd + r] = x;
-      else
-        dst[r * HD + d0 + e] = x;
-    }
-  }
-}
-
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-constexpr size_t smem_bytes(int hd) {
-  // q^T [hd][kLd], k^T [hd][kLd] (also p^T [kTile][kLd]), v [kTile][hd]
-  return sizeof(float) * (static_cast<size_t>(hd) * kLd +
-                          static_cast<size_t>(hd > kTile ? hd : kTile) * kLd +
-                          static_cast<size_t>(kTile) * hd);
-}
-
-// window < 0: no window; softcap <= 0: no soft-capping
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
-                 int H, int KV, int causal, int window, float softcap, float scale) {
-  constexpr int kCols = HD / 16;  // output columns per thread: tx + 16 * c
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + HD * kLd;
-  float* vs = ks + (HD > kTile ? HD : kTile) * kLd;
-  float* ps = ks;  // p^T takes k^T's place once the scores are made
-
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int kvh = h / (H / KV);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int64_t q_ld = static_cast<int64_t>(H) * HD;
-  const int64_t kv_ld = static_cast<int64_t>(KV) * HD;
-  const float* kb = k + static_cast<int64_t>(b) * Sk * kv_ld + kvh * HD;
-  const float* vb = v + static_cast<int64_t>(b) * Sk * kv_ld + kvh * HD;
-
-  load_tile<HD, true>(qs, q + (static_cast<int64_t>(b) * Sq + q0) * q_ld + h * HD,
-                      q_ld, scale);
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kMasked;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < Sk; k0 += kTile) {
-    // a key tile is live iff some (row, key) pair of the two tiles passes
-    if (causal && k0 > q0 + kTile - 1) break;
-    if (window >= 0 && q0 - (k0 + kTile - 1) >= window) continue;
-    __syncthreads();  // the previous tile's reads of p^T and v are done
-    load_tile<HD, true>(ks, kb + k0 * kv_ld, kv_ld, 1.0f);
-    load_tile<HD, false>(vs, vb + k0 * kv_ld, kv_ld, 1.0f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(qs + d * kLd + ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(ks + d * kLd + tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qa[r], ka[c], s[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty * 4 + r;
-      float mx = kMasked;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[r][c];
-        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        const int rel = i - (k0 + tx * 4 + c);
-        const bool live = (!causal || rel >= 0) && (window < 0 || rel < window);
-        x = live ? x : kMasked;
-        s[r][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
-        sum += s[r][c];
-      }
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + row_sum(sum);
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-      m[r] = m_new;
-    }
-
-    __syncthreads();  // every read of k^T is done before p^T overwrites it
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(ps + (tx * 4 + c) * kLd + ty * 4) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(ps + j * kLd + ty * 4);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = vs[j * HD + c * 16 + tx];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(pa[r], vv, acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const float denom = fmaxf(l[r], 1e-30f);
-    float* orow = out + (static_cast<int64_t>(b) * Sq + q0 + ty * 4 + r) * q_ld + h * HD;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) orow[c * 16 + tx] = acc[r][c] / denom;
-  }
-}
-
-template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int KV, int causal, int window,
-              float softcap, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(HD);
-  auto kern = flash_fwd_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, Sq / kTile);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV, causal,
-      window, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace simt
 
 // --------------------------------------------------------------------------- //
 // bf16 on the tensor cores
@@ -440,8 +270,6 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
         FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
-#undef FA_D8
-
 // (hi, lo) bf16 pairs of two float32 values: hi = bf16(x), lo = bf16(x - hi)
 // (x - hi is exact), element 0 in the low half, as wgmma's A fragment wants
 __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -512,12 +340,11 @@ __device__ __forceinline__ float exp2_(float x) {
 // pairs; kCap: soft-capping.  On a tile with neither (most of them) the max
 // is taken on the raw products (the scale is positive) and p = 2^(s * scale
 // - m) is one multiply-add.
-template <int HD, bool kMask, bool kCap>
-__device__ __forceinline__ void softmax(float (&sc)[Cfg<HD>::kBN / 2], float& m0, float& m1,
-                                        float& l0, float& l1, float& a0, float& a1, int r0,
-                                        int key0, int Sk, int causal, int window, float softcap,
+template <int kBN, bool kMask, bool kCap>
+__device__ __forceinline__ void softmax(float (&sc)[kBN / 2], float& m0, float& m1, float& l0,
+                                        float& l1, float& a0, float& a1, int r0, int key0,
+                                        int Sk, int causal, int window, float softcap,
                                         float scale) {
-  constexpr int kBN = Cfg<HD>::kBN;
   constexpr bool kRaw = !kMask && !kCap;
   float mx0 = kMasked, mx1 = kMasked;
 #pragma unroll
@@ -557,26 +384,25 @@ __device__ __forceinline__ void softmax(float (&sc)[Cfg<HD>::kBN / 2], float& m0
 }
 
 // the softmax with its mask and soft-capping decided once per tile
-template <int HD>
-__device__ __forceinline__ void softmax_tile(float (&sc)[Cfg<HD>::kBN / 2], float& m0,
-                                             float& m1, float& l0, float& l1, float& a0,
-                                             float& a1, bool mask, int r0, int key0, int Sk,
-                                             int causal, int window, float softcap,
-                                             float scale) {
+template <int kBN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float& m0, float& m1,
+                                             float& l0, float& l1, float& a0, float& a1,
+                                             bool mask, int r0, int key0, int Sk, int causal,
+                                             int window, float softcap, float scale) {
   if (softcap > 0.0f) {
     if (mask)
-      softmax<HD, true, true>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window, softcap,
-                              scale);
-    else
-      softmax<HD, false, true>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
+      softmax<kBN, true, true>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
                                softcap, scale);
+    else
+      softmax<kBN, false, true>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
+                                softcap, scale);
   } else {
     if (mask)
-      softmax<HD, true, false>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
-                               softcap, scale);
-    else
-      softmax<HD, false, false>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
+      softmax<kBN, true, false>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
                                 softcap, scale);
+    else
+      softmax<kBN, false, false>(sc, m0, m1, l0, l1, a0, a1, r0, key0, Sk, causal, window,
+                                 softcap, scale);
   }
 }
 
@@ -709,8 +535,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     named_arrive(2 - w);
     wg_wait();
     fence_regs(sc);
-    softmax_tile<HD>(sc, m0, m1, l0, l1, a0, a1, !all_live(t0 * kBN), r0, t0 * kBN + c0, Sk,
-                     causal, window, softcap, scale);
+    softmax_tile<kBN>(sc, m0, m1, l0, l1, a0, a1, !all_live(t0 * kBN), r0, t0 * kBN + c0, Sk,
+                      causal, window, softcap, scale);
     rescale_split<HD>(sc, o, hi, lo, a0, a1);
     for (int i = 1; i < n; ++i) {
       const int s = i % kStages, sp = (i - 1) % kStages, k0 = (t0 + i) * kBN;
@@ -724,8 +550,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       named_arrive(2 - w);
       wg_wait<1>();
       fence_regs(sc);
-      softmax_tile<HD>(sc, m0, m1, l0, l1, a0, a1, !all_live(k0), r0, k0 + c0, Sk, causal,
-                       window, softcap, scale);
+      softmax_tile<kBN>(sc, m0, m1, l0, l1, a0, a1, !all_live(k0), r0, k0 + c0, Sk, causal,
+                        window, softcap, scale);
       wg_wait<0>();
       fence_regs(o);
       __syncwarp();
@@ -833,6 +659,580 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 
 }  // namespace tc
 
+// --------------------------------------------------------------------------- //
+// float32 on the tensor cores: each product as three TF32 products
+// --------------------------------------------------------------------------- //
+namespace tf32 {
+
+using tc::desc;
+using tc::fence_regs;
+using tc::kLog2e;
+using tc::kMasked;
+using tc::mbar_arrive;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::smem_u32;
+using tc::softmax_tile;
+using tc::wg_commit;
+using tc::wg_fence;
+using tc::wg_wait;
+
+constexpr int kRows = 64;      // query rows per block: one consumer warpgroup
+constexpr int kThreads = 256;  // warpgroup 0 splits the tiles, warpgroup 1 computes
+
+// The per-head-width constants.  kBN: key rows per tile, as many as shared
+// memory holds in two stages beside Q (Q alone, hi and lo, is 512 hd bytes:
+// 128 KiB at hd = 256).  kSW: the swizzle span of a row of Q and K (hd
+// floats), the widest of 128, 64 and 32 bytes that divides it (hd = 80, a
+// 320-byte row, takes 64), so that a tile is HD / kCW column chunks of kCW
+// floats, kKS k8 steps each.  kVSW: the same for a row of V^T (kBN keys).
+// kNP: output columns per P.V instruction.
+template <int HD>
+struct Cfg {
+  static constexpr int kBN = HD > 128 ? 8 : (HD > 80 ? 32 : 64);
+  static constexpr int kSW = HD * 4 % 128 == 0 ? 128 : (HD * 4 % 64 == 0 ? 64 : 32);
+  static constexpr int kCW = kSW / 4;
+  static constexpr int kKS = kCW / 8;
+  static constexpr int kVSW = kBN * 4 >= 128 ? 128 : kBN * 4;
+  static constexpr int kVCW = kVSW / 4;
+  static constexpr int kVKS = kVCW / 8;
+  static constexpr int kNP = HD > 128 ? 128 : HD;
+  static constexpr int kStages = 2;
+  static constexpr int kQBytes = kRows * HD * 4;    // Q_hi; Q_lo as much again
+  static constexpr int kKVBytes = kBN * HD * 4;     // each of K_hi, K_lo, V_hi^T, V_lo^T
+  static constexpr int kStageBytes = 4 * kKVBytes;
+  static constexpr int kSmem = 1024 + 2 * kQBytes + kStages * kStageBytes + 64;
+  static_assert(HD % kCW == 0 && kBN % kVCW == 0 && HD % kNP == 0 && kKVBytes % 1024 == 0,
+                "head width");
+};
+
+// d (64 x N float32, N/2 a thread) = [d +] A (64 x 8 tf32, shared, K-major) .
+// B (N x 8 tf32, shared, K-major); acc = 0 overwrites d.  TF32 has no
+// transpose bit: both operands are K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int acc);
+// d = [d +] A (64 x 8 tf32 in registers, 4 words a thread) . B (N x 8, shared,
+// K-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %6, 0; "
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, %4, %5, p, "
+      "1, 1; }"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %10, 0; "
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7}, %8, %9, p, 1, 1; }"
+      : FA_D8(0)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %18, 0; "
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1; }"
+      : FA_D8(0), FA_D8(8)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %34, 0; "
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %66, 0; "
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %21, 0; "
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1; }"
+      : FA_D8(0), FA_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %37, 0; "
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, "
+      "1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %45, 0; "
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39}, {%40, %41, %42, %43}, %44, p, 1, 1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %53, 0; "
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, "
+      "%7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, "
+      "1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.b32 p, %69, 0; "
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1; }"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+#undef FA_D8
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi = tf32(x), lo = tf32(x - hi), both rounded to nearest (ties away):
+// x - hi is exact, and hi + lo is x within ~2^-22 of x
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : (e == 1 ? x.y : (e == 2 ? x.z : x.w));
+}
+
+// the byte offset of `off` in a tile of SW-byte rows, as TMA and wgmma lay it
+// out: 16-byte units XOR the row within the swizzle's period (the tile starts
+// on a 1024-byte boundary)
+template <int SW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// what the splitting warpgroup's writes must pass before wgmma (the async
+// proxy) reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// R rows of HD floats (row stride ld): thread t of the splitting warpgroup
+// loads float4 unit u = t + 128 i (row u / (HD / 4)) and stores its hi and
+// lo halves K-major, as wgmma reads A and B: [chunk][2R rows, hi then
+// lo][kSW bytes]
+template <int HD, int R>
+struct RowTile {
+  using C = Cfg<HD>;
+  static constexpr int kUnits = R * HD / 4, kPer = (kUnits + 127) / 128;
+  float4 x[kPer];
+
+  __device__ __forceinline__ static bool live(int u) { return kUnits % 128 == 0 || u < kUnits; }
+
+  __device__ __forceinline__ static void store(uint8_t* dst, int u, const float4& x) {
+    const int r = u / (HD / 4), col = u % (HD / 4) * 4;
+    uint4 hi, lo;
+    split4(x, hi, lo);
+    const uint32_t off = col / C::kCW * 2 * R * C::kSW + r * C::kSW + col % C::kCW * 4;
+    *reinterpret_cast<uint4*>(dst + swizzle<C::kSW>(off)) = hi;
+    *reinterpret_cast<uint4*>(dst + swizzle<C::kSW>(off + R * C::kSW)) = lo;
+  }
+
+  __device__ __forceinline__ static const float4* at(const float* src, int64_t ld, int u) {
+    return reinterpret_cast<const float4*>(src + u / (HD / 4) * ld + u % (HD / 4) * 4);
+  }
+
+  __device__ __forceinline__ void load(const float* __restrict__ src, int64_t ld, int t) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (live(t + 128 * i)) x[i] = __ldg(at(src, ld, t + 128 * i));
+  }
+
+  __device__ __forceinline__ void store(uint8_t* dst, int t) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (live(t + 128 * i)) store(dst, t + 128 * i, x[i]);
+  }
+};
+
+// A key tile of V, split and transposed for the B operand of P.V (keys are
+// its K): V_hi^T at dst, V_lo^T kKVBytes further, each [chunk of kVCW
+// keys][HD rows][kVSW bytes], with the keys of each group of 8 in the order
+// 0, 2, 4, 6, 1, 3, 5, 7 (see split_p).  Unit u: the four keys 8 g + e + {0,
+// 2, 4, 6} (quad q = u % kQuads = 2 g + e), which land side by side at
+// position 4 q, at columns 4 (u / kQuads) .. + 3: one 16-byte store per
+// column.  The quad varies fastest, so that the 8 stores of a wavefront
+// meet 8 quads of one row, 8 distinct 16-byte units at kBN >= 32 (columns
+// fastest, they met 2: a 4-way bank conflict on every store).
+template <int HD>
+struct VTile {
+  using C = Cfg<HD>;
+  static constexpr int kQuads = C::kBN / 4;
+  static constexpr int kUnits = kQuads * (HD / 4), kPer = (kUnits + 127) / 128;
+  float4 x[kPer][4];
+
+  __device__ __forceinline__ static bool live(int u) { return kUnits % 128 == 0 || u < kUnits; }
+
+  __device__ __forceinline__ void load(const float* __restrict__ src, int64_t ld, int t) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int u = t + 128 * i;
+      if (!live(u)) continue;
+      const int quad = u % kQuads, key = 8 * (quad / 2) + quad % 2, col = u / kQuads * 4;
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        x[i][m] = __ldg(reinterpret_cast<const float4*>(src + (key + 2 * m) * ld + col));
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* dst, int t) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int u = t + 128 * i;
+      if (!live(u)) continue;
+      const int pos = 4 * (u % kQuads), col = u / kQuads * 4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint4 hi, lo;
+        split4(make_float4(lane_of(x[i][0], e), lane_of(x[i][1], e), lane_of(x[i][2], e),
+                           lane_of(x[i][3], e)),
+               hi, lo);
+        const uint32_t off = swizzle<C::kVSW>(pos / C::kVCW * HD * C::kVSW +
+                                              (col + e) * C::kVSW + pos % C::kVCW * 4);
+        *reinterpret_cast<uint4*>(dst + off) = hi;
+        *reinterpret_cast<uint4*>(dst + C::kKVBytes + off) = lo;
+      }
+    }
+  }
+};
+
+// S = Q K^T of the block's 64 rows and one key tile, issued (not waited),
+// into acc (64 x 2 kBN, zeroed first): the n = 2 kBN product of Q_hi with
+// K_hi and K_lo stacked (they lie so in the stage, rows 0 .. kBN - 1 and kBN
+// .. 2 kBN - 1 of each chunk) gives Q_hi K_hi in columns 0 .. kBN - 1 and
+// Q_hi K_lo in kBN .. 2 kBN - 1, one read of Q_hi for both; Q_lo K_hi goes
+// into the first half, first.  S is the sum of the halves (sum_halves).
+template <int HD>
+__device__ __forceinline__ void issue_s(float (&acc)[Cfg<HD>::kBN], uint32_t q, uint32_t k) {
+  using C = Cfg<HD>;
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint32_t off = kk % C::kKS * 32;
+      const uint64_t a = desc<C::kSW>(
+          q + kk / C::kKS * 2 * kRows * C::kSW + off + (t == 0 ? kRows * C::kSW : 0), 16,
+          8 * C::kSW);
+      const uint64_t b =
+          desc<C::kSW>(k + kk / C::kKS * 2 * C::kBN * C::kSW + off, 16, 8 * C::kSW);
+      if (t == 0)
+        wgmma_ss<C::kBN>(acc, a, b, 1);
+      else
+        wgmma_ss<2 * C::kBN>(acc, a, b, 1);
+    }
+}
+
+// S (the first half of acc) = the two halves' sum
+template <int kBN>
+__device__ __forceinline__ float (&sum_halves(float (&acc)[kBN]))[kBN / 2] {
+#pragma unroll
+  for (int j = 0; j < kBN / 2; ++j) acc[j] += acc[j + kBN / 2];
+  return *reinterpret_cast<float(*)[kBN / 2]>(acc);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = 0.0f;
+}
+
+// P.V of output columns g kNP .. + kNP - 1 into pv, which it overwrites,
+// issued (not waited): P_lo V_hi + P_hi V_lo + P_hi V_hi.  v: V_hi^T, V_lo^T
+// kKVBytes further.  A fresh accumulator per tile: the tensor cores add
+// into an accumulator with truncation, so that O summed in place over
+// thousands of keys drifts towards zero, past the float32 check on long
+// rows without a causal mask; pv sums 3 kBN / 8 products and O takes it
+// with rounded float32 adds.
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&pv)[Cfg<HD>::kNP / 2],
+                                         const uint32_t (&hi)[Cfg<HD>::kBN / 8][4],
+                                         const uint32_t (&lo)[Cfg<HD>::kBN / 8][4], uint32_t v,
+                                         int g) {
+  using C = Cfg<HD>;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int kk = 0; kk < C::kBN / 8; ++kk)
+      wgmma_rs<C::kNP>(pv, t == 0 ? lo[kk] : hi[kk],
+                       desc<C::kVSW>(v + (t == 1 ? C::kKVBytes : 0) + kk / C::kVKS * HD * C::kVSW +
+                                         g * C::kNP * C::kVSW + kk % C::kVKS * 32,
+                                     16, 8 * C::kVSW),
+                       t > 0 || kk > 0);
+}
+
+// P (the first half of acc, once the softmax has run on it) split into
+// TF32 halves in wgmma's A-fragment layout.  For k8 step kk a
+// thread holds A columns c and c + 4 (c = lane % 4) of rows r0 and r0 + 8,
+// and of S the keys 8 kk + 2c and 2c + 1: V^T stores the keys of each group
+// of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7, so that column c meets key 2c and
+// column c + 4 key 2c + 1, and P needs no shuffle.  Fragment words: (r0, c),
+// (r0 + 8, c), (r0, c + 4), (r0 + 8, c + 4).
+template <int HD>
+__device__ __forceinline__ void split_p(const float (&acc)[Cfg<HD>::kBN],
+                                        uint32_t (&hi)[Cfg<HD>::kBN / 8][4],
+                                        uint32_t (&lo)[Cfg<HD>::kBN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < Cfg<HD>::kBN / 8; ++kk) {
+    split(acc[4 * kk], hi[kk][0], lo[kk][0]);
+    split(acc[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    split(acc[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    split(acc[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// Finish P.V of one tile, whose column group 0 is in flight into pv: O's
+// columns of each group += pv, times the rows' alpha (a0, a1), issuing the
+// next group (hd = 256 has two) once pv is free.
+template <int HD>
+__device__ __forceinline__ void finish_pv(float (&o)[HD / 2], float (&pv)[Cfg<HD>::kNP / 2],
+                                          const uint32_t (&hi)[Cfg<HD>::kBN / 8][4],
+                                          const uint32_t (&lo)[Cfg<HD>::kBN / 8][4], uint32_t v,
+                                          float a0, float a1) {
+  constexpr int kNP = Cfg<HD>::kNP;
+#pragma unroll
+  for (int g = 0; g < HD / kNP; ++g) {
+    if (g > 0) {
+      wg_fence();
+      issue_pv<HD>(pv, hi, lo, v, g);
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs(pv);
+#pragma unroll
+    for (int j = 0; j < kNP / 2; ++j)
+      o[g * kNP / 2 + j] = (o[g * kNP / 2 + j] + pv[j]) * ((j / 2) % 2 ? a1 : a0);
+  }
+}
+
+// window < 0: no window; softcap <= 0: no soft-capping
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
+                        int H, int KV, int causal, int window, float softcap, float scale) {
+  using C = Cfg<HD>;
+  constexpr int kBN = C::kBN, kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* stages = qs + 2 * C::kQBytes;   // [stage][K hi/lo, V_hi^T, V_lo^T]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(stages + kStages * C::kStageBytes);
+  uint64_t* full = q_full + 1;             // a stage is split and stored
+  uint64_t* empty = full + kStages;        // the 4 consumer warps are done with it
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // longest causal rows first
+  // key tiles [t0, t0 + n): those with a live pair for some row of the block
+  const int k_hi = causal ? min(Sk, q0 + kRows) : Sk;
+  const int k_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int t0 = k_lo / kBN, n = max(0, (k_hi + kBN - 1) / kBN - t0);
+  const int64_t q_ld = static_cast<int64_t>(H) * HD, kv_ld = static_cast<int64_t>(KV) * HD;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 128);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // the splitting warpgroup: Q once, then stage j holds K_j (j < n) and
+    // V_{j-1} (j > 0), the operands of the consumer's step j, so that a
+    // step frees the whole stage it read
+    const int t = threadIdx.x;
+    using QTile = RowTile<HD, kRows>;
+    const float* qb = q + (static_cast<int64_t>(b) * Sq + q0) * q_ld + h * HD;
+#pragma unroll 4
+    for (int u = t; u < QTile::kUnits; u += 128) QTile::store(qs, u, __ldg(QTile::at(qb, q_ld, u)));
+    fence_proxy_async();
+    mbar_arrive(q_full);
+    const float* kb = k + static_cast<int64_t>(b) * Sk * kv_ld + kvh * HD;
+    const float* vb = v + static_cast<int64_t>(b) * Sk * kv_ld + kvh * HD;
+    RowTile<HD, kBN> kt;
+    VTile<HD> vt;
+    for (int j = 0; n > 0 && j <= n; ++j) {
+      const int s = j % kStages;
+      uint8_t* st = stages + s * C::kStageBytes;
+      if (j < n) kt.load(kb + static_cast<int64_t>(t0 + j) * kBN * kv_ld, kv_ld, t);
+      if (j > 0) vt.load(vb + static_cast<int64_t>(t0 + j - 1) * kBN * kv_ld, kv_ld, t);
+      mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+      if (j < n) kt.store(st, t);
+      if (j > 0) vt.store(st + 2 * C::kKVBytes, t);
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows q0 .. q0 + 63
+  const int tid = threadIdx.x - 128, lane = tid % 32;
+  const int r0 = q0 + 16 * (tid / 32) + lane / 4;   // this thread's rows r0, r0 + 8
+  const int c0 = 2 * (lane % 4);                    // and columns c0, c0 + 1 of each 8
+  uint32_t q_base = smem_u32(qs);
+  const uint32_t s_base = smem_u32(stages);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float acc[kBN], pv[C::kNP / 2];
+  uint32_t hi[kBN / 8][4], lo[kBN / 8][4];
+  float m0 = kMasked, m1 = kMasked, l0 = 0.0f, l1 = 0.0f;
+  mbar_wait(q_full, 0);
+
+  // whether every pair of the key tile at k0 is live for the block's rows
+  auto all_live = [&](int k0) {
+    return (!causal || k0 + kBN - 1 <= q0) && (window < 0 || q0 + kRows - 1 - k0 < window) &&
+           k0 + kBN <= Sk;
+  };
+
+  // Step j issues S_j and P_{j-1}.V_{j-1} as two groups; the softmax of
+  // tile j waits for the first only and runs while the tensor cores do the
+  // second; O takes P_{j-1}.V_{j-1} and the rows' alpha and P_j is split
+  // once both are done, and the stage goes back to the splitter.
+  if (n > 0) {
+    float a0, a1;
+    mbar_wait(&full[0], 0);
+    zero(acc);
+    wg_fence();
+    issue_s<HD>(acc, q_base, s_base);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[0]);
+    softmax_tile<kBN>(sum_halves(acc), m0, m1, l0, l1, a0, a1, !all_live(t0 * kBN), r0,
+                      t0 * kBN + c0, Sk, causal, window, softcap, scale);
+    split_p<HD>(acc, hi, lo);
+    for (int j = 1; j < n; ++j) {
+      const int s = j % kStages, k0 = (t0 + j) * kBN;
+      const uint32_t st = s_base + s * C::kStageBytes;
+      // recomputed each step: held across steps, Q's descriptors would take
+      // a register per product and k8 step
+      asm volatile("" : "+r"(q_base));
+      mbar_wait(&full[s], (j / kStages) & 1);
+      zero(acc);
+      wg_fence();
+      issue_s<HD>(acc, q_base, st);
+      wg_commit();
+      issue_pv<HD>(pv, hi, lo, st + 2 * C::kKVBytes, 0);
+      wg_commit();
+      wg_wait<1>();
+      fence_regs(acc);
+      softmax_tile<kBN>(sum_halves(acc), m0, m1, l0, l1, a0, a1, !all_live(k0), r0, k0 + c0,
+                        Sk, causal, window, softcap, scale);
+      finish_pv<HD>(o, pv, hi, lo, st + 2 * C::kKVBytes, a0, a1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      split_p<HD>(acc, hi, lo);
+    }
+    const uint32_t st = s_base + n % kStages * C::kStageBytes;
+    mbar_wait(&full[n % kStages], (n / kStages) & 1);
+    wg_fence();
+    issue_pv<HD>(pv, hi, lo, st + 2 * C::kKVBytes, 0);
+    wg_commit();
+    finish_pv<HD>(o, pv, hi, lo, st + 2 * C::kKVBytes, 1.0f, 1.0f);
+  }
+
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  float* row0 = out + (static_cast<int64_t>(b) * Sq + r0) * q_ld + h * HD + c0;
+  float* row1 = row0 + 8 * q_ld;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<float2*>(row0 + 8 * j) = make_float2(o[4 * j] / d0, o[4 * j + 1] / d0);
+    *reinterpret_cast<float2*>(row1 + 8 * j) = make_float2(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+              int H, int KV, int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  using C = Cfg<HD>;
+  auto kern = flash_fwd_tf32x3_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, Sq / kRows);
+  kern<<<grid, kThreads, C::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Sq, Sk, H, KV, causal, window, softcap * kLog2e,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf32
+
 // C entry points: each launches its kernel on `stream` (PyTorch's current
 // stream) on `device` and returns a CUDA error code as an int (0 =
 // launched).  The wrapper (kernels/flash_attention.py) has checked shapes,
@@ -855,14 +1255,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
     default: return static_cast<int>(cudaErrorInvalidValue);                             \
   }
 
-// float32 q, k, v, out
-extern "C" int flash_attention_simt_launch(const void* q, const void* k, const void* v,
-                                           void* out, int B, int Sq, int Sk, int H, int KV,
-                                           int hd, int causal, int window, float softcap,
-                                           float scale, int device, void* stream) {
+// float32 q, k, v, out; pointers 16-byte aligned
+extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v,
+                                             void* out, int B, int Sq, int Sk, int H, int KV,
+                                             int hd, int causal, int window, float softcap,
+                                             float scale, int device, void* stream) {
   cudaSetDevice(device);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(simt)
+  FA_DISPATCH(tf32)
 }
 
 // bf16 q, k, v, out; pointers 16-byte aligned

@@ -8,9 +8,10 @@ PyTorch's current stream and raises if the launch was refused.  The plain
 version is ``kernels.ref.ref_flash_attention``; ``kernels.ops`` picks between
 the two by the tensors' device.
 
-Two kernels, picked by ``variant(dtype, hd)`` with no fallback: bf16 inputs
-run ``"wgmma"`` (the tensor cores, P split into two bf16 halves), float32
-inputs ``"simt"`` (the float32 pipes).  ``LAUNCHES`` counts launches, here
+Two kernels, both on the tensor cores, picked by ``variant(dtype, hd)`` with
+no fallback: bf16 inputs run ``"wgmma"`` (P split into two bf16 halves),
+float32 inputs ``"tf32x3"`` (q, k, v and P each split into two TF32 halves,
+three TF32 products per matrix product).  ``LAUNCHES`` counts launches, here
 only: the total under ``"flash_attention"``, each variant's under
 ``"flash_attention_<variant>"`` and each head width's under
 ``"flash_attention_hd<hd>"``.
@@ -26,25 +27,26 @@ from repro_torch.kernels.binding import check, cuda_device, launch, library, str
 
 TILE = 64                            # query and key rows per tile of the kernel
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)   # every config's head width (and reduced())
-LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_simt": 0,
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_tf32x3": 0,
             **{f"flash_attention_hd{hd}": 0 for hd in HEAD_DIMS}}
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
-_SIGNATURES = {"flash_attention_wgmma_launch": _ARGS, "flash_attention_simt_launch": _ARGS}
+_SIGNATURES = {"flash_attention_wgmma_launch": _ARGS, "flash_attention_tf32x3_launch": _ARGS}
 
 
 def variant(dtype: torch.dtype, hd: int) -> str:
-    """Which kernel takes inputs of ``dtype`` and head width ``hd``: bf16 the
-    tensor-core kernel at every width of ``HEAD_DIMS``, float32 the SIMT one
-    (the tensor cores cannot reproduce float32 products)."""
+    """Which kernel takes inputs of ``dtype`` and head width ``hd``, at every
+    width of ``HEAD_DIMS``: bf16 the bf16 tensor-core kernel, float32 the one
+    that forms each float32 product from three TF32 products (hi*hi + hi*lo
+    + lo*hi, hi = tf32(x), lo = tf32(x - hi))."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head width {hd} not in {HEAD_DIMS}")
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
-        return "simt"
+        return "tf32x3"
     raise TypeError(f"dtype {dtype}, expected one of {DTYPES}")
 
 

@@ -115,7 +115,8 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """GQA attention in the model's layout: q ``(B, Sq, H, hd)``, k and v
     ``(B, Sk, KV, hd)`` -> ``(B, Sq, H, hd)``.  On the card bf16 runs the
-    tensor-core kernel and float32 the SIMT one (``flash_attention.variant``).
+    bf16 kernel and float32 the TF32x3 one, both on the tensor cores
+    (``flash_attention.variant``).
     The reference's ``block_q`` / ``block_k`` have no counterpart: the CUDA
     kernels' tiles are their own."""
     if _on_cpu(q, "flash_attention"):

@@ -22,9 +22,16 @@ The bf16 kernel's rounding (products on the tensor cores, exp in base 2,
 probabilities split into two bf16 halves) is emulated in plain PyTorch and
 held to the plain version by the same one-bf16-ulp rule; the emulation with
 probabilities rounded to bf16 once fails it (~10% of the elements at these
-shapes), which shows that the rule guards the split.  ``variant`` sends bf16
-to the tensor-core kernel and float32 to the SIMT one, at every head width
-of every registered config.
+shapes), which shows that the rule guards the split.  The float32 kernel's
+arithmetic (q, k, v and P each split into two TF32 halves by rounding, three
+TF32 products per matrix product, each accumulator as the kernel has it and
+truncated after every k8 step as the tensor cores add) is emulated likewise
+and held to the card's float32 rule, 1e-5 of the largest value plus 1e-5 of
+the element, against the plain version and the Pallas kernel at every head
+width; with one product, or two for S or for P.V, it fails that rule, and
+so does O summed in place in one accumulator over a 4096-key row.
+``variant`` sends bf16 to the bf16 kernel and float32 to the TF32x3 one, at
+every head width of every registered config.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -158,19 +165,16 @@ def test_window_and_softcap_must_be_positive():
 # --------------------------------------------------------------------------- #
 # the bf16 tensor-core kernel's rounding, emulated
 # --------------------------------------------------------------------------- #
-def _emulate_tensor_core_kernel(q, k, v, causal=True, window=None, softcap=None, split=True):
-    """What the bf16 kernel rounds, in plain float32 PyTorch (a test aid, on
-    no path of the port): the bf16 products q.k summed in float32 and scaled
-    after (by the float32 of 1/sqrt(hd) times log2(e)), softcap and mask, p
-    = 2^(s - m) in float32 with l summed from the unrounded p, and p
-    multiplied by v as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi),
-    summed in float32; ``split=False`` multiplies by bf16(p) alone."""
+def _logits(q, k, causal, window, softcap, qk):
+    """The kernels' logits in plain float32 PyTorch, ``(B, KV, H / KV, Sq,
+    Sk)``: S = qk(q, k) scaled after the product (by the float32 of
+    1/sqrt(hd) times log2(e)), softcap and mask (masked logits -1e30); ``qk``
+    is the kernel's product (einsum's arguments after the equation)."""
     B_, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     log2e = np.float32(1.4426950408889634)
     scale = float(np.float32(np.float32(1.0 / hd ** 0.5) * log2e))
-    qg = q.float().reshape(B_, Sq, KV, H // KV, hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+    s = qk("bqgrd,bkgd->bgrqk", q.reshape(B_, Sq, KV, H // KV, hd), k) * scale
     if softcap is not None:
         c = float(np.float32(softcap) * log2e)
         s = c * torch.tanh(s / c)
@@ -180,13 +184,32 @@ def _emulate_tensor_core_kernel(q, k, v, causal=True, window=None, softcap=None,
         mask &= rel >= 0
     if window is not None:
         mask &= rel < window
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    return torch.where(mask, s, torch.full_like(s, -1e30))
+
+
+def _emulate(q, k, v, causal, window, softcap, qk, pv):
+    """The bf16 kernel's arithmetic in plain float32 PyTorch: ``_logits``,
+    p = 2^(s - m) in float32 with l summed from the unrounded p, O = pv(p, v)
+    / l; ``qk`` and ``pv`` are the kernel's products."""
+    B_, Sq, H, hd = q.shape
+    s = _logits(q, k, causal, window, softcap, qk)
     p = torch.exp2(s - s.amax(-1, keepdim=True))
-    l = p.sum(-1, keepdim=True)
-    hi = p.to(torch.bfloat16).float()
-    parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
-    o = sum(torch.einsum("bgrqk,bkgd->bgrqd", x, v.float()) for x in parts) / l
-    return o.permute(0, 3, 1, 2, 4).reshape(B_, Sq, H, hd).to(torch.bfloat16)
+    o = pv("bgrqk,bkgd->bgrqd", p, v) / p.sum(-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B_, Sq, H, hd)
+
+
+def _emulate_tensor_core_kernel(q, k, v, causal=True, window=None, softcap=None, split=True):
+    """What the bf16 kernel rounds (a test aid, on no path of the port):
+    ``_emulate`` with the bf16 products q.k summed in float32 and p
+    multiplied by v as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi),
+    summed in float32; ``split=False`` multiplies by bf16(p) alone."""
+    def pv(eq, p, v_):
+        hi = p.to(torch.bfloat16).float()
+        parts = [hi, (p - hi).to(torch.bfloat16).float()] if split else [hi]
+        return sum(torch.einsum(eq, x, v_.float()) for x in parts)
+
+    qk = lambda eq, a, b: torch.einsum(eq, a.float(), b.float())       # noqa: E731
+    return _emulate(q, k, v, causal, window, softcap, qk, pv).to(torch.bfloat16)
 
 
 def _bf16_inputs(S, H, KV, hd, seed):
@@ -227,10 +250,154 @@ def test_unsplit_bf16_probabilities_fail_the_check(S, hd):
     assert _out_of_tolerance(_emulate_tensor_core_kernel(q, k, v, split=False), want) > 0.02
 
 
+# --------------------------------------------------------------------------- #
+# the float32 kernel's TF32 products, emulated
+# --------------------------------------------------------------------------- #
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on the bits: the 10-bit mantissa rounded to
+    nearest, ties away from zero (sign and magnitude, so adding half an ulp
+    of the kept bits to the bits rounds both signs), the low 13 bits 0."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+# the float32 kernel's key tile by head width (``Cfg<HD>::kBN`` of namespace
+# tf32x3 in flash_attention.cu): the keys of one fresh P.V accumulator
+_KEY_TILE = {32: 64, 64: 64, 80: 64, 96: 32, 128: 32, 256: 8}
+
+
+def _halves(x):
+    """TF32 halves, hi = tf32(x) and lo = tf32(x - hi), as the kernel's
+    split forms them."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _truncate(x):
+    """float64 to float32 rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _wgmma(eq, terms, acc=None):
+    """A tensor-core accumulator as ``wgmma`` adds into it: ``acc`` (float32;
+    zeros if None) plus each TF32 product (a, b) of ``terms`` in turn, in k8
+    steps over the contracted axis (the last of both operands); each step's
+    eight products and the accumulator summed exactly and truncated to
+    float32.  The truncation is the tensor cores' (round toward zero), which
+    round-to-nearest einsums cannot show."""
+    for a, b in terms:
+        for c in range(0, a.shape[-1], 8):
+            part = torch.einsum(eq, a[..., c:c + 8].double(), b[..., c:c + 8].double())
+            acc = _truncate(part if acc is None else acc.double() + part)
+    return acc
+
+
+def _emulate_tf32x3_kernel(q, k, v, causal=True, window=None, softcap=None, s_terms=3,
+                           pv_terms=3, o_in_place=False):
+    """What the float32 kernel computes (a test aid, on no path of the
+    port), accumulator by accumulator.  S: Q_lo K_hi then Q_hi K_hi in one
+    ``_wgmma`` accumulator, Q_hi K_lo in another, the halves summed in
+    float32.  Then ``_logits``' scale, softcap and mask, and the online
+    softmax over key tiles of ``_KEY_TILE[hd]``: tile j's P_lo V_hi, P_hi
+    V_lo, P_hi V_hi in a fresh accumulator, which O takes with rounded
+    float32 adds one tile later, O = (O + PV_{j-1}) * alpha_j.
+    ``s_terms`` / ``pv_terms`` < 3 drop products from the front (2: no
+    Q_lo K_hi or P_lo V_hi; 1: hi*hi alone); ``o_in_place`` sums P.V into O
+    itself, truncating, with O times alpha rounded in between."""
+    B_, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    bn = _KEY_TILE[hd]
+
+    def qk(eq, q_, k_):
+        (qh, ql), (kh, kl) = _halves(q_), _halves(k_)
+        s = _wgmma(eq, [(ql, kh), (qh, kh)][s_terms < 3:])
+        return s + _wgmma(eq, [(qh, kl)]) if s_terms > 1 else s
+
+    s = _logits(q, k, causal, window, softcap, qk)
+    vh, vl = _halves(v.permute(0, 2, 3, 1))          # V^T: (B, KV, hd, Sk)
+    eq = "bgrqk,bgdk->bgrqd"
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + (hd,))
+    pv = None
+    for k0 in range(0, Sk, bn):
+        tile = s[..., k0:k0 + bn]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        alpha, p, m = torch.exp2(m - m_new), torch.exp2(tile - m_new), m_new
+        l = l * alpha + p.sum(-1, keepdim=True)
+        (ph, pl), vth, vtl = _halves(p), vh[..., k0:k0 + bn], vl[..., k0:k0 + bn]
+        terms = [(pl, vth), (ph, vtl), (ph, vth)][3 - pv_terms:]
+        if o_in_place:
+            o = _wgmma(eq, terms, o * alpha)
+            continue
+        if pv is not None:
+            o = (o + pv) * alpha
+        pv = _wgmma(eq, terms)
+    if not o_in_place:
+        o = o + pv
+    o = o / torch.clamp(l, min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B_, Sq, H, hd)
+
+
+def _f32_share(got, want):
+    """The largest error as a share of the card's float32 tolerance,
+    ``1e-5 * max|want| + 1e-5 * |want|`` (``attn_agree`` in chip_smoke.py);
+    at most 1 passes."""
+    want = torch.as_tensor(want)
+    tol = 1e-5 * want.abs().max() + 1e-5 * want.abs()
+    return float(((torch.as_tensor(got) - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 48, 50.0), (False, None, None),
+])
+def test_tf32x3_products_meet_the_float32_check(hd, causal, window, softcap):
+    """Three TF32 products per matrix product keep the float32 kernel within
+    the card's float32 rule of the plain version and of the Pallas kernel
+    (interpret mode): the design's premise, at every head width."""
+    arrays = inputs(128, 4, 2, hd, seed=6)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = _emulate_tf32x3_kernel(q, k, v, causal, window, softcap)
+    want = ref.ref_flash_attention(q, k, v, causal, window, softcap)
+    pallas = np.array(jops.flash_attention(*(jnp.asarray(a) for a in arrays), block_q=64,
+                                           block_k=64, causal=causal, window=window,
+                                           softcap=softcap))
+    assert _f32_share(got, want) <= 1.0
+    assert _f32_share(got, pallas) <= 1.0
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("s_terms,pv_terms", [(1, 1), (2, 3), (3, 2)])
+def test_fewer_tf32_products_fail_the_float32_check(hd, s_terms, pv_terms):
+    """Control: one TF32 product per matrix product, or two for S or for
+    P.V, puts the output outside the float32 rule (by several times), so
+    the check guards each of the three."""
+    q, k, v = (torch.from_numpy(a) for a in inputs(256, 4, 2, hd, seed=7))
+    want = ref.ref_flash_attention(q, k, v)
+    assert _f32_share(_emulate_tf32x3_kernel(q, k, v), want) <= 1.0
+    assert _f32_share(_emulate_tf32x3_kernel(q, k, v, s_terms=s_terms, pv_terms=pv_terms),
+                      want) > 2.0
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_o_summed_in_place_fails_on_a_long_row(hd):
+    """Control: O summed in place in the truncating accumulator drifts
+    towards zero over a long row without a causal mask (64 queries, 4096
+    keys) and fails the float32 rule; a fresh accumulator per key tile, as
+    the kernel has, holds it.  The check guards the per-tile P.V."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, n, hd)).astype(np.float32))
+               for S, n in ((64, 2), (4096, 1), (4096, 1)))
+    want = ref.ref_flash_attention(q, k, v, False)
+    assert _f32_share(_emulate_tf32x3_kernel(q, k, v, False), want) <= 1.0
+    assert _f32_share(_emulate_tf32x3_kernel(q, k, v, False, o_in_place=True), want) > 1.5
+
+
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_variant_follows_dtype(hd):
     assert fa.variant(torch.bfloat16, hd) == "wgmma"
-    assert fa.variant(torch.float32, hd) == "simt"
+    assert fa.variant(torch.float32, hd) == "tf32x3"
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -243,7 +410,7 @@ def test_every_config_head_width_has_a_kernel(arch):
         return
     assert hd in fa.HEAD_DIMS
     assert fa.variant(torch.bfloat16, hd) == "wgmma"
-    assert fa.variant(torch.float32, hd) == "simt"
+    assert fa.variant(torch.float32, hd) == "tf32x3"
 
 
 def test_variant_rejects_what_no_kernel_takes():

@@ -410,6 +410,7 @@ def _attn_close(got, want):
 @pytest.mark.parametrize("S,H,KV,hd,causal,window,softcap", [
     (128, 8, 2, 128, True, None, None),    # qwen3-style GQA
     (192, 4, 2, 256, True, 64, 50.0),      # gemma2: window and softcap
+    (256, 4, 2, 256, False, 100, 50.0),    # hd=256, no causal mask: float32's 8-key tiles
     (128, 4, 4, 96, True, None, None),     # phi3's head width
     (64, 4, 1, 64, False, None, None),
     (128, 4, 2, 32, True, 8, None),        # reduced() configs
@@ -435,7 +436,7 @@ def test_flash_attention_kernel_matches_plain_version(S, H, KV, hd, causal, wind
     launched = {c: n - before[c] for c, n in fa.LAUNCHES.items() if n != before[c]}
     assert launched == {"flash_attention": 1, name: 1, f"flash_attention_hd{hd}": 1}
     assert name == ("flash_attention_wgmma" if dtype == torch.bfloat16 else
-                    "flash_attention_simt")
+                    "flash_attention_tf32x3")
     want = ref.ref_flash_attention(q, k, v, causal, window, softcap)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
