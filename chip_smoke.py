@@ -66,6 +66,21 @@ Phases (any failed check exits non-zero):
      against its round program, comm_bytes and CommLedger totals against
      the closed forms, the analytic meters, and port against port at
      hidden=64 (card against CPU); then a profile of the pallas ZO step;
+  8b. federated partial participation at hidden=1300: fed-HO-SGD (K=4 of
+     N=1000 clients, availability 0.75, tau=8, 16 rounds) through
+     ``RoundExecutor`` with engine flat and pallas against tree (losses
+     bit for bit), every ZO round booking 4 bytes per live client and every
+     FO round 4*d, then 4 FedAvg rounds (local_steps=2) booking 4*d per
+     live client; launch counts per run and ms per round;
+  8c. HO-SGD through ``make_distributed_ho_sgd`` at hidden=1300, m=4, B=64,
+     tau=8: (a) one process holding the four workers (a one-rank gloo
+     group; flat + SGD, the fused kernels), 32 steps, losses equal to
+     ``make_ho_sgd``'s flat path bit for bit; (b) four gloo ranks spawned
+     on cuda:0, one per worker (``zo_perturb_flat``/``zo_reconstruct_flat``),
+     16 steps, losses within rtol 1e-6 of (a) and rank 0's parameters within
+     2% of the update of (a)'s after 16 steps, rank 0's ledger at 4*m bytes
+     per ZO step and 4*d per FO step; a rank that fails or hangs fails the
+     run; ms per FO and ZO step of each;
   9. flash attention: both kernels against the plain version: the bf16
      tensor-core kernel at the serving shapes (B=1, H=40, KV=8, hd=128,
      causal, S in {64, 512, 1024, 2048}) and at every head width (gemma2's
@@ -110,7 +125,9 @@ Phases (any failed check exits non-zero):
      kernel, which gives the state, and one per layer on the plain path;
      device time and peak memory of each) and one decode step over 8 slots.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
-are set to 0 just before each path and read just after it.
+are set to 0 just before each path and read just after it; each ZO kernel's
+entry also carries its launches on the paths of phases 8b and 8c
+(``launches_by_path``).
 """
 from __future__ import annotations
 
@@ -1692,6 +1709,251 @@ def method_set_phase(torch, dev, hidden=1300, n_iters=32, small_hidden=64):
 
 
 # --------------------------------------------------------------------------- #
+# phases 8b and 8c: federated partial participation; HO-SGD over a process group
+# --------------------------------------------------------------------------- #
+def fig2_setup(torch, dev, hidden):
+    """The Fig. 2 model's initial parameters on ``dev`` (seed 0) and the
+    covtype stand-in."""
+    from repro_torch.apps.classification import load_dataset
+    from repro_torch.models.mlp import init_mlp_classifier
+
+    ds = load_dataset("covtype")
+    p0 = init_mlp_classifier(torch.Generator().manual_seed(0), ds.n_features, ds.n_classes,
+                             hidden=hidden, device=dev)
+    return ds, p0, sum(int(p.numel()) for p in p0.values())
+
+
+def round_times(times, orders, order):
+    """Median ms of the rounds of ``order`` after the first round."""
+    sel = [1e3 * s for s, o in zip(times[1:], orders[1:]) if o == order]
+    return statistics.median(sel) if sel else float("nan")
+
+
+def federated_phase(torch, dev, hidden=1300, rounds=16, fedavg_rounds=4):
+    """Fed-HO-SGD (K=4 of N=1000 clients, availability 0.75, tau=8) through
+    ``RoundExecutor`` with engine flat, pallas and tree, then FedAvg: the
+    kernels' runs against tree's losses, the bytes of every round against
+    the live cohort, launch counts per run and ms per round."""
+    from repro_torch.core import HOSGDConfig
+    from repro_torch.core.federated import ClientSampling, fed_avg_program
+    from repro_torch.core.rounds import RoundExecutor, ho_sgd_program
+    from repro_torch.data.synthetic import batches
+    from repro_torch.dist import CommLedger
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import mlp_loss
+
+    ds, p0, d = fig2_setup(torch, dev, hidden)
+    m, B, tau, lr, mu = 4, 64, 8, 0.05, 1e-3
+    cs = ClientSampling(n_clients=1000, cohort_k=m, seed=0, availability=0.75)
+    data = [b for _, b in zip(range(rounds), batches(ds, m * B, seed=1))]
+    live = [len(cs.cohort_for(t)) for t in range(rounds)]
+    check(min(live) < m, f"availability 0.75 left every cohort whole: {live}")
+    n_leaves = len(p0)
+
+    def run(prog, n):
+        ex, ledger, wrapped = RoundExecutor(prog), CommLedger(), {}
+        params, state = p0, prog.init(p0)
+        hist = {"loss": [], "order": [], "s": []}
+        ops.reset_launch_counts()
+        for t in range(n):
+            tag = prog.round_for(t, state).round.tag
+            step = wrapped.setdefault(tag, ledger.wrap(tag, ex.run))
+            ts = time.perf_counter()
+            params, state, met = step(t, params, state, data[t])
+            hist["loss"].append(float(met["loss"]))          # waits for the card
+            hist["s"].append(time.perf_counter() - ts)
+            hist["order"].append(met["order"])
+            want = 4 * live[t] if met["order"] == 0 else (4 * d if tag == "fo" else 4 * d * live[t])
+            check(met["n_live"] == live[t] and met["comm_bytes"] == want
+                  and ledger.bytes_per_step(tag) == want,
+                  f"{prog.name} round {t}: n_live {met['n_live']} (cohort {live[t]}), booked "
+                  f"{met['comm_bytes']} / ledger {ledger.bytes_per_step(tag)}, expected {want}")
+        torch.cuda.synchronize()
+        hist["launches"] = ops.launch_counts()
+        hist["params"] = params
+        return hist
+
+    runs = {}
+    for engine in ("flat", "pallas", "tree"):
+        cfg = HOSGDConfig(tau=tau, mu=mu, m=m, lr=lr, zo_lr=lr * 30.0 / d, engine=engine)
+        runs[engine] = run(ho_sgd_program(mlp_loss, cfg, client_sampling=cs), rounds)
+    order = runs["tree"]["order"]
+    zo_live = sum(n for n, o in zip(live, order) if o == 0)
+    n_zo = order.count(0)
+    want = {"flat": {"zo_perturb_flat": zo_live, "zo_reconstruct_flat": n_zo},
+            "pallas": {"zo_perturb": n_leaves * zo_live, "zo_reconstruct": n_leaves * n_zo},
+            "tree": {}}
+    smi = smi_line()
+    for engine, h in runs.items():
+        launched = {k: v for k, v in h["launches"].items() if v}
+        check(launched == want[engine], f"fed-HO {engine}: launches {launched}, expected "
+              f"{want[engine]}")
+        check(all(math.isfinite(v) for v in h["loss"]), f"fed-HO {engine}: non-finite loss")
+        # the flat and per-leaf kernels equal their plain versions bit for bit
+        # (kernel phase), and the Σv² is the shared plain reduction: the
+        # losses are the tree engine's exactly
+        rel = max(abs(a - b) / abs(b) for a, b in zip(h["loss"], runs["tree"]["loss"]))
+        check(h["order"] == order and h["loss"] == runs["tree"]["loss"],
+              f"fed-HO {engine} vs tree: losses differ, max relative difference {rel}")
+        print(f"  fed-HO {engine:6s} ({rounds} rounds, cohorts {live}): loss "
+              f"{h['loss'][0]:.5f} -> {h['loss'][-1]:.5f}, vs tree {rel:.3e} (bit for bit); "
+              f"ms per round FO {round_times(h['s'], h['order'], 1):.3f}, ZO "
+              f"{round_times(h['s'], h['order'], 0):.3f} [{smi}]; launches {launched}")
+    fed = run(fed_avg_program(mlp_loss, cs, lr=lr, local_steps=2), fedavg_rounds)
+    check(not any(fed["launches"].values()), f"FedAvg launched a ZO kernel: {fed['launches']}")
+    check(all(math.isfinite(v) for v in fed["loss"]) and
+          all(bool(torch.isfinite(p).all()) for p in fed["params"].values()),
+          "FedAvg: non-finite loss or parameters")
+    print(f"  FedAvg ({fedavg_rounds} rounds, local_steps=2): loss {fed['loss'][0]:.5f} -> "
+          f"{fed['loss'][-1]:.5f}; 4*d*n_live bytes per round; ms per round "
+          f"{1e3 * statistics.median(fed['s'][1:]):.3f} (first round excluded) [{smi}]")
+    return {"flat": runs["flat"]["launches"], "pallas": runs["pallas"]["launches"]}
+
+
+def distributed_rank(rank, world, dev_type, hidden, steps, m, B, tau):
+    """One rank of ``distributed_phase`` (b): its worker's rows, the
+    rank-per-worker steps on ``cuda:0`` (every rank: one card); returns
+    losses, step times, the ledger's bytes and this rank's kernel launches."""
+    import torch
+
+    from repro_torch.core import HOSGDConfig
+    from repro_torch.core.distributed import make_distributed_ho_sgd
+    from repro_torch.data.pipeline import shard_batches
+    from repro_torch.data.synthetic import batches
+    from repro_torch.dist import CommLedger
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.mlp import mlp_loss
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    ds, params, d = fig2_setup(torch, dev, hidden)
+    mesh = make_test_mesh(data=world, model=1, device=dev_type)
+    cfg = HOSGDConfig(tau=tau, mu=1e-3, m=m, lr=0.05, zo_lr=0.05 * 30.0 / d, engine="flat")
+    fo, zo = make_distributed_ho_sgd(mlp_loss, mesh, cfg)
+    ledger = CommLedger()
+    fo, zo = ledger.wrap("fo", fo), ledger.wrap("zo", zo)
+    state, losses, secs = (), [], []
+    host = (b for _, b in zip(range(steps), batches(ds, m * B, seed=1)))
+    ops.reset_launch_counts()
+    for t, b in enumerate(shard_batches(host, mesh)):
+        ts = time.perf_counter()
+        params, state, loss = (fo if t % tau == 0 else zo)(t, params, state, b)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    return {"losses": losses, "s": secs, "launches": ops.launch_counts(),
+            "fo_bytes": ledger.bytes_per_step("fo"), "zo_bytes": ledger.bytes_per_step("zo"),
+            "zo_kinds": ledger.by_kind("zo"), "checksum": float(sum(
+                p.double().sum() for p in params.values())),
+            "params": ({k: v.cpu().numpy() for k, v in params.items()} if rank == 0 else None)}
+
+
+def distributed_phase(torch, dev, hidden=1300, steps_a=32, steps_b=16, timeout=600.0):
+    """HO-SGD through ``make_distributed_ho_sgd`` at m=4, B=64, tau=8: (a) one
+    process holding the four workers (a one-rank gloo group; engine flat,
+    plain SGD: the fused round), against ``make_ho_sgd``'s flat path; (b)
+    four gloo ranks spawned on ``cuda:0``, one per worker, against (a)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import HOSGDConfig, make_ho_sgd
+    from repro_torch.core.distributed import make_distributed_ho_sgd
+    from repro_torch.data.synthetic import batches
+    from repro_torch.dist import CommLedger
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import zo_direction as cu
+    from repro_torch.launch.mesh import init_rank, make_test_mesh, spawn_ranks
+    from repro_torch.models.mlp import mlp_loss
+
+    ds, p0, d = fig2_setup(torch, dev, hidden)
+    m, B, tau = 4, 64, 8
+    cfg = HOSGDConfig(tau=tau, mu=1e-3, m=m, lr=0.05, zo_lr=0.05 * 30.0 / d, engine="flat")
+    host = [b for _, b in zip(range(steps_a), batches(ds, m * B, seed=1))]
+    smi = smi_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_rank(0, 1, str(Path(tmp) / "init"))
+        try:
+            mesh = make_test_mesh(data=1, model=1, device=dev.type)
+            fo, zo = make_distributed_ho_sgd(mlp_loss, mesh, cfg)
+            ledger = CommLedger()
+            fo, zo = ledger.wrap("fo", fo), ledger.wrap("zo", zo)
+            params, state, la, secs = p0, (), [], []
+            ops.reset_launch_counts()
+            for t, b in enumerate(host):
+                ts = time.perf_counter()
+                params, state, loss = (fo if t % tau == 0 else zo)(t, params, state, b)
+                la.append(float(loss))
+                secs.append(time.perf_counter() - ts)
+                if t + 1 == steps_b:                    # (b)'s end, held below
+                    p_b_ref = {k: v.double().cpu() for k, v in params.items()}
+            torch.cuda.synchronize()
+            launches_a = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    ref = make_ho_sgd(mlp_loss, cfg)
+    params, state, lr_ = p0, ref.init(p0), []
+    for t, b in enumerate(host):
+        params, state, met = ref.step(t, params, state, b)
+        lr_.append(float(met["loss"]))
+    order = [1 if t % tau == 0 else 0 for t in range(steps_a)]
+    n_zo = order.count(0)
+    per_call = cu.LAUNCHES_PER_CALL["zo_perturb_sumsq"]
+    launched = {k: v for k, v in launches_a.items() if v}
+    check(launched == {"zo_perturb_sumsq": per_call * m * n_zo, "zo_reconstruct_update": n_zo},
+          f"distributed (a): launches {launched}")
+    # the same fused kernels in the same order on the same inputs: bit for bit
+    check(la == lr_, f"distributed (a) vs make_ho_sgd: losses differ {la[:4]} {lr_[:4]}")
+    check(ledger.bytes_per_step("zo") == 4 * m and ledger.bytes_per_step("fo") == 4 * d,
+          f"distributed (a): ledger {ledger.summary()}")
+    print(f"  (a) one process, m={m}, {steps_a} steps: losses equal make_ho_sgd's flat path "
+          f"bit for bit ({la[0]:.6f} -> {la[-1]:.6f}); {ledger.bytes_per_step('fo')} B per FO "
+          f"step, {ledger.bytes_per_step('zo')} B per ZO step; ms per step FO "
+          f"{round_times(secs, order, 1):.3f}, ZO {round_times(secs, order, 0):.3f} [{smi}]; "
+          f"launches {launched}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            res = spawn_ranks(distributed_rank, m, str(Path(tmp) / "init"), dev.type, hidden,
+                              steps_b, m, B, tau, timeout=timeout)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"distributed (b): {e}")
+    r0 = res[0]
+    check(all(r["checksum"] == r0["checksum"] and r["losses"] == r0["losses"] for r in res),
+          "distributed (b): the ranks' parameters or losses differ")
+    # the same coefficients and directions on every path; the FO mean is
+    # summed over the ranks in another order than (a)'s batch mean, and the
+    # ZO coefficients after it amplify that: the CPU tests' tolerances
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], la[:steps_b]))
+    check(all(math.isfinite(v) for v in r0["losses"]) and rel <= 1e-6,
+          f"distributed (b) vs (a): max relative loss difference {rel}")
+    step_max = max(float((p_b_ref[k] - p0[k].double().cpu()).abs().max()) for k in p_b_ref)
+    p_err = max(float((torch.from_numpy(v).double() - p_b_ref[k]).abs().max())
+                for k, v in r0["params"].items())
+    check(p_err <= 0.02 * step_max,
+          f"distributed (b) vs (a) after {steps_b} steps: parameters differ by {p_err}, "
+          f"more than 2% of the update {step_max}")
+    check(r0["zo_bytes"] == 4 * m and r0["fo_bytes"] == 4 * d,
+          f"distributed (b) rank 0 ledger: {r0['fo_bytes']} B per FO step, {r0['zo_bytes']} "
+          f"per ZO step; expected {4 * d} and {4 * m}")
+    order_b = order[:steps_b]
+    n_zo_b = order_b.count(0)
+    total = {k: sum(r["launches"][k] for r in res) for k in r0["launches"]}
+    launched_b = {k: v for k, v in total.items() if v}
+    check(launched_b == {"zo_perturb_flat": m * n_zo_b, "zo_reconstruct_flat": m * n_zo_b},
+          f"distributed (b): launches over the ranks {launched_b}")
+    print(f"  (b) {m} gloo ranks on cuda:0, {steps_b} steps: vs (a) max relative loss "
+          f"difference {rel:.3e} (tol 1e-6), parameters {p_err:.3e} from (a)'s (tol 2% of "
+          f"the update {step_max:.3e}); rank 0 books {r0['fo_bytes']} B per FO step, "
+          f"{r0['zo_bytes']} B per ZO step ({r0['zo_kinds']}); rank 0 ms per step FO "
+          f"{round_times(r0['s'], order_b, 1):.3f}, ZO {round_times(r0['s'], order_b, 0):.3f} "
+          f"[{smi}]; launches over the ranks {launched_b}")
+    return {"a": launches_a, "b": total}
+
+
+# --------------------------------------------------------------------------- #
 # phase 9: flash attention against its plain version
 # --------------------------------------------------------------------------- #
 def attn_agree(torch, got, want):
@@ -2553,6 +2815,14 @@ def main() -> None:
         row["registers"] = {k: u["registers"] for k, u in usage.items()}
     print("# phase: the Fig. 2 method set at hidden=1300 (engine=pallas)")
     method_launches = method_set_phase(torch, dev)
+    print("# phase: federated partial participation at hidden=1300 (fed-HO-SGD, FedAvg)")
+    fed_launches = federated_phase(torch, dev)
+    print("# phase: HO-SGD through make_distributed_ho_sgd: one process, then 4 gloo ranks")
+    dist_launches = distributed_phase(torch, dev)
+    path_launches = {"federated fed-HO-SGD engine=flat": fed_launches["flat"],
+                     "federated fed-HO-SGD engine=pallas": fed_launches["pallas"],
+                     "distributed (a) one process, m=4": dist_launches["a"],
+                     "distributed (b) 4 gloo ranks, all ranks": dist_launches["b"]}
     print("# phase: profile of the ZO step with engine=pallas")
     profile_phase(torch, dev, engine="pallas")
     print("# phase: flash attention vs its plain version on the card")
@@ -2616,6 +2886,20 @@ def main() -> None:
         })
         if "launches_per_call" in row:
             kernels[-1]["calls"] = method_launches[name] // row["launches_per_call"]
+    # the federated and process-group paths' launches, each read just after its run
+    for row in kernels:
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in path_launches.items()
+                                   if counts.get(row["name"])}
+    for name, path in (("zo_perturb_sumsq", "distributed (a) one process, m=4"),
+                       ("zo_reconstruct_update", "distributed (a) one process, m=4"),
+                       ("zo_perturb_flat", "federated fed-HO-SGD engine=flat"),
+                       ("zo_reconstruct_flat", "federated fed-HO-SGD engine=flat"),
+                       ("zo_perturb_flat", "distributed (b) 4 gloo ranks, all ranks"),
+                       ("zo_reconstruct_flat", "distributed (b) 4 gloo ranks, all ranks"),
+                       ("zo_perturb", "federated fed-HO-SGD engine=pallas"),
+                       ("zo_reconstruct", "federated fed-HO-SGD engine=pallas")):
+        check(path_launches[path].get(name, 0) > 0, f"{name} was not launched on {path}")
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
     f32 = flash["float32"]

@@ -27,3 +27,8 @@ from repro_torch.core.rounds import (  # noqa: F401
     masked_average,
     to_method,
 )
+from repro_torch.core.federated import (  # noqa: F401
+    ClientSampling,
+    cohort_shards,
+    fed_avg_program,
+)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import directions as D
+from repro_torch.device import host_to_device
 from repro_torch.dtypes import acc_dtype_of
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -236,20 +237,11 @@ class PallasEngine(DirectionEngine):
 
         scaled = self._prescaled(coeffs, t, workers)
         table = np.asarray([self.salts(t, w) for w in workers], np.uint32).T
-        salts = _host_to_device(np.ascontiguousarray(table), self.device)
+        salts = host_to_device(table, self.device)
         out = [ops.zo_reconstruct(n, salts[li], scaled,
                                   acc_dtype=self.acc_dtype).reshape(shape)
                for li, (n, shape) in enumerate(zip(self.sizes, self.shapes))]
         return tree_unflatten(self.treedef, out)
-
-
-def _host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A small host array on ``device``; on the card through pinned memory
-    and a non-blocking copy, so the host does not wait for the stream."""
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 # --------------------------------------------------------------------------- #

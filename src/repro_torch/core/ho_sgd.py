@@ -111,6 +111,67 @@ def engine_cache(engine: str, seed: int, acc_dtype: str) -> Callable:
     return engine_for
 
 
+def _unbooked(cs: torch.Tensor, loss: torch.Tensor):
+    return cs, loss
+
+
+def zo_estimate(eng, cs: torch.Tensor, t, zo_scale: float,
+                vmap_workers: bool = False) -> Any:
+    """Eq. (6): the m directions rebuilt from the m coefficients ``cs`` and
+    scaled by ``zo_scale / m``."""
+    m = cs.shape[0]
+    return tree_map(lambda a: a * (zo_scale / m),
+                    eng.reconstruct(cs, t, vmap_workers=vmap_workers))
+
+
+def zo_round_estimate(eng, loss_fn: Callable, params, batch, t, workers, mu: float,
+                      zo_scale: float, exchange: Callable = _unbooked,
+                      vmap_workers: bool = False):
+    """The generic ZO round up to the optimizer: each worker's coefficient
+    on its slice of ``batch`` (stacked (m, B, ...)), ``exchange(cs, loss)``
+    (identity here; a lowering books its all-gather through it), then the
+    scaled estimate.  Returns ``(g_hat, mean loss)``."""
+    cs, f0s = eng.zo_coeffs(loss_fn, params, batch, t, workers, mu,
+                            vmap_workers=vmap_workers)
+    cs, loss = exchange(cs, torch.mean(f0s))
+    return zo_estimate(eng, cs, t, zo_scale, vmap_workers), loss
+
+
+def fused_flat_zo_round(eng, loss_fn: Callable, opt: Optimizer, t, params, opt_state,
+                        batch, workers, mu: float, zo_scale: float,
+                        exchange: Callable = _unbooked):
+    """Single-buffer fused ZO round (engine='flat', plain SGD), returning
+    ``(params, opt_state, mean loss)``.
+
+    Each worker's perturb computes the tree-wide ||v||^2 in the same call,
+    and the reconstruction + SGD(+momentum) commit is one in-place launch on
+    a freshly packed buffer.  ``exchange`` is applied to the stacked
+    coefficients and the mean loss, as in ``zo_round_estimate``.  The
+    kernel's blockwise sumsq differs in reduction order from the shared one,
+    so this path is loss-equivalent -- not bitwise -- to the per-primitive
+    engines.
+    """
+    momentum = float(opt.hyper["momentum"])
+    buf = eng.pack(params)
+    cs, invs, f0s = [], [], []
+    for j, i in enumerate(workers):
+        b_i = tree_map(lambda x: x[j], batch)
+        f0 = loss_fn(params, b_i)
+        pbuf, ss = eng.fused_perturb_sumsq(buf, t, i, mu)
+        f1 = loss_fn(eng.unpack(pbuf), b_i)
+        cs.append(((eng.dim / mu) * (f1 - f0)).to(torch.float32))
+        invs.append(torch.rsqrt(ss + 1e-30))
+        f0s.append(f0)
+    cs, loss = exchange(torch.stack(cs), torch.mean(torch.stack(f0s)))
+    scaled = cs * torch.stack(invs) * torch.tensor(zo_scale / len(workers),
+                                                   dtype=torch.float32)
+    lr = opt.hyper["schedule"](t)
+    mom = eng.pack(opt_state) if momentum else None
+    buf, mom = eng.fused_reconstruct_update(buf, mom, t, workers, scaled, lr, momentum)
+    opt_state = eng.unpack(mom, cast=False) if momentum else opt_state
+    return eng.unpack(buf), opt_state, loss
+
+
 def make_ho_sgd(
     loss_fn: Callable[[Any, Any], torch.Tensor],
     cfg: HOSGDConfig,
@@ -139,41 +200,12 @@ def make_ho_sgd(
         eng = engine_for(params)
         workers = list(range(cfg.m))
         if fused_flat:
-            return zo_step_flat(eng, workers, t, params, opt_state, batch)
-        cs, f0s = eng.zo_coeffs(loss_fn, params, batch, t, workers, cfg.mu)
-        g_hat = tree_map(lambda a: a * (cfg.zo_scale / cfg.m),
-                         eng.reconstruct(cs, t))
+            return fused_flat_zo_round(eng, loss_fn, opt, t, params, opt_state, batch,
+                                       workers, cfg.mu, cfg.zo_scale)
+        g_hat, loss = zo_round_estimate(eng, loss_fn, params, batch, t, workers,
+                                        cfg.mu, cfg.zo_scale)
         deltas, opt_state = opt.update(g_hat, opt_state, params, t)
-        return apply_deltas(params, deltas), opt_state, torch.mean(f0s)
-
-    def zo_step_flat(eng, workers, t, params, opt_state, batch):
-        """Single-buffer fused ZO round (engine='flat', plain SGD).
-
-        Each worker's perturb computes the tree-wide ||v||^2 in the same
-        call, and the reconstruction + SGD(+momentum) commit is one in-place
-        launch on a freshly packed buffer.  The kernel's blockwise sumsq
-        differs in reduction order from the shared one, so this path is
-        loss-equivalent — not bitwise — to the per-primitive engines.
-        """
-        momentum = float(opt.hyper["momentum"])
-        buf = eng.pack(params)
-        cs, f0s = [], []
-        for i in workers:
-            b_i = tree_map(lambda x: x[i], batch)
-            f0 = loss_fn(params, b_i)
-            pbuf, ss = eng.fused_perturb_sumsq(buf, t, i, cfg.mu)
-            f1 = loss_fn(eng.unpack(pbuf), b_i)
-            c = ((eng.dim / cfg.mu) * (f1 - f0)).to(torch.float32)
-            cs.append(c * torch.rsqrt(ss + 1e-30))
-            f0s.append(f0)
-        scaled = torch.stack(cs) * torch.tensor(cfg.zo_scale / cfg.m,
-                                                dtype=torch.float32)
-        lr = opt.hyper["schedule"](t)
-        mom = eng.pack(opt_state) if momentum else None
-        buf, mom = eng.fused_reconstruct_update(
-            buf, mom, t, workers, scaled, lr, momentum)
-        opt_state = eng.unpack(mom, cast=False) if momentum else opt_state
-        return eng.unpack(buf), opt_state, torch.mean(torch.stack(f0s))
+        return apply_deltas(params, deltas), opt_state, loss
 
     def init(params):
         return opt.init(params)

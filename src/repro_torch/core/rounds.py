@@ -31,9 +31,9 @@ one ``jax.jit(jax.vmap(local))`` cached per ``Round`` object; the port's
 stacks the payloads -- the same values per worker, and no compiled state to
 cache (the test that pins the reference's cache keying pins here that a
 rebuilt round's own local runs).  Steps and worker ids are Python ints; a
-random key is a uint32 int (``dist.compress``).  Federated client sampling
-(``client_sampling``) comes with ``core/federated`` (ROADMAP Queue 1 item 8)
-and raises until then.
+random key is a uint32 int (``dist.compress``).  A program with
+``client_sampling`` (``core.federated.ClientSampling``) runs each round over
+its live cohort, every client on its own identity-keyed shard.
 """
 from __future__ import annotations
 
@@ -62,9 +62,6 @@ CODEC_COLLECTIVES = ("all_reduce", "tree_average", "masked_average",
 
 #: wire codec application modes
 WIRE_MODES = ("per_worker", "legacy")
-
-_FEDERATED = ("client sampling needs core/federated, which is not ported yet "
-              "(ROADMAP Queue 1 item 8)")
 
 
 @dataclass(frozen=True)
@@ -168,6 +165,11 @@ class RoundProgram:
     key)`` optionally transforms the global batch before sharding (RI-SGD's
     redundancy mixing); ``comm_scalars``/``fevals``/``gevals`` are the
     Table-1 analytic cost hooks (``Method`` compatibility).
+
+    ``client_sampling`` (a ``core.federated.ClientSampling``) makes the
+    program federated: ``m`` must equal the spec's ``cohort_k`` (the worker
+    slots are the sampled cohort), and the executor draws each round's live
+    cohort from the spec, feeding every client its own identity-keyed shard.
     """
 
     name: str
@@ -181,8 +183,10 @@ class RoundProgram:
     client_sampling: Any = None
 
     def __post_init__(self):
-        if self.client_sampling is not None:
-            raise NotImplementedError(_FEDERATED)
+        if self.client_sampling is not None and self.client_sampling.cohort_k != self.m:
+            raise ValueError(
+                f"federated program {self.name!r}: m={self.m} must equal cohort_k="
+                f"{self.client_sampling.cohort_k} (the worker slots are the cohort)")
 
 
 # --------------------------------------------------------------------------- #
@@ -319,7 +323,8 @@ class RoundExecutor:
 
     ``run(t, params, state, batch, workers=..., views=..., key=...)``
     executes one scheduled round over any subset of workers (``workers``,
-    the live membership, default all ``m``), optionally feeding each worker
+    the live membership, default all ``m``, or the round's sampled cohort
+    under ``client_sampling``), optionally feeding each worker
     its own stale model view (``views``: worker -> params).  The batch is
     moved to the parameters' device first.  Byte accounting: the round's wire
     bytes land in ``metrics["comm_bytes"]`` and are booked with
@@ -340,25 +345,45 @@ class RoundExecutor:
         batch = to_device(batch, _device_of(params))
         if prog.prepare is not None:
             batch = prog.prepare(t, batch, key)
-        shards = split_shards(batch, prog.m)
-        ws = list(range(prog.m)) if workers is None else [int(w) for w in workers]
+        cs = prog.client_sampling
+        if cs is not None and (rnd.replica or views is not None):
+            raise ValueError("client-sampling rounds keep one server model: no "
+                             "replicas and no stale views")
+        if workers is not None:
+            ws = [int(w) for w in workers]
+        else:
+            ws = list(range(prog.m)) if cs is None else list(cs.cohort_for(t))
         if not ws:
             raise ValueError("a round needs at least one participating worker")
 
-        outs = []
-        for w in ws:
-            if rnd.replica:
-                model = _slice_tree(state["replicas"], w)
-            elif views is not None:
-                model = views.get(w, params)
-            else:
-                model = params
-            outs.append(rnd.local(t_step, w, model, _slice_tree(shards, w)))
+        weights = None
+        if cs is not None:
+            # federated: each live client on its own identity-keyed shard;
+            # the masked-average weights are the clients' dataset sizes
+            from repro_torch.core.federated import cohort_shards
+
+            shards = cohort_shards(batch, ws, t, cs)
+            outs = [rnd.local(t_step, w, params, _slice_tree(shards, j))
+                    for j, w in enumerate(ws)]
+            if rnd.collective == "masked_average":
+                weights = cs.client_weights(ws)
+        else:
+            shards = split_shards(batch, prog.m)
+            outs = []
+            for w in ws:
+                if rnd.replica:
+                    model = _slice_tree(state["replicas"], w)
+                elif views is not None:
+                    model = views.get(w, params)
+                else:
+                    model = params
+                outs.append(rnd.local(t_step, w, model, _slice_tree(shards, w)))
         payloads = _stack_trees([p for p, _ in outs])
         aux = None if outs[0][1] is None else torch.stack([a for _, a in outs])
 
         nbytes = wire_nbytes(rnd, _slice_tree(payloads, 0), len(ws))
-        reduced = reduce_payloads(rnd, payloads, ws, _wire_key(rnd.wire, key, t_step))
+        reduced = reduce_payloads(rnd, payloads, ws, _wire_key(rnd.wire, key, t_step),
+                                  weights=weights)
         if nbytes:
             coll.note(rnd.collective, None, nbytes=nbytes, tag=rnd.tag)
         if aux is not None:
@@ -445,11 +470,12 @@ def ho_sgd_program(
     """HO-SGD (Algorithm 1) as a round program: FO sync rounds every tau
     iterations (or per ``tau_schedule`` through ``adaptive_tau_decision``),
     ZO rounds in between; ``zo_only`` never syncs.  State is
-    ``{"opt": ..., "since_fo": int}``."""
+    ``{"opt": ..., "since_fo": int}``.  ``client_sampling``
+    (``core.federated.ClientSampling``, ``cohort_k == ho.m``) makes it
+    federated: every round runs over a freshly sampled cohort, and client
+    c's direction at round t is keyed on c, whoever else was sampled."""
     from repro_torch.core.ho_sgd import adaptive_tau_decision
 
-    if client_sampling is not None:
-        raise NotImplementedError(_FEDERATED)
     opt = opt or sgd(const_schedule(ho.lr), ho.momentum)
     fo = fo_round(loss_fn, opt, wire=wire, overlap=overlap)
     zo = zo_round(loss_fn, ho, opt, m=ho.m, overlap=overlap)
@@ -474,4 +500,5 @@ def ho_sgd_program(
         comm_scalars=lambda d: (d + (tau - 1)) / tau,
         fevals=lambda d: 2.0 * (tau - 1) / tau,
         gevals=lambda d: 1.0 / tau,
+        client_sampling=client_sampling,
     )

@@ -7,3 +7,4 @@ from repro_torch.data.synthetic import (  # noqa: F401
     token_batches,
 )
 from repro_torch.data.libsvm import parse_libsvm, try_load  # noqa: F401
+from repro_torch.data.pipeline import shard_batches, take  # noqa: F401

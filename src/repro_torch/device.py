@@ -6,6 +6,7 @@ taken only when the caller asks for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,12 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on the card through pinned memory and a
+    non-blocking copy, so the host does not wait for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -1,9 +1,10 @@
-"""repro_torch.dist — the comm ledger and the wire codecs.
+"""repro_torch.dist — sharding specs, the comm ledger and the wire codecs.
 
-Counterpart of ``repro.dist`` for one card: ``collectives`` holds the
-``CommLedger`` (the paper's Table-1 load measured in bytes) and the booking
-helpers; ``compress`` the QSGD / signSGD / top-k codecs.  ``sharding`` and the
-process-group collectives come with ROADMAP Queue 1 item 9.
+Counterpart of ``repro.dist``: ``sharding`` holds every spec decision (worker
+axes, parameter, batch and cache specs); ``collectives`` the ``CommLedger``
+(the paper's Table-1 load measured in bytes), the booking helpers and the
+collectives over a ``torch.distributed`` process group; ``compress`` the
+QSGD / signSGD / top-k codecs.
 """
 from repro_torch.dist.collectives import (  # noqa: F401
     CommLedger,
@@ -20,4 +21,11 @@ from repro_torch.dist.compress import (  # noqa: F401
     qsgd,
     signsgd,
     topk,
+)
+from repro_torch.dist.sharding import (  # noqa: F401
+    batch_specs,
+    cache_specs,
+    n_workers,
+    param_specs,
+    worker_axes,
 )

@@ -24,17 +24,26 @@ Accounting semantics (the reference's contract):
     that are not part of the algorithm's communication; they appear in the
     per-kind breakdown but are excluded from ``bytes_per_step``.
 
-``psum``, ``pmean`` and ``all_gather`` need a process group and raise until
-ROADMAP Queue 1 item 9 (``torch.distributed``) lands; ``note`` and
-``note_all_reduce`` book an exchange without performing one, which is how
-the single-card round executor books its collectives.
+``all_gather``, ``psum`` and ``pmean`` run over a ``torch.distributed``
+process group: ``axes`` names dimensions of ``mesh`` (a ``DeviceMesh``,
+``launch.mesh``), and the call runs over the group of the ranks that share
+this rank's coordinates on every other dimension.  ``note`` and
+``note_all_reduce`` book an exchange without performing one, which is how a
+process that holds all m workers (the round executor, the single-process
+lowering) books its collectives.
 """
 from __future__ import annotations
 
+import math
+import weakref
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-from repro_torch.tree import tree_leaves
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+Axes = Union[str, Sequence[str]]
 
 _ACTIVE: List[Tuple["CommLedger", str]] = []
 
@@ -119,26 +128,97 @@ def _tree_nbytes(tree: Any) -> int:
 
 
 # --------------------------------------------------------------------------- #
-# collectives over a process group (ROADMAP Queue 1 item 9)
+# collectives over a process group
 # --------------------------------------------------------------------------- #
-def _needs_process_group(name: str):
-    raise NotImplementedError(
-        f"{name} needs a torch.distributed process group, which the port gains "
-        f"with ROADMAP Queue 1 item 9 (core/distributed); on one card book an "
-        f"exchange with note()/note_all_reduce()")
+#: groups of several mesh axes, per mesh, made at their first use
+_AXES_GROUPS: "weakref.WeakKeyDictionary[Any, Dict[Tuple[str, ...], Any]]" = \
+    weakref.WeakKeyDictionary()
 
 
-def all_gather(x, axes, *, tiled: bool = False, tag: str = "",
-               payload: bool = True):
-    _needs_process_group("all_gather")
+def axes_group(mesh, axes: Axes):
+    """The process group over ``axes`` of ``mesh`` that holds this rank.
+
+    One axis is the mesh's own group for that dimension.  Several axes are
+    flattened in the order given (``("pod", "data")``: rank order ``pod_idx *
+    n_data + data_idx``, the worker ids); their groups are made at the first
+    call, on every rank of the mesh -- a collective call, as the collective
+    that asks for them is -- and kept for the mesh's lifetime."""
+    import torch.distributed as dist
+
+    if mesh is None or not dist.is_initialized():
+        raise RuntimeError("a collective over mesh axes needs an initialised "
+                           "torch.distributed process group and a DeviceMesh over it")
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    dims = [mesh.mesh_dim_names.index(a) for a in names]
+    if len(dims) == 1:
+        return mesh.get_group(names[0])
+    groups = _AXES_GROUPS.setdefault(mesh, {})
+    if names not in groups:
+        rest = [d for d in range(mesh.ndim) if d not in dims]
+        size = math.prod(mesh.mesh.shape[d] for d in dims)
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, size)
+        groups[names], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    return groups[names]
 
 
-def psum(x, axes, *, tag: str = "", payload: bool = True):
-    _needs_process_group("psum")
+def _staged(x: torch.Tensor, group) -> Tuple[torch.Tensor, bool]:
+    """``x`` as the group's backend takes it: gloo has no CUDA path for
+    every collective, so on a gloo group a CUDA payload is staged through
+    host memory, always (one rule for every collective); NCCL takes it as
+    it is.  Returns (the tensor to send, whether it was staged)."""
+    import torch.distributed as dist
+
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.cpu(), True
+    return x, False
 
 
-def pmean(x, axes, *, tag: str = "", payload: bool = True):
-    _needs_process_group("pmean")
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, in a new tensor on ``x``'s device."""
+    import torch.distributed as dist
+
+    y, staged = _staged(x.contiguous(), group)
+    y = y if staged else y.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y.to(x.device) if staged else y
+
+
+def all_gather(x: torch.Tensor, axes: Axes, *, mesh, tiled: bool = False,
+               tag: str = "", payload: bool = True) -> torch.Tensor:
+    """All-gather ``x`` over the ``axes`` of ``mesh``, stacked on a new
+    leading dim in group-rank order (``tiled``: concatenated on dim 0), and
+    book the gathered result's bytes: one float32 scalar per worker over m
+    workers is ``4*m`` bytes, the ZO step's whole inter-worker traffic."""
+    import torch.distributed as dist
+
+    group = axes_group(mesh, axes)
+    y, staged = _staged(x.contiguous(), group)
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    out = torch.cat(parts) if tiled else torch.stack(parts)
+    out = out.to(x.device) if staged else out
+    _record_active("all_gather", int(out.numel()) * out.element_size(), tag, payload)
+    return out
+
+
+def psum(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True) -> Any:
+    """Sum a tree over the ``axes`` of ``mesh``; books the tree's bytes."""
+    group = axes_group(mesh, axes)
+    out = tree_map(lambda v: _all_reduce_sum(v, group), x)
+    _record_active("psum", _tree_nbytes(out), tag, payload)
+    return out
+
+
+def pmean(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True) -> Any:
+    """Mean of a tree over the ``axes`` of ``mesh`` (a sum, then a division
+    by the group's size); books the tree's bytes."""
+    import torch.distributed as dist
+
+    group = axes_group(mesh, axes)
+    n = dist.get_world_size(group)
+    out = tree_map(lambda v: _all_reduce_sum(v, group) / n, x)
+    _record_active("pmean", _tree_nbytes(out), tag, payload)
+    return out
 
 
 def note(kind: str, tree: Any, *, nbytes: Optional[int] = None,

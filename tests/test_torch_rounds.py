@@ -308,10 +308,17 @@ def test_wire_codec_collective_matrix():
 
 
 def test_federated_specs_raise_until_their_port():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        R.ho_sgd_program(quad_loss, HOSGDConfig(**cfg_kw()), client_sampling=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        R.RoundProgram("f", 1, None, None, None, None, None, client_sampling=object())
+    """Ported (core/federated): a spec whose cohort_k is not m is refused,
+    as the reference asserts; a matching one makes the program federated."""
+    from repro_torch.core.federated import ClientSampling
+
+    cs = ClientSampling(n_clients=64, cohort_k=M)
+    with pytest.raises(ValueError, match="cohort_k"):
+        R.ho_sgd_program(quad_loss, HOSGDConfig(**cfg_kw(m=M + 1)), client_sampling=cs)
+    with pytest.raises(ValueError, match="cohort_k"):
+        R.RoundProgram("f", 1, None, None, None, None, None, client_sampling=cs)
+    assert R.ho_sgd_program(quad_loss, HOSGDConfig(**cfg_kw()),
+                            client_sampling=cs).client_sampling is cs
 
 
 # --------------------------------------------------------------------------- #
@@ -342,9 +349,11 @@ def test_ledger_books_like_reference():
 
 
 def test_collectives_need_a_process_group():
+    """Ported (a torch.distributed group, tests/test_torch_distributed.py):
+    without an initialised group and a mesh over it they raise."""
     for fn in (coll.psum, coll.pmean, coll.all_gather):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(torch.zeros(3), "data")
+        with pytest.raises(RuntimeError, match="process group"):
+            fn(torch.zeros(3), "data", mesh=None)
 
 
 def test_round_executor_books_nbytes_times_active_workers():
@@ -442,7 +451,8 @@ def test_wire_keys_fold_worker_identity():
 @pytest.mark.parametrize("module", [
     "repro_torch.core.rounds", "repro_torch.core.baselines", "repro_torch.dist.compress",
     "repro_torch.dist.collectives", "repro_torch.core.engine", "repro_torch.kernels.zo_direction",
-    "repro_torch.metrics.logging"])
+    "repro_torch.metrics.logging", "repro_torch.core.federated", "repro_torch.core.distributed",
+    "repro_torch.dist.sharding", "repro_torch.data.pipeline", "repro_torch.launch.mesh"])
 def test_new_modules_import_neither_jax_nor_repro(module):
     code = (f"import sys, importlib\nimportlib.import_module({module!r})\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
