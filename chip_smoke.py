@@ -81,6 +81,22 @@ Phases (any failed check exits non-zero):
      2% of the update of (a)'s after 16 steps, rank 0's ledger at 4*m bytes
      per ZO step and 4*d per FO step; a rank that fails or hangs fails the
      run; ms per FO and ZO step of each;
+  8d. the LLM trainer, ``launch.train.main``, on the card: (a) gemma2-2b at
+     full width and depth (d = 2,614,341,888, bf16, grad_accum 8),
+     ``--engine flat``, 6 steps at tau 3, batch 8, seq 128: finite losses,
+     the order F Z Z F Z Z, 4*d bytes per FO step and 4 per ZO step, one
+     zo_perturb_flat and one zo_reconstruct_flat launch per ZO step, the
+     first ZO step's kernel outputs against the plain versions on sampled
+     blocks of every leaf and past element 2^31 (rtol 1e-5 of the change),
+     the trace's spans against the CSV; ms and peak memory per step kind,
+     and the last ZO step profiled and split by CUDA events into the plain
+     sums of squares, the loss forwards and the kernels; then both flat
+     kernels timed at that packed buffer beside their bounds; (b) 100m
+     (float32, d = 75,522,816), 8 steps with engine flat, pallas and tree:
+     in the first ZO step the flat kernels held on sampled blocks and the
+     per-leaf ones on the first, middle and last 4096 elements of every
+     leaf (rtol 1e-5 of the change), losses equal to tree's bit for bit,
+     the flat run's ``--ckpt`` restored bit for bit on the card;
   9. flash attention: both kernels against the plain version: the bf16
      tensor-core kernel at the serving shapes (B=1, H=40, KV=8, hd=128,
      causal, S in {64, 512, 1024, 2048}) and at every head width (gemma2's
@@ -126,8 +142,9 @@ Phases (any failed check exits non-zero):
      device time and peak memory of each) and one decode step over 8 slots.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it; each ZO kernel's
-entry also carries its launches on the paths of phases 8b and 8c
-(``launches_by_path``).
+entry also carries its launches on the paths of phases 8b, 8c and 8d
+(``launches_by_path``); zo_perturb_flat's and zo_reconstruct_flat's also
+their times at gemma2-2b's packed buffer (``gemma2_2b``).
 """
 from __future__ import annotations
 
@@ -1954,6 +1971,438 @@ def distributed_phase(torch, dev, hidden=1300, steps_a=32, steps_b=16, timeout=6
 
 
 # --------------------------------------------------------------------------- #
+# phase 8d: the LLM trainer, launch.train's main, at gemma2-2b's full width
+# --------------------------------------------------------------------------- #
+TRAIN_FLAGS = ["--arch", "gemma2-2b", "--tau", "3", "--batch", "8", "--seq", "128"]
+TRAIN_FULL = "train gemma2-2b --reduce full, engine=flat"
+TRAIN_100M = "train gemma2-2b --reduce 100m, engine=pallas"
+TWO31 = 1 << 31
+
+
+def sampled_blocks(torch, ctrs, block, n_past=48):
+    """``(block indices, leaves, blocks past element 2^31)``: each leaf's
+    first and last block of a packed buffer (a leaf starts where its
+    counter is 0), the block holding element 2^31, the buffer's last block
+    and ``n_past`` blocks spread between them."""
+    import numpy as np
+
+    nb = int(ctrs.shape[0])
+    firsts = np.flatnonzero(ctrs.view(torch.int32).cpu().numpy() == 0)
+    lasts = np.append(firsts[1:] - 1, nb - 1)
+    past = (np.linspace(TWO31 // block, nb - 1, n_past).astype(np.int64)
+            if nb * block > TWO31 else np.zeros(0, np.int64))
+    idx = np.unique(np.concatenate([firsts, lasts, past]))
+    return torch.from_numpy(idx).to(ctrs.device), len(firsts), len(np.unique(past))
+
+
+def block_rows(torch, t, idx):
+    """Rows ``idx`` of a per-block uint32 (or int32) table, indexed as int32."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)[idx].contiguous().view(torch.uint32)
+    return t[idx].contiguous()
+
+
+class TrainProbe:
+    """Instruments a ``launch.train.main`` run from outside, without
+    touching its arithmetic: each step's peak memory and the last
+    parameters (by wrapping the steps that ``make_distributed_ho_sgd``
+    returns); the kernels' output in the first ZO step held against the
+    plain versions, the flat ones on sampled blocks and the per-leaf ones on
+    windows of every leaf; and, in the steps that
+    ``profile`` names (kind -> its k-th step of that kind), the profiler's
+    device time with the step split by CUDA events into the plain sums of
+    squares (``DirectionEngine.sumsq``), the loss forwards and the
+    kernels."""
+
+    def __init__(self, torch, dev, profile=None):
+        self.torch, self.dev, self.profile_at = torch, dev, profile or {}
+        self.start_gb = {"fo": [], "zo": []}     # allocated when the step starts
+        self.reset_gb = {"fo": [], "zo": []}     # the peak just after its reset
+        self.peak_gb = {"fo": [], "zo": []}
+        self.params = None
+        self.n = {"fo": 0, "zo": 0}
+        self.checking = False
+        self.held = {}                # kernel -> [blocks or windows, leaves, past 2^31, ok, max err]
+        self.parts = None             # part -> [(start event, end event)]
+        self.peaks = []               # (part, the step's peak so far when it ended)
+        self.profile = {}             # kind -> what profiled() measured
+
+    def timed(self, part, fn):
+        def run(*a, **kw):
+            if self.parts is None:
+                return fn(*a, **kw)
+            s = self.torch.cuda.Event(enable_timing=True)
+            e = self.torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            self.parts.setdefault(part, []).append((s, e))
+            self.peaks.append((part, self.torch.cuda.max_memory_allocated(self.dev) / 1e9))
+            return out
+        return run
+
+    def hold(self, name, out, x, salts, ctrs, nvalid, block, plain):
+        """``out`` (the kernel's buffer) against ``plain`` on sampled blocks."""
+        torch = self.torch
+        idx, leaves, past = sampled_blocks(torch, ctrs, block)
+        rows = lambda t: block_rows(torch, t, idx)                  # noqa: E731
+        got = out.view(-1, block)[idx].reshape(-1)
+        base = None if x is None else x.view(-1, block)[idx].reshape(-1)
+        want = plain(base, rows(salts), rows(ctrs), rows(nvalid))
+        ok, err, tol = agree(torch, got, want, base=base)
+        self.held[name] = [int(idx.numel()), leaves, past, ok, err]
+        print(f"  {name:20s} first ZO step: {idx.numel()} sampled blocks ({leaves} leaves' "
+              f"first and last, {past} past element 2^31 of {out.numel():,}) vs the plain "
+              f"version: max abs err {err:.3e} ({tol}) ok={ok}")
+
+    def hold_leaf(self, name, out, x, plain, offset, n, bf16, window=4096):
+        """One leaf's ``out`` (of ``n`` elements, the kernel's) against
+        ``plain(base, lo, w)`` on its first, middle and last ``window``
+        elements; ``held[name]`` sums the windows and leaves over a step."""
+        torch = self.torch
+        w = min(window, n)
+        oks, err = [], 0.0
+        for lo in sorted({0, (n - w) // 2, n - w}):
+            base = None if x is None else x[lo:lo + w]
+            ok, e, tol = agree(torch, out[lo:lo + w], plain(base, offset + lo, w),
+                               base=base, bf16=bf16)
+            oks.append(ok)
+            err = max(err, e)
+        h = self.held.setdefault(name, [0, 0, 0, True, 0.0, tol])
+        h[0] += len(oks)
+        h[1] += 1
+        h[3] = h[3] and all(oks)
+        h[4] = max(h[4], err)
+        h[5] = tol
+
+    def install(self, stack):
+        """Patch the trainer's step factory, the flat and per-leaf kernels'
+        wrappers, the plain sum of squares and the loss; ``stack`` undoes
+        each patch."""
+        from repro_torch.core import engine as E
+        from repro_torch.kernels import ops, ref
+        from repro_torch.launch import train as TT
+        from repro_torch.models import transformer as T
+
+        def patch(obj, attr, new):
+            old = getattr(obj, attr)
+            setattr(obj, attr, new)
+            stack.callback(setattr, obj, attr, old)
+            return old
+
+        make = TT.make_distributed_ho_sgd
+        pf, rf = ops.zo_perturb_flat, ops.zo_reconstruct_flat
+        pl, rl = ops.zo_perturb, ops.zo_reconstruct
+
+        def perturb_flat(x, salts, ctrs, nvalid, scale, block=4096):
+            out = pf(x, salts, ctrs, nvalid, scale, block)
+            if self.checking:
+                self.hold("zo_perturb_flat", out, x, salts, ctrs, nvalid, block,
+                          lambda xb, s, c, n: ref.ref_zo_perturb_flat(xb, s, c, n, scale, block))
+            return out
+
+        def reconstruct_flat(salts, coeffs, ctrs, nvalid, block=4096, acc_dtype="float32"):
+            out = rf(salts, coeffs, ctrs, nvalid, block, acc_dtype)
+            if self.checking:
+                self.hold("zo_reconstruct_flat", out, None, salts, ctrs, nvalid, block,
+                          lambda _, s, c, n: ref.ref_zo_reconstruct_flat(
+                              s, coeffs, c, n, block, acc_dtype))
+            return out
+
+        def perturb(x, salt, scale, offset=0):
+            out = pl(x, salt, scale, offset)
+            if self.checking:
+                self.hold_leaf("zo_perturb", out, x,
+                               lambda xb, off, w: ref.ref_zo_perturb(xb, salt, scale, off),
+                               offset, x.numel(), x.dtype == torch.bfloat16)
+            return out
+
+        def reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32"):
+            out = rl(n, salts, coeffs, offset, acc_dtype)
+            if self.checking:
+                host = salts.view(torch.int32) if salts.dtype == torch.uint32 else salts
+                s = [int(v) & 0xFFFFFFFF for v in host.cpu().tolist()]
+                self.hold_leaf("zo_reconstruct", out, None,
+                               lambda _, off, w: ref.ref_zo_reconstruct(
+                                   w, s, coeffs, off, acc_dtype, device=coeffs.device),
+                               offset, n, False)
+            return out
+
+        def steps(*a, **kw):
+            fo, zo = make(*a, **kw)
+            return self.step("fo", fo), self.step("zo", zo)
+
+        torch = self.torch
+        patch(TT, "make_distributed_ho_sgd", steps)
+        patch(ops, "zo_perturb_flat", self.timed("kernels", perturb_flat))
+        patch(ops, "zo_reconstruct_flat", self.timed("kernels", reconstruct_flat))
+        patch(ops, "zo_perturb", self.timed("kernels", perturb))
+        patch(ops, "zo_reconstruct", self.timed("kernels", reconstruct))
+        patch(E.DirectionEngine, "sumsq", self.timed("plain sum of squares",
+                                                      E.DirectionEngine.sumsq))
+        patch(T, "loss_fn", self.timed("loss forwards", T.loss_fn))
+
+    def step(self, kind, fn):
+        torch, dev = self.torch, self.dev
+
+        def run(t, params, opt_state, batch):
+            k = self.n[kind]
+            self.checking = kind == "zo" and k == 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            self.start_gb[kind].append(torch.cuda.memory_allocated(dev) / 1e9)
+            self.reset_gb[kind].append(torch.cuda.max_memory_allocated(dev) / 1e9)
+            if self.profile_at.get(kind) == k:
+                out = self.profiled(kind, fn, t, params, opt_state, batch)
+            else:
+                out = fn(t, params, opt_state, batch)
+                torch.cuda.synchronize()
+            self.peak_gb[kind].append(torch.cuda.max_memory_allocated(dev) / 1e9)
+            self.checking = False
+            self.n[kind] += 1
+            self.params = out[0]
+            return out
+        return run
+
+    def profiled(self, kind, fn, *args):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        self.parts, self.peaks = {}, []
+        # the device's activity only: recording every host operation of a
+        # step of ~50k operations slows the host, and its teardown takes a
+        # minute (a CPU rehearsal has no device activity to record)
+        acts = [ProfilerActivity.CUDA if self.dev.type == "cuda" else ProfilerActivity.CPU]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        parts = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.parts.items()}
+        self.parts = None
+        rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / 1e3 if rows else None
+        kern = sum(r[0] for r in rows if "perturb_flat_kernel" in r[2]
+                   or "reconstruct_kernel" in r[2]) / 1e3
+        self.profile[kind] = {"wall_ms": wall, "busy_ms": busy, "kernels_device_ms": kern,
+                              "parts_ms": parts, "top": sorted(rows, reverse=True)[:8],
+                              "peaks_gb": [(k, round(v, 2)) for k, v in self.peaks]}
+        return out
+
+
+def train_run(torch, dev, argv, profile=None):
+    """``launch.train.main(argv)`` under a ``TrainProbe``, with the launch
+    counts set to 0 just before and read just after; returns the probe, the
+    CSV rows, the trace's spans and the launches."""
+    import contextlib
+    import csv
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TT
+    from repro_torch.obs import load_trace_events, spans_from_events
+
+    probe = TrainProbe(torch, dev, profile)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        probe.install(stack)
+        log, trace = str(Path(tmp) / "log.csv"), str(Path(tmp) / "trace.json")
+        ops.reset_launch_counts()
+        TT.main(argv + ["--device", dev.type, "--log", log, "--trace", trace])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        with open(log) as f:
+            rows = list(csv.DictReader(f))
+        spans = spans_from_events(load_trace_events(trace))
+    steps = [s for s in spans if s.kind == "compute"]
+    check([s.name for s in steps] == [f"{'fo' if r['order'] == '1' else 'zo'}/{r['step']}"
+                                      for r in rows]
+          and [s.nbytes for s in steps] == [int(r["comm_bytes"]) for r in rows],
+          f"train {argv}: the trace's spans do not match the CSV's steps")
+    return probe, rows, launches
+
+
+def train_phase(torch, dev, gauss_instr, reduce_a="full", steps_a=6, reduce_b="100m",
+                steps_b=8):
+    """(a) ``launch.train.main`` on gemma2-2b ``--reduce full`` (d =
+    2,614,341,888, bf16, grad_accum 8) with ``--engine flat``: 6 steps at
+    tau 3, batch 8, seq 128; finite losses, the order F Z Z F Z Z, 4·d bytes
+    per FO step and 4 per ZO step, one zo_perturb_flat and one
+    zo_reconstruct_flat launch per ZO step, the first ZO step's kernel
+    outputs against the plain versions on sampled blocks (past element 2^31
+    too), the trace against the CSV; ms and peak memory per step kind and
+    profiles of the first FO and the last ZO step; then rows 3 and 4 timed
+    at this buffer.
+    (b) ``--reduce 100m`` (float32, d = 75,522,816), 8 steps with engine
+    flat (saving ``--ckpt``), pallas and tree: flat and pallas losses equal
+    to tree's bit for bit; in the first ZO step the flat kernels' outputs on
+    sampled blocks, and the per-leaf kernels' on the first, middle and last
+    4096 elements of every leaf, against the plain versions (rtol 1e-5 of
+    the change, as ``agree``); ``checkpoint.restore`` equal to the flat
+    run's parameters bit for bit on the card."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FlatEngine
+    from repro_torch.kernels import zo_direction as cu
+    from repro_torch.launch.train import size_override
+    from repro_torch.tree import tree_leaves
+
+    smi = smi_line()
+    out = {}
+    cfg_a = size_override(get_config("gemma2-2b"), reduce_a)
+    d = cfg_a.param_count()
+    argv = TRAIN_FLAGS + ["--reduce", reduce_a, "--steps", str(steps_a), "--engine", "flat"]
+    t0 = time.perf_counter()
+    # the first FO step is profiled (the profiler's teardown lengthens its
+    # host time, which the first allocations lengthen anyway), so the second
+    # is timed clean; the last ZO step is profiled
+    n_zo = steps_a - len(range(0, steps_a, 3))
+    probe, rows, launches = train_run(torch, dev, argv, profile={"fo": 0, "zo": n_zo - 1})
+    wall_a = time.perf_counter() - t0
+    order = [int(r["order"]) for r in rows]
+    losses = [float(r["loss"]) for r in rows]
+    check(order == [1 if t % 3 == 0 else 0 for t in range(steps_a)],
+          f"train (a): FO/ZO order {order}")
+    check(all(math.isfinite(v) for v in losses), f"train (a): non-finite loss {losses}")
+    check([int(r["comm_bytes"]) for r in rows] == [4 * d if o else 4 for o in order],
+          f"train (a): comm_bytes {[r['comm_bytes'] for r in rows]}, expected {4 * d} on FO "
+          f"steps and 4 on ZO steps")
+    check(launches == {"zo_perturb_flat": n_zo, "zo_reconstruct_flat": n_zo},
+          f"train (a): launches {launches}, expected one zo_perturb_flat and one "
+          f"zo_reconstruct_flat per ZO step ({n_zo})")
+    for name in ("zo_perturb_flat", "zo_reconstruct_flat"):
+        held = probe.held.get(name)
+        check(held is not None and held[3], f"train (a): {name} disagrees with its plain "
+              f"version on the sampled blocks: {held}")
+        check(held[2] > 0 or reduce_a != "full",
+              f"train (a): no block past element 2^31 was checked for {name}")
+    dt = {o: [1e3 * float(r["dt"]) for r in rows if int(r["order"]) == o] for o in (0, 1)}
+    print(f"  (a) gemma2-2b --reduce {reduce_a} (d={d:,}, {cfg_a.dtype}, grad_accum "
+          f"{cfg_a.grad_accum}), engine=flat, {steps_a} steps in {wall_a:.1f} s: losses "
+          f"{[round(v, 4) for v in losses]}; {4 * d} B per FO step, 4 per ZO step; launches "
+          f"{launches} [{smi}]")
+    print(f"  ms per step (host, to the loss on the host): FO {[round(v, 1) for v in dt[1]]}, "
+          f"ZO {[round(v, 1) for v in dt[0]]} (profiled: the first FO step and the last ZO "
+          f"step; the first ZO step holds the kernels against the plain versions)")
+    for kind in ("fo", "zo"):
+        print(f"  {kind.upper()} steps' memory (GB, torch.cuda): allocated at the start "
+              f"{[round(v, 2) for v in probe.start_gb[kind]]}, the peak just after its "
+              f"reset {[round(v, 2) for v in probe.reset_gb[kind]]}, peak "
+              f"{[round(v, 2) for v in probe.peak_gb[kind]]}")
+    for kind, prof in probe.profile.items():
+        if prof["busy_ms"] is None:
+            print(f"  profiled {kind.upper()} step: host wall {prof['wall_ms']:.1f} ms; device "
+                  f"time not measured (the profiler saw no device time)")
+        else:
+            print(f"  profiled {kind.upper()} step: host wall {prof['wall_ms']:.1f} ms, device "
+                  f"busy {prof['busy_ms']:.1f} ms (idle share "
+                  f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}), the flat kernels "
+                  f"{prof['kernels_device_ms']:.2f} ms of it")
+            for us, count, key in prof["top"]:
+                print(f"    {us / 1e3:9.3f} ms  {count:5d} calls  {key[:90]}")
+        print(f"  the same step by CUDA events (device time from each call's start to its "
+              f"end, summed per part): " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                                      prof["parts_ms"].items()))
+        print(f"  its peak memory so far (GB) as each part's call ended: {prof['peaks_gb']}; "
+              f"at the step's end {probe.peak_gb[kind][-1]:.2f}")
+    out["a"] = {"launches": launches, "d": d, "steps": steps_a, "losses": losses,
+                "fo_ms": dt[1], "zo_ms": dt[0], "start_gb": probe.start_gb,
+                "peak_gb": probe.peak_gb, "profile": {
+                    kind: {k: prof[k] for k in ("wall_ms", "busy_ms", "kernels_device_ms",
+                                                "parts_ms", "peaks_gb")}
+                    for kind, prof in probe.profile.items()},
+                "held": probe.held}
+
+    # rows 3 and 4 at this packed buffer (m = 1, as the trainer runs them)
+    eng = FlatEngine(probe.params, seed=0)
+    x = eng.pack(probe.params)
+    probe = None
+    s1, sm = eng.blk_salts(1, 0), eng.blk_salts_multi(1, [0])
+    ctr, nv, B = eng._blk_ctr, eng._blk_nv, eng.block
+    P, nb = eng.padded_dim, eng.n_blocks
+    scale = torch.full((1,), 1e-3, device=dev)
+    coeffs = torch.tensor([0.5], device=dev)
+    shape = {}
+    for name, fn, nbytes, ninstr in (
+            ("zo_perturb_flat", lambda: cu.zo_perturb_flat(x, s1, ctr, nv, scale, B),
+             2 * P * 4 + nb * 12 + 4, eng.dim * gauss_instr),
+            ("zo_reconstruct_flat", lambda: cu.zo_reconstruct_flat(sm, coeffs, ctr, nv, B),
+             P * 4 + nb * 12 + 4, eng.dim * gauss_instr)):
+        ms = cuda_ms(torch, fn, reps=5, warmup=1)
+        b, by = bound_ms(nbytes, ninstr)
+        shape[name] = {"shape": f"gemma2-2b packed buffer P={P:,} ({nb:,} blocks), m=1",
+                       "ms": ms, "bound_ms": b, "bound_by": by, "plain_ms": None}
+        print(f"  {name:20s} at P={P:,}: ms={ms:.4f} bound_ms={b:.4f} ({by}; bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, instructions "
+              f"{ninstr / INSTR_PER_S * 1e3:.4f}); plain version not timed here (its "
+              f"int64 counters alone are {8 * P / 1e9:.1f} GB) [{smi}]")
+    out["shape"] = shape
+    del x, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 100m: flat (with a checkpoint), pallas and tree
+    cfg_b = size_override(get_config("gemma2-2b"), reduce_b)
+    d_b = cfg_b.param_count()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "ck")
+        for engine in ("flat", "pallas", "tree"):
+            argv = TRAIN_FLAGS + ["--reduce", reduce_b, "--steps", str(steps_b),
+                                  "--engine", engine] + (["--ckpt", ck] if engine == "flat"
+                                                         else [])
+            probe, rows, launches = train_run(torch, dev, argv)
+            runs[engine] = {"losses": [float(r["loss"]) for r in rows], "launches": launches,
+                            "order": [int(r["order"]) for r in rows],
+                            "bytes": [int(r["comm_bytes"]) for r in rows],
+                            "zo_ms": statistics.median(1e3 * float(r["dt"]) for r in rows
+                                                       if r["order"] == "0"),
+                            "params": probe.params, "held": probe.held}
+        restored, step = restore(ck, runs["flat"]["params"], device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored), tree_leaves(runs["flat"]["params"])))
+        check(step == steps_b and same, f"train (b): the checkpoint at step {step} does not "
+              f"restore the flat run's parameters bit for bit")
+    tree = runs["tree"]
+    n_zo_b = tree["order"].count(0)
+    n_leaves = len(tree_leaves(tree["params"]))
+    expect = {"flat": {"zo_perturb_flat": n_zo_b, "zo_reconstruct_flat": n_zo_b},
+              "pallas": {"zo_perturb": n_leaves * n_zo_b, "zo_reconstruct": n_leaves * n_zo_b},
+              "tree": {}}
+    for engine, run in runs.items():
+        check(run["order"] == tree["order"] and run["bytes"] == tree["bytes"]
+              and tree["bytes"] == [4 * d_b if o else 4 for o in tree["order"]],
+              f"train (b) {engine}: order {run['order']} or bytes {run['bytes']}")
+        check(run["launches"] == expect[engine],
+              f"train (b) {engine}: launches {run['launches']}, expected {expect[engine]}")
+        for name in expect[engine]:
+            held = run["held"].get(name)
+            check(held is not None and held[3] and (engine == "flat" or held[1] == n_leaves),
+                  f"train (b) {engine}: {name} disagrees with its plain version in the first "
+                  f"ZO step, or not every leaf was checked: {held}")
+            print(f"  (b) {engine} {name:20s} first ZO step: {held[0]} sampled "
+                  f"{'blocks' if engine == 'flat' else 'windows'} over {held[1]} leaves vs the "
+                  f"plain version: max abs err {held[4]:.3e} ok={held[3]}")
+        # a ZO update moves the loss by about zo_lr*|g|^2 (~1e-6 of it at the
+        # CLI's zo_lr), so the losses alone cannot tell a wrong kernel: the
+        # kernels' outputs are held above, and the losses must be tree's
+        # bit for bit
+        check(all(math.isfinite(v) for v in run["losses"]) and run["losses"] == tree["losses"],
+              f"train (b) {engine}: losses {run['losses']} are not tree's {tree['losses']} "
+              f"bit for bit")
+        print(f"  (b) gemma2-2b --reduce {reduce_b} (d={d_b:,}, {cfg_b.dtype}), engine="
+              f"{engine}: losses {run['losses'][0]:.6f} .. {run['losses'][-1]:.6f}, bit for bit "
+              f"tree's; ZO ms per step (median) {run['zo_ms']:.1f}; launches {run['launches']}")
+    print(f"  (b) the flat run's --ckpt restores its parameters bit for bit on the card "
+          f"(step {step}, {n_leaves} leaves)")
+    out["b"] = {e: {k: v for k, v in run.items() if k != "params"} for e, run in runs.items()}
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 9: flash attention against its plain version
 # --------------------------------------------------------------------------- #
 def attn_agree(torch, got, want):
@@ -2819,10 +3268,15 @@ def main() -> None:
     fed_launches = federated_phase(torch, dev)
     print("# phase: HO-SGD through make_distributed_ho_sgd: one process, then 4 gloo ranks")
     dist_launches = distributed_phase(torch, dev)
+    print("# phase: the LLM trainer (launch.train main): gemma2-2b at full width, engine=flat;"
+          " 100m with flat, pallas and tree")
+    train = train_phase(torch, dev, gauss_instr)
     path_launches = {"federated fed-HO-SGD engine=flat": fed_launches["flat"],
                      "federated fed-HO-SGD engine=pallas": fed_launches["pallas"],
                      "distributed (a) one process, m=4": dist_launches["a"],
-                     "distributed (b) 4 gloo ranks, all ranks": dist_launches["b"]}
+                     "distributed (b) 4 gloo ranks, all ranks": dist_launches["b"],
+                     TRAIN_FULL: train["a"]["launches"],
+                     TRAIN_100M: train["b"]["pallas"]["launches"]}
     print("# phase: profile of the ZO step with engine=pallas")
     profile_phase(torch, dev, engine="pallas")
     print("# phase: flash attention vs its plain version on the card")
@@ -2898,8 +3352,13 @@ def main() -> None:
                        ("zo_perturb_flat", "distributed (b) 4 gloo ranks, all ranks"),
                        ("zo_reconstruct_flat", "distributed (b) 4 gloo ranks, all ranks"),
                        ("zo_perturb", "federated fed-HO-SGD engine=pallas"),
-                       ("zo_reconstruct", "federated fed-HO-SGD engine=pallas")):
+                       ("zo_reconstruct", "federated fed-HO-SGD engine=pallas"),
+                       ("zo_perturb_flat", TRAIN_FULL), ("zo_reconstruct_flat", TRAIN_FULL),
+                       ("zo_perturb", TRAIN_100M), ("zo_reconstruct", TRAIN_100M)):
         check(path_launches[path].get(name, 0) > 0, f"{name} was not launched on {path}")
+    for row in kernels:
+        if row["name"] in train["shape"]:
+            row["gemma2_2b"] = train["shape"][row["name"]]
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
     f32 = flash["float32"]

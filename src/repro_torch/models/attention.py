@@ -93,8 +93,9 @@ def _attend(
 
 def _attend_seq(cfg: ModelConfig, q, k, v, positions, window) -> torch.Tensor:
     """Full-sequence attention, q-chunked when configured (the reference's
-    ``jax.checkpoint`` of a chunk has no counterpart: nothing is
-    differentiated here)."""
+    ``jax.checkpoint`` of a chunk has no counterpart: under ``cfg.remat``
+    the layer's checkpoint in ``transformer.forward_hidden`` recomputes the
+    chunks in the backward pass)."""
     B, S = q.shape[0], q.shape[1]
     causal = not cfg.encoder_only
     if cfg.use_pallas:

@@ -8,10 +8,17 @@ takes the place of ``lax.scan``; per-layer windows are Python ints
 SSM's conv and ssm states) are updated in place.
 
 Ported: ``arch_type`` ``"dense"`` and ``"ssm"`` (mamba-1 layers,
-``models.ssm``) with ``frontend="none"``: the forward pass, prefill and
-decode for serving.  MoE and hybrid layers and the vision and audio
-frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 11); the loss
-comes with the trainer, ``launch/train.py`` (the same item).
+``models.ssm``) with ``frontend="none"``: the forward pass, the training
+loss (``loss_fn``: dense or vocab-chunked streaming cross-entropy), prefill
+and decode for serving.  MoE and hybrid layers and the vision and audio
+frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 11b), so the
+loss has no MoE aux term yet.
+
+Under autograd each CE vocab chunk is recomputed in the backward pass, and
+with ``cfg.remat`` each layer too (``torch.utils.checkpoint``,
+non-reentrant), where the reference's ``jax.checkpoint`` is: the same
+values, less activation memory.  Without autograd (serving, the ZO step's
+evaluations) nothing is wrapped.
 
 Entry points that make tensors (``init_model``, ``init_caches``) run on the
 card unless the caller asks for ``device="cpu"``; without a card the default
@@ -23,6 +30,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -37,7 +45,7 @@ from repro_torch.models.layers import (
     init_norm,
     softcap,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict
 FULL_WINDOW = 1 << 30
@@ -47,7 +55,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.arch_type not in ("dense", "ssm") or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r}, frontend={cfg.frontend!r} is "
-            "not ported yet (ROADMAP Queue 1 item 11: moe.py, hybrid layers and "
+            "not ported yet (ROADMAP Queue 1 item 11b: moe.py, hybrid layers and "
             "the vision/audio frontends); dense and SSM decoders are")
 
 
@@ -66,10 +74,16 @@ def uniform_static_window(cfg: ModelConfig) -> Optional[int]:
 
 
 def _layers(cfg: ModelConfig, params: Params) -> List[Tuple[Params, int]]:
-    """(per-layer parameter views, window) for each layer, in order."""
-    stacked = params["layers"]
-    return [(tree_map(lambda x, i=i: x[i], stacked), int(w))
-            for i, w in enumerate(windows_array(cfg).tolist())]
+    """(per-layer parameter views, window) for each layer, in order.
+
+    One ``unbind`` per stacked leaf: under autograd its backward stacks the
+    L layers' gradients once, where indexing each layer would zero-fill a
+    gradient of the whole stacked leaf and add it, L times a backward
+    pass."""
+    leaves, treedef = tree_flatten(params["layers"])
+    per_layer = zip(*(x.unbind(0) for x in leaves))
+    return [(tree_unflatten(treedef, list(views)), int(w))
+            for views, w in zip(per_layer, windows_array(cfg).tolist())]
 
 
 # --------------------------------------------------------------------------- #
@@ -166,7 +180,10 @@ def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.T
 def forward_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp, win in _layers(cfg, params):
-        h, a = _block(cfg, lp, h, win)
+        if cfg.remat and torch.is_grad_enabled():
+            h, a = checkpoint(_block, cfg, lp, h, win, use_reentrant=False)
+        else:
+            h, a = _block(cfg, lp, h, win)
         aux = aux + a
     return h, aux
 
@@ -175,6 +192,96 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: Dict):
     h = embed_batch(cfg, params, batch)
     h, aux = forward_hidden(cfg, params, h)
     return compute_logits(cfg, params, h), aux
+
+
+# --------------------------------------------------------------------------- #
+# loss
+# --------------------------------------------------------------------------- #
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over positions with label >= 0. logits (B,S,V), labels (B,S)."""
+    mask = labels >= 0
+    safe = labels.clamp(min=0).to(torch.int64)
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum() / mask.sum().clamp(min=1)
+
+
+def ce_chunk_size(cfg: ModelConfig) -> int:
+    """Vocab-chunk size for the streaming CE (0 = dense logits): ``cfg.ce_chunk``
+    when the vocabulary is larger, 0 when it is negative, else 8192 from a
+    vocabulary of 16384 up (the live logits are B*S*chunk, not B*S*V)."""
+    if cfg.ce_chunk > 0:
+        return cfg.ce_chunk if cfg.vocab_size > cfg.ce_chunk else 0
+    if cfg.ce_chunk < 0 or cfg.vocab_size < 16384:
+        return 0
+    return 8192
+
+
+def _ce_chunk(cfg: ModelConfig, c_idx: int, chunk: int, m, s, gold, hf, head, safe):
+    """One vocab chunk of the streaming CE: the running (max, sum of exp,
+    gold logit) carry updated with columns ``[start, start + chunk)``."""
+    V = head.shape[1]
+    start = max(min(c_idx * chunk, V - chunk), 0)
+    logits = (hf @ head[:, start:start + chunk]).to(torch.float32)     # (T, chunk)
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    col = start + torch.arange(chunk, dtype=torch.int64, device=hf.device)
+    fresh = col >= c_idx * chunk                        # mask the overlap columns
+    logits = torch.where(fresh[None, :], logits, torch.full_like(logits, -1e30))
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
+    rel = safe - start
+    in_r = (rel >= 0) & (rel < chunk) & (safe >= c_idx * chunk)
+    got = torch.gather(logits, 1, rel.clamp(0, chunk - 1)[:, None])[:, 0]
+    gold = gold + torch.where(in_r, got, torch.zeros_like(got))
+    return m_new, s, gold
+
+
+def cross_entropy_streaming(cfg: ModelConfig, head: torch.Tensor, h: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """CE with vocab-chunked logits: a loop over (D, chunk) head slices with
+    a running (max, sumexp, gold) carry.  The last slice's start clamps to
+    ``V - chunk``, so it may overlap the one before; the columns already
+    counted are masked to -1e30.  Under autograd each chunk's logits are
+    recomputed in the backward pass instead of stored."""
+    chunk = ce_chunk_size(cfg)
+    B, S, D = h.shape
+    V = head.shape[1]
+    if not chunk or V <= chunk:
+        return cross_entropy(h @ head, labels)
+    T = B * S
+    hf = h.reshape(T, D)
+    lab = labels.reshape(T)
+    mask = lab >= 0
+    safe = lab.clamp(min=0).to(torch.int64)
+    n_chunks = (V + chunk - 1) // chunk
+    carry = (torch.full((T,), -1e30, dtype=torch.float32, device=h.device),
+             torch.zeros((T,), dtype=torch.float32, device=h.device),
+             torch.zeros((T,), dtype=torch.float32, device=h.device))
+    for c_idx in range(n_chunks):
+        if torch.is_grad_enabled():
+            carry = checkpoint(_ce_chunk, cfg, c_idx, chunk, *carry, hf, head, safe,
+                               use_reentrant=False)
+        else:
+            carry = _ce_chunk(cfg, c_idx, chunk, *carry, hf, head, safe)
+    m, s, gold = carry
+    ce = (m + torch.log(s) - gold) * mask
+    return ce.sum() / mask.sum().clamp(min=1)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
+    """Mean next-token CE over ``batch["labels"] >= 0``; ``batch`` holds
+    ``tokens`` and ``labels``, (B, S) ints.  The reference's MoE aux term
+    comes with MoE (ROADMAP Queue 1 item 11b)."""
+    h = embed_batch(cfg, params, batch)
+    h, _ = forward_hidden(cfg, params, h)
+    if ce_chunk_size(cfg):
+        h = apply_norm(cfg, params["final_norm"], h)
+        head = params["embed"].T if "head" not in params else params["head"]
+        return cross_entropy_streaming(cfg, head, h, batch["labels"])
+    return cross_entropy(compute_logits(cfg, params, h), batch["labels"])
 
 
 # --------------------------------------------------------------------------- #

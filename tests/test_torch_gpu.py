@@ -22,7 +22,11 @@ largest output value (the kernel sums over the state axis, and over a row,
 in another order than the plain version).  The scan's final state is held
 to 1e-5 of max|h|: each h rounds as the plain version's does (the same
 float32 operations in the same order), so only the two libraries' expf may
-part them, by an ulp; a state one step early fails that check.
+part them, by an ulp; a state one step early fails that check.  Past
+element 2^31 of a packed buffer, zo_perturb_flat (rtol 1e-5 / atol 1e-6)
+and zo_reconstruct_flat (bit for bit) are held on the blocks around that
+element and the last 64.  A checkpoint of card tensors restores bit for
+bit on the card, its manifest the bytes msgpack writes.
 """
 import numpy as np
 import pytest
@@ -718,3 +722,75 @@ def test_ssm_prefill_caches_through_the_kernel_match_plain_path_float32():
     torch.cuda.synchronize()
     assert torch.equal(fast["conv"][0], plain["conv"][0])
     _caches_agree(fast, plain, slice(None), rel=1e-5)
+
+
+# the manifest of _ckpt_tree's checkpoint at step 3, as msgpack.packb writes it
+GOLDEN_MANIFEST = bytes.fromhex(
+    "84a47374657003a56e616d657395a85b2761275d5b305da85b2761275d5b315da55b2762275da55b2763"
+    "275da55b276e275da664747970657395a7666c6f61743332a5696e743332a862666c6f61743136a569"
+    "6e743634a5696e743634a67368617065739591cd012c92020392ce0001117002910190")
+
+
+def _ckpt_tree(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    return {"a": [torch.randn(300, generator=g, device=dev),
+                  torch.arange(-3, 3, dtype=torch.int32, device=dev).reshape(2, 3)],
+            "b": torch.randn(70000, 2, generator=g, device=dev).to(torch.bfloat16),
+            "c": torch.tensor([2 ** 40 + 1], dtype=torch.int64, device=dev),
+            "n": 7}
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(tmp_path):
+    """``checkpoint.save`` of card tensors (float32, int32, bfloat16, int64
+    and a Python int) and ``restore(device="cuda")``: every leaf bit for bit
+    with its dtype, on the card; the manifest is the bytes msgpack writes
+    (packed and read by ``checkpoint.manifest``, no msgpack here)."""
+    from repro_torch.checkpoint import manifest, restore, save
+    from repro_torch.tree import tree_leaves
+
+    dev = _cuda()
+    tree = _ckpt_tree(dev)
+    path = save(str(tmp_path), 3, tree)
+    with open(f"{path}/manifest.msgpack", "rb") as f:
+        raw = f.read()
+    assert raw == GOLDEN_MANIFEST
+    assert manifest.pack(manifest.unpack(raw)) == raw
+    got, step = restore(str(tmp_path), tree, device=dev)
+    assert step == 3
+    want = [torch.as_tensor(x, device=dev) for x in tree_leaves(tree)]
+    for a, b in zip(tree_leaves(got), want):
+        assert a.device == b.device and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flat_kernels_past_2_31_elements():
+    """zo_perturb_flat and zo_reconstruct_flat on a packed buffer of
+    2^31 + 2^20 + 3 * 4096 floats (three leaves, the middle one crossing
+    element 2^31; 8.6 GB each for x and the output): the blocks around
+    element 2^31 and the last 64 blocks against the plain version on the
+    same rows (perturb rtol 1e-5 / atol 1e-6, reconstruct bit for bit)."""
+    dev = _cuda()
+    block = 4096
+    sizes = [5000, (1 << 31) + (1 << 20) - 9000, 4097]
+    salts1, ctrs, nvalid = (to_t(a).to(dev) for a in flat_meta(sizes, block))
+    nb = int(ctrs.shape[0])
+    assert nb * block > 1 << 31
+    b31 = (1 << 31) // block
+    idx = torch.tensor(sorted({*range(b31 - 2, b31 + 3), *range(nb - 64, nb)}), device=dev)
+    rows = lambda t: t.view(torch.int32)[idx].contiguous().view(torch.uint32)  # noqa: E731
+    x = torch.randn(nb * block, device=dev)
+    out = cu.zo_perturb_flat(x, salts1, ctrs, nvalid, 0.01, block)
+    xs = x.view(nb, block)[idx].reshape(-1)
+    want = ref.ref_zo_perturb_flat(xs, rows(salts1), rows(ctrs), nvalid[idx].contiguous(),
+                                   0.01, block)
+    torch.testing.assert_close(out.view(nb, block)[idx].reshape(-1), want, **FP32_TOL)
+    del out, x
+    msalts = to_t(multi_salts(salts1.cpu().numpy(), 2, 613)).to(dev)
+    coeffs = torch.tensor([0.5, -1.5], device=dev)
+    got = cu.zo_reconstruct_flat(msalts, coeffs, ctrs, nvalid, block)
+    want = ref.ref_zo_reconstruct_flat(rows(msalts), coeffs, rows(ctrs),
+                                       nvalid[idx].contiguous(), block)
+    assert torch.equal(got.view(nb, block)[idx].reshape(-1), want)
+    torch.cuda.synchronize()
