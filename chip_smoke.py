@@ -97,6 +97,26 @@ Phases (any failed check exits non-zero):
      per-leaf ones on the first, middle and last 4096 elements of every
      leaf (rtol 1e-5 of the change), losses equal to tree's bit for bit,
      the flat run's ``--ckpt`` restored bit for bit on the card;
+  8e. the cluster simulator, ``make_sim_methods`` + ``simulate``, at Fig. 2's
+     width (hidden=1300, m=4, B=64, tau=8, 32 iterations) on
+     bandwidth-constrained flat clusters: (a) HO-SGD, sync-SGD, ZO-SGD; (b)
+     HO-SGD with failures rolled back to checkpoints, and elastic; (c)
+     max_staleness 2; (d) fed-HO-SGD over 1000:4 clients; each on engine
+     flat and tree: trace, orders, bytes (4 per live worker on ZO rounds,
+     4*d on FO rounds), membership, failures and rejoins equal; every ZO
+     call's parameter change within 2% of tree's from the same inputs (a
+     zeroed reconstruction is the failing control), the final parameters
+     within 2% of tree's change over runs with FO rounds; the fused pair
+     launched on full synchronous rounds, zo_perturb_flat and
+     zo_reconstruct_flat on the executor's; (c) twice bit for bit and once
+     monolithic; host ms per replayed call; the simulated summary;
+  8f. open-loop serving traffic: ``launch.serve.main --traffic
+     poisson:50.0,mixed`` on qwen3-14b at full width and depth (32
+     requests, 8 slots): the 64-token buckets' prefills through the bf16
+     flash kernel; the CSV and trace against the result; a second replay
+     on the same weights identical; requests, tokens and arrivals equal to
+     ``replay_seed_sync``'s; replay wall time, decode steps and their
+     device-clock time; the simulated tok/s and TTFT;
   9. flash attention: both kernels against the plain version: the bf16
      tensor-core kernel at the serving shapes (B=1, H=40, KV=8, hd=128,
      causal, S in {64, 512, 1024, 2048}) and at every head width (gemma2's
@@ -142,8 +162,9 @@ Phases (any failed check exits non-zero):
      device time and peak memory of each) and one decode step over 8 slots.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it; each ZO kernel's
-entry also carries its launches on the paths of phases 8b, 8c and 8d
-(``launches_by_path``); zo_perturb_flat's and zo_reconstruct_flat's also
+entry also carries its launches on the paths of phases 8b-8e
+(``launches_by_path``), and flash attention's on phase 8f's;
+zo_perturb_flat's and zo_reconstruct_flat's also
 their times at gemma2-2b's packed buffer (``gemma2_2b``).
 """
 from __future__ import annotations
@@ -2403,6 +2424,327 @@ def train_phase(torch, dev, gauss_instr, reduce_a="full", steps_a=6, reduce_b="1
 
 
 # --------------------------------------------------------------------------- #
+# phase 8e: the cluster simulator at Fig. 2's width
+# --------------------------------------------------------------------------- #
+#: the simulator's runs: (label, cluster kwargs of ``bandwidth_constrained``,
+#: methods, the flat kernels each run must launch).  (b)'s rates give 2
+#: rollbacks, and 4 leaves with 3 rejoins and 7 ZO rounds of 2-3 live
+#: workers, in 32 iterations (the pricing alone decides that, not the math)
+FUSED_PAIR = ("zo_perturb_sumsq", "zo_reconstruct_update")
+GENERIC_PAIR = ("zo_perturb_flat", "zo_reconstruct_flat")
+SIM_RUNS = (
+    ("a", {}, ("ho_sgd", "sync_sgd", "zo_sgd"), FUSED_PAIR),
+    ("b rollback", dict(fail_rate=1 / 60, ckpt_every=4, restart_time=5.0, seed=1),
+     ("ho_sgd",), FUSED_PAIR),
+    ("b elastic", dict(fail_rate=1 / 60, elastic=True, downtime=20.0, restart_time=5.0,
+                       ckpt_every=8, seed=0), ("ho_sgd",), FUSED_PAIR + GENERIC_PAIR),
+    ("c", dict(max_staleness=2, rel_speeds=(1.0, 1.0, 1.0, 0.5)), ("ho_sgd",), GENERIC_PAIR),
+    ("d", dict(n_clients=1000, cohort_k=4, availability=0.75), ("fed_ho_sgd",), GENERIC_PAIR),
+)
+SIM_TRACE_FIELDS = ("trace", "steps", "orders", "comm_bytes", "active_counts", "failures",
+                    "rejoins")
+
+
+class SimProbe:
+    """Wraps a ``SimMethod``'s monolithic step and its executor from outside:
+    the host wall ms of every call (FO and ZO, each path apart, the card
+    synchronised after the call) and, with a ``shadow`` (the same method on
+    engine tree), every ZO call's parameter change against the shadow's
+    from the same inputs: the worst |change - shadow's| / max|shadow's| over
+    the leaves and calls (rounds a failure discards included)."""
+
+    def __init__(self, torch, sm, shadow=None):
+        self.torch, self.ms, self.worst, self.zo_calls = torch, {}, 0.0, 0
+        sm.step = self._wrap(sm.step, "step", shadow and shadow.step)
+        sm.executor.run = self._wrap(sm.executor.run, "executor",
+                                     shadow and shadow.executor.run)
+
+    def _wrap(self, fn, path, shadow):
+        torch = self.torch
+
+        def run(t, params, state, batch, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, new_state, met = fn(t, params, state, batch, *a, **kw)
+            torch.cuda.synchronize()
+            order = int(met["order"])
+            self.ms.setdefault((path, order), []).append(1e3 * (time.perf_counter() - t0))
+            if order == 0 and shadow is not None:
+                want = shadow(t, params, state, batch, *a, **kw)[0]
+                self.zo_calls += 1
+                for k in params:
+                    ref_d = want[k].float() - params[k].float()
+                    scale = max(float(ref_d.abs().max()), 1e-30)
+                    err = float((new[k].float() - params[k].float() - ref_d).abs().max())
+                    self.worst = max(self.worst, err / scale)
+            return new, new_state, met
+        return run
+
+
+def final_close(got, want, start, rel=0.02):
+    """(ok, worst |got - want| / scale over the leaves): each leaf within
+    ``rel`` of its largest |want - start| (+1e-7), the ROADMAP's rule."""
+    worst, ok = 0.0, True
+    for k in want:
+        scale = max(float((want[k].float() - start[k].float()).abs().max()), 1e-12)
+        diff = float((got[k].float() - want[k].float()).abs().max())
+        ok &= diff <= rel * scale + 1e-7
+        worst = max(worst, diff / scale)
+    return ok, worst
+
+
+def sim_phase(torch, dev, hidden=1300, n_iters=32, runs=SIM_RUNS):
+    """``make_sim_methods(..., engine=...)`` and ``simulate`` at Fig. 2's
+    width (covtype, d = 1,771,907, m=4, B=64, tau=8) on bandwidth-constrained
+    flat clusters: (a) HO-SGD, sync-SGD and ZO-SGD; (b) HO-SGD with failures
+    rolled back to checkpoints, and elastic (leaves, rejoins through
+    checkpoints); (c) max_staleness 2; (d) fed-HO-SGD over 1000:4 clients.
+    Each on engine flat (the kernels) and tree (no kernel): the same trace,
+    orders, bytes, membership, failures and rejoins; every ZO call's
+    parameter change within 2% of tree's from the same inputs (a zeroed
+    reconstruction fails that), the final parameters within 2% of tree's
+    change over runs with FO rounds; 4 bytes per live worker on ZO rounds
+    and 4*d on FO rounds; (c) twice on flat, bit for bit, and once
+    monolithic (the per-worker trace); launches per run; host ms per
+    replayed call.
+
+    Why the ZO rounds are held call by call: from the second ZO round on
+    the two runs' parameters differ by rounding, and the coefficient
+    (d/mu)(f1 - f0) turns the loss's rounding into ~(d/mu) * 1e-7 of noise
+    per coefficient (~10-30% at d = 1.8e6), so the trajectories of a ZO-only
+    run part by more than 2% (3.9% after 8 ZO-SGD steps at this width on the
+    CPU); from the same inputs the fused round's change agrees with tree's
+    to ~4e-4 (its blockwise sum of squares)."""
+    from repro_torch.data.synthetic import batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import mlp_loss
+    from repro_torch.sim import bandwidth_constrained, compute_model_for, make_sim_methods, \
+        simulate
+
+    ds, p0, d = fig2_setup(torch, dev, hidden)
+    m, B, tau, lr = 4, 64, 8, 0.05
+    smi = smi_line()
+
+    def run(label, kw, which, engine, replay="per_worker", shadow=False):
+        cluster = bandwidth_constrained(m, **kw)
+
+        def build(eng):
+            return make_sim_methods(mlp_loss, p0, cluster, tau=tau, lr=lr, engine=eng,
+                                    which=[which])[which]
+        sm = build(engine)
+        probe = SimProbe(torch, sm, build("tree") if shadow else None)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = simulate(sm, p0, batches(ds, m * B, seed=1), cluster, n_iters,
+                       compute=compute_model_for(p0, cluster, B), replay=replay)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the shadow's tree calls launch nothing; they are excluded from ``ms``
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        check(res.steps[-1] == n_iters - 1 and all(math.isfinite(v) for v in res.losses),
+              f"sim {label} {which} {engine}: {len(res.steps)} commits, last "
+              f"{res.steps[-1]}, or a non-finite loss")
+        return {"res": res, "probe": probe, "launches": launches, "wall": wall}
+
+    def medians(probe):
+        return {f"{p} {'FO' if o else 'ZO'}": statistics.median(v)
+                for (p, o), v in sorted(probe.ms.items())}
+
+    out, by_path = {}, {}
+    for label, kw, methods, kernels in runs:
+        for which in methods:
+            tree = run(label, kw, which, "tree")
+            flat = run(label, kw, which, "flat", shadow=True)
+            t, f = tree["res"], flat["res"]
+            for field in SIM_TRACE_FIELDS:
+                check(getattr(f, field) == getattr(t, field),
+                      f"sim {label} {which}: flat's {field} differs from tree's")
+            check(not tree["launches"], f"sim {label} {which} tree launched {tree['launches']}")
+            want = [4 * k if o == 0 else 4 * d for k, o in zip(t.active_counts, t.orders)]
+            check(f.comm_bytes == want, f"sim {label} {which}: bytes {f.comm_bytes[:10]}.. "
+                  f"are not 4 per live worker on ZO rounds and 4*d={4 * d} on FO rounds")
+            check({"b rollback": f.failures > 0, "b elastic": f.rejoins > 0
+                   and min(a for a, o in zip(f.active_counts, f.orders) if o == 0) < m,
+                   "d": min(f.active_counts) < m}.get(label, True),
+                  f"sim {label} {which}: the scenario did not happen (failures {f.failures}, "
+                  f"rejoins {f.rejoins}, live {sorted(set(f.active_counts))})")
+            probe = flat["probe"]
+            zo = f.orders.count(0)
+            check(probe.zo_calls >= zo and probe.worst <= 0.02,
+                  f"sim {label} {which}: a ZO call's change differs from tree's from the same "
+                  f"inputs by {probe.worst:.3e} of it ({probe.zo_calls} calls)")
+            ok, worst = final_close(f.params, t.params, p0)
+            check(ok or 1 not in f.orders,
+                  f"sim {label} {which}: flat's parameters differ from tree's by {worst:.3e} "
+                  f"of the change")
+            for name in (kernels if zo else ()):
+                check(flat["launches"].get(name, 0) > 0,
+                      f"sim {label} {which}: {name} was not launched ({flat['launches']})")
+            by_path[f"sim ({label}) {which} engine=flat"] = flat["launches"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(f.losses, t.losses))
+            ms, tms, s = medians(probe), medians(tree["probe"]), f.summary()
+            print(f"  sim ({label}) {which}: {len(f.steps)} commits ({n_iters} iterations), "
+                  f"failures {f.failures}, rejoins {f.rejoins}, live "
+                  f"{sorted(set(f.active_counts))}; trace, bytes and membership = tree's; "
+                  f"{probe.zo_calls} ZO calls within {probe.worst:.2e} of tree's change from "
+                  f"the same inputs; final parameters {worst:.2e} of the change from tree's"
+                  f"{'' if 1 in f.orders else ' (ZO only: not held)'}; losses rel "
+                  f"{loss_rel:.2e}; launches {flat['launches']}")
+            print(f"    host wall ms per replayed call (median, card synchronised) flat "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+                  + "; tree " + ", ".join(f"{k} {v:.2f}" for k, v in tms.items())
+                  + f"; whole run {tree['wall']:.2f} s tree [{smi}]")
+            print(f"    simulated (FLOP and alpha-beta models, not card time): sim_seconds "
+                  f"{s['sim_seconds']:.3f}, compute_s {s['compute_s']:.3f}, comm_s "
+                  f"{s['comm_s']:.3f}, bytes_per_worker {s['bytes_per_worker']}, final_loss "
+                  f"{s['final_loss']:.6f}")
+            out[(label, which)] = {"ms": ms, "tree_ms": tms}
+    # (c) twice more on flat: the determinism contract on the card, and the
+    # monolithic replay (the per-worker trace, the fused pair every round)
+    label, kw = "c", next(r[1] for r in runs if r[0] == "c")
+    first = run(label, kw, "ho_sgd", "flat")
+    again = run(label, kw, "ho_sgd", "flat")
+    check(again["res"].trace == first["res"].trace and again["res"].losses == first["res"].losses,
+          "sim (c): the same spec twice on the card gives another trace or other losses")
+    mono = run(label, kw, "ho_sgd", "flat", replay="monolithic")
+    check(mono["res"].trace == first["res"].trace and mono["res"].comm_bytes == [
+        4 * m if o == 0 else 4 * d for o in first["res"].orders],
+          "sim (c) monolithic: not the per-worker trace, or not 4*m / 4*d bytes")
+    check(all(mono["launches"].get(n, 0) > 0 for n in FUSED_PAIR),
+          f"sim (c) monolithic: the fused pair was not launched ({mono['launches']})")
+    print(f"  sim (c) twice on flat: trace and losses bit for bit; monolithic replay: the same "
+          f"trace, host wall ms per call " + ", ".join(
+              f"{k} {v:.2f}" for k, v in medians(mono["probe"]).items()) + f" [{smi}]")
+    # the control: the fused commit's reconstruction zeroed, on (a) HO-SGD
+    real = ops.zo_reconstruct_update
+    ops.zo_reconstruct_update = lambda p, mom, *a, **k: (p, mom)
+    try:
+        ctrl = run("a control", {}, "ho_sgd", "flat", shadow=True)
+    finally:
+        ops.zo_reconstruct_update = real
+    check(ctrl["probe"].worst > 0.02, "sim control: a zeroed reconstruction passes the ZO check")
+    print(f"  control: zo_reconstruct_update's commit zeroed on (a) HO-SGD: ZO calls "
+          f"{ctrl['probe'].worst:.2e} of tree's change off, rejected")
+    return by_path
+
+
+# --------------------------------------------------------------------------- #
+# phase 8f: open-loop serving traffic on qwen3-14b at full width
+# --------------------------------------------------------------------------- #
+TRAFFIC_PATH = "traffic qwen3-14b --reduce full poisson:50.0,mixed"
+TRAFFIC_ARGV = ["--arch", "qwen3-14b", "--reduce", "full", "--traffic", "poisson:50.0,mixed",
+                "--requests", "32", "--slots", "8"]
+
+
+def traffic_phase(torch, dev, argv=TRAFFIC_ARGV):
+    """``launch.serve.main`` with ``--traffic poisson:50.0,mixed`` (the
+    reference's help example) on qwen3-14b at full width and depth, 32
+    requests, 8 slots: flash launches, all ``wgmma``; the CSV and the trace
+    against the result; a second replay on the same weights gives the same
+    events, rows and summary; the token-independent part of the summary
+    and rows equals ``replay_seed_sync``'s; the replay's wall time, decode
+    steps and their device-clock time (CUDA events around each step)."""
+    import csv
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import variant as fa_variant
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import load_trace_events
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.sim.traffic import replay, replay_seed_sync, serve_compute_model
+
+    made = []
+    init = serve_cli.T.init_model
+
+    def keep(gen, cfg, device):
+        params = init(gen, cfg, device=device)
+        made.append((cfg, params))
+        return params
+
+    smi = smi_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        log, trace = str(Path(tmp) / "rows.csv"), str(Path(tmp) / "trace.json")
+        serve_cli.T.init_model = keep
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = serve_cli.main(argv + ["--log", log, "--trace", trace])
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            serve_cli.T.init_model = init
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        with open(log) as f:
+            rows = list(csv.DictReader(f))
+        n_spans = sum(1 for e in load_trace_events(trace) if e.get("ph") == "X")
+    (cfg, params), = made
+    full = cfg == get_config("qwen3-14b").with_(use_pallas=True)
+    check(cfg.use_pallas and full == ("full" in argv),
+          f"traffic: {cfg.name} is not what {argv} asks for, or use_pallas is off")
+    variant = fa_variant(getattr(torch, cfg.dtype), cfg.head_dim)
+    check(launches.get("flash_attention", 0) > 0 and
+          launches.get(f"flash_attention_{variant}", 0) == launches["flash_attention"],
+          f"traffic: flash launches {launches}, expected > 0, all {variant}")
+    check(len(rows) == len(res.rows) and all(
+        float(r[k]) == row[k] for r, row in zip(rows, res.rows) for k in row),
+          "traffic: the CSV's rows are not the result's")
+    check(n_spans == 3 * len(res.rows) - sum(1 for e in res.events
+                                             if e[0] == "done" and e[2] == "prefill"),
+          f"traffic: {n_spans} spans in the trace")
+    spec = serve_cli.parse_traffic(argv[argv.index("--traffic") + 1], 32, 0, cfg.vocab_size)
+    cm = serve_compute_model(cfg, 1e12)
+    # the same spec again on the same weights, each decode step timed by
+    # CUDA events on the card's clock
+    eng = Engine(cfg, params, ServeConfig(max_seq=spec.required_max_seq(), slots=8))
+    decode, ev = eng.scheduler._decode, []
+
+    def timed(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        outp = decode(*args)
+        e.record()
+        ev.append((s, e))
+        return outp
+
+    eng.scheduler._decode = timed
+    ops.reset_launch_counts()
+    again = replay(eng, spec, cm)
+    torch.cuda.synchronize()
+    launches2 = {k: v for k, v in ops.launch_counts().items() if v}
+    check((again.events, again.rows, again.summary) == (res.events, res.rows, res.summary),
+          "traffic: a second replay of the same spec gives other events, rows or summary")
+    sync = replay_seed_sync(spec, cm, batch=8)
+    keys = ("rid", "arrival", "prompt_len", "max_new")
+    check(res.summary["n_requests"] == sync.summary["n_requests"]
+          and res.summary["total_tokens"] == sync.summary["total_tokens"]
+          and [[r[k] for k in keys] for r in res.rows] == [[r[k] for k in keys]
+                                                          for r in sync.rows],
+          "traffic: requests, tokens or arrivals differ from replay_seed_sync's")
+    dec_ms = [s.elapsed_time(e) for s, e in ev]
+    n_dec = sum(1 for e in res.events if e[0] == "decode")
+    check(len(dec_ms) == n_dec, f"traffic: {len(dec_ms)} timed decode steps, {n_dec} events")
+    buckets = sorted({e[3] for e in res.events if e[0] == "prefill"})
+    s = res.summary
+    print(f"  {cfg.name} ({'full width' if full else 'reduced'}, {cfg.dtype}), {spec.rate} "
+          f"requests/s (mixed), 32 requests, 8 slots: main() "
+          f"{total:.1f} s (weights included), replay wall {res.wall_s:.2f} s, again "
+          f"{again.wall_s:.2f} s [{smi}]; prefill buckets {buckets}; flash launches {launches} "
+          f"(again {launches2}); {n_dec} decode steps, device-clock ms per step (CUDA events, "
+          f"idle gaps included) median {statistics.median(dec_ms):.2f}, sum "
+          f"{sum(dec_ms):.1f}; events, rows and summary identical on the second replay")
+    print(f"  simulated (FLOP model at 1e12 FLOP/s, not card time): {s['tok_per_sec']:.1f} tok/s,"
+          f" TTFT p50 {s['p50_ttft_s'] * 1e3:.1f} ms p99 {s['p99_ttft_s'] * 1e3:.1f} ms, makespan "
+          f"{s['makespan_s']:.3f} s; seed-sync baseline {sync.summary['tok_per_sec']:.1f} tok/s")
+    del made, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": res.wall_s, "decode_steps": n_dec,
+            "decode_ms": statistics.median(dec_ms)}
+
+
+# --------------------------------------------------------------------------- #
 # phase 9: flash attention against its plain version
 # --------------------------------------------------------------------------- #
 def attn_agree(torch, got, want):
@@ -3271,12 +3613,18 @@ def main() -> None:
     print("# phase: the LLM trainer (launch.train main): gemma2-2b at full width, engine=flat;"
           " 100m with flat, pallas and tree")
     train = train_phase(torch, dev, gauss_instr)
+    print("# phase: the cluster simulator at Fig. 2's width (make_sim_methods + simulate), "
+          "engine flat vs tree")
+    sim_launches = sim_phase(torch, dev)
+    print("# phase: open-loop serving traffic, launch.serve --traffic poisson:50.0,mixed on "
+          "qwen3-14b at full width")
+    traffic = traffic_phase(torch, dev)
     path_launches = {"federated fed-HO-SGD engine=flat": fed_launches["flat"],
                      "federated fed-HO-SGD engine=pallas": fed_launches["pallas"],
                      "distributed (a) one process, m=4": dist_launches["a"],
                      "distributed (b) 4 gloo ranks, all ranks": dist_launches["b"],
                      TRAIN_FULL: train["a"]["launches"],
-                     TRAIN_100M: train["b"]["pallas"]["launches"]}
+                     TRAIN_100M: train["b"]["pallas"]["launches"], **sim_launches}
     print("# phase: profile of the ZO step with engine=pallas")
     profile_phase(torch, dev, engine="pallas")
     print("# phase: flash attention vs its plain version on the card")
@@ -3371,6 +3719,9 @@ def main() -> None:
         "max_abs_err": flash["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "path": "serve qwen3-14b prefill",
+        "launches_by_path": {TRAFFIC_PATH: traffic["launches"].get("flash_attention", 0)},
+        "variant_launches_by_path": {TRAFFIC_PATH: {
+            k: traffic["launches"].get(f"flash_attention_{k}", 0) for k in ("wgmma", "tf32x3")}},
         "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for r in flash["rows"]],

@@ -7,6 +7,8 @@ per mesh position).  Nothing here touches device or group state at import.
 The reference's ``HW`` table (its chip's peak rates) has no counterpart here:
 the card's constants come with the launch tooling (ROADMAP Queue 1 item 14).
 
+``process_group`` gives a caller without a group (the trainer and the
+simulator in one process) a world-size-1 gloo group for its 1x1 mesh.
 ``init_rank`` and ``spawn_ranks`` run a function on m local ranks, each in a
 process of its own: the group is initialised from a ``file://`` store (no
 port to pick), every rank is joined with a timeout, and a rank that raises,
@@ -16,11 +18,14 @@ GPU per rank.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import queue as queue_mod
+import tempfile
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterator, List
 
 import torch
 
@@ -66,6 +71,24 @@ def init_rank(rank: int, world_size: int, init_file: str) -> None:
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world_size)
+
+
+@contextlib.contextmanager
+def process_group() -> Iterator[int]:
+    """The caller's process group, or a world-size-1 gloo group over a
+    ``file://`` store in a temporary directory, destroyed on exit; yields
+    the group's world size."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield dist.get_world_size()
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        init_rank(0, 1, os.path.join(tmp, "init"))
+        try:
+            yield 1
+        finally:
+            dist.destroy_process_group()
 
 
 def _rank_main(fn, rank, world_size, init_file, args, results):

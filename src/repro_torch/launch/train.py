@@ -32,9 +32,6 @@ What differs from the reference:
 from __future__ import annotations
 
 import argparse
-import contextlib
-import os
-import tempfile
 import time
 
 import torch
@@ -48,7 +45,7 @@ from repro_torch.data import shard_batches, token_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist import CommLedger, get_compressor
 from repro_torch.dist.sharding import mesh_shape, n_workers
-from repro_torch.launch.mesh import init_rank, make_test_mesh
+from repro_torch.launch.mesh import make_test_mesh, process_group
 from repro_torch.metrics import CSVLogger, comm_report
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import init_model
@@ -130,23 +127,6 @@ def _check_arch(cfg: ModelConfig) -> None:
         raise SystemExit(str(e)) from None
 
 
-@contextlib.contextmanager
-def _process_group():
-    """The caller's process group, or a world-size-1 gloo group over a
-    ``file://`` store in a temporary directory, destroyed on exit."""
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        yield dist.get_world_size()
-        return
-    with tempfile.TemporaryDirectory() as tmp:
-        init_rank(0, 1, os.path.join(tmp, "init"))
-        try:
-            yield 1
-        finally:
-            dist.destroy_process_group()
-
-
 def main(argv=None):
     args = _parser().parse_args(argv)
     if args.xla_overlap:
@@ -156,7 +136,7 @@ def main(argv=None):
     cfg = size_override(get_config(args.arch), args.reduce)
     _check_arch(cfg)
     dev = resolve_device(args.device)
-    with _process_group() as n_dev:
+    with process_group() as n_dev:
         return _train(args, cfg, dev, n_dev)
 
 

@@ -794,3 +794,86 @@ def test_flat_kernels_past_2_31_elements():
                                        nvalid[idx].contiguous(), block)
     assert torch.equal(got.view(nb, block)[idx].reshape(-1), want)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------- #
+# the simulator and the traffic replay on the card
+# --------------------------------------------------------------------------- #
+SIM_SCENARIOS = {
+    "sync": {},
+    "elastic": dict(elastic=True, fail_rate=300.0, downtime=2e-3, restart_time=1e-5,
+                    jitter_sigma=0.1, seed=3),
+    "stale2": dict(rel_speeds=(1.0, 1.0, 1.0, 0.25), max_staleness=2),
+    "federated": dict(n_clients=64, cohort_k=4, availability=0.75, seed=9),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenario,which", [
+    ("sync", "ho_sgd"), ("sync", "zo_sgd"), ("elastic", "ho_sgd"), ("stale2", "ho_sgd"),
+    ("federated", "fed_ho_sgd")])
+def test_sim_flat_matches_tree_on_card(scenario, which):
+    """``simulate`` at hidden 16 on the card, engine flat (the kernels)
+    against tree (plain PyTorch): the trace, orders, bytes, membership,
+    failures and rejoins equal, losses to rtol 1e-4, the final parameters
+    within 2% of the update; the flat run launches its kernels (the fused
+    pair on full synchronous rounds, the generic pair on the executor's)."""
+    from repro_torch.data.synthetic import batches, make_classification
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import init_mlp_classifier, mlp_loss
+    from repro_torch.sim import ClusterSpec, compute_model_for, make_sim_methods, simulate
+
+    dev = _cuda()
+    ds = make_classification("covtype", n_train=1024, n_test=256, seed=0)
+    p0 = init_mlp_classifier(torch.Generator().manual_seed(0), ds.n_features, ds.n_classes,
+                             hidden=16, device=dev)
+    spec = ClusterSpec(m=4, flops_per_sec=1e9, alpha=1e-5, bandwidth=1e6,
+                       **{"seed": 0, **SIM_SCENARIOS[scenario]})
+    runs = {}
+    for engine in ("tree", "flat"):
+        sm = make_sim_methods(mlp_loss, p0, spec, tau=4, lr=0.05, engine=engine,
+                              which=[which], local_steps=2)[which]
+        ops.reset_launch_counts()
+        res = simulate(sm, p0, batches(ds, 32, seed=1), spec, 16,
+                       compute=compute_model_for(p0, spec, 8))
+        runs[engine] = (res, ops.launch_counts())
+    (tree, tree_n), (flat, flat_n) = runs["tree"], runs["flat"]
+    assert flat.trace == tree.trace and flat.orders == tree.orders
+    assert flat.comm_bytes == tree.comm_bytes and flat.active_counts == tree.active_counts
+    assert (flat.failures, flat.rejoins) == (tree.failures, tree.rejoins)
+    np.testing.assert_allclose(flat.losses, tree.losses, rtol=1e-4)
+    for k, p in p0.items():
+        scale = float((tree.params[k] - p).abs().max())
+        assert float((flat.params[k] - tree.params[k]).abs().max()) <= 0.02 * scale + 1e-7, k
+    assert not any(tree_n.values())
+    fused = flat_n["zo_perturb_sumsq"] + flat_n["zo_reconstruct_update"]
+    generic = flat_n["zo_perturb_flat"] + flat_n["zo_reconstruct_flat"]
+    if scenario == "sync":
+        assert fused > 0 and generic == 0, flat_n
+    else:      # shrunk membership, stale views and cohorts run the executor
+        assert generic > 0, flat_n
+    if scenario == "federated":
+        assert fused == 0, flat_n
+
+
+@pytest.mark.gpu
+def test_traffic_cli_on_card_matches_cpu_prices(tmp_path, capsys):
+    """``launch.serve.main --traffic`` at qwen3-14b smoke size on the card:
+    the mixed mix's 48-token prompts prefill through the flash kernel, and
+    with EOS off the per-request rows equal the CPU run's (the prices do not
+    depend on the tokens)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    _cuda()
+    argv = ["--arch", "qwen3-14b", "--reduce", "smoke", "--traffic", "poisson:50.0,mixed",
+            "--requests", "8", "--slots", "4"]
+    ops.reset_launch_counts()
+    serve.main(argv + ["--log", str(tmp_path / "card.csv")])
+    card = capsys.readouterr().out
+    assert ops.launch_counts()["flash_attention"] > 0
+    serve.main(argv + ["--device", "cpu", "--log", str(tmp_path / "cpu.csv")])
+    cpu = capsys.readouterr().out
+    assert (tmp_path / "card.csv").read_text() == (tmp_path / "cpu.csv").read_text()
+    assert card.splitlines()[1:] == cpu.splitlines()[1:]
+    assert "traffic poisson:50.0,mixed: 8 requests" in card

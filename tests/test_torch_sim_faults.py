@@ -1,0 +1,31 @@
+"""The port's ``simulate`` against the reference's: failures with checkpoint
+rollback (HO-SGD in both replay modes, PA-SGD, whose replicas ride in the
+checkpoint) and elastic membership (HO-SGD per worker on tree and flat,
+monolithic, QSGD per worker: 4 bytes per live worker on shrunk ZO rounds,
+nbytes per live worker on QSGD's).
+
+The set-up and the rules (exact traces and bytes, losses to rtol 1e-4,
+parameters by the ROADMAP's rules) are ``torch_sim_helpers``'s.
+"""
+import pytest
+import torch
+
+import torch_sim_helpers as H
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def reference_auto_branch(monkeypatch):
+    H.reference_auto_branch(monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return H.make_problem()
+
+
+@pytest.mark.parametrize("case", H.CASES["test_torch_sim_faults"], ids=H.case_id)
+def test_simulate_matches_reference(problem, monkeypatch, case):
+    H.check_against_reference(problem, monkeypatch, case)
