@@ -96,7 +96,12 @@ Phases (any failed check exits non-zero):
      in the first ZO step the flat kernels held on sampled blocks and the
      per-leaf ones on the first, middle and last 4096 elements of every
      leaf (rtol 1e-5 of the change), losses equal to tree's bit for bit,
-     the flat run's ``--ckpt`` restored bit for bit on the card;
+     the flat run's ``--ckpt`` restored bit for bit on the card; (c) the
+     same 8 steps on arctic-480b (MoE: 8 experts, top-2, the dense
+     residual; batch 16 for its grad_accum 16) and hymba-1.5b (hybrid) at
+     ``--reduce 100m``, float32, flat, pallas and tree, held as (b), and
+     arctic's first loss evaluation held to its cross-entropy plus 0.01
+     times the layers' aux loss, each computed apart;
   8e. the cluster simulator, ``make_sim_methods`` + ``simulate``, at Fig. 2's
      width (hidden=1300, m=4, B=64, tau=8, 32 iterations) on
      bandwidth-constrained flat clusters: (a) HO-SGD, sync-SGD, ZO-SGD; (b)
@@ -159,16 +164,38 @@ Phases (any failed check exits non-zero):
   13. profiles of one 1024-token falcon-mamba prefill on each path (the
      scan kernel's share; the plain tail-state scan's calls, 0 through the
      kernel, which gives the state, and one per layer on the plain path;
-     device time and peak memory of each) and one decode step over 8 slots.
+     device time and peak memory of each) and one decode step over 8 slots;
+  14. serving qwen3-moe-235b-a22b at full width (d_model 4096, 64/4 heads,
+     128 experts, top-8, expert d_ff 1536), depth cut to 4 layers
+     (11,195,683,840 random bf16 parameters), as phase 10: 32 flash
+     launches, all the bf16 tensor-core kernel at hd 128; the prefills'
+     routes of the two runs compared; one 1000-token prefill and one decode
+     step profiled and split by CUDA events into attention, expert
+     products, dispatch and the rest; the expert weights a decode step
+     reads beside their least time; flash at its head layout (S=1024,
+     H=64, KV=4) is held and timed in phase 9;
+  15. serving hymba-1.5b at full width and depth (1,662,264,000 random
+     bf16 parameters) as phase 12: 32 scan launches per prefill, its
+     attention plain on both paths (its windows differ by layer); one
+     1024-token prefill's k, v, conv and ssm caches through the kernel held
+     against the plain path's;
+  16. pixtral-12b (1024 image embeddings and 1024 tokens) and
+     hubert-xlarge (1024 features) at full width and depth, bf16:
+     ``forward_logits`` and ``loss_fn`` through the flash kernel (causal;
+     hubert non-causal at hd=80) and the plain path: launches per layer,
+     logits within 5% of the plain path's largest, the losses' relative
+     difference, ms and peak memory.
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it; each ZO kernel's
 entry also carries its launches on the paths of phases 8b-8e
-(``launches_by_path``), and flash attention's on phase 8f's;
+(``launches_by_path``, with phase 8d's (c) runs), flash attention's on
+phases 8f, 14 and 16 and the scan's on phase 15;
 zo_perturb_flat's and zo_reconstruct_flat's also
 their times at gemma2-2b's packed buffer (``gemma2_2b``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -2213,11 +2240,11 @@ class TrainProbe:
         return out
 
 
-def train_run(torch, dev, argv, profile=None):
-    """``launch.train.main(argv)`` under a ``TrainProbe``, with the launch
-    counts set to 0 just before and read just after; returns the probe, the
-    CSV rows, the trace's spans and the launches."""
-    import contextlib
+def train_run(torch, dev, argv, profile=None, extra=None):
+    """``launch.train.main(argv)`` under a ``TrainProbe`` (and ``extra(stack)``,
+    more patches undone with the probe's), with the launch counts set to 0
+    just before and read just after; returns the probe, the CSV rows and
+    the launches."""
     import csv
     import tempfile
 
@@ -2228,6 +2255,8 @@ def train_run(torch, dev, argv, profile=None):
     probe = TrainProbe(torch, dev, profile)
     with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
         probe.install(stack)
+        if extra is not None:
+            extra(stack)
         log, trace = str(Path(tmp) / "log.csv"), str(Path(tmp) / "trace.json")
         ops.reset_launch_counts()
         TT.main(argv + ["--device", dev.type, "--log", log, "--trace", trace])
@@ -2262,14 +2291,10 @@ def train_phase(torch, dev, gauss_instr, reduce_a="full", steps_a=6, reduce_b="1
     4096 elements of every leaf, against the plain versions (rtol 1e-5 of
     the change, as ``agree``); ``checkpoint.restore`` equal to the flat
     run's parameters bit for bit on the card."""
-    import tempfile
-
-    from repro_torch.checkpoint import restore
     from repro_torch.configs import get_config
     from repro_torch.core.engine import FlatEngine
     from repro_torch.kernels import zo_direction as cu
     from repro_torch.launch.train import size_override
-    from repro_torch.tree import tree_leaves
 
     smi = smi_line()
     out = {}
@@ -2366,45 +2391,74 @@ def train_phase(torch, dev, gauss_instr, reduce_a="full", steps_a=6, reduce_b="1
     torch.cuda.empty_cache()
 
     # (b) 100m: flat (with a checkpoint), pallas and tree
-    cfg_b = size_override(get_config("gemma2-2b"), reduce_b)
-    d_b = cfg_b.param_count()
-    runs = {}
+    out["b"] = train_100m(torch, dev, TRAIN_FLAGS, reduce_b, steps_b, ckpt=True)
+    return out
+
+
+def train_100m(torch, dev, flags, reduce="100m", steps=8, ckpt=False, aux=False):
+    """``launch.train.main(flags)`` at ``--reduce 100m`` (float32), ``steps``
+    steps with engine flat (saving ``--ckpt`` when ``ckpt``), pallas and
+    tree: flat and pallas losses equal to tree's bit for bit, 4·d bytes per
+    FO step and 4 per ZO step; in the first ZO step the flat kernels'
+    outputs on sampled blocks, and the per-leaf kernels' on the first,
+    middle and last 4096 elements of every leaf, against the plain versions
+    (rtol 1e-5 of the change, as ``agree``); the checkpoint restored bit for
+    bit on the card.  With ``aux``, the flat run's first loss evaluation is
+    held to its cross-entropy plus 0.01 times the layers' MoE aux loss,
+    each computed apart (``aux_probe``).  Returns each engine's run."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import size_override
+    from repro_torch.tree import tree_leaves
+
+    arch = flags[flags.index("--arch") + 1]
+    cfg_b = size_override(get_config(arch), reduce)
+    d_b = leaf_count(cfg_b)
+    runs, aux_rec = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         ck = str(Path(tmp) / "ck")
         for engine in ("flat", "pallas", "tree"):
-            argv = TRAIN_FLAGS + ["--reduce", reduce_b, "--steps", str(steps_b),
-                                  "--engine", engine] + (["--ckpt", ck] if engine == "flat"
-                                                         else [])
-            probe, rows, launches = train_run(torch, dev, argv)
+            argv = flags + ["--reduce", reduce, "--steps", str(steps),
+                            "--engine", engine] + (["--ckpt", ck] if ckpt and engine == "flat"
+                                                   else [])
+            extra = functools.partial(aux_probe, torch, aux_rec) if aux and engine == "flat" \
+                else None
+            probe, rows, launches = train_run(torch, dev, argv, extra=extra)
             runs[engine] = {"losses": [float(r["loss"]) for r in rows], "launches": launches,
                             "order": [int(r["order"]) for r in rows],
                             "bytes": [int(r["comm_bytes"]) for r in rows],
                             "zo_ms": statistics.median(1e3 * float(r["dt"]) for r in rows
                                                        if r["order"] == "0"),
+                            "fo_ms": statistics.median(1e3 * float(r["dt"]) for r in rows
+                                                       if r["order"] == "1"),
                             "params": probe.params, "held": probe.held}
-        restored, step = restore(ck, runs["flat"]["params"], device=dev)
-        same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(restored), tree_leaves(runs["flat"]["params"])))
-        check(step == steps_b and same, f"train (b): the checkpoint at step {step} does not "
-              f"restore the flat run's parameters bit for bit")
+        if ckpt:
+            restored, step = restore(ck, runs["flat"]["params"], device=dev)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(restored), tree_leaves(runs["flat"]["params"])))
+            check(step == steps and same, f"train {arch}: the checkpoint at step {step} does "
+                  f"not restore the flat run's parameters bit for bit")
     tree = runs["tree"]
     n_zo_b = tree["order"].count(0)
     n_leaves = len(tree_leaves(tree["params"]))
     expect = {"flat": {"zo_perturb_flat": n_zo_b, "zo_reconstruct_flat": n_zo_b},
               "pallas": {"zo_perturb": n_leaves * n_zo_b, "zo_reconstruct": n_leaves * n_zo_b},
               "tree": {}}
+    label = f"{arch} --reduce {reduce} (d={d_b:,}, {cfg_b.dtype}, grad_accum {cfg_b.grad_accum})"
     for engine, run in runs.items():
         check(run["order"] == tree["order"] and run["bytes"] == tree["bytes"]
               and tree["bytes"] == [4 * d_b if o else 4 for o in tree["order"]],
-              f"train (b) {engine}: order {run['order']} or bytes {run['bytes']}")
+              f"train {arch} {engine}: order {run['order']} or bytes {run['bytes']}")
         check(run["launches"] == expect[engine],
-              f"train (b) {engine}: launches {run['launches']}, expected {expect[engine]}")
+              f"train {arch} {engine}: launches {run['launches']}, expected {expect[engine]}")
         for name in expect[engine]:
             held = run["held"].get(name)
             check(held is not None and held[3] and (engine == "flat" or held[1] == n_leaves),
-                  f"train (b) {engine}: {name} disagrees with its plain version in the first "
-                  f"ZO step, or not every leaf was checked: {held}")
-            print(f"  (b) {engine} {name:20s} first ZO step: {held[0]} sampled "
+                  f"train {arch} {engine}: {name} disagrees with its plain version in the "
+                  f"first ZO step, or not every leaf was checked: {held}")
+            print(f"  {arch} {engine} {name:20s} first ZO step: {held[0]} sampled "
                   f"{'blocks' if engine == 'flat' else 'windows'} over {held[1]} leaves vs the "
                   f"plain version: max abs err {held[4]:.3e} ok={held[3]}")
         # a ZO update moves the loss by about zo_lr*|g|^2 (~1e-6 of it at the
@@ -2412,15 +2466,53 @@ def train_phase(torch, dev, gauss_instr, reduce_a="full", steps_a=6, reduce_b="1
         # kernels' outputs are held above, and the losses must be tree's
         # bit for bit
         check(all(math.isfinite(v) for v in run["losses"]) and run["losses"] == tree["losses"],
-              f"train (b) {engine}: losses {run['losses']} are not tree's {tree['losses']} "
+              f"train {arch} {engine}: losses {run['losses']} are not tree's {tree['losses']} "
               f"bit for bit")
-        print(f"  (b) gemma2-2b --reduce {reduce_b} (d={d_b:,}, {cfg_b.dtype}), engine="
-              f"{engine}: losses {run['losses'][0]:.6f} .. {run['losses'][-1]:.6f}, bit for bit "
-              f"tree's; ZO ms per step (median) {run['zo_ms']:.1f}; launches {run['launches']}")
-    print(f"  (b) the flat run's --ckpt restores its parameters bit for bit on the card "
-          f"(step {step}, {n_leaves} leaves)")
-    out["b"] = {e: {k: v for k, v in run.items() if k != "params"} for e, run in runs.items()}
-    return out
+        print(f"  {label}, engine={engine}: losses {run['losses'][0]:.6f} .. "
+              f"{run['losses'][-1]:.6f}, bit for bit tree's; {4 * d_b} B per FO step, 4 per ZO "
+              f"step; ms per step (median) FO {run['fo_ms']:.1f}, ZO {run['zo_ms']:.1f}; "
+              f"launches {run['launches']}")
+    if ckpt:
+        print(f"  the flat run's --ckpt restores its parameters bit for bit on the card "
+              f"(step {step}, {n_leaves} leaves)")
+    if aux:
+        check(aux_rec["coef"] == 0.01, f"MOE_AUX_COEF is {aux_rec['coef']}, not 0.01")
+        term = aux_rec["coef"] * aux_rec["aux"]
+        gap = abs(aux_rec["loss"] - (aux_rec["ce"] + term))
+        print(f"  {arch} flat, the first loss evaluation: loss {aux_rec['loss']:.7f} = CE "
+              f"{aux_rec['ce']:.7f} + 0.01 x aux {aux_rec['aux']:.5f} (summed over "
+              f"{cfg_b.n_layers} layers) to {gap:.2e}; without the term the loss would be off "
+              f"by {term:.5f}")
+        check(gap <= 1e-6 * abs(aux_rec["loss"]) and term > 1e-4 * abs(aux_rec["loss"]),
+              f"train {arch}: the loss is not its CE plus 0.01 x the MoE aux loss: {aux_rec}")
+    return {e: {k: v for k, v in run.items() if k != "params"} for e, run in runs.items()}
+
+
+def aux_probe(torch, rec, stack):
+    """Wrap ``transformer.loss_fn`` from outside: on its first call, also
+    the same batch's cross-entropy alone (``MOE_AUX_COEF`` set to 0 for one
+    call) and the layers' summed aux loss (``forward_hidden``), into
+    ``rec``."""
+    from repro_torch.models import transformer as T
+
+    inner = T.loss_fn
+
+    def loss_fn(cfg, params, batch):
+        out = inner(cfg, params, batch)
+        if not rec:
+            coef = T.MOE_AUX_COEF
+            with torch.no_grad():
+                _, aux = T.forward_hidden(cfg, params, T.embed_batch(cfg, params, batch))
+                T.MOE_AUX_COEF = 0.0
+                try:
+                    ce = inner(cfg, params, batch)
+                finally:
+                    T.MOE_AUX_COEF = coef
+            rec.update(loss=float(out.detach()), ce=float(ce), aux=float(aux), coef=coef)
+        return out
+
+    T.loss_fn = loss_fn
+    stack.callback(setattr, T, "loss_fn", inner)
 
 
 # --------------------------------------------------------------------------- #
@@ -2956,6 +3048,8 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
         if S == serve_shapes[-1]:
             control(f"probabilities rounded to bf16 once, not split (S={S})",
                     faulty_attention(torch, *inputs[S], "p_bf16"), want)
+    moe_qkv = qkv(1024, 64, 4, 128, bf)         # qwen3-moe-235b-a22b: 16 query heads per KV head
+    compare("qwen3-moe S=1024 H=64 KV=4 hd=128 bf16 causal", moe_qkv)
     compare("gemma2 S=4608 H=8 KV=4 hd=256 bf16 window=4096 softcap=50",
             qkv(4608, 8, 4, 256, bf), window=4096, softcap=50.0)
     compare("phi3 S=512 H=32 KV=32 hd=96 bf16", qkv(512, 32, 32, 96, bf))
@@ -2999,7 +3093,7 @@ def flash_phase(torch, dev, serve_shapes=SERVE_SHAPES, H=40, KV=8, hd=128):
     rows = [time_flash(torch, *inputs[S]) for S in serve_shapes]
     float32 = time_flash(torch, *f32)
     return {"max_abs_err": worst["wgmma"], "float32_max_abs_err": worst["tf32x3"], "rows": rows,
-            "float32": float32}
+            "float32": float32, "qwen3_moe": time_flash(torch, *moe_qkv)}
 
 
 # --------------------------------------------------------------------------- #
@@ -3045,22 +3139,40 @@ def instrument(torch, sch, rec):
 
 def model_text(cfg):
     """(shape, per-slot cache) of ``cfg`` as text, for the log."""
+    shape, cache = [], []
+    if cfg.has_attention:
+        shape.append(f"heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}")
+        cache.append(f"KV cache {2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2:,} B "
+                     f"per token and slot")
     if cfg.has_ssm:
         state = cfg.n_layers * cfg.d_inner * ((cfg.ssm_conv - 1) * 2 + cfg.ssm_state * 4)
-        return (f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, "
-                f"dt_rank {cfg.dt_rank_actual}, vocab {cfg.vocab_size}, {cfg.dtype}",
-                f"conv + ssm state {state:,} B per slot")
-    return (f"heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff}, "
-            f"vocab {cfg.vocab_size}, {cfg.dtype}",
-            f"KV cache {2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2:,} B per "
-            f"token and slot")
+        shape.append(f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, "
+                     f"dt_rank {cfg.dt_rank_actual}")
+        cache.append(f"conv + ssm state {state:,} B per slot")
+    if cfg.is_moe:
+        shape.append(f"{cfg.n_experts} experts, top-{cfg.top_k}, expert d_ff {cfg.d_ff}")
+    elif cfg.d_ff:
+        shape.append(f"d_ff {cfg.d_ff}")
+    return ", ".join(shape + [f"vocab {cfg.vocab_size}", cfg.dtype]), "; ".join(cache)
+
+
+def leaf_count(cfg) -> int:
+    """Parameters of ``init_model(cfg)``: ``param_count()`` (the reference's,
+    copied) plus the float32 leaves it leaves out, a hybrid's two output
+    scales per layer and layernorm's biases."""
+    n = 2 * cfg.d_model * cfg.n_layers if cfg.arch_type == "hybrid" else 0
+    if cfg.norm == "layernorm":
+        n += cfg.d_model * (2 * cfg.n_layers + 1)
+    return cfg.param_count() + n
 
 
 def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
-                kernel="flash_attention"):
+                kernel="flash_attention", probe=None):
     """qwen3-14b (full width and depth unless ``cfg`` is given) served twice
     on the same weights: through ``kernel`` (``use_pallas``) and through the
-    plain path.  Returns the kernel run's launch counts and timings."""
+    plain path; ``probe(use_pallas)``, when given, is a context manager
+    around each run's ``generate``.  Returns both runs' launch counts and
+    the parameters."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3078,8 +3190,8 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {shape}: "
           f"{n_params:,} parameters ({n_params * 2 / 1e9:.1f} GB), initialised on the card "
           f"in {time.perf_counter() - t0:.1f} s; {cache}")
-    check(n_params == cfg.param_count(), f"{n_params} parameters, param_count() says "
-          f"{cfg.param_count()}")
+    check(n_params == leaf_count(cfg), f"{n_params} parameters, param_count() and the "
+          f"leaves it leaves out say {leaf_count(cfg)}")
 
     rng = np.random.default_rng(0)
     lens = lens or [65, 1000] + [int(n) for n in rng.integers(65, 1001, 6)]
@@ -3097,10 +3209,11 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
         instrument(torch, eng.scheduler, rec)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        outs = eng.generate(prompts, max_new)
-        torch.cuda.synchronize()
+        with probe(use_pallas) if probe else contextlib.nullcontext():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = eng.generate(prompts, max_new)
+            torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = ops.launch_counts()
         rec["outs"] = outs
@@ -3169,8 +3282,10 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
               f"decode {len(dec)} steps, median {statistics.median(dec):.3f} ms/step "
               f"(first {dec[0]:.3f}); {n_tok} tokens in {rec['wall_s']:.3f} s = "
               f"{n_tok / rec['wall_s']:.1f} tok/s; peak memory {rec['peak_gb']:.1f} GB")
-    return {"launches": fast["launches"], "params": params, "prompts": prompts,
-            "cfg": cfg}
+    return {"launches": fast["launches"], "plain_launches": plain["launches"],
+            "params": params, "prompts": prompts, "cfg": cfg,
+            "decode_ms": {name: statistics.median(rec["decode_ms"])
+                          for name, rec in (("kernel", fast), ("plain", plain))}}
 
 
 def profile_call(torch, what, fn, key="flash_fwd", label="flash kernel", after_warmup=None):
@@ -3528,6 +3643,339 @@ def mamba_profiles(torch, cfg, params, tokens, slots=8):
     return paths
 
 
+# --------------------------------------------------------------------------- #
+# phases 14-16: the MoE, hybrid and frontend architectures
+# --------------------------------------------------------------------------- #
+MOE_LAYERS = 4        # qwen3-moe-235b-a22b's depth on one card: 22.4 GB of its 470 GB
+MOE_PATH = f"serve qwen3-moe-235b-a22b ({MOE_LAYERS} layers) prefill"
+HYMBA_PATH = "serve hymba-1.5b prefill"
+FRONTEND_PATHS = {"pixtral-12b": "pixtral-12b forward_logits + loss_fn, S=2048",
+                  "hubert-xlarge": "hubert-xlarge forward_logits + loss_fn, S=1024"}
+TRAIN_ARCHS = {"arctic-480b": ["--arch", "arctic-480b", "--tau", "3", "--batch", "16",
+                               "--seq", "128"],
+               "hymba-1.5b": ["--arch", "hymba-1.5b", "--tau", "3", "--batch", "8",
+                              "--seq", "128"]}
+
+
+class RouteRecorder:
+    """Wraps ``models.moe.route`` from outside, per run: the expert ids of
+    every call that routes more than ``slots`` tokens (the prefills'; a
+    decode step routes one token per slot)."""
+
+    def __init__(self, slots):
+        self.slots, self.runs = slots, {}
+
+    @contextlib.contextmanager
+    def __call__(self, key):
+        from repro_torch.models import moe as M
+
+        inner, ids = M.route, self.runs.setdefault(key, [])
+
+        def route(cfg, p, xf):
+            out = inner(cfg, p, xf)
+            if xf.shape[0] > self.slots:
+                ids.append(out[1].clone())
+            return out
+
+        M.route = route
+        try:
+            yield
+        finally:
+            M.route = inner
+
+    def differing(self, a, b):
+        """(routes of run ``a`` whose expert run ``b`` did not pick for the
+        same token, routes) over the prefills' layers, pad tokens included."""
+        ra, rb = self.runs[a], self.runs[b]
+        check(len(ra) == len(rb) > 0, f"{len(ra)} and {len(rb)} routed prefill layers")
+        diff = total = 0
+        for x, y in zip(ra, rb):
+            check(x.shape == y.shape, f"routes of shapes {x.shape} and {y.shape}")
+            diff += x.numel() - int((x[:, :, None] == y[:, None, :]).any(-1).sum())
+            total += x.numel()
+        return diff, total
+
+
+def split_call(torch, what, fn):
+    """One call of ``fn`` (after a warm-up call) with CUDA events around the
+    whole call, every attention call, every MoE layer and its expert
+    products (``models.moe.experts``): device-clock spans, host gaps
+    included.  Dispatch is the MoE layer less its expert products (router,
+    top-k, sort, scatter, gather and combine); the rest is embedding, norms
+    and the head."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+
+    spans = {}
+
+    def timed(part, inner):
+        def run(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = inner(*a, **kw)
+            e.record()
+            spans.setdefault(part, []).append((s, e))
+            return out
+        return run
+
+    fn()
+    torch.cuda.synchronize()
+    patched = [(A, "attention_prefill", "attention"), (A, "attention_decode", "attention"),
+               (M, "moe_forward", "moe"), (M, "experts", "expert products")]
+    old = {(mod, name): getattr(mod, name) for mod, name, _ in patched}
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    try:
+        for mod, name, part in patched:
+            setattr(mod, name, timed(part, old[(mod, name)]))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), inner in old.items():
+            setattr(mod, name, inner)
+    total = s.elapsed_time(e)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    parts = {"attention": ms["attention"], "expert products": ms["expert products"],
+             "dispatch": ms["moe"] - ms["expert products"]}
+    parts["rest"] = total - ms["attention"] - ms["moe"]
+    print(f"  {what} by CUDA events: {total:.3f} ms = " + ", ".join(
+        f"{k} {v:.3f} ({v / total:.3f})" for k, v in parts.items()))
+    return dict(parts, total=total)
+
+
+def moe_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
+    """qwen3-moe-235b-a22b at full width, depth cut to ``MOE_LAYERS``, served
+    as phase 10 serves qwen3-14b (kernel and plain path), with each run's
+    prefill routes recorded and compared; then one 1000-token prefill and
+    one decode step under the profiler and split by CUDA events, and the
+    expert weights a decode step reads beside their least time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import moe_capacity
+
+    cfg = cfg or get_config("qwen3-moe-235b-a22b").with_(n_layers=MOE_LAYERS)
+    routes = RouteRecorder(slots)
+    run = serve_phase(torch, dev, cfg=cfg, lens=lens, max_new=max_new, slots=slots,
+                      probe=routes)
+    diff, total = routes.differing(True, False)
+    print(f"  routes: {diff} of {total} (token, expert) routes of the kernel run's prefills "
+          f"({diff / total:.5f}) went to an expert the plain run did not pick for that token "
+          f"(pad tokens included; the attention outputs part by bf16 roundings, and a router "
+          f"logit near a tie flips)")
+    params, prompts = run["params"], run["prompts"]
+    tokens = max(prompts, key=len)
+    bucket = 1 << (len(tokens) - 1).bit_length()
+    c = cfg.with_(use_pallas=True)
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    toks[0, :len(tokens)] = torch.tensor(tokens)
+    last = torch.tensor([len(tokens) - 1], device=dev)
+    caches = T.init_caches(c, slots, bucket + max_new, getattr(torch, c.dtype), dev)
+    cur = torch.arange(slots, device=dev)
+    pos = torch.full((slots,), len(tokens), dtype=torch.int32, device=dev)
+    prefill = lambda: T.prefill_at(c, params, {"tokens": toks}, last)           # noqa: E731
+    decode = lambda: T.decode_step_slots(c, params, cur, pos, caches)           # noqa: E731
+    out = {"routes_differing": diff, "routes": total, "decode_ms": run["decode_ms"],
+           "launches": run["launches"], "plain_launches": run["plain_launches"]}
+    for what, fn in ((f"prefill of {len(tokens)} tokens (bucket {bucket})", prefill),
+                     (f"decode step over {slots} slots", decode)):
+        out[what.split()[0] + "_busy_ms"] = profile_call(torch, what, fn)
+        out[what.split()[0] + "_split"] = split_call(torch, what, fn)
+    expert_bytes = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff * 2
+    out["decode_expert_bytes"] = expert_bytes
+    out["decode_expert_bound_ms"] = expert_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  a decode step computes every expert at capacity {moe_capacity(cfg, slots)} rows: "
+          f"it reads all "
+          f"{cfg.n_layers} x {cfg.n_experts} x 3 x {cfg.d_model} x {cfg.d_ff} x 2 B = "
+          f"{expert_bytes / 1e9:.1f} GB of expert weights, >= "
+          f"{out['decode_expert_bound_ms']:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; the "
+          f"kernel run's median decode step took {run['decode_ms']['kernel']:.3f} ms "
+          f"[{smi_line()}]")
+    del run, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
+    """hymba-1.5b at full width and depth served as phase 12 serves
+    falcon-mamba-7b (exact-length prefills, the scan kernel against the
+    plain path; its attention stays plain in both, since its windows differ
+    by layer); then one prefill of the longest prompt on each path with
+    its caches held against each other: layer 0 (the same input on both
+    paths) k, v and conv equal and the ssm state within 1e-5 of max|h|,
+    every layer's leaf within 5% of its largest (the logits' rule)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = cfg or get_config("hymba-1.5b")
+    if lens is None:
+        rng = np.random.default_rng(2)
+        lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)]
+    run = serve_phase(torch, dev, cfg=cfg, lens=lens, max_new=max_new, slots=slots,
+                      kernel="selective_scan")
+    check(run["launches"]["flash_attention"] == run["plain_launches"]["flash_attention"] == 0,
+          "hymba's attention reached the flash kernel (its windows differ by layer)")
+    params, tokens = run["params"], max(run["prompts"], key=len)
+    toks = torch.tensor([tokens], device=dev)
+    last = torch.tensor([len(tokens) - 1], device=dev)
+    got = {}
+    for use_pallas in (True, False):
+        ops.reset_launch_counts()
+        _, caches = T.prefill_at(cfg.with_(use_pallas=use_pallas), params, {"tokens": toks},
+                                 last)
+        torch.cuda.synchronize()
+        got[use_pallas] = (caches, ops.launch_counts())
+    (fast, nf), (plain, npl) = got[True], got[False]
+    check(nf["selective_scan"] == cfg.n_layers and nf["flash_attention"] == 0
+          and npl["selective_scan"] == npl["flash_attention"] == 0,
+          f"hymba prefill launches: kernel path {nf}, plain path {npl}")
+    check(sorted(fast) == sorted(plain) == ["conv", "k", "ssm", "v"],
+          f"hymba caches {sorted(fast)}, {sorted(plain)}")
+    rel = {}
+    for name in ("k", "v", "conv", "ssm"):
+        a, b = fast[name].float(), plain[name].float()
+        check(a.shape == b.shape and fast[name].dtype == plain[name].dtype, f"{name} cache")
+        rel[name] = float((a - b).abs().max() / b.abs().max())
+        l0 = float((a[0] - b[0]).abs().max() / b[0].abs().max())
+        check(l0 <= 1e-5 if name == "ssm" else l0 == 0.0,
+              f"hymba layer 0 {name} cache: kernel vs plain path {l0:.3e}")
+        check(rel[name] <= 0.05, f"hymba {name} cache: kernel vs plain path {rel[name]:.4f} "
+              f"of its largest value")
+    print(f"  prefill caches of {len(tokens)} tokens, kernel vs plain path: layer 0's k, v and "
+          f"conv equal, its ssm state within 1e-5 of max|h|; every layer, max |diff| / max "
+          f"|plain|: " + ", ".join(f"{k} {v:.5f}" for k, v in rel.items()) + " (tolerance 0.05)")
+    out = {"launches": run["launches"], "decode_ms": run["decode_ms"], "cache_rel": rel}
+    del run, params, fast, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_batch(torch, cfg, dev, S, seed=0):
+    """B=1 inputs of S positions: ``n_patches`` image embeddings before
+    S - n_patches tokens (vision), labels -1 on the image and the last
+    position; or S features (audio) with a label each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "audio":
+        return {"features": torch.randn(1, S, cfg.d_model, generator=g, device=dev).to(dt),
+                "labels": torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev)}
+    P = cfg.n_patches
+    toks = torch.randint(0, cfg.vocab_size, (1, S - P), generator=g, device=dev)
+    labels = torch.full((1, S), -1, dtype=torch.int64, device=dev)
+    labels[0, P:-1] = toks[0, 1:]
+    return {"image_embeds": torch.randn(1, P, cfg.d_model, generator=g, device=dev).to(dt),
+            "tokens": toks, "labels": labels}
+
+
+def frontend_phase(torch, dev, cfgs=None, seqs=None):
+    """pixtral-12b (1024 image embeddings and 1024 tokens) and hubert-xlarge
+    (1024 features) at full width and depth, bf16, B=1: ``forward_logits``
+    and ``loss_fn`` (no autograd) through the flash kernel and through the
+    plain path, each after a warm-up call: one flash launch per layer and
+    call on the kernel path (bf16 tensor-core kernel, causal for pixtral,
+    not for hubert), none on the plain one; logits within 5% of the plain
+    path's largest; the losses' relative difference; ms and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    cfgs = cfgs or [get_config("pixtral-12b"), get_config("hubert-xlarge")]
+    seqs = seqs or {"pixtral-12b": 2048, "hubert-xlarge": 1024}
+    smi = smi_line()
+    out = {}
+    for cfg in cfgs:
+        name = cfg.name.split("-reduced")[0]
+        S = seqs[name]
+        t0 = time.perf_counter()
+        params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        check(n == leaf_count(cfg), f"{cfg.name}: {n} parameters, expected {leaf_count(cfg)}")
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {model_text(cfg)[0]}, "
+              f"frontend {cfg.frontend}: {n:,} parameters ({n * 2 / 1e9:.1f} GB), initialised "
+              f"on the card in {time.perf_counter() - t0:.1f} s; B=1, S={S}"
+              + (f" ({cfg.n_patches} image embeddings + {S - cfg.n_patches} tokens)"
+                 if cfg.frontend == "vision" else " features"))
+        batch = frontend_batch(torch, cfg, dev, S)
+        causal_seen = []
+        inner = ops.flash_attention
+
+        def flash(q, k, v, causal=True, *a, **kw):
+            causal_seen.append(causal)
+            return inner(q, k, v, causal, *a, **kw)
+
+        runs = {}
+        ops.flash_attention = flash
+        try:
+            for use_pallas in (True, False):
+                c = cfg.with_(use_pallas=use_pallas)
+                rec = {}
+                for what, fn in (("forward_logits", lambda: T.forward_logits(c, params, batch)[0]),
+                                 ("loss_fn", lambda: T.loss_fn(c, params, batch))):
+                    with torch.no_grad():
+                        fn()
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        base = torch.cuda.memory_allocated(dev)
+                        causal_seen.clear()
+                        ops.reset_launch_counts()
+                        t0 = time.perf_counter()
+                        val = fn()
+                        torch.cuda.synchronize()
+                        rec[what] = {"ms": 1e3 * (time.perf_counter() - t0),
+                                     "launches": dict(ops.launch_counts()),
+                                     "causal": list(causal_seen),
+                                     "peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9,
+                                     "value": val}
+                runs[use_pallas] = rec
+        finally:
+            ops.flash_attention = inner
+        fast, plain = runs[True], runs[False]
+        hd = cfg.head_dim
+        for what in ("forward_logits", "loss_fn"):
+            lf, lp = fast[what]["launches"], plain[what]["launches"]
+            check(lf["flash_attention"] == lf["flash_attention_wgmma"] == lf[f"flash_attention_hd{hd}"]
+                  == cfg.n_layers and fast[what]["causal"] == [not cfg.encoder_only] * cfg.n_layers,
+                  f"{cfg.name} {what}: flash launches {lf}, causal {fast[what]['causal'][:3]}...")
+            check(lp["flash_attention"] == 0, f"{cfg.name} {what}: the plain path launched flash")
+        a, b = fast["forward_logits"]["value"], plain["forward_logits"]["value"]
+        check(a.shape == (1, S, cfg.vocab_size) and bool(torch.isfinite(a).all()),
+              f"{cfg.name}: logits of shape {tuple(a.shape)}, or not finite")
+        top = float(b.abs().max())
+        err = max(float((a[:, i:i + 256].float() - b[:, i:i + 256].float()).abs().max())
+                  for i in range(0, S, 256))
+        check(err <= 0.05 * top, f"{cfg.name}: kernel and plain logits differ by {err:.4f}, "
+              f"more than 5% of {top:.3f}")
+        lk, lpl = float(fast["loss_fn"]["value"]), float(plain["loss_fn"]["value"])
+        rel = abs(lk - lpl) / abs(lpl)
+        check(math.isfinite(lk) and rel <= 1e-2, f"{cfg.name}: losses {lk} and {lpl}")
+        print(f"  logits kernel vs plain path: max |diff| {err:.4f}, tolerance 5% of the largest "
+              f"{top:.3f} = {0.05 * top:.4f}; loss {lk:.6f} vs {lpl:.6f}, relative difference "
+              f"{rel:.2e}; flash launches per call {cfg.n_layers} "
+              f"({'causal' if not cfg.encoder_only else 'no causal mask'}, hd={hd}, wgmma), "
+              f"none on the plain path")
+        for label, rec in (("kernel", fast), ("plain", plain)):
+            print(f"  {label:6s} path: " + "; ".join(
+                f"{w} {r['ms']:.3f} ms (host clock, synchronised), peak memory "
+                f"{r['peak_gb']:.2f} GB above the weights" for w, r in rec.items()) + f" [{smi}]")
+        out[name] = {"launches": {k: v + fast["loss_fn"]["launches"][k]
+                                  for k, v in fast["forward_logits"]["launches"].items()},
+                     "logits_max_abs_diff": err, "loss": [lk, lpl], "loss_rel": rel,
+                     **{f"{label}_{w}_{k}": r[k] for label, rec in (("kernel", fast),
+                                                                   ("plain", plain))
+                        for w, r in rec.items() for k in ("ms", "peak_gb")}}
+        del params, batch, runs, fast, plain, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3615,6 +4063,10 @@ def main() -> None:
     train = train_phase(torch, dev, gauss_instr)
     print("# phase: the cluster simulator at Fig. 2's width (make_sim_methods + simulate), "
           "engine flat vs tree")
+    print("# phase: the trainer on arctic-480b (MoE) and hymba-1.5b (hybrid) at --reduce 100m:"
+          " flat, pallas and tree")
+    arch_train = {arch: train_100m(torch, dev, flags, aux=arch == "arctic-480b")
+                  for arch, flags in TRAIN_ARCHS.items()}
     sim_launches = sim_phase(torch, dev)
     print("# phase: open-loop serving traffic, launch.serve --traffic poisson:50.0,mixed on "
           "qwen3-14b at full width")
@@ -3624,7 +4076,9 @@ def main() -> None:
                      "distributed (a) one process, m=4": dist_launches["a"],
                      "distributed (b) 4 gloo ranks, all ranks": dist_launches["b"],
                      TRAIN_FULL: train["a"]["launches"],
-                     TRAIN_100M: train["b"]["pallas"]["launches"], **sim_launches}
+                     TRAIN_100M: train["b"]["pallas"]["launches"], **sim_launches,
+                     **{f"train {arch} --reduce 100m, engine={engine}": run[engine]["launches"]
+                        for arch, run in arch_train.items() for engine in ("flat", "pallas")}}
     print("# phase: profile of the ZO step with engine=pallas")
     profile_phase(torch, dev, engine="pallas")
     print("# phase: flash attention vs its plain version on the card")
@@ -3654,6 +4108,17 @@ def main() -> None:
           "(falcon-mamba-7b)")
     prefill_paths = mamba_profiles(torch, mamba["cfg"], mamba["params"],
                                    max(mamba["prompts"], key=len))
+    del mamba["params"]                   # falcon-mamba-7b's 14 GB go before qwen3-moe's
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"# phase: serving qwen3-moe-235b-a22b at full width, {MOE_LAYERS} layers (kernel vs "
+          f"plain path)")
+    moe = moe_serve_phase(torch, dev)
+    print("# phase: serving hymba-1.5b at full width and depth (scan kernel vs plain path)")
+    hymba = hybrid_serve_phase(torch, dev)
+    print("# phase: pixtral-12b and hubert-xlarge forward and loss at full width and depth "
+          "(flash kernel vs plain path)")
+    frontends = frontend_phase(torch, dev)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -3693,6 +4158,11 @@ def main() -> None:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in path_launches.items()
                                    if counts.get(row["name"])}
+    for arch in TRAIN_ARCHS:
+        for name, engine in (("zo_perturb_flat", "flat"), ("zo_reconstruct_flat", "flat"),
+                             ("zo_perturb", "pallas"), ("zo_reconstruct", "pallas")):
+            path = f"train {arch} --reduce 100m, engine={engine}"
+            check(path_launches[path].get(name, 0) > 0, f"{name} was not launched on {path}")
     for name, path in (("zo_perturb_sumsq", "distributed (a) one process, m=4"),
                        ("zo_reconstruct_update", "distributed (a) one process, m=4"),
                        ("zo_perturb_flat", "federated fed-HO-SGD engine=flat"),
@@ -3709,6 +4179,10 @@ def main() -> None:
             row["gemma2_2b"] = train["shape"][row["name"]]
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
+    flash_paths = {TRAFFIC_PATH: traffic["launches"], MOE_PATH: moe["launches"],
+                   **{FRONTEND_PATHS[name]: run["launches"] for name, run in frontends.items()}}
+    for path, counts in flash_paths.items():
+        check(counts.get("flash_attention", 0) > 0, f"flash_attention was not launched on {path}")
     f32 = flash["float32"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
@@ -3719,9 +4193,15 @@ def main() -> None:
         "max_abs_err": flash["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "path": "serve qwen3-14b prefill",
-        "launches_by_path": {TRAFFIC_PATH: traffic["launches"].get("flash_attention", 0)},
-        "variant_launches_by_path": {TRAFFIC_PATH: {
-            k: traffic["launches"].get(f"flash_attention_{k}", 0) for k in ("wgmma", "tf32x3")}},
+        "launches_by_path": {path: counts.get("flash_attention", 0)
+                             for path, counts in flash_paths.items()},
+        "variant_launches_by_path": {path: {
+            k: counts.get(f"flash_attention_{k}", 0) for k in ("wgmma", "tf32x3")}
+            for path, counts in flash_paths.items()},
+        "qwen3_moe_layout": {k: flash["qwen3_moe"][k] for k in (
+            "S", "H", "KV", "hd", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "qwen3_moe_serve": {k: v for k, v in moe.items() if "launches" not in k},
+        "frontends": frontends,
         "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for r in flash["rows"]],
@@ -3731,9 +4211,12 @@ def main() -> None:
                                            "bound_by", "tf32_tflops_issued")}},
         "hd80": {"variant": hubert["variant"], "shape": "B=1 S=1024 H=16 KV=16 hd=80 bf16 "
                  "causal off (hubert-xlarge's widths)",
-                 "launches": sum(run["launches"]["flash_attention_hd80"] for run in (serve, mamba)),
-                 "launches_by_run": {run["cfg"].name: run["launches"]["flash_attention_hd80"]
-                                     for run in (serve, mamba)},
+                 "launches": sum(run["launches"]["flash_attention_hd80"] for run in (serve, mamba))
+                 + frontends["hubert-xlarge"]["launches"]["flash_attention_hd80"],
+                 "launches_by_run": {**{run["cfg"].name: run["launches"]["flash_attention_hd80"]
+                                        for run in (serve, mamba)},
+                                     FRONTEND_PATHS["hubert-xlarge"]:
+                                     frontends["hubert-xlarge"]["launches"]["flash_attention_hd80"]},
                  **{k: hubert[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")},
                  "float32": {k: hubert["float32"][k] for k in (
@@ -3753,7 +4236,11 @@ def main() -> None:
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "bound_ms", "ms_by_lanes",
                                          "fastest_lanes")} for r in scan["rows"]],
         "sass": scan_sass[ss.SERVED_LANES], "prefill_1024": prefill_paths,
+        "launches_by_path": {HYMBA_PATH: hymba["launches"]["selective_scan"]},
+        "hymba_serve": {k: hymba[k] for k in ("decode_ms", "cache_rel")},
     })
+    check(hymba["launches"]["selective_scan"] > 0, f"selective_scan was not launched on "
+          f"{HYMBA_PATH}")
     check(norm["launches"] > 0, "rmsnorm was not launched")
     head = norm["rows"][0]
     kernels.append({

@@ -1,4 +1,4 @@
-"""Decoder stack: the dense and SSM architectures of ``repro.models.transformer``.
+"""The transformer stack of ``repro.models.transformer``, every architecture.
 
 Layer parameters are stacked on a leading ``n_layers`` axis, as the
 reference's ``vmap`` init makes them, so a JAX ``init_model`` tree carries
@@ -7,12 +7,15 @@ takes the place of ``lax.scan``; per-layer windows are Python ints
 (``FULL_WINDOW`` = 2**30 means no window).  Caches (attention's k and v, the
 SSM's conv and ssm states) are updated in place.
 
-Ported: ``arch_type`` ``"dense"`` and ``"ssm"`` (mamba-1 layers,
-``models.ssm``) with ``frontend="none"``: the forward pass, the training
-loss (``loss_fn``: dense or vocab-chunked streaming cross-entropy), prefill
-and decode for serving.  MoE and hybrid layers and the vision and audio
-frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 11b), so the
-loss has no MoE aux term yet.
+Every ``arch_type`` of ``configs``: dense, MoE (``models.moe`` in place of
+the MLP, arctic's dense residual beside it, the load-balance aux loss summed
+over the layers), SSM (mamba-1 layers, ``models.ssm``), hybrid (hymba:
+attention and mamba in parallel on the same input, each RMS-normalised and
+averaged), and the two frontends: vision (image embeddings put before the
+text embeddings) and audio (features in place of an embedding table; an
+encoder, non-causal, with no decode).  The forward pass, the training loss
+(``loss_fn``: dense or vocab-chunked streaming cross-entropy, plus
+``MOE_AUX_COEF`` times the aux loss), prefill and decode for serving.
 
 Under autograd each CE vocab chunk is recomputed in the backward pass, and
 with ``cfg.remat`` each layer too (``torch.utils.checkpoint``,
@@ -35,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp,
@@ -43,20 +47,14 @@ from repro_torch.models.layers import (
     embed_init,
     init_mlp,
     init_norm,
+    rmsnorm,
     softcap,
 )
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict
 FULL_WINDOW = 1 << 30
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "ssm") or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type={cfg.arch_type!r}, frontend={cfg.frontend!r} is "
-            "not ported yet (ROADMAP Queue 1 item 11b: moe.py, hybrid layers and "
-            "the vision/audio frontends); dense and SSM decoders are")
+MOE_AUX_COEF = 0.01
 
 
 def windows_array(cfg: ModelConfig) -> torch.Tensor:
@@ -101,7 +99,14 @@ def _init_layer(gen, cfg: ModelConfig, dtype, device) -> Params:
         p["attn"] = attn.init_attention(gen, cfg, dtype, device)
     if cfg.has_ssm:
         p["mamba"] = ssm_mod.init_mamba(gen, cfg, dtype, device)
-    if cfg.d_ff:
+    if cfg.arch_type == "hybrid":
+        p["attn_out_scale"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
+        p["mamba_out_scale"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
+    if cfg.is_moe:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+        if cfg.moe_dense_residual:
+            p["dense_mlp"] = init_mlp(gen, cfg, cfg.dense_d_ff, dtype, device)
+    elif cfg.d_ff:
         p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
     return p
 
@@ -110,12 +115,14 @@ def init_model(gen, cfg: ModelConfig, device="cuda") -> Params:
     """Random parameters from ``gen`` (a ``torch.Generator`` or an int seed),
     drawn on the generator's device and placed on ``device``.  The stacked
     layer tensors are filled one layer at a time, so the largest temporary
-    is one layer's matrix."""
-    check_supported(cfg)
+    is one layer's matrix.  An audio model has no embedding table, and a
+    head of its own."""
     device = resolve_device(device)
     gen = as_generator(gen)
     dtype = getattr(torch, cfg.dtype)
-    params: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device)}
+    params: Params = {}
+    if cfg.frontend != "audio":
+        params["embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device)
     layers = None
     for i in range(cfg.n_layers):
         lp = _init_layer(gen, cfg, dtype, device)
@@ -125,7 +132,7 @@ def init_model(gen, cfg: ModelConfig, device="cuda") -> Params:
         tree_map(lambda dst, x, i=i: dst[i].copy_(x), layers, lp)
     params["layers"] = layers
     params["final_norm"] = init_norm(cfg, cfg.d_model, device)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.frontend == "audio":
         params["head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
     return params
 
@@ -133,16 +140,33 @@ def init_model(gen, cfg: ModelConfig, device="cuda") -> Params:
 # --------------------------------------------------------------------------- #
 # blocks
 # --------------------------------------------------------------------------- #
-def _ffn(cfg: ModelConfig, lp: Params, xn: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, lp: Params, xn: torch.Tensor):
+    """The feed-forward sublayer: (y, aux loss), aux 0 without experts."""
+    if cfg.is_moe:
+        y, aux = moe_mod.moe_forward(cfg, lp["moe"], xn)
+        if cfg.moe_dense_residual:
+            y = y + apply_mlp(cfg, lp["dense_mlp"], xn)
+        return y, aux
+    zero = torch.zeros((), dtype=torch.float32, device=xn.device)
     if cfg.d_ff:
-        return apply_mlp(cfg, lp["mlp"], xn)
-    return torch.zeros_like(xn)
+        return apply_mlp(cfg, lp["mlp"], xn), zero
+    return torch.zeros_like(xn), zero
+
+
+def _fuse(cfg: ModelConfig, lp: Params, a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """hymba's parallel fusion: the mean of the RMS-normalised attention and
+    mamba outputs (the plain ``layers.rmsnorm``, as in the reference)."""
+    return 0.5 * (rmsnorm(a, lp["attn_out_scale"], cfg.norm_eps)
+                  + rmsnorm(m, lp["mamba_out_scale"], cfg.norm_eps))
 
 
 def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int) -> torch.Tensor:
-    """Sequence-mixing sublayer: attention or mamba."""
+    """Sequence-mixing sublayer: attention, mamba, or both (hybrid)."""
     if cfg.arch_type == "ssm":
         return ssm_mod.mamba_forward(cfg, lp["mamba"], xn)
+    if cfg.arch_type == "hybrid":
+        return _fuse(cfg, lp, attn.attention_forward(cfg, lp["attn"], xn, window),
+                     ssm_mod.mamba_forward(cfg, lp["mamba"], xn))
     return attn.attention_forward(cfg, lp["attn"], xn, window)
 
 
@@ -151,18 +175,25 @@ def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int):
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
     x = x + mix
-    ff = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x))
+    ff, aux = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x))
     if cfg.post_norms:
         ff = apply_norm(cfg, lp["post_norm2"], ff)
-    return x + ff, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, aux
 
 
 # --------------------------------------------------------------------------- #
 # embedding / inputs
 # --------------------------------------------------------------------------- #
 def embed_batch(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
-    check_supported(cfg)
-    return params["embed"][batch["tokens"]] * math.sqrt(cfg.d_model)
+    """The input sequence: ``batch["features"]`` (B, S, D) for audio; else the
+    scaled embeddings of ``batch["tokens"]``, after ``batch["image_embeds"]``
+    (B, P, D, cast to the embeddings' dtype) for vision."""
+    if cfg.frontend == "audio":
+        return batch["features"]
+    text = params["embed"][batch["tokens"]] * math.sqrt(cfg.d_model)
+    if cfg.frontend == "vision":
+        return torch.cat([batch["image_embeds"].to(text.dtype), text], dim=1)
+    return text
 
 
 def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -272,16 +303,18 @@ def cross_entropy_streaming(cfg: ModelConfig, head: torch.Tensor, h: torch.Tenso
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
-    """Mean next-token CE over ``batch["labels"] >= 0``; ``batch`` holds
-    ``tokens`` and ``labels``, (B, S) ints.  The reference's MoE aux term
-    comes with MoE (ROADMAP Queue 1 item 11b)."""
+    """Mean next-token CE over ``batch["labels"] >= 0`` plus ``MOE_AUX_COEF``
+    times the layers' summed MoE aux loss (0 without experts); ``batch``
+    holds ``labels`` (B, S) ints and the inputs ``embed_batch`` reads."""
     h = embed_batch(cfg, params, batch)
-    h, _ = forward_hidden(cfg, params, h)
+    h, aux = forward_hidden(cfg, params, h)
     if ce_chunk_size(cfg):
         h = apply_norm(cfg, params["final_norm"], h)
         head = params["embed"].T if "head" not in params else params["head"]
-        return cross_entropy_streaming(cfg, head, h, batch["labels"])
-    return cross_entropy(compute_logits(cfg, params, h), batch["labels"])
+        ce = cross_entropy_streaming(cfg, head, h, batch["labels"])
+    else:
+        ce = cross_entropy(compute_logits(cfg, params, h), batch["labels"])
+    return ce + MOE_AUX_COEF * aux
 
 
 # --------------------------------------------------------------------------- #
@@ -292,8 +325,8 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     """Zero caches, stacked over the layers: attention's k and v ``(L,
     batch, seq_len, KV, hd)``; an SSM's conv state ``(L, batch, K - 1,
     d_inner)`` in ``dtype`` and ssm state ``(L, batch, d_inner, n)`` in
-    float32 (no sequence axis: ``seq_len`` does not size them)."""
-    check_supported(cfg)
+    float32 (no sequence axis: ``seq_len`` does not size them); a hybrid
+    model holds all four."""
     device = resolve_device(device)
     L = cfg.n_layers
     caches: Dict = {}
@@ -310,23 +343,25 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype,
 
 
 def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: int):
-    """One layer of decode; writes this layer's cache rows (attention) or
+    """One layer of decode; writes this layer's cache rows (attention) and
     states (SSM: every row, an inactive slot's too, as in the reference) in
-    place."""
+    place.  A hybrid layer reads its own window (hymba's differ by layer)."""
     xn = apply_norm(cfg, lp["norm1"], x)
-    if cfg.arch_type == "ssm":
-        mix, (conv, h) = ssm_mod.mamba_decode(cfg, lp["mamba"], xn,
-                                              (cache_l["conv"], cache_l["ssm"]))
-        cache_l["conv"].copy_(conv)
-        cache_l["ssm"].copy_(h)
-    else:
-        mix, _ = attn.attention_decode(
+    if cfg.has_attention:
+        a, _ = attn.attention_decode(
             cfg, lp["attn"], xn, (cache_l["k"], cache_l["v"]), pos, window,
             static_window=uniform_static_window(cfg))
+    if cfg.has_ssm:
+        m, (conv, h) = ssm_mod.mamba_decode(cfg, lp["mamba"], xn,
+                                            (cache_l["conv"], cache_l["ssm"]))
+        cache_l["conv"].copy_(conv)
+        cache_l["ssm"].copy_(h)
+    mix = (_fuse(cfg, lp, a, m) if cfg.arch_type == "hybrid" else
+           m if cfg.has_ssm else a)
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
     x = x + mix
-    ff = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x))
+    ff, _ = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x))
     if cfg.post_norms:
         ff = apply_norm(cfg, lp["post_norm2"], ff)
     return x + ff, cache_l
@@ -379,25 +414,28 @@ def prefill_at(cfg: ModelConfig, params: Params, batch: Dict, last_idx: torch.Te
 
 def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
     """Full-sequence hidden states + per-layer caches, stacked over the
-    layers: k and v (L, B, S, KV, hd), or an SSM's conv and ssm states."""
+    layers: k and v (L, B, S, KV, hd), an SSM's conv and ssm states, or a
+    hybrid's four."""
     h = embed_batch(cfg, params, batch)
     caches: Dict = {}
     for lp, win in _layers(cfg, params):
         xn = apply_norm(cfg, lp["norm1"], h)
-        if cfg.arch_type == "ssm":
-            mix, state = ssm_mod.mamba_prefill(cfg, lp["mamba"], xn)
+        layer: Dict = {}
+        if cfg.has_attention:
+            a, (layer["k"], layer["v"]) = attn.attention_prefill(cfg, lp["attn"], xn, win)
+        if cfg.has_ssm:
+            m, state = ssm_mod.mamba_prefill(cfg, lp["mamba"], xn)
             if state is None:           # the plain path: the reference's recomputation
                 state = _mamba_tail_state(cfg, lp["mamba"], xn)
-            layer = dict(zip(("conv", "ssm"), state))
-        else:
-            mix, kv = attn.attention_prefill(cfg, lp["attn"], xn, win)
-            layer = dict(zip(("k", "v"), kv))
+            layer["conv"], layer["ssm"] = state
+        mix = (_fuse(cfg, lp, a, m) if cfg.arch_type == "hybrid" else
+               m if cfg.has_ssm else a)
         for name, c in layer.items():
             caches.setdefault(name, []).append(c)
         if cfg.post_norms:
             mix = apply_norm(cfg, lp["post_norm1"], mix)
         h = h + mix
-        ff = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], h))
+        ff, _ = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], h))
         if cfg.post_norms:
             ff = apply_norm(cfg, lp["post_norm2"], ff)
         h = h + ff

@@ -424,6 +424,8 @@ def _attn_close(got, want):
     (576, 4, 2, 128, True, None, None),    # the last tile half past Sq
     ((128, 512), 4, 2, 128, True, None, None),    # Sq != Sk
     ((128, 512), 4, 2, 64, False, None, None),
+    (256, 64, 4, 128, True, None, None),   # qwen3-moe-235b-a22b: 16 query heads per KV head
+    (1024, 16, 16, 80, False, None, None),  # hubert-xlarge's encoder at its model shape
 ])
 def test_flash_attention_kernel_matches_plain_version(S, H, KV, hd, causal, window,
                                                        softcap, dtype):
@@ -722,6 +724,67 @@ def test_ssm_prefill_caches_through_the_kernel_match_plain_path_float32():
     torch.cuda.synchronize()
     assert torch.equal(fast["conv"][0], plain["conv"][0])
     _caches_agree(fast, plain, slice(None), rel=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_moe_forward_on_card_matches_cpu(arch):
+    """``moe_forward`` of the reduced config in float32 on the card against
+    the same call on the CPU: equal expert ids and kept routes (capacity
+    factor 0.5, so routes drop), y within rtol 1e-5 / atol 1e-5 and aux
+    within rtol 1e-6 (the products sum in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    dev = _cuda()
+    cfg = get_config(arch).reduced().with_(capacity_factor=0.5)
+    p = M.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn(2, 96, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    pd = {k: v.to(dev) for k, v in p.items()}
+    routes = []
+    for xx, pp in ((x, p), (x.to(dev), pd)):
+        _, ids, _ = M.route(cfg, pp, xx.reshape(-1, cfg.d_model))
+        keep = M.dispatch(ids, cfg.n_experts, M.moe_capacity(cfg, 192))[2]
+        routes.append((ids.cpu(), keep.cpu()))
+    assert torch.equal(routes[0][0], routes[1][0]) and torch.equal(routes[0][1], routes[1][1])
+    assert not bool(routes[0][1].all())
+    y, aux = M.moe_forward(cfg, p, x)
+    yd, auxd = M.moe_forward(cfg, pd, x.to(dev))
+    torch.testing.assert_close(yd.cpu(), y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(auxd.cpu(), aux, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_hybrid_prefill_caches_through_the_kernel_match_plain_path():
+    """hymba-1.5b.reduced() at 4 layers in float32, a 192-token exact-length
+    prefill on the card through the scan kernel (one launch per layer; the
+    attention stays plain, its windows differing by layer) and through the
+    plain path: logits within 1e-4 of their largest, k and v within 1e-5 of
+    their largest, the conv rows and the ssm states as falcon-mamba's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    dev = _cuda()
+    cfg = get_config("hymba-1.5b").reduced().with_(n_layers=4, dtype="float32")
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 192), generator=torch.Generator().manual_seed(2))
+    toks, last = toks.to(dev), torch.tensor([191, 191], device=dev)
+    ops.reset_launch_counts()
+    fast_logits, fast = T.prefill_at(cfg.with_(use_pallas=True), params, {"tokens": toks}, last)
+    counts = ops.launch_counts()
+    assert counts["selective_scan"] == cfg.n_layers and counts["flash_attention"] == 0
+    plain_logits, plain = T.prefill_at(cfg, params, {"tokens": toks}, last)
+    torch.cuda.synchronize()
+    assert sorted(fast) == sorted(plain) == ["conv", "k", "ssm", "v"]
+    err = float((fast_logits - plain_logits).abs().max())
+    assert err <= 1e-4 * float(plain_logits.abs().max()), err
+    assert torch.equal(fast["conv"][0], plain["conv"][0])
+    _caches_agree(fast, plain, slice(None), rel=1e-5)
+    for name in ("k", "v"):
+        assert torch.equal(fast[name][0], plain[name][0])
+        err = float((fast[name] - plain[name]).abs().max())
+        assert err <= 1e-5 * float(plain[name].abs().max()), name
 
 
 # the manifest of _ckpt_tree's checkpoint at step 3, as msgpack.packb writes it

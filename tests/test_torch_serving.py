@@ -16,6 +16,13 @@ exact length: token identity with the reference on the plain path and
 through the selective-scan kernel path (64-aligned prompts), the slot
 writes of its conv and ssm states, and the reference's decode after a
 prompt shorter than the conv window, which the port mirrors.
+``qwen3-moe-235b-a22b.reduced()`` (MoE; its capacity counts a bucket's pad
+tokens, in both packages) serves the reference's tokens through the same
+buckets, and ``hymba-1.5b.reduced()`` at 4 layers (hybrid: attention with
+windows None, 8, None, None beside mamba) prefills at exact length into a
+pool holding k, v, conv and ssm, through the scan's kernel path on 64-token
+prompts, with more prompts than slots so that slots are evicted and
+re-admitted.
 """
 import subprocess
 import sys
@@ -65,7 +72,8 @@ def mixed_prompts(cfg, lens, seed=0):
 # --------------------------------------------------------------------------- #
 # token identity with the reference engine
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch,seed", [("qwen3-14b", 0), ("gemma2-2b", 1)])
+@pytest.mark.parametrize("arch,seed", [("qwen3-14b", 0), ("gemma2-2b", 1),
+                                       ("qwen3-moe-235b-a22b", 5)])
 def test_token_identity_vs_reference_engine(arch, seed):
     jcfg, jp, cfg, tp = setup(arch, seed, use_pallas=True)
     prompts = mixed_prompts(cfg, (5, 40, 65, 70, 100, 9, 130), seed=2)
@@ -105,6 +113,22 @@ def test_token_identity_ssm_kernel_path():
     eng = Engine(cfg, tp, ServeConfig(max_seq=140, slots=2))
     assert eng.generate(prompts, max_new=6) == want
     assert eng.scheduler.prefill_buckets() == (5, 64, 128)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_token_identity_hybrid(use_pallas):
+    """hymba at 4 layers: five prompts through two slots (three admissions
+    wait for an eviction); decode runs past the windowed layers' 8 keys."""
+    jcfg, jp, cfg, tp = setup("hymba-1.5b", 6, n_layers=4, use_pallas=use_pallas)
+    prompts = mixed_prompts(cfg, (64, 5, 20, 128, 3), seed=11)
+    want = JEngine(jcfg, jp, JServeConfig(max_seq=140, slots=2)).generate(prompts, max_new=7)
+    eng = Engine(cfg, tp, ServeConfig(max_seq=140, slots=2))
+    assert sorted(eng.scheduler.pool.caches) == ["conv", "k", "ssm", "v"]
+    assert eng.generate(prompts, max_new=7) == want
+    assert eng.scheduler.prefill_buckets() == (3, 5, 20, 64, 128)
+    pool = eng.scheduler.pool
+    assert pool.free_slots == 2 and not pool.live_slots()
+    pool.check_invariants()
 
 
 @pytest.mark.parametrize("L", [1, 2, 3, 5])
