@@ -102,6 +102,19 @@ Phases (any failed check exits non-zero):
      ``--reduce 100m``, float32, flat, pallas and tree, held as (b), and
      arctic's first loss evaluation held to its cross-entropy plus 0.01
      times the layers' aux loss, each computed apart;
+  8d'. sharded placements (``launch.train.main`` on gloo ranks that share
+     cuda:0, their gathers device to device): (a) gemma2-2b at full width
+     with ``--model-axis 2`` (2 ranks), F Z Z: steps 0-1 bit for bit 8d
+     (a)'s losses, step 2 within rtol 1e-6, each rank holding only its
+     shards and peaking below 8d (a)'s one-process peak, rank 0 booking 4*d
+     and 4 bytes, rows 3-4 held on sampled blocks of rank 0's packed shard
+     (a column-sharded leaf's and the row-sharded embedding's among them)
+     with shard-local counters as a failing control; (b) at ``--reduce
+     100m`` on (data=2, model=2) (4 ranks), 8 steps at tau 4: gemma2-2b
+     (m = 2) and arctic-480b (fsdp, MoE; m = 1) against the replicated run
+     of the same config in this process, losses within rtol 1e-6 and rank
+     0's final shards within 2% of the update; ms per FO and ZO step and
+     the gathers' share of each by host clock;
   8e. the cluster simulator, ``make_sim_methods`` + ``simulate``, at Fig. 2's
      width (hidden=1300, m=4, B=64, tau=8, 32 iterations) on
      bandwidth-constrained flat clusters: (a) HO-SGD, sync-SGD, ZO-SGD; (b)
@@ -188,7 +201,7 @@ Phases (any failed check exits non-zero):
 The last two lines are the kernels JSON and the device JSON.  Launch counts
 are set to 0 just before each path and read just after it; each ZO kernel's
 entry also carries its launches on the paths of phases 8b-8e
-(``launches_by_path``, with phase 8d's (c) runs), flash attention's on
+(``launches_by_path``, with phase 8d's (c) runs and 8d''s runs), flash attention's on
 phases 8f, 14 and 16 and the scan's on phase 15;
 zo_perturb_flat's and zo_reconstruct_flat's also
 their times at gemma2-2b's packed buffer (``gemma2_2b``).
@@ -2497,15 +2510,16 @@ def aux_probe(torch, rec, stack):
 
     inner = T.loss_fn
 
-    def loss_fn(cfg, params, batch):
-        out = inner(cfg, params, batch)
+    def loss_fn(cfg, params, batch, shards=None):
+        out = inner(cfg, params, batch, shards)
         if not rec:
             coef = T.MOE_AUX_COEF
             with torch.no_grad():
-                _, aux = T.forward_hidden(cfg, params, T.embed_batch(cfg, params, batch))
+                _, aux = T.forward_hidden(cfg, params,
+                                          T.embed_batch(cfg, params, batch, shards), shards)
                 T.MOE_AUX_COEF = 0.0
                 try:
-                    ce = inner(cfg, params, batch)
+                    ce = inner(cfg, params, batch, shards)
                 finally:
                     T.MOE_AUX_COEF = coef
             rec.update(loss=float(out.detach()), ce=float(ce), aux=float(aux), coef=coef)
@@ -2513,6 +2527,413 @@ def aux_probe(torch, rec, stack):
 
     T.loss_fn = loss_fn
     stack.callback(setattr, T, "loss_fn", inner)
+
+
+# --------------------------------------------------------------------------- #
+# phase 8d (sharded): the reference's placements on gloo ranks sharing cuda:0
+# --------------------------------------------------------------------------- #
+SHARDED_FULL = "train gemma2-2b --reduce full --model-axis 2 (2 gloo ranks), engine=flat"
+#: (b): arch -> its flags at --reduce 100m, 8 steps at tau 4 on (data=2, model=2)
+SHARDED_100M = {"gemma2-2b": ["--arch", "gemma2-2b", "--tau", "4", "--batch", "16",
+                              "--seq", "128"],
+                "arctic-480b": ["--arch", "arctic-480b", "--tau", "4", "--batch", "16",
+                                "--seq", "128"]}
+#: the leaves whose blocks (a) holds on rank 0: a column-sharded one and the
+#: row-sharded embedding
+SHARD_LEAVES = (("layers", "attn", "wk"), ("embed",))
+
+
+def sharded_path(arch):
+    return f"train {arch} --reduce 100m --model-axis 2 (4 gloo ranks), engine=flat"
+
+
+class ShardProbe(TrainProbe):
+    """A ``TrainProbe`` for a rank of a sharded trainer: also the engine the
+    steps build (``ho_sgd.make_engine``), the whole-tree shapes
+    (``launch.train.init_params``), at each step's start the parameter
+    bytes the rank holds, and the host seconds spent in the gathers
+    (``collectives.gather_cat``, after a synchronize, so that a gather's
+    time is its own and not the compute queued before it).  The flat
+    kernels' outputs in the first ZO step are held on sampled blocks of
+    this rank's packed shard, among them blocks of ``SHARD_LEAVES``,
+    against the plain versions, and against a control: the plain versions
+    with each block's counters local to the shard (its position in the
+    leaf's shard), which must disagree."""
+
+    def __init__(self, torch, dev, hold=True):
+        super().__init__(torch, dev)
+        self.holding = hold
+        self.engine, self.like, self.paths = None, None, None
+        self.gather_s, self.gather_bytes, self.gathers = 0.0, 0, 0
+        self.step_gather_s = {"fo": [], "zo": []}
+        self.held_bytes = {"fo": [], "zo": []}
+
+    def install(self, stack):
+        from repro_torch.core import ho_sgd as HS
+        from repro_torch.dist import collectives as coll
+        from repro_torch.launch import train as TT
+
+        super().install(stack)
+        torch = self.torch
+
+        def patch(obj, attr, new):
+            old = getattr(obj, attr)
+            setattr(obj, attr, new)
+            stack.callback(setattr, obj, attr, old)
+            return old
+
+        make = HS.make_engine
+
+        def make_engine(*a, **kw):
+            self.engine = make(*a, **kw)
+            return self.engine
+
+        init = TT.init_params
+
+        def init_params(*a, **kw):
+            params, self.like = init(*a, **kw)
+            return params, self.like
+
+        gather_cat = coll.gather_cat
+
+        def timed_gather(x, axes, *, mesh, dim):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gather_cat(x, axes, mesh=mesh, dim=dim)
+            torch.cuda.synchronize()
+            self.gather_s += time.perf_counter() - t0
+            self.gather_bytes += out.numel() * out.element_size()
+            self.gathers += 1
+            return out
+
+        patch(HS, "make_engine", make_engine)
+        patch(TT, "init_params", init_params)
+        patch(coll, "gather_cat", timed_gather)
+
+    def step(self, kind, fn):
+        inner = super().step(kind, fn)
+
+        def run(t, params, opt_state, batch):
+            from repro_torch.dist.sharding import map_with_paths
+            from repro_torch.tree import tree_leaves
+
+            if self.paths is None:
+                self.paths = []
+                map_with_paths(lambda names, x: self.paths.append(tuple(names)), params)
+            self.held_bytes[kind].append(
+                sum(x.numel() * x.element_size() for x in tree_leaves(params)))
+            g0 = self.gather_s
+            out = inner(t, params, opt_state, batch)
+            self.step_gather_s[kind].append(self.gather_s - g0)
+            return out
+        return run
+
+    def hold(self, name, out, x, salts, ctrs, nvalid, block, plain):
+        import numpy as np
+
+        torch, eng = self.torch, self.engine
+        if not self.holding or eng is None or eng.geometry is None:
+            return
+        leaf_of = eng._blk_leaf
+        first = np.searchsorted(leaf_of, np.arange(len(eng._row)))
+        picks = [np.linspace(0, len(leaf_of) - 1, 32).astype(np.int64)]
+        for path in SHARD_LEAVES:
+            i = self.paths.index(path)
+            nb = int(np.count_nonzero(leaf_of == i))
+            k = np.unique(np.concatenate([np.arange(8), nb - 1 - np.arange(8),
+                                          np.linspace(0, nb - 1, 16).astype(np.int64)]))
+            picks.append(first[i] + k[(k >= 0) & (k < nb)])
+        idx_np = np.unique(np.concatenate(picks))
+        # each sampled block's counters as if the shard were a leaf of its own
+        lf = leaf_of[idx_np]
+        k = idx_np - first[lf]
+        per_run = np.asarray([eng._row[i][2] // block for i in lf])
+        run_len = np.asarray([eng._row[i][1] for i in lf])
+        local = (k // per_run) * run_len + (k % per_run) * block
+        idx = torch.from_numpy(idx_np).to(ctrs.device)
+        rows = lambda t: block_rows(torch, t, idx)                  # noqa: E731
+        got = out.view(-1, block)[idx].reshape(-1)
+        base = None if x is None else x.view(-1, block)[idx].reshape(-1)
+        want = plain(base, rows(salts), rows(ctrs), rows(nvalid))
+        ok, err, tol = agree(torch, got, want, base=base)
+        local_ctrs = torch.from_numpy(local.astype(np.uint32)).to(ctrs.device)
+        wrong = plain(base, rows(salts), local_ctrs, rows(nvalid))
+        control, _, _ = agree(torch, got, wrong, base=base)
+        leaves = [self.paths[i] for i in np.unique(lf)]
+        column = int(np.isin(lf, [self.paths.index(SHARD_LEAVES[0])]).sum())
+        self.held[name] = [int(idx.numel()), len(leaves), column, ok, err, control]
+        print(f"  {name:20s} rank 0's first ZO step: {idx.numel()} sampled blocks of its "
+              f"packed shard ({len(leaves)} leaves, {column} of the column-sharded "
+              f"{'/'.join(SHARD_LEAVES[0])}, and {'/'.join(SHARD_LEAVES[1])}'s) vs the plain "
+              f"version: max abs err {err:.3e} ({tol}) ok={ok}; with shard-local counters "
+              f"(the control) ok={control}", flush=True)
+
+
+def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type):
+    """One rank of ``sharded_phase``: ``launch.train.main(argv)`` under the
+    group on ``cuda:0`` with a ``ShardProbe``; returns what the phase holds:
+    the launches, per-step memory, parameter bytes and gather time, the
+    shards' bytes, a checksum of the leaves no axis cuts, and with
+    ``ref_path`` (the replicated run's first and final parameters) this
+    rank's shards against their slices of the final ones."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TT
+    from repro_torch.tree import tree_leaves
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    probe = ShardProbe(torch, dev, hold=hold and rank == 0)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        probe.install(stack)
+        ops.reset_launch_counts()
+        TT.main(argv + ["--device", dev_type, "--log", log])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+    geom = probe.engine.geometry
+    leaves = tree_leaves(probe.params)
+    out = {"launches": launches, "wall_s": time.perf_counter() - t0,
+           "peak_gb": probe.peak_gb, "start_gb": probe.start_gb,
+           "held_bytes": probe.held_bytes, "step_gather_s": probe.step_gather_s,
+           "gather_s": probe.gather_s, "gather_bytes": probe.gather_bytes,
+           "gathers": probe.gathers, "held": probe.held, "block": probe.engine.block,
+           "packed_over_shard": probe.engine.packed_over_shard,
+           "shard_bytes": sum(math.prod(s) * x.element_size()
+                              for s, x in zip(geom.local_shapes, leaves)),
+           "global_bytes": geom.global_nbytes(leaves),
+           "replicated_sum": float(sum(x.double().sum() for x, ax in zip(leaves, geom.axes)
+                                       if not ax))}
+    if ref_path is not None:
+        ref = torch.load(ref_path)
+        diff = scale = 0.0
+        for i, (x, r, r0) in enumerate(zip(leaves, ref["final"], ref["start"])):
+            want = r[geom.slices[i]].double()
+            diff = max(diff, float((x.cpu().double() - want).abs().max()))
+            scale = max(scale, float((want - r0[geom.slices[i]].double()).abs().max()))
+        out["final_diff"], out["update_scale"] = diff, scale
+    return out
+
+
+def sharded_spawn(torch, dev, argv, world, log, hold=False, ref_path=None, timeout=900.0):
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            return spawn_ranks(sharded_rank, world, str(Path(tmp) / "init"), argv, log, hold,
+                               ref_path, dev.type, timeout=timeout)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"sharded ranks ({' '.join(argv)}): {e}")
+
+
+def csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def step_ms(rows, order):
+    return [1e3 * float(r["dt"]) for r in rows if int(r["order"]) == order]
+
+
+def sharded_report(what, res, rows, smi):
+    """Print each rank's step times, gather share, memory and bytes held."""
+    r0 = res[0]
+    fo, zo = step_ms(rows, 1), step_ms(rows, 0)
+    share = {kind: [g / (1e-3 * t) for g, t in zip(r0["step_gather_s"][kind], ms)]
+             for kind, ms in (("fo", fo), ("zo", zo))}
+    print(f"  {what}: rank 0 ms per step (host, to the loss on the host) FO "
+          f"{[round(v, 1) for v in fo]}, ZO {[round(v, 1) for v in zo]}; the gathers' share "
+          f"of each step (host clock) FO {[round(v, 3) for v in share['fo']]}, ZO "
+          f"{[round(v, 3) for v in share['zo']]}; {r0['gathers']} gathers, "
+          f"{r0['gather_bytes'] / 1e9:.2f} GB gathered, {r0['gather_s']:.1f} s [{smi}]")
+    for rank, r in enumerate(res):
+        print(f"  {what}: rank {rank} holds {r['shard_bytes']:,} of {r['global_bytes']:,} "
+              f"parameter bytes (flat block {r['block']}, packed/shard "
+              f"{r['packed_over_shard']:.4f}); allocated at each step's start (GB) "
+              f"{[round(v, 2) for v in r['start_gb']['fo'] + r['start_gb']['zo']]}; peak (GB) "
+              f"FO {[round(v, 2) for v in r['peak_gb']['fo']]}, ZO "
+              f"{[round(v, 2) for v in r['peak_gb']['zo']]}; launches {r['launches']}")
+    return {"fo_ms": fo, "zo_ms": zo, "gather_share": share, "gathers": r0["gathers"],
+            "gather_gb": r0["gather_bytes"] / 1e9}
+
+
+def replicated_run(torch, dev, argv, m, path):
+    """``launch.train.main(argv)`` in this process (a one-rank group) with
+    ``m`` workers held here (``n_workers`` patched to ``m``, as the sharded
+    run's (data=2, model=2) mesh counts them): its CSV rows, launches and
+    first and final parameters, the latter two saved to ``path`` on the
+    host for the ranks to slice."""
+    from repro_torch.launch import train as TT
+    from repro_torch.tree import tree_leaves
+
+    start = {}
+    init, n_workers = TT.init_params, TT.n_workers
+
+    def init_params(*a, **kw):
+        params, like = init(*a, **kw)
+        start["p"] = [x.detach().cpu().clone() for x in tree_leaves(params)]
+        return params, like
+
+    def extra(stack):
+        TT.init_params, TT.n_workers = init_params, (lambda mesh: m)
+        stack.callback(setattr, TT, "init_params", init)
+        stack.callback(setattr, TT, "n_workers", n_workers)
+
+    probe, rows, launches = train_run(torch, dev, argv, extra=extra)
+    torch.save({"start": start["p"], "final": [x.detach().cpu() for x in
+                                              tree_leaves(probe.params)]}, path)
+    return rows, launches
+
+
+def sharded_phase(torch, dev, train_a, reduce_a="full", steps_a=3, reduce_b="100m",
+                  steps_b=8):
+    """Sharded placements on gloo ranks that share ``cuda:0``.
+
+    (a) ``launch.train.main`` on gemma2-2b ``--reduce full --model-axis 2``
+    (2 ranks, the (data=1, model=2) mesh; d = 2,614,341,888 bf16), engine
+    flat, ``train_phase`` (a)'s seed, batch, seq and tau, ``steps_a`` steps:
+    the losses of steps 0 and 1 bit for bit ``train_phase``'s (the gathered
+    leaves are the whole ones, and the FO update on a model-only mesh is
+    elementwise on the same gradient), step 2's within rtol 1e-6 (after the
+    first ZO update, whose global sum of squares is summed in another
+    order); each rank's parameter bytes at every step's start equal its
+    shards'; each rank's peak below ``train_phase``'s one-process peak;
+    rank 0 books 4·d per FO step and 4 bytes per ZO step; the leaves no axis
+    cuts equal on both ranks; one zo_perturb_flat and one
+    zo_reconstruct_flat launch per ZO step on each rank, held on rank 0 in
+    the first ZO step on sampled blocks of its packed shard (a
+    column-sharded leaf's and the row-sharded embedding's among them)
+    against the plain versions, rtol 1e-5 of the change, with shard-local
+    counters as the failing control.
+    (b) ``--reduce 100m`` on (data=2, model=2) (4 ranks), ``steps_b`` steps
+    at tau 4: gemma2-2b (m = 2) and arctic-480b (fsdp, MoE; m = 1 in its ZO
+    steps, every rank the whole batch) against this process's replicated run
+    of the same config: losses within rtol 1e-6, rank 0's final shards
+    within 2% of the update of their slices of the replicated parameters
+    (the rules of the process-group phase), 4·d bytes per FO step and 4·m per
+    ZO step.
+    Step times, the gathers' share of each step by host clock and the bytes
+    gathered are printed; returns the launches by path."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import size_override
+
+    smi = smi_line()
+    out = {}
+    cfg_a = size_override(get_config("gemma2-2b"), reduce_a)
+    d = cfg_a.param_count()
+    argv = TRAIN_FLAGS + ["--reduce", reduce_a, "--steps", str(steps_a), "--engine", "flat",
+                          "--model-axis", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        log = str(Path(tmp) / "a.csv")
+        t0 = time.perf_counter()
+        res = sharded_spawn(torch, dev, argv, 2, log, hold=True)
+        wall = time.perf_counter() - t0
+        rows = csv_rows(log)
+    losses = [float(r["loss"]) for r in rows]
+    order = [int(r["order"]) for r in rows]
+    check(order == [1 if t % 3 == 0 else 0 for t in range(steps_a)], f"sharded (a): order {order}")
+    check(losses[:2] == train_a["losses"][:2],
+          f"sharded (a): losses of steps 0-1 {losses[:2]} are not train_phase's "
+          f"{train_a['losses'][:2]} bit for bit")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[2:], train_a["losses"][2:steps_a])]
+    check(all(math.isfinite(v) for v in losses) and max(rel, default=0.0) <= 1e-6,
+          f"sharded (a): steps 2.. {losses[2:]} vs train_phase's "
+          f"{train_a['losses'][2:steps_a]}: relative {rel} (tol 1e-6)")
+    check([int(r["comm_bytes"]) for r in rows] == [4 * d if o else 4 for o in order],
+          f"sharded (a): rank 0 books {[r['comm_bytes'] for r in rows]}, expected {4 * d} per "
+          f"FO step and 4 per ZO step")
+    one_peak = max(max(v) for v in train_a["peak_gb"].values())
+    n_zo = order.count(0)
+    for rank, r in enumerate(res):
+        held = r["held_bytes"]["fo"] + r["held_bytes"]["zo"]
+        check(all(b == r["shard_bytes"] for b in held) and r["shard_bytes"] < r["global_bytes"],
+              f"sharded (a) rank {rank}: parameter bytes held at each step's start {held}, its "
+              f"shards' {r['shard_bytes']} of {r['global_bytes']}")
+        peak = max(max(v) for v in r["peak_gb"].values())
+        check(peak < one_peak, f"sharded (a) rank {rank}: peak {peak:.2f} GB is not below the "
+              f"one-process peak {one_peak:.2f} GB")
+        check(r["launches"] == {"zo_perturb_flat": n_zo, "zo_reconstruct_flat": n_zo},
+              f"sharded (a) rank {rank}: launches {r['launches']}")
+    check(res[0]["replicated_sum"] == res[1]["replicated_sum"],
+          "sharded (a): the leaves no axis cuts differ between the ranks")
+    for name in ("zo_perturb_flat", "zo_reconstruct_flat"):
+        held = res[0]["held"].get(name)
+        check(held is not None and held[3] and held[2] > 0,
+              f"sharded (a): {name} disagrees with its plain version on rank 0's shard: {held}")
+        check(not held[5], f"sharded (a): {name}'s control (shard-local counters) passed")
+    print(f"  (a) gemma2-2b --reduce {reduce_a} --model-axis 2 (d={d:,}), 2 gloo ranks, "
+          f"{steps_a} steps in {wall:.1f} s: losses {losses}; steps 0-1 bit for bit "
+          f"train_phase's, then relative {[f'{v:.2e}' for v in rel]} (tol 1e-6); rank 0 books "
+          f"{4 * d} B per FO step, 4 per ZO step; peaks (GB) "
+          f"{[round(max(max(v) for v in r['peak_gb'].values()), 2) for r in res]} against the "
+          f"one-process {one_peak:.2f}")
+    out["a"] = {"launches": {k: sum(r["launches"].get(k, 0) for r in res)
+                             for k in res[0]["launches"]},
+                "losses": losses, "peak_gb": [max(max(v) for v in r["peak_gb"].values())
+                                              for r in res],
+                "one_process_peak_gb": one_peak, "wall_s": wall, "d": d,
+                **sharded_report("(a)", res, rows, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 100m on (data=2, model=2) against the replicated run in this process
+    out["b"] = {}
+    for arch, flags in SHARDED_100M.items():
+        cfg_b = size_override(get_config(arch), reduce_b)
+        d_b = leaf_count(cfg_b)
+        m_zo = 1 if cfg_b.fsdp else 2
+        argv = flags + ["--reduce", reduce_b, "--steps", str(steps_b), "--engine", "flat"]
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = str(Path(tmp) / "ref.pt")
+            rows_r, _ = replicated_run(torch, dev, argv, 2, ref)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log = str(Path(tmp) / "b.csv")
+            t0 = time.perf_counter()
+            res = sharded_spawn(torch, dev, argv + ["--model-axis", "2"], 4, log, ref_path=ref)
+            wall = time.perf_counter() - t0
+            rows = csv_rows(log)
+        label = f"(b) {arch} --reduce {reduce_b} (d={d_b:,}{', fsdp' if cfg_b.fsdp else ''})"
+        lr, ls = [float(r["loss"]) for r in rows_r], [float(r["loss"]) for r in rows]
+        order = [int(r["order"]) for r in rows]
+        check(order == [int(r["order"]) for r in rows_r] == [1 if t % 4 == 0 else 0
+                                                              for t in range(steps_b)],
+              f"sharded {label}: order {order}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lr))
+        check(all(math.isfinite(v) for v in ls) and rel <= 1e-6,
+              f"sharded {label}: losses {ls} vs the replicated {lr}: relative {rel} (tol 1e-6)")
+        check([int(r["comm_bytes"]) for r in rows] == [int(r["comm_bytes"]) for r in rows_r]
+              == [4 * d_b if o else 4 * m_zo for o in order],
+              f"sharded {label}: bytes {[r['comm_bytes'] for r in rows]}, replicated "
+              f"{[r['comm_bytes'] for r in rows_r]}")
+        r0 = res[0]
+        check(r0["final_diff"] <= 0.02 * r0["update_scale"] + 1e-7 and r0["update_scale"] > 0,
+              f"sharded {label}: rank 0's final shards {r0['final_diff']} from the replicated "
+              f"run's, more than 2% of the update {r0['update_scale']}")
+        n_zo = order.count(0)
+        total = {k: sum(r["launches"].get(k, 0) for r in res) for k in r0["launches"]}
+        check(total == {"zo_perturb_flat": 4 * n_zo, "zo_reconstruct_flat": 4 * n_zo},
+              f"sharded {label}: launches over the ranks {total}")
+        for rank, r in enumerate(res):
+            held = r["held_bytes"]["fo"] + r["held_bytes"]["zo"]
+            check(all(b == r["shard_bytes"] for b in held),
+                  f"sharded {label} rank {rank}: bytes held {held}, shards' {r['shard_bytes']}")
+        print(f"  {label}, 4 gloo ranks (data=2, model=2), {steps_b} steps at tau 4 in "
+              f"{wall:.1f} s: losses within {rel:.2e} of the replicated run's (tol 1e-6); "
+              f"rank 0's final shards {r0['final_diff']:.3e} from it (tol 2% of the update "
+              f"{r0['update_scale']:.3e}); {4 * d_b} B per FO step, {4 * m_zo} per ZO step")
+        out["b"][arch] = {"launches": total, "rel": rel, "wall_s": wall,
+                          "final_diff": r0["final_diff"], "update_scale": r0["update_scale"],
+                          **sharded_report(label, res, rows, smi)}
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -4067,6 +4488,14 @@ def main() -> None:
           " flat, pallas and tree")
     arch_train = {arch: train_100m(torch, dev, flags, aux=arch == "arctic-480b")
                   for arch, flags in TRAIN_ARCHS.items()}
+    print("# phase: sharded placements, launch.train main on gloo ranks sharing cuda:0: "
+          "gemma2-2b --reduce full --model-axis 2; gemma2-2b and arctic-480b (fsdp) at 100m on "
+          "(data=2, model=2)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = sharded_phase(torch, dev, train["a"])
+    print(f"  sharded phase: {time.perf_counter() - t0:.1f} s")
     sim_launches = sim_phase(torch, dev)
     print("# phase: open-loop serving traffic, launch.serve --traffic poisson:50.0,mixed on "
           "qwen3-14b at full width")
@@ -4077,6 +4506,9 @@ def main() -> None:
                      "distributed (b) 4 gloo ranks, all ranks": dist_launches["b"],
                      TRAIN_FULL: train["a"]["launches"],
                      TRAIN_100M: train["b"]["pallas"]["launches"], **sim_launches,
+                     SHARDED_FULL: sharded["a"]["launches"],
+                     **{sharded_path(arch): run["launches"]
+                        for arch, run in sharded["b"].items()},
                      **{f"train {arch} --reduce 100m, engine={engine}": run[engine]["launches"]
                         for arch, run in arch_train.items() for engine in ("flat", "pallas")}}
     print("# phase: profile of the ZO step with engine=pallas")
@@ -4172,7 +4604,9 @@ def main() -> None:
                        ("zo_perturb", "federated fed-HO-SGD engine=pallas"),
                        ("zo_reconstruct", "federated fed-HO-SGD engine=pallas"),
                        ("zo_perturb_flat", TRAIN_FULL), ("zo_reconstruct_flat", TRAIN_FULL),
-                       ("zo_perturb", TRAIN_100M), ("zo_reconstruct", TRAIN_100M)):
+                       ("zo_perturb", TRAIN_100M), ("zo_reconstruct", TRAIN_100M),
+                       *((name, path) for name in GENERIC_PAIR
+                         for path in (SHARDED_FULL, *map(sharded_path, SHARDED_100M)))):
         check(path_launches[path].get(name, 0) > 0, f"{name} was not launched on {path}")
     for row in kernels:
         if row["name"] in train["shape"]:

@@ -20,7 +20,11 @@ names, the logical dtypes and the shapes.
 
 Leaves may be tensors on any device or numpy arrays.  ``restore`` returns
 tensors (64-bit payloads keep their width) on ``device``, or on the CPU
-when ``device`` is None; the reference's ``shardings`` have no counterpart.
+when ``device`` is None.  A checkpoint holds whole leaves whatever mesh
+wrote it (a sharded trainer gathers them first); ``restore(..., shards=)``
+(a ``dist.sharding.ShardGeometry``) slices each leaf to this rank's shard
+before it reaches ``device``, the counterpart of the reference's
+``shardings``.
 """
 from __future__ import annotations
 
@@ -108,11 +112,12 @@ def _leaf(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            device=None, shards=None) -> Tuple[Any, int]:
     """``(tree, step)``: the checkpoint at ``step`` (default the latest) in
     the structure of ``like``, as tensors of the manifest's dtypes on
-    ``device`` (the CPU when None).  Raises ``ValueError`` when the leaf
-    names differ from ``like``'s."""
+    ``device`` (the CPU when None); with ``shards`` each leaf is this rank's
+    shard of it.  Raises ``ValueError`` when the leaf names differ from
+    ``like``'s."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -127,6 +132,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
         )
     with np.load(os.path.join(path, "arrays.npz")) as data:
         leaves = [_leaf(data[f"a{i}"], dt) for i, dt in enumerate(manifest["dtypes"])]
+    if shards is not None:
+        leaves = [shards.shard(i, x) for i, x in enumerate(leaves)]
     if device is not None:
         leaves = [x.to(device) for x in leaves]
     return tree_unflatten(treedef, leaves), manifest["step"]

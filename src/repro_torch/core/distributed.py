@@ -22,7 +22,8 @@ the mesh as the reference picks its own:
   through the generic reconstruct-then-``opt.update`` path; the FO step
   all-reduces the local gradient's mean (4·d bytes).  The monitoring loss is
   a ``pmean`` booked ``payload=False``.
-* **fsdp** (one global direction, m = 1): ``zo_single``, booked as 4 bytes.
+* **fsdp** (one global direction, m = 1): ``zo_single``, booked as 4 bytes;
+  the FO step is the one-process formulation (the whole mesh is one worker).
 
 FO wire codecs: ``compress_mode="per_worker"`` encodes every worker's
 gradient with its own key (``fold(fold(seed, t), w)``) and is booked at
@@ -34,10 +35,32 @@ decoding every code), booked at the codes' bytes, as the reference books the
 reduction its partitioner inserts; the dense mean also appears in the ledger
 as a ``payload=False`` ``pmean``.
 
-What differs from the reference: parameters stay replicated on every rank;
-running sharded parameter placements (specs that name an axis of more than
-one rank, or ``fsdp`` over several ranks) is ROADMAP Queue 1 item 11a and
-raises.  ``scan_unroll`` and ``buckets`` have no meaning in eager PyTorch
+Sharded placements (``param_specs_tree``: the reference's ``param_specs``,
+tensor-parallel over ``model`` and, under ``fsdp``, over ``data``) run as
+sharded storage with compute gathered on use: each rank holds its shard of
+every parameter, of the optimizer state and of every direction buffer, and
+the loss gathers each leaf just before it is used
+(``dist.sharding.ShardedParams``; the caller's ``loss_fn`` does it, as the
+trainer's does).  The engines run on the shards with global counters, the
+global d and the global norm (``core.engine``); the ZO exchange stays one
+float32 scalar per worker rank (4·m); the FO gradient reaches each rank as
+its shard (``gather``'s backward slices it) and is averaged over the worker
+axes; codecs work on shards.  Under ``fsdp`` a worker is the whole data x
+model slice (the reference's config: its ZO step runs m = 1, and its
+products are the global batch's): every rank takes the whole batch
+(``data.pipeline.shard_batches(..., whole=True)``) and runs the one-process
+formulation on its shards, so a MoE layer's capacity and load-balance loss
+are the global batch's, as in the reference.  Every exchange is booked at the
+GLOBAL tree's bytes (4·d FO, per-worker codec ``nbytes`` of the global
+leaves x m), as the reference's traced global shapes book it, never at a
+shard's.  The fused flat round stays off under specs (it scales by its own
+buffer's norm).  The reference's own placement hints (its engine's
+``_constrain``) have no counterpart: nothing is compiled.
+
+What differs from the reference: the products are computed on gathered
+whole leaves on every rank of a ``model`` axis (the reference's GSPMD
+partitions them, Megatron-style; a partitioned-compute forward is ROADMAP
+work).  ``scan_unroll`` and ``buckets`` have no meaning in eager PyTorch
 and are accepted for the signature: the reference chunks its flat gradient
 into ``buckets`` so that its compiler may overlap each chunk's reduction
 with compute, with the same values and bytes; eager PyTorch has nothing to
@@ -48,6 +71,7 @@ parameters' device.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Any, Callable, Optional
 
@@ -61,7 +85,8 @@ from repro_torch.core.ho_sgd import (
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.compress import Compressor, compress_tree
 from repro_torch.dist.sharding import (
-    mesh_shape, n_workers, param_specs, worker_axes, worker_index)
+    ShardGeometry, mesh_shape, n_workers, param_specs, spec_axes, worker_axes,
+    worker_index)
 from repro_torch.opt.optimizers import Optimizer, apply_deltas, const_schedule, sgd
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -76,6 +101,37 @@ def _split(batch: Any, m: int) -> Any:
     return tree_map(lambda x: x.reshape(m, x.shape[0] // m, *x.shape[1:]), batch)
 
 
+def _cuts(specs: Any, mesh) -> bool:
+    """Whether a spec of ``specs`` cuts a leaf over an axis of more than one
+    rank."""
+    if specs is None:
+        return False
+    shape = mesh_shape(mesh)
+    return any(shape[a] > 1 for spec in tree_leaves(specs) for part in spec
+               for a in spec_axes(part))
+
+
+def _geometry_cache(specs: Any, mesh) -> Callable:
+    """``params -> ShardGeometry`` of this rank's shards, or None when no
+    spec cuts a leaf over an axis of more than one rank."""
+    cache: dict = {}
+
+    def geometry_of(params):
+        if not _cuts(specs, mesh):
+            return None
+        key = tuple(tuple(x.shape) for x in tree_leaves(params))
+        if key not in cache:
+            cache[key] = ShardGeometry.from_local(specs, params, mesh)
+        return cache[key]
+
+    return geometry_of
+
+
+def _codec_nbytes(compressor: Compressor, geom: ShardGeometry) -> int:
+    """The codec's wire bytes for the GLOBAL tree (``compress_tree``'s sum)."""
+    return sum(compressor.nbytes(math.prod(s)) for s in geom.shapes)
+
+
 def make_fo_step(
     loss_fn: Callable[[Any, Any], torch.Tensor],
     mesh,
@@ -87,17 +143,21 @@ def make_fo_step(
     compress_mode: str = "per_worker",
     m: Optional[int] = None,
     buckets: int = 1,
+    param_specs_tree: Any = None,
+    fsdp: bool = False,
 ) -> Callable:
     """``(t, params, opt_state, batch) -> (params, opt_state, loss)``: the FO
     round (eq. 3) lowered to ``mesh``.  ``grad_accum`` splits the batch into
     microbatches (row i of every ``grad_accum`` rows goes to microbatch i)
     with a float32 gradient accumulator; ``compressor``/``compress_mode``
     hook a codec onto the gradient exchange; ``m`` defaults to the mesh's
-    worker count; ``buckets`` has no effect (the module docstring)."""
+    worker count; ``buckets`` has no effect (the module docstring);
+    ``param_specs_tree`` places the parameters (``params`` are then this
+    rank's shards); ``fsdp`` makes the whole mesh one worker."""
     rnd = rounds.fo_round(loss_fn, opt, wire=rounds.Wire(compressor, compress_mode),
                           overlap=rounds.Overlap(buckets))
     return lower_fo_round(rnd, mesh, grad_accum=grad_accum, scan_unroll=scan_unroll,
-                          seed=seed, m=m)
+                          seed=seed, m=m, param_specs_tree=param_specs_tree, fsdp=fsdp)
 
 
 def lower_fo_round(
@@ -108,19 +168,24 @@ def lower_fo_round(
     scan_unroll: bool = False,
     seed: int = 0,
     m: Optional[int] = None,
+    param_specs_tree: Any = None,
+    fsdp: bool = False,
 ) -> Callable:
     """An FO round's per-worker gradients + all-reduce + apply as one step:
     in one process the gradient of the batch mean, booked with
     ``note_all_reduce``; on a process group each rank's gradient, all-reduced
-    over the worker axes."""
+    over the worker axes.  Under sharded specs each rank's gradient is its
+    shard's, and the exchange is booked at the global tree's bytes; under
+    ``fsdp`` every rank runs the one-process formulation."""
     loss_fn, opt = rnd.meta["loss_fn"], rnd.meta["opt"]
     compressor, mode = rnd.wire.codec, rnd.wire.mode
     wa = worker_axes(mesh)
-    ranks = n_workers(mesh)
+    ranks = 1 if fsdp else n_workers(mesh)
     m = m if m is not None else max(1, ranks)
     if ranks > 1 and m != ranks:
         raise ValueError(f"a mesh of {ranks} worker ranks runs one worker per rank; "
                          f"got m={m}")
+    geometry_of = _geometry_cache(param_specs_tree, mesh)
     per_worker = compressor is not None and mode == "per_worker" and m > 1
     if per_worker and grad_accum > 1:
         # per-worker encoding needs the m gradients apart, which the
@@ -145,7 +210,12 @@ def lower_fo_round(
             l_acc = l_acc + loss
         return l_acc / grad_accum, tree_map(lambda g: g / grad_accum, g_acc)
 
+    def wire_of(geom, nb):
+        """A codec's booked bytes: the global tree's when sharded."""
+        return nb if geom is None else _codec_nbytes(compressor, geom)
+
     def one_process(t, params, batch):
+        geom = geometry_of(params)
         if per_worker:
             # each worker's shard gradient encoded with its own key and
             # decoded at the reducer: every worker receives m codes
@@ -156,7 +226,7 @@ def lower_fo_round(
                 d_w, nb = compress_tree(compressor, g, D.fold(key_t, w))
                 losses.append(loss)
                 dec.append(d_w)
-                wire = nb * m
+                wire = wire_of(geom, nb) * m
             grads = tree_map(lambda *xs: torch.mean(torch.stack(
                 [x.to(_F32) for x in xs]), 0).to(xs[0].dtype), *dec)
             coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
@@ -164,24 +234,28 @@ def lower_fo_round(
         loss, grads = grad_of(params, batch)
         if compressor is not None:
             grads, wire = compress_tree(compressor, grads, D.fold(seed, t))
-            coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
+            coll.note_all_reduce(grads, nbytes=wire_of(geom, wire), tag=compressor.name)
         else:
-            coll.note_all_reduce(grads, tag="grads")
+            coll.note_all_reduce(grads, tag="grads", nbytes=None if geom is None
+                                 else geom.global_nbytes(grads))
         return loss, grads
 
     def rank_per_worker(t, params, batch):
+        geom = geometry_of(params)
         loss, grads = grad_of(params, batch)
         loss = coll.pmean(loss, wa, mesh=mesh, tag="loss", payload=False)
         if compressor is None:
-            return loss, coll.pmean(grads, wa, mesh=mesh, tag="grads")
+            return loss, coll.pmean(grads, wa, mesh=mesh, tag="grads", nbytes=None
+                                    if geom is None else geom.global_nbytes(grads))
         if per_worker:
             dec, nb = compress_tree(compressor, grads,
                                     D.fold(D.fold(seed, t), worker_index(mesh)))
             grads = coll.pmean(dec, wa, mesh=mesh, tag="decoded", payload=False)
-            wire = nb * m
+            wire = wire_of(geom, nb) * m
         else:
             grads = coll.pmean(grads, wa, mesh=mesh, tag="decoded", payload=False)
             grads, wire = compress_tree(compressor, grads, D.fold(seed, t))
+            wire = wire_of(geom, wire)
         coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
         return loss, grads
 
@@ -215,21 +289,6 @@ def make_zo_step(
                           vmap_workers=vmap_workers)
 
 
-def _replicated_only(specs: Any, mesh) -> None:
-    """Raise unless every spec places its tensor whole on every rank."""
-    if specs is None:
-        return
-    shape = mesh_shape(mesh)
-    for spec in tree_leaves(specs):
-        for part in spec:
-            axes = (part,) if isinstance(part, str) else (part or ())
-            if any(shape[a] > 1 for a in axes):
-                raise NotImplementedError(
-                    f"spec {spec} shards a parameter over a mesh axis of more than one "
-                    "rank; the process-group steps keep parameters replicated "
-                    "(sharded placements are ROADMAP Queue 1 item 11a)")
-
-
 def lower_zo_round(
     rnd: rounds.Round,
     mesh,
@@ -246,15 +305,12 @@ def lower_zo_round(
     wa = () if fsdp else worker_axes(mesh)
     ranks = 1 if fsdp else n_workers(mesh)
     m = m or max(1, ranks)
-    if fsdp and n_workers(mesh) > 1:
-        raise NotImplementedError(
-            "fsdp shards parameters over the data axis; the process-group steps keep "
-            "them replicated (sharded placements are ROADMAP Queue 1 item 11a)")
     if ranks > 1 and m != ranks:
         raise ValueError(f"a mesh of {ranks} worker ranks runs one worker per rank; "
                          f"got m={m}")
-    _replicated_only(param_specs_tree, mesh)
-    engine_for = engine_cache(ho.engine, ho.seed, ho.acc_dtype)
+    sharded = _cuts(param_specs_tree, mesh)
+    engine_for = engine_cache(ho.engine, ho.seed, ho.acc_dtype,
+                              specs=param_specs_tree if sharded else None, mesh=mesh)
 
     def zo_inner(t, params, batch):
         """One rank per worker: this rank's coefficient, the m scalars
@@ -270,7 +326,7 @@ def lower_zo_round(
 
     def zo_single(t, params, batch):
         """m = 1 (fsdp): one global direction, a one-scalar gather booked
-        as 4 bytes."""
+        as 4 bytes; every rank of the mesh holds the whole batch."""
         eng = engine_for(params)
         c, f0 = eng.zo_coeff(loss_fn, params, batch, t, 0, ho.mu)
         cs = coll.note("all_gather", c.reshape(1), tag="zo_coeffs")
@@ -283,8 +339,9 @@ def lower_zo_round(
                 coll.note("pmean", loss, tag="loss", payload=False))
 
     # the fused single-buffer round: engine='flat' + plain SGD + no specs in
-    # one process (the kernels commit in place on this process's buffer; a
-    # process group keeps the generic reconstruct-then-opt.update path)
+    # one process (the kernels commit in place on this process's buffer and
+    # scale by its own norm; a process group and sharded specs keep the
+    # generic reconstruct-then-opt.update path)
     fused_flat = ho.engine == "flat" and opt.kind == "sgd" and param_specs_tree is None
     workers = list(range(m))
 
@@ -324,11 +381,15 @@ def make_distributed_ho_sgd(
 ):
     """``(fo_step, zo_step)`` honouring the config's knobs (``grad_accum``,
     ``fsdp``; the parameter specs when ``model_cfg`` and ``params_like`` are
-    given).  ``compressor`` quantizes the FO gradient exchange; the ZO step's
+    given: ``params_like`` has the GLOBAL shapes, a whole tree or meta
+    tensors of it, and when a spec cuts a leaf over an axis of more than one
+    rank the steps take and return this rank's shards, ``loss_fn`` gathering
+    them on use).  ``compressor`` quantizes the FO gradient exchange; the ZO step's
     traffic is already one scalar per worker.  The worker count is
     ``ho.m``: one process holds all of them when the mesh's worker axes span
     one rank, and a group must have ``ho.m`` worker ranks (``ValueError``
-    otherwise); ``fsdp`` runs m = 1."""
+    otherwise); ``fsdp`` runs m = 1, the whole mesh one worker that takes the
+    whole batch on every rank."""
     opt = opt or sgd(const_schedule(ho.lr), ho.momentum)
     ga = getattr(model_cfg, "grad_accum", 1) if model_cfg is not None else 1
     su = getattr(model_cfg, "scan_unroll", False) if model_cfg is not None else False
@@ -338,7 +399,7 @@ def make_distributed_ho_sgd(
         specs = param_specs(model_cfg, params_like, mesh)
     fo = make_fo_step(loss_fn, mesh, opt, grad_accum=ga, scan_unroll=su,
                       compressor=compressor, seed=ho.seed, compress_mode=compress_mode,
-                      m=ho.m, buckets=fo_buckets)
+                      m=ho.m, buckets=fo_buckets, param_specs_tree=specs, fsdp=fsdp)
     zo = make_zo_step(loss_fn, mesh, ho, opt, m=1 if fsdp else ho.m, fsdp=fsdp,
                       param_specs_tree=specs,
                       vmap_workers=vmap_workers)

@@ -28,8 +28,24 @@ step t uses salt ``fold(seed, t, w, i)`` with leaf-local counters from 0, in
 sorted-key leaf order; ``inv_norm`` is the shared reduction in every backend;
 ``perturb`` applies ``x_f32 + scale * v`` cast back to the leaf dtype;
 ``reconstruct`` rounds the accumulator to ``acc_dtype`` after every worker.
-Sharding ``specs`` have no counterpart on one card: only ``specs=None``.
 Steps and workers are Python ints; salts are folded on the host.
+
+Sharded placements: ``specs`` (a spec tree or list, ``dist.sharding``) with
+the ``mesh`` make an engine over this rank's shards (``params_like`` holds
+shards).  An element's counter stays its row-major index in the GLOBAL leaf,
+mod 2**32, so a shard's direction is bit for bit the slice of the whole
+leaf's; ``dim`` is the global d; the norm is global (each leaf's partial
+over the rank's shard, all-gathered over the shard axes and summed in one
+fixed order, ``ShardGeometry.reduce_sums``, booked ``payload=False``).
+``tree``/``fused`` generate a shard from its counters; ``flat`` packs the
+shard as runs of consecutive global counters, each run cut into blocks of a
+size picked from the runs (``shard_block``), so the flat kernels run on it
+unchanged; ``pallas`` launches its per-leaf kernels once per run when a leaf
+has at most ``PALLAS_MAX_RUNS`` runs and raises ``ValueError`` otherwise.
+The flat engine's fused pair (``fused_*``) scales by its own buffer's norm
+and raises under sharded specs.  ``specs`` without a mesh raise; specs that
+cut no leaf over an axis of more than one rank leave the engine as it is
+without them.
 
 ``vmap_workers`` (``zo_coeffs``, ``reconstruct``) keeps the reference's
 semantics without ``torch.func.vmap``: the coefficients are the same
@@ -41,17 +57,42 @@ leaf at once and contracts them in one float32 sum, rounded once to
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import directions as D
 from repro_torch.device import host_to_device
+from repro_torch.dist.sharding import ShardGeometry
 from repro_torch.dtypes import acc_dtype_of
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 _F32 = torch.float32
+#: the per-leaf kernels of the ``pallas`` engine launch once per run of a
+#: shard up to this many runs a leaf (the deepest config has 94 layers, so a
+#: stacked row-parallel or fsdp leading-dim shard fits); a column-parallel
+#: shard has a run per row and raises (ROADMAP Queue 1 item 11c)
+PALLAS_MAX_RUNS = 128
+#: the smallest block the flat engine cuts a shard's runs into
+MIN_SHARD_BLOCK = 64
+
+
+def shard_block(runs: Sequence[Tuple[np.ndarray, int]], block: int = 4096,
+                slack: float = 1 / 64) -> int:
+    """The flat block for a sharded layout: the largest power of two from
+    ``block`` down to ``MIN_SHARD_BLOCK`` whose packed buffer (every run
+    padded to whole blocks) is within ``slack`` of the shard's size.  A
+    column-parallel shard has short runs (512 values per row of gemma2-2b's
+    ``wk`` at model=2), which blocks of 4096 would pad eightfold."""
+    size = sum(len(st) * n for st, n in runs)
+    b = block
+    while b > MIN_SHARD_BLOCK:
+        packed = sum(len(st) * max(1, -(-n // b)) * b for st, n in runs)
+        if packed <= (1 + slack) * size:
+            break
+        b //= 2
+    return b
 
 
 class DirectionEngine:
@@ -59,23 +100,29 @@ class DirectionEngine:
 
     name = "base"
 
-    def __init__(self, params_like: Any, seed: int, *, specs: Any = None,
+    def __init__(self, params_like: Any, seed: int, *, specs: Any = None, mesh=None,
                  acc_dtype: Any = "float32", block: int = 4096):
-        if specs is not None:
-            raise ValueError("sharding specs have no counterpart on one card; "
-                             "the port's engines take specs=None only")
         leaves, self.treedef = tree_flatten(params_like)
+        # this rank's shapes: the shards' under sharded specs, else the leaves'
         self.shapes: List[Tuple[int, ...]] = [tuple(x.shape) for x in leaves]
         self.dtypes = [x.dtype for x in leaves]
         self.sizes = [int(math.prod(s)) for s in self.shapes]
-        # per-leaf base index in the flat d-dim vector (layout metadata, NOT a
-        # hash counter: counters are leaf-local)
+        # per-leaf base index in the flat vector of this rank's values (layout
+        # metadata, NOT a hash counter: counters are leaf-local)
         self.offsets: List[int] = []
         off = 0
         for n in self.sizes:
             self.offsets.append(off)
             off += n
         self.dim = off
+        self.geometry: Optional[ShardGeometry] = None
+        if specs is not None:
+            if mesh is None:
+                raise ValueError("sharding specs need the mesh they place leaves on "
+                                 "(make_engine(..., specs=, mesh=))")
+            geom = ShardGeometry.from_local(specs, params_like, mesh)
+            if geom.sharded:
+                self.geometry, self.dim = geom, geom.dim
         self.seed = seed
         self.acc_dtype = acc_dtype_of(acc_dtype)
         self.block = block
@@ -86,15 +133,32 @@ class DirectionEngine:
         """Per-leaf salts for (t, worker) — the hash identity of one v."""
         return [D.fold(self.seed, t, worker, i) for i in range(len(self.shapes))]
 
+    def _sharded(self, i: int) -> bool:
+        return self.geometry is not None and bool(self.geometry.axes[i])
+
     def _gauss(self, i: int, salt) -> torch.Tensor:
-        """Leaf i's raw (unnormalized) float32 direction."""
+        """Leaf i's raw (unnormalized) float32 direction (this rank's shard)."""
+        if self._sharded(i):
+            return D.gaussian_from_counters(self.geometry.counters(i, self.device), salt)
         return D.gaussian_from_salt(self.shapes[i], salt, device=self.device)
 
     # ---- primitive 1: the unit-sphere normalization --------------------- #
     def sumsq(self, t, worker) -> torch.Tensor:
         """||v_raw||^2 over the whole tree (the shared reduction)."""
+        if self.geometry is not None:
+            return self.sumsq_many(t, [worker])[0]
         return sum(torch.sum(torch.square(self._gauss(i, s)))
                    for i, s in enumerate(self.salts(t, worker)))
+
+    def sumsq_many(self, t, workers) -> torch.Tensor:
+        """``(m,)`` global ||v_raw||^2 of each worker under sharded specs: the
+        shards' per-leaf partials reduced in one collective
+        (``ShardGeometry.reduce_sums``)."""
+        partials = torch.stack([
+            torch.stack([torch.sum(torch.square(self._gauss(i, s)))
+                         for i, s in enumerate(self.salts(t, w))])
+            for w in workers])
+        return self.geometry.reduce_sums(partials)
 
     def inv_norm(self, t, worker) -> torch.Tensor:
         return torch.rsqrt(self.sumsq(t, worker) + 1e-30)
@@ -145,15 +209,22 @@ class DirectionEngine:
     def _reconstruct(self, coeffs, t, workers) -> Any:
         raise NotImplementedError
 
+    def _inv_norms(self, t, workers) -> torch.Tensor:
+        """``(m,)`` inv_norm of each worker (one collective when sharded)."""
+        if self.geometry is not None:
+            return torch.rsqrt(self.sumsq_many(t, workers) + 1e-30)
+        return torch.stack([self.inv_norm(t, w) for w in workers])
+
     def _prescaled(self, coeffs, t, workers) -> torch.Tensor:
         """``coeffs[w] * inv_norm_w``: what the kernels take per worker."""
-        return coeffs * torch.stack([self.inv_norm(t, w) for w in workers])
+        return coeffs * self._inv_norms(t, workers)
 
     def _reconstruct_vmapped(self, coeffs, t, workers) -> Any:
         scaled = self._prescaled(coeffs, t, workers)
         outs = []
         for i, shape in enumerate(self.shapes):
-            idx = torch.arange(self.sizes[i], dtype=torch.int64, device=self.device)
+            idx = (self.geometry.counters(i, self.device).reshape(-1) if self._sharded(i)
+                   else torch.arange(self.sizes[i], dtype=torch.int64, device=self.device))
             salts = torch.tensor([D.fold(self.seed, t, w, i) for w in workers],
                                  dtype=torch.int64, device=self.device)
             g = D.gaussian_from_counters(idx[None, :], salts[:, None])   # (m, n)
@@ -180,8 +251,9 @@ class TreeEngine(DirectionEngine):
 
     def _reconstruct(self, coeffs, t, workers):
         acc = self._acc_init()
+        scaled = self._prescaled(coeffs, t, workers)
         for i, w in enumerate(workers):
-            coeff = coeffs[i] * self.inv_norm(t, w)
+            coeff = scaled[i]
             vs = [self._gauss(li, s) for li, s in enumerate(self.salts(t, w))]
             acc = [(a.to(_F32) + coeff * g).to(self.acc_dtype)
                    for a, g in zip(acc, vs)]
@@ -202,8 +274,9 @@ class FusedEngine(DirectionEngine):
 
     def _reconstruct(self, coeffs, t, workers):
         acc = self._acc_init()
+        scaled = self._prescaled(coeffs, t, workers)
         for i, w in enumerate(workers):
-            coeff = coeffs[i] * self.inv_norm(t, w)
+            coeff = scaled[i]
             for li, s in enumerate(self.salts(t, w)):
                 acc[li] = (acc[li].to(_F32)
                            + coeff * self._gauss(li, s)).to(self.acc_dtype)
@@ -225,11 +298,33 @@ class PallasEngine(DirectionEngine):
 
     name = "pallas"
 
+    def __init__(self, params_like: Any, seed: int, **kw):
+        super().__init__(params_like, seed, **kw)
+        # a sharded leaf: one launch per run, at the run's first global counter
+        self.runs: List[Optional[List[Tuple[int, int]]]] = [None] * len(self.shapes)
+        for i in range(len(self.shapes)):
+            if not self._sharded(i):
+                continue
+            starts, n = self.geometry.runs(i)
+            if len(starts) > PALLAS_MAX_RUNS:
+                raise ValueError(
+                    f"the pallas engine launches its per-leaf kernels once per run of a "
+                    f"shard; leaf {i} {self.geometry.shapes[i]} placed by "
+                    f"{self.geometry.specs[i]} has {len(starts)} runs of {n} (at most "
+                    f"{PALLAS_MAX_RUNS}): use engine='flat' (ROADMAP Queue 1 item 11c)")
+            self.runs[i] = [(int(st) & D.MASK, n) for st in starts]
+
     def perturb(self, params, t, worker, scale):
         from repro_torch.kernels import ops  # deferred, as in FlatEngine
 
-        out = [ops.zo_perturb(x.reshape(-1), s, scale).reshape(x.shape)
-               for x, s in zip(tree_leaves(params), self.salts(t, worker))]
+        out = []
+        for x, s, runs in zip(tree_leaves(params), self.salts(t, worker), self.runs):
+            if runs is None:
+                out.append(ops.zo_perturb(x.reshape(-1), s, scale).reshape(x.shape))
+                continue
+            rows = x.reshape(len(runs), -1)
+            out.append(torch.cat([ops.zo_perturb(rows[r], s, scale, st)
+                                  for r, (st, _) in enumerate(runs)]).reshape(x.shape))
         return tree_unflatten(self.treedef, out)
 
     def _reconstruct(self, coeffs, t, workers):
@@ -238,10 +333,33 @@ class PallasEngine(DirectionEngine):
         scaled = self._prescaled(coeffs, t, workers)
         table = np.asarray([self.salts(t, w) for w in workers], np.uint32).T
         salts = host_to_device(table, self.device)
-        out = [ops.zo_reconstruct(n, salts[li], scaled,
-                                  acc_dtype=self.acc_dtype).reshape(shape)
-               for li, (n, shape) in enumerate(zip(self.sizes, self.shapes))]
+        out = []
+        for li, (n, shape, runs) in enumerate(zip(self.sizes, self.shapes, self.runs)):
+            if runs is None:
+                out.append(ops.zo_reconstruct(n, salts[li], scaled,
+                                              acc_dtype=self.acc_dtype).reshape(shape))
+                continue
+            out.append(torch.cat([ops.zo_reconstruct(k, salts[li], scaled, st,
+                                                     acc_dtype=self.acc_dtype)
+                                  for st, k in runs]).reshape(shape))
         return tree_unflatten(self.treedef, out)
+
+
+def flat_layout(leaf_runs: Sequence[Tuple[np.ndarray, int]], block: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(leaf, counter start, valid lanes)`` of every block of a packed
+    buffer (int64, uint32, int32): leaf i's runs in order, each run padded
+    to whole blocks (a scalar still occupies one), a block's counter its
+    first element's global index mod 2**32."""
+    blk_leaf, blk_ctr, blk_nv = [], [], []
+    for i, (starts, n) in enumerate(leaf_runs):
+        nb = max(1, -(-n // block))
+        lanes = np.arange(nb, dtype=np.int64) * block
+        blk_leaf.append(np.full(len(starts) * nb, i, np.int64))
+        blk_ctr.append(((starts[:, None] + lanes[None, :]) & D.MASK).reshape(-1))
+        blk_nv.append(np.tile(np.minimum(block, n - lanes), len(starts)))
+    return (np.concatenate(blk_leaf), np.concatenate(blk_ctr).astype(np.uint32),
+            np.concatenate(blk_nv).astype(np.int32))
 
 
 # --------------------------------------------------------------------------- #
@@ -251,7 +369,11 @@ class FlatEngine(DirectionEngine):
     Every leaf is padded to whole blocks of ``block`` floats, so each block
     belongs to one leaf; per-block ``(leaf, counter start, valid lanes,
     is-bf16)`` metadata is built once.  The hash identity is unchanged
-    (leaf-local counters from 0, one salt per (t, worker, leaf)).
+    (leaf-local counters from 0, one salt per (t, worker, leaf)).  Under
+    sharded specs a leaf's shard is its runs of consecutive global counters
+    (``ShardGeometry.runs``), each padded to whole blocks, and the block is
+    picked from the runs (``shard_block``); ``packed_over_shard`` is the
+    packed buffer's size over the shard's.
 
     The fused step path keeps the buffer packed across the ZO round.
     ``fused_reconstruct_update`` writes IN PLACE into the buffers it is
@@ -262,40 +384,44 @@ class FlatEngine(DirectionEngine):
 
     name = "flat"
 
-    def __init__(self, params_like: Any, seed: int, *, specs: Any = None,
+    def __init__(self, params_like: Any, seed: int, *, specs: Any = None, mesh=None,
                  acc_dtype: Any = "float32", block: int = 4096):
-        super().__init__(params_like, seed, specs=specs, acc_dtype=acc_dtype,
+        super().__init__(params_like, seed, specs=specs, mesh=mesh, acc_dtype=acc_dtype,
                          block=block)
-        blk_leaf, blk_ctr, blk_nv = [], [], []
+        # each leaf as (run starts, run length); a whole leaf is one run from 0
+        leaf_runs = [self.geometry.runs(i) if self._sharded(i)
+                     else (np.zeros(1, np.int64), n) for i, n in enumerate(self.sizes)]
+        if self.geometry is not None:
+            self.block = block = shard_block(leaf_runs, block)
+        self._blk_leaf, blk_ctr, blk_nv = flat_layout(leaf_runs, block)
         self.pad_offsets: List[int] = []   # leaf start in the PACKED buffer
+        self._row = []                     # per leaf: (runs, run length, padded run)
         off = 0
-        for i, n in enumerate(self.sizes):
+        for starts, n in leaf_runs:
             self.pad_offsets.append(off)
-            nb = max(1, -(-n // block))    # scalars still occupy one block
-            for b in range(nb):
-                blk_leaf.append(i)
-                blk_ctr.append(b * block)
-                blk_nv.append(min(block, n - b * block))
-            off += nb * block
+            padded = max(1, -(-n // block)) * block
+            self._row.append((len(starts), n, padded))
+            off += len(starts) * padded
         self.padded_dim = off
-        self.n_blocks = len(blk_leaf)
-        self._blk_leaf = np.asarray(blk_leaf, np.int64)
+        self.packed_over_shard = off / max(1, sum(self.sizes))
+        self.n_blocks = len(self._blk_leaf)
         dev = self.device
-        self._blk_ctr = torch.from_numpy(np.asarray(blk_ctr, np.uint32)).to(dev)
-        self._blk_nv = torch.tensor(blk_nv, dtype=torch.int32, device=dev)
-        self._blk_bf16 = torch.tensor(
-            [1 if self.dtypes[i] == torch.bfloat16 else 0 for i in blk_leaf],
-            dtype=torch.int32, device=dev)
+        self._blk_ctr = torch.from_numpy(blk_ctr).to(dev)
+        self._blk_nv = torch.from_numpy(blk_nv).to(dev)
+        bf16 = np.asarray([self.dtypes[i] == torch.bfloat16 for i in range(len(self.sizes))],
+                          np.int32)
+        self._blk_bf16 = torch.from_numpy(bf16[self._blk_leaf]).to(dev)
 
     # ---- packed-buffer layout ------------------------------------------- #
     def pack(self, tree: Any) -> torch.Tensor:
         """Tree -> fresh (padded_dim,) contiguous float32 buffer."""
         parts = []
         for i, x in enumerate(tree_leaves(tree)):
-            flat = x.to(_F32).reshape(-1)
-            pad = -(-max(self.sizes[i], 1) // self.block) * self.block \
-                - self.sizes[i]
-            parts.append(torch.nn.functional.pad(flat, (0, pad)) if pad else flat)
+            runs, n, padded = self._row[i]
+            flat = x.to(_F32).reshape(runs, -1)
+            pad = padded - flat.shape[1]
+            parts.append((torch.nn.functional.pad(flat, (0, pad)) if pad else flat)
+                         .reshape(-1))
         return torch.cat(parts)
 
     def unpack(self, buf: torch.Tensor, cast: bool = True) -> Any:
@@ -304,7 +430,11 @@ class FlatEngine(DirectionEngine):
         outs = []
         for i, shape in enumerate(self.shapes):
             off = self.pad_offsets[i]
-            leaf = buf[off:off + self.sizes[i]].reshape(shape)
+            runs, n, padded = self._row[i]
+            if runs == 1:
+                leaf = buf[off:off + self.sizes[i]].reshape(shape)
+            else:
+                leaf = buf[off:off + runs * padded].view(runs, padded)[:, :n].reshape(shape)
             outs.append(leaf.to(self.dtypes[i]) if cast else leaf)
         return tree_unflatten(self.treedef, outs)
 
@@ -339,11 +469,18 @@ class FlatEngine(DirectionEngine):
         return self.unpack(out, cast=False)
 
     # ---- fused step path (buffer stays packed across the round) ---------- #
+    def _unsharded(self, what: str) -> None:
+        if self.geometry is not None:
+            raise ValueError(f"{what} scales by its own buffer's norm, and under sharded "
+                             "specs the norm is global: use perturb/reconstruct")
+
     def fused_perturb_sumsq(self, buf: torch.Tensor, t, worker, mu
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(buf + mu*rsqrt(sumsq)*v, sumsq)``: the norm pass over d folds
         into the perturb."""
         from repro_torch.kernels import ops
+
+        self._unsharded("fused_perturb_sumsq")
 
         out, ss = ops.zo_perturb_sumsq(
             buf, self.blk_salts(t, worker), self._blk_ctr, self._blk_nv, mu,
@@ -357,6 +494,8 @@ class FlatEngine(DirectionEngine):
         ``scaled_coeffs`` (= c_w * inv_norm_w * zo_scale / m) and commit the
         SGD(+momentum) update in place.  Returns ``(buf, mom)``."""
         from repro_torch.kernels import ops
+
+        self._unsharded("fused_reconstruct_update")
 
         return ops.zo_reconstruct_update(
             buf, mom, self.blk_salts_multi(t, workers), self._blk_ctr,
@@ -375,14 +514,16 @@ ENGINES = {
 
 
 def make_engine(name: str, params_like: Any, seed: int, *, specs: Any = None,
-                acc_dtype: Any = "float32", block: int = 4096
+                mesh=None, acc_dtype: Any = "float32", block: int = 4096
                 ) -> DirectionEngine:
     """Build a DirectionEngine backend by name
-    ('tree' | 'fused' | 'pallas' | 'flat')."""
+    ('tree' | 'fused' | 'pallas' | 'flat'); ``specs`` with the ``mesh``
+    make it an engine over this rank's shards (the module docstring)."""
     try:
         cls = ENGINES[name]
     except KeyError:
         raise ValueError(
             f"unknown direction engine {name!r}; have {sorted(ENGINES)}"
         ) from None
-    return cls(params_like, seed, specs=specs, acc_dtype=acc_dtype, block=block)
+    return cls(params_like, seed, specs=specs, mesh=mesh, acc_dtype=acc_dtype,
+               block=block)

@@ -95,9 +95,11 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
     return loss.detach(), tree_unflatten(treedef, list(grads))
 
 
-def engine_cache(engine: str, seed: int, acc_dtype: str) -> Callable:
+def engine_cache(engine: str, seed: int, acc_dtype: str, specs: Any = None,
+                 mesh=None) -> Callable:
     """``params -> DirectionEngine``, built once per tree structure, leaf
-    shapes, dtypes and device (an engine holds per-leaf metadata)."""
+    shapes, dtypes and device (an engine holds per-leaf metadata); with
+    ``specs`` and ``mesh`` the params are this rank's shards."""
     engines: Dict[Any, Any] = {}
 
     def engine_for(params):
@@ -105,7 +107,8 @@ def engine_cache(engine: str, seed: int, acc_dtype: str) -> Callable:
         key = (repr(treedef),
                tuple((tuple(x.shape), x.dtype, x.device) for x in leaves))
         if key not in engines:
-            engines[key] = make_engine(engine, params, seed, acc_dtype=acc_dtype)
+            engines[key] = make_engine(engine, params, seed, specs=specs, mesh=mesh,
+                                       acc_dtype=acc_dtype)
         return engines[key]
 
     return engine_for

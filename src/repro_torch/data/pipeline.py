@@ -6,9 +6,10 @@ is a process of its own, so ``shard_batches`` yields this rank's part of every
 host batch: for a leaf that ``batch_specs`` shards over the worker axes, the
 rows of this rank's worker (worker w of m owns rows ``[w*n/m, (w+1)*n/m)``,
 the reference's block layout); a replicated leaf whole.  Ranks that differ
-only on the ``model`` axis get the same rows.  The rows go to the mesh's
-device through pinned memory with non-blocking copies, ``prefetch`` batches
-ahead.
+only on the ``model`` axis get the same rows.  Under ``fsdp`` a worker is
+the whole data x model slice, and ``whole=True`` gives every rank every row.
+The rows go to the mesh's device through pinned memory with non-blocking
+copies, ``prefetch`` batches ahead.
 """
 from __future__ import annotations
 
@@ -30,11 +31,12 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def shard_batches(host_batches: Iterator[Any], mesh, prefetch: int = 2) -> Iterator[Any]:
-    """This rank's rows of every host batch on the mesh's device, copied
-    ``prefetch`` batches ahead of the consumer."""
+def shard_batches(host_batches: Iterator[Any], mesh, prefetch: int = 2,
+                  whole: bool = False) -> Iterator[Any]:
+    """This rank's rows of every host batch (every row with ``whole``) on
+    the mesh's device, copied ``prefetch`` batches ahead of the consumer."""
     dev = _mesh_device(mesh)
-    w, m = worker_index(mesh), n_workers(mesh)
+    w, m = (0, 1) if whole else (worker_index(mesh), n_workers(mesh))
 
     def rows(x, spec: PartitionSpec):
         if len(spec):                   # leading dim over the worker axes

@@ -30,7 +30,12 @@ process group: ``axes`` names dimensions of ``mesh`` (a ``DeviceMesh``,
 this rank's coordinates on every other dimension.  ``note`` and
 ``note_all_reduce`` book an exchange without performing one, which is how a
 process that holds all m workers (the round executor, the single-process
-lowering) books its collectives.
+lowering) books its collectives.  A step over sharded parameters books its
+exchange at the global tree's bytes (``pmean``'s ``nbytes``), as the
+reference's traced global shapes do; ``gather_cat``, the sharded
+placements' storage collective (``dist.sharding.gather``), books nothing.
+Ranks that share one card (gloo ranks on ``cuda:0``) run ``gather_cat``
+device to device through CUDA IPC handles rather than through host memory.
 """
 from __future__ import annotations
 
@@ -183,6 +188,96 @@ def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return y.to(x.device) if staged else y
 
 
+class _CardExchange:
+    """``gather_cat`` between ranks that share one CUDA device: each rank
+    copies its part into a buffer of its own that every rank of the group
+    has opened through a CUDA IPC handle, and every rank reads the parts
+    device to device.  A barrier after the writes and one after the reads
+    (each behind a stream synchronize) keep a rank from reading a part
+    before it is written, or overwriting its buffer before it is read.  The
+    buffers grow in step on every rank: the ranks of a group gather the same
+    shapes in the same order."""
+
+    def __init__(self, group, device):
+        self.group, self.device = group, device
+        self.mine: Optional[torch.Tensor] = None
+        self.parts: List[torch.Tensor] = []
+
+    def _grow(self, nbytes: int) -> None:
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        self.parts = []
+        self.mine = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        handles: List[Any] = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(handles, reduce_tensor(self.mine), group=self.group)
+        me = dist.get_rank(self.group)
+        self.parts = [self.mine if r == me else rebuild(*args)
+                      for r, (rebuild, args) in enumerate(handles)]
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        n = x.numel() * x.element_size()
+        if self.mine is None or self.mine.numel() < n:
+            self._grow(max(n, 0 if self.mine is None else 2 * self.mine.numel()))
+        stream = torch.cuda.current_stream(self.device)
+        self.mine[:n].copy_(x.reshape(-1).view(torch.uint8))
+        stream.synchronize()
+        dist.barrier(group=self.group)
+        out = torch.cat([p[:n].view(x.dtype).view(x.shape) for p in self.parts], dim)
+        stream.synchronize()
+        dist.barrier(group=self.group)
+        return out
+
+
+#: per mesh and axes: the ``_CardExchange`` of their group, or None when its
+#: ranks are not on one card; its buffers go with the mesh
+_CARDS: "weakref.WeakKeyDictionary[Any, Dict[Tuple[str, ...], Optional[_CardExchange]]]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _card_exchange(mesh, axes: Axes, x: torch.Tensor) -> Optional[_CardExchange]:
+    """The same-card exchange over ``axes`` of ``mesh``, decided at their
+    first CUDA gather (a collective call): every rank of the group on one
+    host and one device (by the device's UUID)."""
+    import socket
+
+    import torch.distributed as dist
+
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    cards = _CARDS.setdefault(mesh, {})
+    if names not in cards:
+        group = axes_group(mesh, names)
+        uuid = getattr(torch.cuda.get_device_properties(x.device), "uuid", None)
+        where: List[Any] = [None] * dist.get_world_size(group)
+        dist.all_gather_object(where, (socket.gethostname(), str(uuid)), group=group)
+        same = uuid is not None and len(set(where)) == 1
+        cards[names] = _CardExchange(group, x.device) if same else None
+    return cards[names]
+
+
+def gather_cat(x: torch.Tensor, axes: Axes, *, mesh, dim: int) -> torch.Tensor:
+    """The parts of ``x`` over the ``axes`` of ``mesh``, concatenated on
+    ``dim`` in group-rank order, on ``x``'s device; books nothing.  Ranks
+    that share one card exchange CUDA parts device to device
+    (``_CardExchange``); otherwise the group's backend carries them (gloo
+    through host memory)."""
+    import torch.distributed as dist
+
+    if x.is_cuda:
+        card = _card_exchange(mesh, axes, x)
+        if card is not None:
+            return card.gather(x, dim)
+    group = axes_group(mesh, axes)
+    y, staged = _staged(x.contiguous(), group)
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    out = torch.cat(parts, dim)
+    return out.to(x.device) if staged else out
+
+
 def all_gather(x: torch.Tensor, axes: Axes, *, mesh, tiled: bool = False,
                tag: str = "", payload: bool = True) -> torch.Tensor:
     """All-gather ``x`` over the ``axes`` of ``mesh``, stacked on a new
@@ -209,15 +304,18 @@ def psum(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True) -> An
     return out
 
 
-def pmean(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True) -> Any:
+def pmean(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True,
+          nbytes: Optional[int] = None) -> Any:
     """Mean of a tree over the ``axes`` of ``mesh`` (a sum, then a division
-    by the group's size); books the tree's bytes."""
+    by the group's size); books the tree's bytes, or ``nbytes`` (the global
+    tree's, when ``x`` holds shards)."""
     import torch.distributed as dist
 
     group = axes_group(mesh, axes)
     n = dist.get_world_size(group)
     out = tree_map(lambda v: _all_reduce_sum(v, group) / n, x)
-    _record_active("pmean", _tree_nbytes(out), tag, payload)
+    _record_active("pmean", _tree_nbytes(out) if nbytes is None else int(nbytes), tag,
+                   payload)
     return out
 
 

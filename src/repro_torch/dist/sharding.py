@@ -19,15 +19,37 @@ A mesh is anything with a ``.shape`` mapping axis name to size (a
 so the specs can be taken for a 512-rank mesh in one process.  A spec is a
 ``PartitionSpec``: one entry per tensor dim (an axis name, a tuple of axis
 names, or None), trailing Nones dropped, as in JAX.  ``named`` turns a spec
-into ``DeviceMesh`` placements.  The port's process-group steps keep
-parameters replicated; running the ``model`` axis's placements is ROADMAP
-Queue 1 item 11a.
+into ``DeviceMesh`` placements.
+
+Running the placements (the port's formulation: sharded storage, compute
+gathered on use).  A rank holds plain local tensors, its shard of every
+leaf: a dim that a spec names is cut into as many equal parts as its axes
+have ranks, and the rank keeps the part at its coordinate on them
+(``shard_slices``; several axes flattened major to minor).  ``ShardGeometry``
+holds every leaf's slice, the global d and the shard as runs of consecutive
+global row-major indices (``leaf_runs``), which is how the direction engines
+keep the hash's counters global.  ``Sharder`` cuts each leaf as it is made
+(the trainer's initialisation), ``shard_tree`` a whole tree, ``gather`` a
+leaf back over the axes its spec names and ``gather_tree`` a whole tree;
+``ShardedParams`` is what the transformer gathers each layer with, just
+before the layer runs.  ``gather`` is differentiable, and its backward is
+this rank's slice of the gradient: every rank that shares a leaf's shards
+computed the same full gradient (the ranks of a ``model`` axis hold one
+worker's rows; under fsdp the ``data`` axis is storage too, since a worker
+is the whole data x model slice, so a sum over the axis divided by its size
+would only add rounding).  Nothing here is a ``DTensor``: the models launch
+kernels on raw pointers, and gloo carries a CUDA payload only through host
+memory (``dist.collectives``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Tuple
+import math
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 WORKER_AXIS_ORDER = ("pod", "data")
 
@@ -117,7 +139,8 @@ def _with_paths(tree: Any, names: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[
         yield names, tree
 
 
-def _map_with_paths(fn, tree: Any) -> Any:
+def map_with_paths(fn, tree: Any) -> Any:
+    """``fn(dict-key path, leaf)`` on every leaf, in ``tree_flatten`` order."""
     _, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, [fn(names, x) for names, x in _with_paths(tree)])
 
@@ -171,7 +194,7 @@ def param_specs(cfg, params: Any, mesh) -> Any:
     tensors, meta tensors).  Names ``model`` always, ``data`` only under
     ``cfg.fsdp``, never ``pod``."""
     shape_of = mesh_shape(mesh)
-    return _map_with_paths(
+    return map_with_paths(
         lambda names, x: _leaf_spec(cfg, shape_of, names, tuple(x.shape)), params)
 
 
@@ -234,7 +257,7 @@ def cache_specs(cfg, mesh, caches: Any, seq_sharded: bool = False) -> Any:
             parts.pop()
         return PartitionSpec(*parts)
 
-    return _map_with_paths(spec, caches)
+    return map_with_paths(spec, caches)
 
 
 def named(mesh, spec_tree: Any) -> Any:
@@ -253,3 +276,252 @@ def named(mesh, spec_tree: Any) -> Any:
         return tuple(out)
 
     return tree_map(placements, spec_tree)
+
+
+# --------------------------------------------------------------------------- #
+# running the placements: shard geometry, shards and gathers
+# --------------------------------------------------------------------------- #
+MASK = 0xFFFFFFFF
+
+
+def spec_axes(part) -> Tuple[str, ...]:
+    """The axes one entry of a spec names: ``()``, ``(axis,)`` or the tuple."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def mesh_coordinate(mesh) -> Dict[str, int]:
+    """{axis name: this rank's coordinate} on a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def shard_slices(spec: PartitionSpec, shape: Sequence[int], sizes: Dict[str, int],
+                 coord: Dict[str, int]) -> Tuple[slice, ...]:
+    """This rank's slice of every dim of a leaf of global ``shape``: a dim
+    that ``spec`` names is cut into as many equal parts as its axes have
+    ranks, and the rank keeps part ``idx``, its coordinates on those axes
+    flattened major to minor (the group-rank order of ``gather``)."""
+    out = []
+    for dim, n in enumerate(shape):
+        k, idx = 1, 0
+        for a in spec_axes(spec[dim] if dim < len(spec) else None):
+            k, idx = k * sizes[a], idx * sizes[a] + coord[a]
+        if n % k:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide into {k} parts "
+                             f"({spec})")
+        step = n // k
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def leaf_runs(shape: Sequence[int], slices: Sequence[slice]) -> Tuple[np.ndarray, int]:
+    """``(starts, length)``: the shard of a leaf of global ``shape``, read in
+    row-major order, as runs of consecutive global row-major indices, each
+    ``length`` long and starting at ``starts`` (int64, unwrapped: a
+    counter is the index mod 2**32).  A whole leaf is one run; a leaf cut on
+    its last cut dim k has one run per index of the dims before k."""
+    shape = [int(n) for n in shape]
+    cut = [d for d, (n, sl) in enumerate(zip(shape, slices)) if sl.stop - sl.start != n]
+    if not cut:
+        return np.zeros(1, np.int64), max(1, math.prod(shape))
+    k = cut[-1]
+    strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    starts = np.asarray(slices[k].start * strides[k], np.int64)
+    for d in range(k):
+        starts = starts[..., None] + np.arange(slices[d].start, slices[d].stop,
+                                               dtype=np.int64) * strides[d]
+    return starts.reshape(-1), (slices[k].stop - slices[k].start) * strides[k]
+
+
+class ShardGeometry:
+    """Where this rank's part of every leaf of a parameter tree lies.
+
+    Built from a spec tree (or a list of specs, None for replicated), the
+    leaves' GLOBAL shapes, the mesh's axis sizes and this rank's
+    coordinates; ``mesh`` (a ``DeviceMesh``) is needed only by the
+    collectives (``reduce_sums``).  A leaf is sharded when its spec names an
+    axis of more than one rank; ``sharded`` says whether any leaf is, and
+    ``shard_axes`` are the axes that shard some leaf, in the mesh's order.
+    ``dim`` is the global d."""
+
+    def __init__(self, specs: Any, shapes: Sequence[Sequence[int]], sizes: Dict[str, int],
+                 coord: Dict[str, int], mesh=None):
+        specs = list(specs) if isinstance(specs, (list, tuple)) else tree_leaves(specs)
+        if len(specs) != len(shapes):
+            raise ValueError(f"{len(specs)} specs for {len(shapes)} leaves")
+        self.specs = [s if s is not None else PartitionSpec() for s in specs]
+        self.shapes = [tuple(int(n) for n in s) for s in shapes]
+        self.sizes, self.coord, self.mesh = dict(sizes), dict(coord), mesh
+        self.slices = [shard_slices(s, shape, self.sizes, self.coord)
+                       for s, shape in zip(self.specs, self.shapes)]
+        self.local_shapes = [tuple(sl.stop - sl.start for sl in s) for s in self.slices]
+        self.axes = [tuple(a for part in s for a in spec_axes(part) if self.sizes[a] > 1)
+                     for s in self.specs]
+        self.shard_axes = tuple(a for a in self.sizes if any(a in ax for ax in self.axes))
+        self.sharded = bool(self.shard_axes)
+        self.dim = sum(math.prod(s) for s in self.shapes)
+
+    @classmethod
+    def from_global(cls, specs: Any, params_like: Any, mesh) -> "ShardGeometry":
+        """From a tree of global shapes (tensors or meta tensors)."""
+        return cls(specs, [tuple(x.shape) for x in tree_leaves(params_like)],
+                   mesh_shape(mesh), mesh_coordinate(mesh), mesh)
+
+    @classmethod
+    def from_local(cls, specs: Any, shards: Any, mesh) -> "ShardGeometry":
+        """From a tree of this rank's shards: every named dim times its
+        axes' ranks."""
+        sizes = mesh_shape(mesh)
+        specs = list(specs) if isinstance(specs, (list, tuple)) else tree_leaves(specs)
+        shapes = []
+        for s, x in zip(specs, tree_leaves(shards)):
+            s = s if s is not None else PartitionSpec()
+            shapes.append(tuple(n * math.prod(sizes[a] for a in spec_axes(
+                s[d] if d < len(s) else None)) for d, n in enumerate(x.shape)))
+        return cls(specs, shapes, sizes, mesh_coordinate(mesh), mesh)
+
+    def runs(self, i: int) -> Tuple[np.ndarray, int]:
+        """Leaf i's shard as runs of consecutive global indices (``leaf_runs``)."""
+        return leaf_runs(self.shapes[i], self.slices[i])
+
+    def counters(self, i: int, device) -> torch.Tensor:
+        """Leaf i's shard's global row-major indices mod 2**32, int64 in the
+        local shape: the hash counter of every element."""
+        idx = torch.zeros((), dtype=torch.int64, device=device)
+        for n, sl in zip(self.shapes[i], self.slices[i]):
+            idx = idx[..., None] * n + torch.arange(sl.start, sl.stop, dtype=torch.int64,
+                                                    device=device)
+        return idx & MASK
+
+    def shard(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf i's part of its whole value ``x``, in storage of its own."""
+        if self.local_shapes[i] == tuple(x.shape):
+            return x
+        return x[self.slices[i]].clone(memory_format=torch.contiguous_format)
+
+    def global_nbytes(self, tree: Any) -> int:
+        """The bytes of the global tree whose shards (or whose shards'
+        like, in their dtypes) ``tree`` holds."""
+        return sum(math.prod(s) * x.element_size()
+                   for s, x in zip(self.shapes, tree_leaves(tree)))
+
+    def reduce_sums(self, partials: torch.Tensor, tag: str = "sumsq") -> torch.Tensor:
+        """``(k, n_leaves)`` per-leaf partial sums over this rank's shards ->
+        ``(k,)`` global sums, the same on every rank: one all-gather of the
+        table over ``shard_axes`` (booked ``payload=False``), then, for each
+        leaf, its distinct shards (the ranks at coordinate 0 on the shard
+        axes that do not cut it) summed in group-rank order, and the leaves
+        summed in leaf order."""
+        from repro_torch.dist import collectives as coll
+
+        if not self.sharded:
+            return partials.sum(-1)
+        table = coll.all_gather(partials, self.shard_axes, mesh=self.mesh, tag=tag,
+                                payload=False)                       # (g, k, L)
+        pos = np.stack(np.meshgrid(*[np.arange(self.sizes[a]) for a in self.shard_axes],
+                                   indexing="ij"), -1).reshape(-1, len(self.shard_axes))
+        total = None
+        for i, axes in enumerate(self.axes):
+            keep = [r for r, c in enumerate(pos)
+                    if all(c[j] == 0 for j, a in enumerate(self.shard_axes) if a not in axes)]
+            leaf = table[keep[0], :, i]
+            for r in keep[1:]:
+                leaf = leaf + table[r, :, i]
+            total = leaf if total is None else total + leaf
+        return total
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's shard of every leaf of a whole tree (``ShardGeometry.shard``)."""
+    geom = ShardGeometry.from_global(specs, tree, mesh)
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [geom.shard(i, x) for i, x in enumerate(leaves)])
+
+
+class _GatherDim(torch.autograd.Function):
+    """One dim of ``gather``: the parts over ``axes`` concatenated on
+    ``dim``; backward: this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh, index):
+        from repro_torch.dist import collectives as coll
+
+        ctx.dim, ctx.index, ctx.n = dim, index, x.shape[dim]
+        return coll.gather_cat(x, axes, mesh=mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None
+
+
+def gather(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``x``: every dim that ``spec``
+    cuts over axes of more than one rank is all-gathered over them, in dim
+    order; differentiable (``_GatherDim``).  A leaf that no axis cuts comes
+    back as itself."""
+    sizes, coord = mesh_shape(mesh), None
+    for dim in range(min(len(spec), x.dim())):
+        axes = tuple(a for a in spec_axes(spec[dim]) if sizes[a] > 1)
+        if not axes:
+            continue
+        coord = coord or mesh_coordinate(mesh)
+        index = 0
+        for a in axes:
+            index = index * sizes[a] + coord[a]
+        x = _GatherDim.apply(x, dim, axes, mesh, index)
+    return x
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf of a tree of shards gathered whole (``gather``)."""
+    return tree_map(lambda x, s: gather(x, s, mesh), tree, specs)
+
+
+class ShardedParams:
+    """Gather on use: what the transformer calls to see whole leaves.
+
+    ``layer(lp)`` gathers one layer's leaves (the views ``unbind`` gives of
+    the stacked shards; the stacked layer dim is never cut), ``top(name,
+    sub)`` a top-level entry (embed, head, final norm)."""
+
+    def __init__(self, specs: Any, mesh):
+        self.specs, self.mesh = specs, mesh
+        self.layer_specs = tree_map(lambda s: PartitionSpec(*s.parts[1:]),
+                                    specs.get("layers"))
+
+    def layer(self, lp: Any) -> Any:
+        return gather_tree(lp, self.layer_specs, self.mesh)
+
+    def top(self, name: str, sub: Any) -> Any:
+        return gather_tree(sub, self.specs[name], self.mesh)
+
+
+class Sharder:
+    """This rank's slice of each parameter leaf as it is made.
+
+    ``sharder(names, x)`` takes a leaf's dict path and its whole value and
+    returns the rank's part, from ``param_specs``' rule for that path and
+    shape; ``stack=L`` marks one layer's slice of a stacked ``(L, ...)``
+    leaf (the stacked dim is never cut).  The global shapes are recorded, so
+    that ``global_like`` can give the meta tree that ``param_specs`` and the
+    steps take."""
+
+    def __init__(self, cfg, mesh):
+        self.cfg, self.sizes, self.coord = cfg, mesh_shape(mesh), mesh_coordinate(mesh)
+        self.shapes: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+
+    def __call__(self, names: Tuple[str, ...], x: torch.Tensor, stack: int = 0
+                 ) -> torch.Tensor:
+        shape = (stack, *x.shape) if stack else tuple(x.shape)
+        self.shapes[tuple(names)] = shape
+        spec = _leaf_spec(self.cfg, self.sizes, tuple(names), shape)
+        sl = shard_slices(spec, shape, self.sizes, self.coord)[1 if stack else 0:]
+        if all(s.stop - s.start == n for s, n in zip(sl, x.shape)):
+            return x
+        return x[sl].clone(memory_format=torch.contiguous_format)
+
+    def global_like(self, shards: Any) -> Any:
+        """Meta tensors of the global shapes, in the structure of ``shards``."""
+        return map_with_paths(lambda names, x: torch.empty(
+            self.shapes[tuple(names)], dtype=x.dtype, device="meta"), shards)

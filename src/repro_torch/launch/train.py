@@ -8,6 +8,19 @@ columns and ledger bytes.  Train a decoder with HO-SGD on the card:
     python -m repro_torch.launch.train --device cpu --arch gemma2-2b --reduce smoke \\
         --steps 9 --tau 3 --batch 4 --seq 32 --engine flat --ckpt ck
 
+Under a process group of several ranks (each rank runs ``main``; the
+caller initialises the group, as ``launch.mesh.spawn_ranks`` does), the
+mesh is ``(data, model)`` with ``--model-axis`` ranks on ``model`` and the
+rest on ``data`` (the workers).  ``--model-axis`` > 1 runs the reference's
+tensor-parallel placements and an ``fsdp`` architecture (arctic-480b,
+qwen3-moe-235b-a22b) also shards over ``data``: each rank keeps only its
+shard of every leaf, drawn from the same generator in the same order as the
+replicated run's (``models.transformer.init_model(..., shard=)``), and the
+loss gathers each leaf on use (``dist.sharding``).  Rank 0 prints, writes
+the CSV, the trace and ``--ckpt`` (gathered whole, in the one on-disk format,
+so it restores in either package and on any mesh; ``checkpoint.restore(...,
+shards=)`` slices it onto a sharded mesh).
+
 Every ``--tau``-th step (or as ``--tau-schedule`` decides) is a first-order
 step, an all-reduce of the gradient (4·d bytes with ``grad_accum`` > 1, the
 parameters' width otherwise); the rest are zeroth-order steps, one scalar per
@@ -22,8 +35,8 @@ What differs from the reference:
   When the caller has not initialised one, ``main`` opens a world-size-1
   gloo group over a ``file://`` store in a temporary directory and destroys
   it on exit; under the caller's group the device count is its world size.
-  Parameters stay replicated on the group: ``--model-axis`` > 1 over several
-  ranks raises (ROADMAP Queue 1 item 11a).
+* Sharded placements are sharded storage with compute gathered on use (the
+  reference's compiler partitions the products themselves).
 * ``--xla-overlap`` has no counterpart (launch tooling, ROADMAP Queue 1
   item 14) and exits with a message.
 
@@ -34,6 +47,7 @@ does not make.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -46,13 +60,14 @@ from repro_torch.core.ho_sgd import HOSGDConfig, adaptive_tau_decision, parse_ta
 from repro_torch.data import shard_batches, token_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist import CommLedger, get_compressor
-from repro_torch.dist.sharding import mesh_shape, n_workers
+from repro_torch.dist.sharding import (
+    Sharder, ShardedParams, ShardGeometry, gather_tree, mesh_shape, n_workers, param_specs)
 from repro_torch.launch.mesh import make_test_mesh, process_group
 from repro_torch.metrics import CSVLogger, comm_report
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import init_model
 from repro_torch.opt.optimizers import const_schedule, sgd
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def size_override(cfg: ModelConfig, preset: str) -> ModelConfig:
@@ -136,24 +151,50 @@ def main(argv=None):
         return _train(args, cfg, dev, n_dev)
 
 
+def init_params(cfg: ModelConfig, mesh, seed: int, dev: torch.device):
+    """``(params, params_like)``: this rank's shards of the seeded
+    parameters, and a tree of the global shapes (meta tensors when sharded).
+    A mesh that no placement cuts (``model`` of one rank, and no ``fsdp``
+    over several ``data`` ranks) gets the whole parameters."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = mesh_shape(mesh)
+    if shape.get("model", 1) == 1 and not (cfg.fsdp and shape.get("data", 1) > 1):
+        params = init_model(gen, cfg, device=dev)
+        return params, params
+    sharder = Sharder(cfg, mesh)
+    params = init_model(gen, cfg, device=dev, shard=sharder)
+    return params, sharder.global_like(params)
+
+
 def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
+    import torch.distributed as dist
+
     data_ax = args.data_axis or max(1, n_dev // args.model_axis)
     mesh = make_test_mesh(data=data_ax, model=args.model_axis, device=dev.type)
     m = n_workers(mesh)
-    print(f"arch={cfg.name} params={cfg.param_count():,} mesh={mesh_shape(mesh)} "
-          f"workers={m}")
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **kw: None)
+    say(f"arch={cfg.name} params={cfg.param_count():,} mesh={mesh_shape(mesh)} "
+        f"workers={m}")
 
-    params = init_model(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
-    loss_fn = lambda p, b: T.loss_fn(cfg, p, b)  # noqa: E731
-    leaf_dims = [int(x.numel()) for x in tree_leaves(params)]
+    params, like = init_params(cfg, mesh, args.seed, dev)
+    specs = param_specs(cfg, like, mesh)
+    geom = ShardGeometry.from_global(specs, like, mesh)
+    shards = ShardedParams(specs, mesh) if geom.sharded else None
+    loss_fn = lambda p, b: T.loss_fn(cfg, p, b, shards)  # noqa: E731
+    leaf_dims = [math.prod(s) for s in geom.shapes]
     d = sum(leaf_dims)
+    if geom.sharded:
+        held = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+        say(f"sharded over {geom.shard_axes}: rank 0 holds {held:,} of "
+            f"{geom.global_nbytes(params):,} parameter bytes")
     zo_lr = args.zo_lr if args.zo_lr is not None else args.lr * 50.0 / d
     ho = HOSGDConfig(tau=args.tau, mu=args.mu, m=m, lr=args.lr, zo_lr=zo_lr,
                      seed=args.seed, engine=args.engine)
     opt = sgd(const_schedule(args.lr))
     codec = get_compressor(args.compress)
     fo, zo = make_distributed_ho_sgd(loss_fn, mesh, ho, opt, model_cfg=cfg,
-                                     params_like=params, compressor=codec,
+                                     params_like=like, compressor=codec,
                                      compress_mode=args.compress_mode,
                                      fo_buckets=args.fo_buckets)
 
@@ -172,12 +213,13 @@ def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
     host = token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
     since_fo = 0
     tracer = None
-    if args.trace:
+    if args.trace and lead:
         from repro_torch.obs import Tracer
         tracer = Tracer(clock="wall")
-    with CSVLogger(args.log, ["step", "order", "loss", "dt", "comm_bytes"]) as logger:
+    with CSVLogger(args.log if lead else None,
+                   ["step", "order", "loss", "dt", "comm_bytes"]) as logger:
         t_prev = time.perf_counter()
-        for t, batch in zip(range(args.steps), shard_batches(host, mesh)):
+        for t, batch in zip(range(args.steps), shard_batches(host, mesh, whole=cfg.fsdp)):
             if tau_sched is None:
                 is_fo, t_step = t % args.tau == 0, t
             else:
@@ -198,31 +240,42 @@ def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
             dt_step = time.perf_counter() - t0
             if t % 10 == 0 or t == args.steps - 1:
                 now = time.perf_counter()
-                print(f"step {t:5d} ({'FO' if is_fo else 'ZO'}) "
-                      f"loss={loss:.4f} dt={now - t_prev:.2f}s")
+                say(f"step {t:5d} ({'FO' if is_fo else 'ZO'}) "
+                    f"loss={loss:.4f} dt={now - t_prev:.2f}s")
                 t_prev = now
             logger.log(step=t, order=int(is_fo), loss=loss, dt=dt_step,
                        comm_bytes=ledger.bytes_per_step(name))
         if args.ckpt:
             if tracer is not None:
                 with tracer.span("checkpoint", "train", name="ckpt_save"):
-                    path = ckpt_save(args.ckpt, args.steps, params)
+                    path = _save(args.ckpt, args.steps, params, specs, mesh, geom, lead)
             else:
-                path = ckpt_save(args.ckpt, args.steps, params)
-            print("checkpoint:", path)
+                path = _save(args.ckpt, args.steps, params, specs, mesh, geom, lead)
+            say("checkpoint:", path)
     if tracer is not None:
         from repro_torch.obs import write_trace
         write_trace(args.trace, tracer, title=f"train:{cfg.name}")
-        print(f"wrote trace {args.trace} ({len(tracer.spans)} spans)")
+        say(f"wrote trace {args.trace} ({len(tracer.spans)} spans)")
     # the dense FO exchange moves gradients in the parameters' dtype (a
     # float32 accumulator with grad_accum microbatches); ZO coefficients are
     # always float32
     grad_bytes = 4 if cfg.grad_accum > 1 else getattr(torch, cfg.dtype).itemsize
     for line in comm_report(ledger, d=d, m=m, tau=args.tau, codec=codec,
                             leaf_dims=leaf_dims, grad_bytes=grad_bytes):
-        print(line)
-    print("done; final loss", float(loss))
+        say(line)
+    say("done; final loss", float(loss))
     return float(loss)
+
+
+def _save(ckpt_dir: str, step: int, params, specs, mesh, geom: ShardGeometry,
+          lead: bool):
+    """``--ckpt``: the parameters whole, on rank 0.  Sharded leaves are
+    gathered through host memory (every rank takes part), so no rank holds
+    a second whole tree on the card."""
+    if geom.sharded:
+        with torch.no_grad():
+            params = gather_tree(tree_map(lambda x: x.cpu(), params), specs, mesh)
+    return ckpt_save(ckpt_dir, step, params) if lead else None
 
 
 if __name__ == "__main__":

@@ -23,6 +23,19 @@ non-reentrant), where the reference's ``jax.checkpoint`` is: the same
 values, less activation memory.  Without autograd (serving, the ZO step's
 evaluations) nothing is wrapped.
 
+Sharded placements (``dist.sharding``): with ``shards`` (a
+``ShardedParams``) the parameters are this rank's shards, and the training
+loss gathers each leaf on use: each layer's leaves just before the layer
+runs, inside its ``checkpoint`` when ``cfg.remat`` is on (so the backward
+gathers again instead of keeping the whole model alive), and the embedding,
+head and final norm where they are used.  Every block, the MoE, SSM and
+frontend code and every kernel call see whole tensors, as on one rank.  The
+reference's placement hints for its compiler (``moe._expert_spec`` and
+``_constrain``, attention's head-dim constraint) have no counterpart here.
+``init_model(..., shard=)`` keeps each rank's slice of every leaf as it is
+drawn (``dist.sharding.Sharder``), from the same generator in the same
+order, so the shards are bit for bit slices of the replicated parameters.
+
 Entry points that make tensors (``init_model``, ``init_caches``) run on the
 card unless the caller asks for ``device="cpu"``; without a card the default
 raises (``device.resolve_device``).
@@ -50,6 +63,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     softcap,
 )
+from repro_torch.dist.sharding import map_with_paths
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict
@@ -111,29 +125,39 @@ def _init_layer(gen, cfg: ModelConfig, dtype, device) -> Params:
     return p
 
 
-def init_model(gen, cfg: ModelConfig, device="cuda") -> Params:
+def init_model(gen, cfg: ModelConfig, device="cuda", shard=None) -> Params:
     """Random parameters from ``gen`` (a ``torch.Generator`` or an int seed),
     drawn on the generator's device and placed on ``device``.  The stacked
     layer tensors are filled one layer at a time, so the largest temporary
     is one layer's matrix.  An audio model has no embedding table, and a
-    head of its own."""
+    head of its own.  ``shard(names, x, stack=0)`` (a
+    ``dist.sharding.Sharder``) keeps this rank's part of each leaf as it is
+    made; the draws are the same."""
     device = resolve_device(device)
     gen = as_generator(gen)
     dtype = getattr(torch, cfg.dtype)
+
+    def keep(names, tree, stack=0):
+        if shard is None:
+            return tree
+        return map_with_paths(lambda path, x: shard(names + tuple(path), x, stack), tree)
+
     params: Params = {}
     if cfg.frontend != "audio":
-        params["embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device)
+        params["embed"] = keep(("embed",), embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                                       dtype, device))
     layers = None
     for i in range(cfg.n_layers):
-        lp = _init_layer(gen, cfg, dtype, device)
+        lp = keep(("layers",), _init_layer(gen, cfg, dtype, device), cfg.n_layers)
         if layers is None:
             layers = tree_map(lambda x: torch.empty((cfg.n_layers, *x.shape), dtype=x.dtype,
                                                     device=x.device), lp)
         tree_map(lambda dst, x, i=i: dst[i].copy_(x), layers, lp)
     params["layers"] = layers
-    params["final_norm"] = init_norm(cfg, cfg.d_model, device)
+    params["final_norm"] = keep(("final_norm",), init_norm(cfg, cfg.d_model, device))
     if not cfg.tie_embeddings or cfg.frontend == "audio":
-        params["head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
+        params["head"] = keep(("head",), embed_init(gen, (cfg.d_model, cfg.vocab_size),
+                                                     dtype, device))
     return params
 
 
@@ -170,7 +194,9 @@ def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int) -> torch.T
     return attn.attention_forward(cfg, lp["attn"], xn, window)
 
 
-def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int):
+def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int, shards=None):
+    if shards is not None:
+        lp = shards.layer(lp)           # gather on use: this layer's leaves whole
     mix = _mix(cfg, lp, apply_norm(cfg, lp["norm1"], x), window)
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
@@ -184,22 +210,32 @@ def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int):
 # --------------------------------------------------------------------------- #
 # embedding / inputs
 # --------------------------------------------------------------------------- #
-def embed_batch(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
+def _top(params: Params, name: str, shards=None):
+    """A top-level entry (embed, head, final norm), gathered when sharded."""
+    return params[name] if shards is None else shards.top(name, params[name])
+
+
+def _head(params: Params, shards=None) -> torch.Tensor:
+    return _top(params, "embed", shards).T if "head" not in params else \
+        _top(params, "head", shards)
+
+
+def embed_batch(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch.Tensor:
     """The input sequence: ``batch["features"]`` (B, S, D) for audio; else the
     scaled embeddings of ``batch["tokens"]``, after ``batch["image_embeds"]``
     (B, P, D, cast to the embeddings' dtype) for vision."""
     if cfg.frontend == "audio":
         return batch["features"]
-    text = params["embed"][batch["tokens"]] * math.sqrt(cfg.d_model)
+    text = _top(params, "embed", shards)[batch["tokens"]] * math.sqrt(cfg.d_model)
     if cfg.frontend == "vision":
         return torch.cat([batch["image_embeds"].to(text.dtype), text], dim=1)
     return text
 
 
-def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg, params["final_norm"], h)
-    head = params["embed"].T if "head" not in params else params["head"]
-    logits = h @ head
+def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                   shards=None) -> torch.Tensor:
+    h = apply_norm(cfg, _top(params, "final_norm", shards), h)
+    logits = h @ _head(params, shards)
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
@@ -208,21 +244,21 @@ def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------------- #
 # forward
 # --------------------------------------------------------------------------- #
-def forward_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor):
+def forward_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor, shards=None):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp, win in _layers(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
-            h, a = checkpoint(_block, cfg, lp, h, win, use_reentrant=False)
+            h, a = checkpoint(_block, cfg, lp, h, win, shards, use_reentrant=False)
         else:
-            h, a = _block(cfg, lp, h, win)
+            h, a = _block(cfg, lp, h, win, shards)
         aux = aux + a
     return h, aux
 
 
-def forward_logits(cfg: ModelConfig, params: Params, batch: Dict):
-    h = embed_batch(cfg, params, batch)
-    h, aux = forward_hidden(cfg, params, h)
-    return compute_logits(cfg, params, h), aux
+def forward_logits(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
+    h = embed_batch(cfg, params, batch, shards)
+    h, aux = forward_hidden(cfg, params, h, shards)
+    return compute_logits(cfg, params, h, shards), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -302,18 +338,19 @@ def cross_entropy_streaming(cfg: ModelConfig, head: torch.Tensor, h: torch.Tenso
     return ce.sum() / mask.sum().clamp(min=1)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch.Tensor:
     """Mean next-token CE over ``batch["labels"] >= 0`` plus ``MOE_AUX_COEF``
     times the layers' summed MoE aux loss (0 without experts); ``batch``
-    holds ``labels`` (B, S) ints and the inputs ``embed_batch`` reads."""
-    h = embed_batch(cfg, params, batch)
-    h, aux = forward_hidden(cfg, params, h)
+    holds ``labels`` (B, S) ints and the inputs ``embed_batch`` reads.  With
+    ``shards`` the parameters are this rank's shards, gathered on use (the
+    module docstring)."""
+    h = embed_batch(cfg, params, batch, shards)
+    h, aux = forward_hidden(cfg, params, h, shards)
     if ce_chunk_size(cfg):
-        h = apply_norm(cfg, params["final_norm"], h)
-        head = params["embed"].T if "head" not in params else params["head"]
-        ce = cross_entropy_streaming(cfg, head, h, batch["labels"])
+        h = apply_norm(cfg, _top(params, "final_norm", shards), h)
+        ce = cross_entropy_streaming(cfg, _head(params, shards), h, batch["labels"])
     else:
-        ce = cross_entropy(compute_logits(cfg, params, h), batch["labels"])
+        ce = cross_entropy(compute_logits(cfg, params, h, shards), batch["labels"])
     return ce + MOE_AUX_COEF * aux
 
 

@@ -246,17 +246,34 @@ def test_buckets_bit_identical_params_and_equal_bytes(mesh, buckets):
     assert _one_step_bytes(mesh, "fo", d=d, buckets=buckets, compressor=4)[0] == qsgd(4).nbytes(d)
 
 
-def test_sharded_placements_raise_until_their_port(mesh):
+def test_sharded_placements_raise_until_their_port(mesh, ranks):
+    """The placements that once raised build and take a step: fsdp
+    over several data ranks and specs that cut a leaf over ``model`` (on
+    the 4 spawned ranks, (data=2, model=2): each rank holds half of x, the
+    step moves it, and every rank gathers the same x).  What still raises:
+    the pallas engine on a shard of more than ``PALLAS_MAX_RUNS`` runs, a
+    column-parallel leaf's (ROADMAP Queue 1 item 11c)."""
+    from repro_torch.core.engine import PALLAS_MAX_RUNS, make_engine
     from repro_torch.dist.sharding import P
 
     opt = sgd(const_schedule(0.1))
-    with pytest.raises(NotImplementedError, match="11a"):
-        TD.make_zo_step(quad_loss, _Shape(data=4, model=2), H.ho_config("tree"), opt, fsdp=True)
-    with pytest.raises(NotImplementedError, match="11a"):
-        TD.make_zo_step(quad_loss, _Shape(data=1, model=2), H.ho_config("tree"), opt, m=4,
-                        param_specs_tree={"x": P("model")})
+    TD.make_zo_step(quad_loss, _Shape(data=4, model=2), H.ho_config("tree"), opt, fsdp=True)
+    TD.make_zo_step(quad_loss, _Shape(data=1, model=2), H.ho_config("tree"), opt, m=4,
+                    param_specs_tree={"x": P("model")})
     # specs that keep every parameter whole run, on the generic path
     TD.make_zo_step(quad_loss, mesh, H.ho_config("tree"), opt, m=4, param_specs_tree={"x": P()})
+    _, res = ranks
+    for out in res:
+        for case in ("model", "fsdp"):
+            got = out["sharded"][case]
+            assert got["held"] == [(DIM // 2,)]
+            np.testing.assert_array_equal(got["x"], res[0]["sharded"][case]["x"])
+            assert np.isfinite(got["losses"]).all()
+            assert float(np.abs(got["x"] - x0()["x"].numpy()).max()) > 0
+    column = H.FakeMesh(dict(data=0, model=1), data=1, model=2)
+    with pytest.raises(ValueError, match="11c"):
+        make_engine("pallas", {"x": torch.zeros(PALLAS_MAX_RUNS + 1, 1, 2)}, 0,
+                    specs=[P(None, None, "model")], mesh=column)
 
 
 # --------------------------------------------------------------------------- #

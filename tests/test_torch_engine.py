@@ -253,12 +253,22 @@ def test_tree_and_fused_engines_bitwise_in_torch():
 
 def test_make_engine_errors():
     """Every name of the reference builds its engine (``pallas`` too, since
-    the per-leaf kernels are ported); an unknown name and sharding specs
-    raise."""
+    the per-leaf kernels are ported); an unknown name raises, and so do
+    sharding specs without the mesh that gives their shard geometry; specs
+    with it build an engine over the rank's shards (global d), or the
+    unsharded engine when no spec cuts a leaf."""
+    from torch_dist_helpers import FakeMesh
+    from repro_torch.dist.sharding import P
+
+    at_model1 = FakeMesh(dict(data=0, model=1), data=1, model=2)
     p = {"x": torch.zeros(3)}
     assert isinstance(make_engine("pallas", p, 0), PallasEngine)
     assert sorted(ENGINES) == ["flat", "fused", "pallas", "tree"]
     with pytest.raises(ValueError, match="unknown direction engine"):
         make_engine("mosaic", p, 0)
-    with pytest.raises(ValueError, match="specs"):
+    with pytest.raises(ValueError, match="specs need the mesh"):
         make_engine("tree", p, 0, specs=[None])
+    for name in sorted(ENGINES):
+        eng = make_engine(name, {"x": torch.zeros(2, 3)}, 0, specs=[P("model")], mesh=at_model1)
+        assert eng.geometry.slices[0] == (slice(2, 4), slice(0, 3)) and eng.dim == 12
+        assert make_engine(name, p, 0, specs=[P()], mesh=at_model1).geometry is None

@@ -25,7 +25,10 @@ float32 operations in the same order), so only the two libraries' expf may
 part them, by an ulp; a state one step early fails that check.  Past
 element 2^31 of a packed buffer, zo_perturb_flat (rtol 1e-5 / atol 1e-6)
 and zo_reconstruct_flat (bit for bit) are held on the blocks around that
-element and the last 64.  A checkpoint of card tensors restores bit for
+element and the last 64; on a rank's shard layout (runs of 512 with their
+global counters, the block taken from the runs) both bit for bit.  Two
+gloo ranks on the card gather their parts device to device (the
+collectives' same-card exchange) bit for bit.  A checkpoint of card tensors restores bit for
 bit on the card, its manifest the bytes msgpack writes.
 """
 import numpy as np
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import zo_direction as cu
+from torch_dist_helpers import FakeMesh
 from torch_flat_helpers import bf16_match, flat_meta, leaf, multi_salts, packed, to_t
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -346,6 +350,57 @@ def test_zo_perturb_flat_matches_plain_version(block, shift):
         assert bool((buf[:256 + at] == 7.0).all())
         assert bool((out[n:] == 7.0).all())
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4])
+def test_flat_kernels_on_a_shard_layout(m):
+    """The flat engine over a rank's shards (a column-parallel leaf cut into
+    runs of 512, a row-parallel one, a whole vector): the block comes from
+    the runs (512), every block's counter is its global index, and
+    zo_perturb_flat and zo_reconstruct_flat are bit for bit their plain
+    versions on that layout."""
+    from repro_torch.core.engine import make_engine
+    from repro_torch.dist.sharding import P
+
+    dev = _cuda()
+    specs = [P(None, None, "model"), P(None, "model"), P()]
+    shapes = [(3, 40, 512), (3, 512, 40), (40,)]
+    gen = torch.Generator().manual_seed(m)
+    shards = {f"l{i}": torch.randn(s, generator=gen).to(dev) for i, s in enumerate(shapes)}
+    eng = make_engine("flat", shards, 11, specs=specs,
+                      mesh=FakeMesh(dict(data=0, model=1), data=1, model=2))
+    assert eng.block == 512 and eng.geometry.shapes[0] == (3, 40, 1024)
+    ctrs = eng._blk_ctr.view(torch.int32).cpu().numpy()
+    assert ctrs[1] == 1024 + 512 and eng.n_blocks == 3 * 40 + 3 * 40 + 1
+    x, block = eng.pack(shards), eng.block
+    s1 = eng.blk_salts(3, 0)
+    assert torch.equal(cu.zo_perturb_flat(x, s1, eng._blk_ctr, eng._blk_nv, 0.01, block),
+                       ref.ref_zo_perturb_flat(x, s1, eng._blk_ctr, eng._blk_nv, 0.01, block))
+    sm = eng.blk_salts_multi(3, range(m))
+    coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1][:m], device=dev)
+    assert torch.equal(
+        cu.zo_reconstruct_flat(sm, coeffs, eng._blk_ctr, eng._blk_nv, block),
+        ref.ref_zo_reconstruct_flat(sm, coeffs, eng._blk_ctr, eng._blk_nv, block))
+
+
+@pytest.mark.gpu
+def test_gather_between_ranks_on_one_card(tmp_path):
+    """Two gloo ranks on ``cuda:0``: ``collectives.gather_cat`` takes the
+    same-card exchange (CUDA IPC) and gives the parts in rank order on dims
+    0 and 1, bf16 bit for bit, and again after its buffers grow."""
+    import torch_dist_helpers as H
+    from repro_torch.launch.mesh import spawn_ranks
+
+    _cuda()
+    res = spawn_ranks(H.card_gather, 2, str(tmp_path / "init"), timeout=120)
+    parts = [(torch.arange(24, dtype=torch.float32).reshape(4, 6) + 100 * r).to(torch.bfloat16)
+             for r in range(2)]
+    for out in res:
+        assert out["card"]
+        for d in (0, 1):
+            np.testing.assert_array_equal(out[d], torch.cat(parts, d).float().numpy())
+        np.testing.assert_array_equal(out["big"], np.repeat([1.0, 2.0], 1 << 20))
 
 
 @pytest.mark.gpu
