@@ -115,6 +115,16 @@ Phases (any failed check exits non-zero):
      of the same config in this process, losses within rtol 1e-6 and rank
      0's final shards within 2% of the update; ms per FO and ZO step and
      the gathers' share of each by host clock;
+  8d''. the launch tooling held to this run: ``launch.dryrun.run_one``
+     prices (a) 8d (a)'s configuration on one rank and (b) rank 0 of 8d''s
+     (a) mesh, an FO and a ZO step each, in four spawned processes on the
+     CPU (a fake process group, ``meta`` tensors): each predicted peak
+     within 10% of the card's first step of that kind, (b)'s gathered bytes
+     of an FO step equal to rank 0's; (c) one FO step of gemma2-2b at 100m
+     on 2 gloo ranks (``--model-axis 2``) traced by ``torch.profiler`` on
+     rank 0: ``launch.overlap.overlap_stats``' pairs equal to the gathers
+     counted in the step; (d) ``bench.kernels_bench --smoke``: every kernel
+     row within its tolerance of its plain version;
   8e. the cluster simulator, ``make_sim_methods`` + ``simulate``, at Fig. 2's
      width (hidden=1300, m=4, B=64, tau=8, 32 iterations) on
      bandwidth-constrained flat clusters: (a) HO-SGD, sync-SGD, ZO-SGD; (b)
@@ -2566,6 +2576,7 @@ class ShardProbe(TrainProbe):
         self.engine, self.like, self.paths = None, None, None
         self.gather_s, self.gather_bytes, self.gathers = 0.0, 0, 0
         self.step_gather_s = {"fo": [], "zo": []}
+        self.step_gather_bytes = {"fo": [], "zo": []}
         self.held_bytes = {"fo": [], "zo": []}
 
     def install(self, stack):
@@ -2622,9 +2633,10 @@ class ShardProbe(TrainProbe):
                 map_with_paths(lambda names, x: self.paths.append(tuple(names)), params)
             self.held_bytes[kind].append(
                 sum(x.numel() * x.element_size() for x in tree_leaves(params)))
-            g0 = self.gather_s
+            g0, b0 = self.gather_s, self.gather_bytes
             out = inner(t, params, opt_state, batch)
             self.step_gather_s[kind].append(self.gather_s - g0)
+            self.step_gather_bytes[kind].append(self.gather_bytes - b0)
             return out
         return run
 
@@ -2698,6 +2710,7 @@ def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type):
     out = {"launches": launches, "wall_s": time.perf_counter() - t0,
            "peak_gb": probe.peak_gb, "start_gb": probe.start_gb,
            "held_bytes": probe.held_bytes, "step_gather_s": probe.step_gather_s,
+           "step_gather_bytes": probe.step_gather_bytes,
            "gather_s": probe.gather_s, "gather_bytes": probe.gather_bytes,
            "gathers": probe.gathers, "held": probe.held, "block": probe.engine.block,
            "packed_over_shard": probe.engine.packed_over_shard,
@@ -2877,6 +2890,8 @@ def sharded_phase(torch, dev, train_a, reduce_a="full", steps_a=3, reduce_b="100
           f"one-process {one_peak:.2f}")
     out["a"] = {"launches": {k: sum(r["launches"].get(k, 0) for r in res)
                              for k in res[0]["launches"]},
+                "rank0": {"peak_gb": res[0]["peak_gb"],
+                          "step_gather_bytes": res[0]["step_gather_bytes"]},
                 "losses": losses, "peak_gb": [max(max(v) for v in r["peak_gb"].values())
                                               for r in res],
                 "one_process_peak_gb": one_peak, "wall_s": wall, "d": d,
@@ -2933,6 +2948,175 @@ def sharded_phase(torch, dev, train_a, reduce_a="full", steps_a=3, reduce_b="100
         out["b"][arch] = {"launches": total, "rel": rel, "wall_s": wall,
                           "final_diff": r0["final_diff"], "update_scale": r0["update_scale"],
                           **sharded_report(label, res, rows, smi)}
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 8d'': the launch tooling held to this run: the dry run, the overlap
+# witness, the kernel bench
+# --------------------------------------------------------------------------- #
+#: the dry run's targets: train_phase (a)'s configuration (seq 128, batch 8)
+#: on one rank, and rank 0 of sharded_phase (a)'s (data=1, model=2) mesh
+DRYRUN_TARGETS = {"a": "1x1", "b": "1x2"}
+PEAK_TOL = 0.10               # a predicted peak within 10% of the card's
+OVERLAP_ARGV = ["--arch", "gemma2-2b", "--reduce", "100m", "--tau", "3", "--batch", "8",
+                "--seq", "128", "--steps", "1", "--engine", "flat", "--model-axis", "2"]
+
+
+def dryrun_target(mesh: str, step: str, reduce: str):
+    """One ``launch.dryrun.run_one`` record of train_phase (a)'s
+    configuration on ``mesh`` (a spawned process of its own: the dry run
+    makes a fake process group, and runs on the CPU)."""
+    import os
+
+    os.environ["REPRO_TEST_MESH"] = mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import size_override
+
+    flags = dict(zip(TRAIN_FLAGS[::2], TRAIN_FLAGS[1::2]))
+    cfg = size_override(get_config(flags["--arch"]), reduce)
+    shape = ShapeConfig("train_phase", int(flags["--seq"]), int(flags["--batch"]), "train")
+    return dryrun.run_one("gemma2-2b", shape, False, step, verbose=False, cfg=cfg)
+
+
+def overlap_rank(rank, world, argv, dev_type):
+    """One rank of ``launch.train.main(argv)`` whose FO step rank 0 runs
+    under ``torch.profiler`` (CPU and CUDA activity): the gathers counted in
+    the step (``collectives.GATHERS``) and, on rank 0, ``overlap_stats`` of
+    its trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.overlap import events_of, overlap_stats
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    make = TT.make_distributed_ho_sgd
+
+    def steps(*a, **kw):
+        fo, zo = make(*a, **kw)
+
+        def fo_traced(*args):
+            torch.cuda.synchronize()
+            coll.reset_gathers()
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev_type == "cuda"
+                                             else [])
+            with (profile(activities=acts) if rank == 0 else contextlib.nullcontext()) as prof:
+                res = fo(*args)
+                torch.cuda.synchronize()
+            out["gathers"] = sum(n for n, _ in coll.GATHERS.values())
+            if rank == 0:
+                events = events_of(prof)
+                out["stats"] = overlap_stats(events)
+                out["device_events"] = sum(e.on_device for e in events)
+                out["device_kinds"] = len({e.name for e in events if e.on_device})
+            return res
+        return fo_traced, zo
+
+    TT.make_distributed_ho_sgd = steps
+    try:
+        TT.main(argv + ["--device", dev_type])
+    finally:
+        TT.make_distributed_ho_sgd = make
+    return out
+
+
+def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVERLAP_ARGV):
+    """The launch tooling, held to what this run measured.
+
+    (a) ``launch.dryrun.run_one`` prices train_phase (a)'s configuration
+    (gemma2-2b ``--reduce full``, bf16, batch 8, seq 128, grad_accum 8, one
+    rank) and (b) rank 0 of sharded_phase (a)'s (data=1, model=2), an FO
+    and a ZO step each, in four spawned processes on the CPU (fake process
+    groups, ``meta`` tensors): each predicted peak within ``PEAK_TOL`` of
+    the peak ``TrainProbe`` / ``ShardProbe`` measured on the card for the
+    first step of that kind (``torch.cuda.max_memory_allocated``), and (b)'s
+    predicted gathered bytes of an FO step equal to rank 0's measured ones.
+    (c) While they run: ``launch.train.main(overlap_argv)`` on 2 gloo ranks
+    sharing the card (gemma2-2b 100m, ``--model-axis 2``, one FO step), rank
+    0's step traced by ``torch.profiler``; ``launch.overlap.overlap_stats``'
+    pairs equal to the gathers counted in that step.  (d)
+    ``bench.kernels_bench --smoke`` on the card: every kernel row within its
+    tolerance of its plain version.  Returns what it printed."""
+    import multiprocessing as mp
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.bench import kernels_bench
+    from repro_torch.launch.mesh import spawn_ranks
+
+    smi = smi_line()
+    out = {}
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(2 * len(DRYRUN_TARGETS),
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = {(k, step): pool.submit(dryrun_target, mesh, step, reduce)
+                   for k, mesh in DRYRUN_TARGETS.items() for step in ("fo", "zo")}
+        # (c) while the dry runs work on the CPU
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                ranks = spawn_ranks(overlap_rank, 2, str(Path(tmp) / "init"),
+                                    list(overlap_argv) + ["--log", str(Path(tmp) / "o.csv")],
+                                    dev.type, timeout=600.0)
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"overlap ranks: {e}")
+        stats = ranks[0]["stats"]
+        check(ranks[0]["gathers"] > 0 and stats["pairs"] == ranks[0]["gathers"],
+              f"overlap (c): {stats['pairs']} collective pairs in rank 0's trace, "
+              f"{ranks[0]['gathers']} gathers counted in the step")
+        print(f"  (c) overlap of one sharded FO step ({' '.join(overlap_argv)}, 2 gloo ranks) "
+              f"on rank 0: {stats} over {ranks[0]['device_events']} device events "
+              f"({ranks[0]['device_kinds']} kernel names); {ranks[0]['gathers']} gathers "
+              f"counted [{smi}]")
+        out["overlap"] = {**stats, "gathers": ranks[0]["gathers"]}
+        # (d) the kernel bench
+        with tempfile.TemporaryDirectory() as tmp:
+            bench = kernels_bench.main(["--smoke", "--device", dev.type, "--out",
+                                        str(Path(tmp) / "bench.json")])
+        for r in bench["kernels"]:
+            if dev.type == "cuda":
+                check(r.get("ok", False), f"kernels_bench (d): {r['name']} disagrees with its "
+                      f"plain version: {r.get('max_abs_err')} ({r.get('tol')})")
+        print(f"  (d) kernels_bench --smoke: "
+              + "; ".join(f"{r['name']} {r['us_per_call']:.1f} us, err {r.get('max_abs_err', 0):.2e}"
+                          for r in bench["kernels"])
+              + f"; zo_round launches "
+              + str({e['engine']: e['kernel_launches_counted'] for e in bench["zo_round"]["engines"]})
+              + f" [{smi}]")
+        out["bench"] = bench
+        recs = {k: f.result() for k, f in futures.items()}
+    wall = time.perf_counter() - t0
+    measured = {"a": train_a["peak_gb"], "b": sharded_a["rank0"]["peak_gb"]}
+    for (k, step), rec in sorted(recs.items()):
+        mem = rec["memory"]
+        pred = mem["peak_memory_in_bytes"] / 1e9
+        got = measured[k][step][0]
+        rel = abs(pred - got) / got
+        print(f"  ({k}) dry run {step.upper()} of {DRYRUN_TARGETS[k]} (gemma2-2b --reduce "
+              f"{reduce}, batch 8, seq 128): predicted peak {pred:.3f} GB, arguments "
+              f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; the card's first {step.upper()} step "
+              f"peaked at {got:.3f} GB (relative {rel:.4f}, tol {PEAK_TOL}); flops "
+              f"{rec['cost']['flops']:.4e}, bytes {rec['cost']['bytes']:.4e}, kernels "
+              f"{rec['kernels']}, gathers {rec['gathers']}, run {rec['run_s']} s [{smi}]")
+        check(rel <= PEAK_TOL, f"dry run ({k}) {step}: predicted peak {pred:.3f} GB, the "
+              f"card's {got:.3f} GB (relative {rel:.4f} > {PEAK_TOL})")
+        out[f"{k}-{step}"] = {"predicted_peak_gb": pred, "measured_peak_gb": got, "rel": rel,
+                              "arguments_gb": mem["argument_size_in_bytes"] / 1e9,
+                              "flops": rec["cost"]["flops"], "run_s": rec["run_s"]}
+    pred_gather = recs[("b", "fo")]["collectives"]["axis_model"]
+    got_gather = sharded_a["rank0"]["step_gather_bytes"]["fo"][0]
+    check(pred_gather == got_gather, f"dry run (b): predicted gathered bytes of an FO step "
+          f"{pred_gather:.0f}, rank 0 gathered {got_gather}")
+    print(f"  (b) gathered bytes of an FO step on rank 0: predicted {pred_gather:.0f}, measured "
+          f"{got_gather} ({got_gather / 1e9:.2f} GB) [{smi}]")
+    out["gather_bytes"] = {"predicted": pred_gather, "measured": got_gather}
+    out["wall_s"] = wall
     return out
 
 
@@ -3281,16 +3465,6 @@ def attn_agree(torch, got, want):
     return bool((err <= tol).all()), float(err.max()), text
 
 
-def live_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks keep: the work these inputs need."""
-    n = 0
-    for i in range(Sq):
-        lo = 0 if window is None else max(0, i - window + 1)     # i - j < window
-        hi = min(Sk - 1, i) if causal else Sk - 1                # i - j >= 0
-        n += max(0, hi - lo + 1)
-    return n
-
-
 def flash_ops_ms(ops_: float, dtype_bytes: int) -> float:
     """The products' least time by the inputs' type: bf16 at the dense bf16
     rate, float32 as three TF32 products on the tensor cores (one product
@@ -3305,6 +3479,8 @@ def flash_bound(B, Sq, Sk, H, KV, hd, dtype_bytes, causal, window):
     the HBM rate; the products' operations (2 * hd for q.k and 2 * hd for
     p.v per live pair and head) at the rate of the inputs' type
     (``flash_ops_ms``)."""
+    from repro_torch.launch.dryrun import live_pairs    # the pairs the masks keep
+
     n_bytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * dtype_bytes
     ops_ = 4 * hd * H * B * live_pairs(Sq, Sk, causal, window)
     tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, flash_ops_ms(ops_, dtype_bytes)
@@ -4496,6 +4672,12 @@ def main() -> None:
     t0 = time.perf_counter()
     sharded = sharded_phase(torch, dev, train["a"])
     print(f"  sharded phase: {time.perf_counter() - t0:.1f} s")
+    print("# phase: the launch tooling held to this run: launch.dryrun's peaks and gathered "
+          "bytes, launch.overlap over a traced sharded FO step, bench.kernels_bench --smoke")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tooling = dryrun_phase(torch, dev, train["a"], sharded["a"])
+    print(f"  launch tooling phase: {tooling['wall_s']:.1f} s")
     sim_launches = sim_phase(torch, dev)
     print("# phase: open-loop serving traffic, launch.serve --traffic poisson:50.0,mixed on "
           "qwen3-14b at full width")

@@ -24,6 +24,17 @@ the mesh as the reference picks its own:
   a ``pmean`` booked ``payload=False``.
 * **fsdp** (one global direction, m = 1): ``zo_single``, booked as 4 bytes;
   the FO step is the one-process formulation (the whole mesh is one worker).
+* **A MoE model on several worker ranks** (``whole_batch``; fsdp off): every
+  rank receives the global batch (``takes_whole_batch``).  The uncompressed
+  and ``legacy`` FO steps are the one-process formulation on every rank, the
+  gradient of the global batch: a MoE layer's capacity (T = B·S of the batch
+  it routes) and its load-balance loss are the global batch's, as in the
+  reference's ``value_and_grad`` over its batch.  Every rank then holds the
+  same gradient, so nothing is all-reduced; the exchange is booked as the
+  one-process step books it (4·d).  The cost is m times the FO compute.
+  The ZO step and the ``per_worker`` codec cut the rank's worker's rows
+  (``data.pipeline.worker_rows``) and run as one rank per worker, as the
+  reference's ``shard_map`` and per-worker ``vmap`` take each worker's rows.
 
 FO wire codecs: ``compress_mode="per_worker"`` encodes every worker's
 gradient with its own key (``fold(fold(seed, t), w)``) and is booked at
@@ -82,6 +93,7 @@ from repro_torch.core import rounds
 from repro_torch.core.ho_sgd import (
     HOSGDConfig, _device_of, engine_cache, fused_flat_zo_round, to_device,
     value_and_grad, zo_estimate, zo_round_estimate)
+from repro_torch.data.pipeline import worker_rows
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.compress import Compressor, compress_tree
 from repro_torch.dist.sharding import (
@@ -145,6 +157,7 @@ def make_fo_step(
     buckets: int = 1,
     param_specs_tree: Any = None,
     fsdp: bool = False,
+    whole_batch: bool = False,
 ) -> Callable:
     """``(t, params, opt_state, batch) -> (params, opt_state, loss)``: the FO
     round (eq. 3) lowered to ``mesh``.  ``grad_accum`` splits the batch into
@@ -153,11 +166,14 @@ def make_fo_step(
     hook a codec onto the gradient exchange; ``m`` defaults to the mesh's
     worker count; ``buckets`` has no effect (the module docstring);
     ``param_specs_tree`` places the parameters (``params`` are then this
-    rank's shards); ``fsdp`` makes the whole mesh one worker."""
+    rank's shards); ``fsdp`` makes the whole mesh one worker;
+    ``whole_batch`` says every rank receives the global batch (a MoE model,
+    the module docstring)."""
     rnd = rounds.fo_round(loss_fn, opt, wire=rounds.Wire(compressor, compress_mode),
                           overlap=rounds.Overlap(buckets))
     return lower_fo_round(rnd, mesh, grad_accum=grad_accum, scan_unroll=scan_unroll,
-                          seed=seed, m=m, param_specs_tree=param_specs_tree, fsdp=fsdp)
+                          seed=seed, m=m, param_specs_tree=param_specs_tree, fsdp=fsdp,
+                          whole_batch=whole_batch)
 
 
 def lower_fo_round(
@@ -170,13 +186,15 @@ def lower_fo_round(
     m: Optional[int] = None,
     param_specs_tree: Any = None,
     fsdp: bool = False,
+    whole_batch: bool = False,
 ) -> Callable:
     """An FO round's per-worker gradients + all-reduce + apply as one step:
     in one process the gradient of the batch mean, booked with
     ``note_all_reduce``; on a process group each rank's gradient, all-reduced
     over the worker axes.  Under sharded specs each rank's gradient is its
     shard's, and the exchange is booked at the global tree's bytes; under
-    ``fsdp`` every rank runs the one-process formulation."""
+    ``fsdp``, and with ``whole_batch`` but for the ``per_worker`` codec,
+    every rank runs the one-process formulation on the global batch."""
     loss_fn, opt = rnd.meta["loss_fn"], rnd.meta["opt"]
     compressor, mode = rnd.wire.codec, rnd.wire.mode
     wa = worker_axes(mesh)
@@ -261,7 +279,11 @@ def lower_fo_round(
 
     def fo_step(t, params, opt_state, batch):
         batch = to_device(batch, _device_of(params))
-        loss, grads = (rank_per_worker if ranks > 1 else one_process)(t, params, batch)
+        if ranks == 1 or (whole_batch and not per_worker):
+            loss, grads = one_process(t, params, batch)
+        else:
+            loss, grads = rank_per_worker(t, params, worker_rows(batch, mesh)
+                                          if whole_batch else batch)
         with torch.no_grad():
             deltas, opt_state = opt.update(grads, opt_state, params, t)
             return apply_deltas(params, deltas), opt_state, loss
@@ -278,15 +300,17 @@ def make_zo_step(
     fsdp: bool = False,
     param_specs_tree: Any = None,
     vmap_workers: bool = False,
+    whole_batch: bool = False,
 ) -> Callable:
     """``(t, params, opt_state, batch) -> (params, opt_state, loss)``: the ZO
     round (eq. 4-6) lowered to ``mesh``.  The reconstructed estimate is
     handed to ``opt.update``, so any optimizer composes (the fused flat
     round excepted, which commits plain SGD in its kernel).  ``fsdp`` runs
-    the m = 1 step (one global direction)."""
+    the m = 1 step (one global direction); with ``whole_batch`` each rank
+    of several worker ranks cuts its worker's rows from the global batch."""
     rnd = rounds.zo_round(loss_fn, ho, opt, m=m)
     return lower_zo_round(rnd, mesh, m=m, fsdp=fsdp, param_specs_tree=param_specs_tree,
-                          vmap_workers=vmap_workers)
+                          vmap_workers=vmap_workers, whole_batch=whole_batch)
 
 
 def lower_zo_round(
@@ -297,6 +321,7 @@ def lower_zo_round(
     fsdp: bool = False,
     param_specs_tree: Any = None,
     vmap_workers: bool = False,
+    whole_batch: bool = False,
 ) -> Callable:
     """A ZO round's per-worker coefficients + scalar all-gather +
     reconstruction as one step, in the formulation the mesh calls for (the
@@ -360,7 +385,8 @@ def lower_zo_round(
                                             workers, ho.mu, ho.zo_scale, exchange=booked,
                                             vmap_workers=vmap_workers)
         else:
-            g_hat, loss = zo_inner(t, params, batch)
+            g_hat, loss = zo_inner(t, params, worker_rows(batch, mesh) if whole_batch
+                                   else batch)
         deltas, opt_state = opt.update(g_hat, opt_state, params, t)
         return apply_deltas(params, deltas), opt_state, loss
 
@@ -389,7 +415,8 @@ def make_distributed_ho_sgd(
     ``ho.m``: one process holds all of them when the mesh's worker axes span
     one rank, and a group must have ``ho.m`` worker ranks (``ValueError``
     otherwise); ``fsdp`` runs m = 1, the whole mesh one worker that takes the
-    whole batch on every rank."""
+    whole batch on every rank.  A MoE model takes the global batch on every
+    rank too (``takes_whole_batch``; the module docstring)."""
     opt = opt or sgd(const_schedule(ho.lr), ho.momentum)
     ga = getattr(model_cfg, "grad_accum", 1) if model_cfg is not None else 1
     su = getattr(model_cfg, "scan_unroll", False) if model_cfg is not None else False
@@ -397,10 +424,19 @@ def make_distributed_ho_sgd(
     specs = None
     if model_cfg is not None and params_like is not None:
         specs = param_specs(model_cfg, params_like, mesh)
+    whole = takes_whole_batch(model_cfg) and not fsdp
     fo = make_fo_step(loss_fn, mesh, opt, grad_accum=ga, scan_unroll=su,
                       compressor=compressor, seed=ho.seed, compress_mode=compress_mode,
-                      m=ho.m, buckets=fo_buckets, param_specs_tree=specs, fsdp=fsdp)
+                      m=ho.m, buckets=fo_buckets, param_specs_tree=specs, fsdp=fsdp,
+                      whole_batch=whole)
     zo = make_zo_step(loss_fn, mesh, ho, opt, m=1 if fsdp else ho.m, fsdp=fsdp,
                       param_specs_tree=specs,
-                      vmap_workers=vmap_workers)
+                      vmap_workers=vmap_workers, whole_batch=whole)
     return fo, zo
+
+
+def takes_whole_batch(model_cfg) -> bool:
+    """Whether every rank receives the global batch
+    (``data.pipeline.shard_batches(..., whole=True)``): under ``fsdp``, and
+    for a model with MoE layers, whose FO step takes the global batch."""
+    return model_cfg is not None and bool(model_cfg.fsdp or model_cfg.is_moe)

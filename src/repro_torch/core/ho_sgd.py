@@ -86,13 +86,16 @@ def _device_of(params) -> torch.device:
 
 def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
     """``(loss, grads)`` of ``loss_fn`` at ``params`` (``jax.value_and_grad``),
-    both detached; the grads are a tree shaped like ``params``."""
+    both detached; the grads are a tree shaped like ``params``.  A leaf the
+    loss does not read gets a zero gradient, as ``jax.grad`` gives it (an SSM
+    layer's ``norm2``: the model has no feed-forward sublayer to read it)."""
     leaves, treedef = tree_flatten(params)
     with torch.enable_grad():
         req = [x.detach().requires_grad_(True) for x in leaves]
         loss = loss_fn(tree_unflatten(treedef, req), batch)
-        grads = torch.autograd.grad(loss, req)
-    return loss.detach(), tree_unflatten(treedef, list(grads))
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(treedef, grads)
 
 
 def engine_cache(engine: str, seed: int, acc_dtype: str, specs: Any = None,

@@ -31,6 +31,22 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def _rows(x, spec: PartitionSpec, w: int, m: int):
+    """Worker ``w`` of ``m``'s rows of ``x`` when ``spec`` shards its
+    leading dim over the worker axes, else ``x`` whole."""
+    if len(spec):
+        per = x.shape[0] // m
+        return x[w * per:(w + 1) * per]
+    return x
+
+
+def worker_rows(batch: Any, mesh) -> Any:
+    """This rank's worker's rows of a global ``batch`` already on the
+    device: the rows ``shard_batches`` gives without ``whole``."""
+    w, m = worker_index(mesh), n_workers(mesh)
+    return tree_map(lambda x, spec: _rows(x, spec, w, m), batch, batch_specs(mesh, batch))
+
+
 def shard_batches(host_batches: Iterator[Any], mesh, prefetch: int = 2,
                   whole: bool = False) -> Iterator[Any]:
     """This rank's rows of every host batch (every row with ``whole``) on
@@ -39,9 +55,7 @@ def shard_batches(host_batches: Iterator[Any], mesh, prefetch: int = 2,
     w, m = (0, 1) if whole else (worker_index(mesh), n_workers(mesh))
 
     def rows(x, spec: PartitionSpec):
-        if len(spec):                   # leading dim over the worker axes
-            per = x.shape[0] // m
-            x = x[w * per:(w + 1) * per]
+        x = _rows(x, spec, w, m)
         if isinstance(x, torch.Tensor) and x.device.type != "cpu":
             return x.to(dev)
         return host_to_device(np.asarray(x), dev)

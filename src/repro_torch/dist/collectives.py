@@ -36,6 +36,14 @@ reference's traced global shapes do; ``gather_cat``, the sharded
 placements' storage collective (``dist.sharding.gather``), books nothing.
 Ranks that share one card (gloo ranks on ``cuda:0``) run ``gather_cat``
 device to device through CUDA IPC handles rather than through host memory.
+
+``GATHERS`` counts ``gather_cat``'s calls and the bytes of its results per
+tuple of axes (``reset_gathers`` sets them to 0): the dry run's gathered
+bytes (``launch.dryrun``).  Every collective that runs over the group
+(``gather_cat``, ``all_gather``, ``psum``, ``pmean``) is one
+``record_function`` span named ``collective:<kind>`` (``all-gather`` or
+``all-reduce``), which ``launch.overlap`` pairs with the kernels a profiler
+trace shows between its ends.
 """
 from __future__ import annotations
 
@@ -51,6 +59,18 @@ from repro_torch.tree import tree_leaves, tree_map
 Axes = Union[str, Sequence[str]]
 
 _ACTIVE: List[Tuple["CommLedger", str]] = []
+
+#: axes -> [calls, bytes of the gathered results] of ``gather_cat``
+GATHERS: Dict[Tuple[str, ...], List[int]] = {}
+
+
+def reset_gathers() -> None:
+    GATHERS.clear()
+
+
+def _span(kind: str):
+    """The profiler span of one collective (``launch.overlap``)."""
+    return torch.profiler.record_function(f"collective:{kind}")
 
 
 @dataclass
@@ -264,6 +284,15 @@ def gather_cat(x: torch.Tensor, axes: Axes, *, mesh, dim: int) -> torch.Tensor:
     that share one card exchange CUDA parts device to device
     (``_CardExchange``); otherwise the group's backend carries them (gloo
     through host memory)."""
+    with _span("all-gather"):
+        out = _gather_cat(x, axes, mesh, dim)
+    stat = GATHERS.setdefault((axes,) if isinstance(axes, str) else tuple(axes), [0, 0])
+    stat[0] += 1
+    stat[1] += out.numel() * out.element_size()
+    return out
+
+
+def _gather_cat(x: torch.Tensor, axes: Axes, mesh, dim: int) -> torch.Tensor:
     import torch.distributed as dist
 
     if x.is_cuda:
@@ -287,11 +316,12 @@ def all_gather(x: torch.Tensor, axes: Axes, *, mesh, tiled: bool = False,
     import torch.distributed as dist
 
     group = axes_group(mesh, axes)
-    y, staged = _staged(x.contiguous(), group)
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, y, group=group)
-    out = torch.cat(parts) if tiled else torch.stack(parts)
-    out = out.to(x.device) if staged else out
+    with _span("all-gather"):
+        y, staged = _staged(x.contiguous(), group)
+        parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, y, group=group)
+        out = torch.cat(parts) if tiled else torch.stack(parts)
+        out = out.to(x.device) if staged else out
     _record_active("all_gather", int(out.numel()) * out.element_size(), tag, payload)
     return out
 
@@ -299,7 +329,8 @@ def all_gather(x: torch.Tensor, axes: Axes, *, mesh, tiled: bool = False,
 def psum(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True) -> Any:
     """Sum a tree over the ``axes`` of ``mesh``; books the tree's bytes."""
     group = axes_group(mesh, axes)
-    out = tree_map(lambda v: _all_reduce_sum(v, group), x)
+    with _span("all-reduce"):
+        out = tree_map(lambda v: _all_reduce_sum(v, group), x)
     _record_active("psum", _tree_nbytes(out), tag, payload)
     return out
 
@@ -313,7 +344,8 @@ def pmean(x: Any, axes: Axes, *, mesh, tag: str = "", payload: bool = True,
 
     group = axes_group(mesh, axes)
     n = dist.get_world_size(group)
-    out = tree_map(lambda v: _all_reduce_sum(v, group) / n, x)
+    with _span("all-reduce"):
+        out = tree_map(lambda v: _all_reduce_sum(v, group) / n, x)
     _record_active("pmean", _tree_nbytes(out) if nbytes is None else int(nbytes), tag,
                    payload)
     return out

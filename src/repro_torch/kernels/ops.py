@@ -6,7 +6,10 @@ wrapper picks by the device of the tensor it is given: a CPU tensor goes to
 the plain PyTorch version (``kernels.ref``); a CUDA tensor launches the
 hand-written kernel (``kernels.zo_direction``, ``kernels.flash_attention``,
 ``kernels.selective_scan``, ``kernels.rmsnorm``) or raises.  Nothing falls
-back.
+back.  A tensor without data (the ``meta`` device, or a fake tensor of
+``torch._subclasses.fake_tensor``: the dry run, ``launch.dryrun``) goes to
+the kernel's operator in ``kernels.fake``, which gives the outputs' shapes
+and dtypes and never runs on data.
 
 Metadata dtypes: ``salts``/``ctrs`` are ``torch.uint32``, ``nvalid`` and
 ``bf16_mask`` ``torch.int32``, everything else float32.  ``scale``, ``mu`` and
@@ -25,6 +28,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import fake as _fk
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
@@ -32,6 +36,7 @@ from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import zo_direction as _cu
 
 _COUNTS = (_cu.LAUNCHES, _fa.LAUNCHES, _ss.LAUNCHES, _rn.LAUNCHES)
+_no_data = _fk.no_data
 
 
 def _on_cpu(t, what: str) -> bool:
@@ -57,6 +62,8 @@ def reset_launch_counts() -> None:
 
 
 def zo_perturb_flat(x, salts, ctrs, nvalid, scale, block: int = 4096):
+    if _no_data(x):
+        return _fk.zo_perturb_flat(x, salts, ctrs, nvalid, scale, block)
     if _on_cpu(x, "zo_perturb_flat"):
         return ref.ref_zo_perturb_flat(x, salts, ctrs, nvalid, scale, block)
     return _cu.zo_perturb_flat(x, salts, ctrs, nvalid, scale, block)
@@ -64,6 +71,8 @@ def zo_perturb_flat(x, salts, ctrs, nvalid, scale, block: int = 4096):
 
 def zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block: int = 4096,
                         acc_dtype="float32"):
+    if _no_data(ctrs):
+        return _fk.zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block)
     if _on_cpu(ctrs, "zo_reconstruct_flat"):
         return ref.ref_zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block,
                                            acc_dtype)
@@ -71,6 +80,8 @@ def zo_reconstruct_flat(salts, coeffs, ctrs, nvalid, block: int = 4096,
 
 
 def zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
+    if _no_data(x):
+        return _fk.zo_perturb_sumsq(x, salts, ctrs, nvalid, block)
     if _on_cpu(x, "zo_perturb_sumsq"):
         return ref.ref_zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block)
     return _cu.zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block)
@@ -79,6 +90,9 @@ def zo_perturb_sumsq(x, salts, ctrs, nvalid, mu, block: int = 4096):
 def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr,
                           momentum: float = 0.0, block: int = 4096,
                           acc_dtype="float32"):
+    if _no_data(p):
+        return _fk.zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs,
+                                         block)
     if _on_cpu(p, "zo_reconstruct_update"):
         p_new, v_new = ref.ref_zo_reconstruct_update(
             p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr, momentum,
@@ -94,18 +108,24 @@ def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, lr,
 def zo_sumsq(n: int, salt, offset=0, *, device) -> torch.Tensor:
     """``sum v^2`` of one leaf (a 0-d float32 tensor on ``device``); there is
     no tensor input, so the device is named."""
+    if _no_data(device):
+        return _fk.zo_sumsq(n, salt, offset, device)
     if _on_cpu(device, "zo_sumsq"):
         return ref.ref_zo_sumsq(n, salt, offset)
     return _cu.zo_sumsq(n, salt, offset, device)
 
 
 def zo_perturb(x, salt, scale, offset=0):
+    if _no_data(x):
+        return _fk.zo_perturb(x, salt, scale, offset)
     if _on_cpu(x, "zo_perturb"):
         return ref.ref_zo_perturb(x, salt, scale, offset)
     return _cu.zo_perturb(x, salt, scale, offset)
 
 
 def zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32"):
+    if _no_data(coeffs):
+        return _fk.zo_reconstruct(n, salts, coeffs, offset)
     if _on_cpu(coeffs, "zo_reconstruct"):
         return ref.ref_zo_reconstruct(n, salts, coeffs, offset, acc_dtype)
     return _cu.zo_reconstruct(n, salts, coeffs, offset, acc_dtype)
@@ -119,6 +139,8 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     (``flash_attention.variant``).
     The reference's ``block_q`` / ``block_k`` have no counterpart: the CUDA
     kernels' tiles are their own."""
+    if _no_data(q):
+        return _fk.flash_attention(q, k, v, causal, window, softcap)
     if _on_cpu(q, "flash_attention"):
         return ref.ref_flash_attention(q, k, v, causal, window, softcap)
     return _fa.flash_attention(q, k, v, causal, window, softcap)
@@ -130,6 +152,8 @@ def selective_scan(u, dt, Bmat, Cmat, A, D, return_state: bool = False):
     ``return_state`` also the final state ``(B, di, n)`` in float32.  The
     reference's ``block_d`` / ``block_s`` have no counterpart: the CUDA
     kernel's tiles are its own."""
+    if _no_data(u):
+        return _fk.selective_scan(u, dt, Bmat, Cmat, A, D, return_state)
     if _on_cpu(u, "selective_scan"):
         return ref.ref_selective_scan(u, dt, Bmat, Cmat, A, D, return_state)
     return _ss.selective_scan(u, dt, Bmat, Cmat, A, D, return_state)
@@ -139,6 +163,8 @@ def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis, any leading shape; the reference's
     ``block_rows`` has no counterpart (the CUDA kernel picks its own rows
     per block)."""
+    if _no_data(x):
+        return _fk.rmsnorm(x, scale, eps)
     if _on_cpu(x, "rmsnorm"):
         return ref.ref_rmsnorm(x, scale, eps)
     flat = x.reshape(-1, x.shape[-1])

@@ -5,7 +5,7 @@ Counterpart of ``repro.launch.mesh``: the same shapes and axis names, as a
 per mesh position).  Nothing here touches device or group state at import.
 
 The reference's ``HW`` table (its chip's peak rates) has no counterpart here:
-the card's constants come with the launch tooling (ROADMAP Queue 1 item 14).
+the dry run (``launch.dryrun``) prices memory and operations, not time.
 
 ``process_group`` gives a caller without a group (the trainer and the
 simulator in one process) a world-size-1 gloo group for its 1x1 mesh.

@@ -37,8 +37,8 @@ What differs from the reference:
   it on exit; under the caller's group the device count is its world size.
 * Sharded placements are sharded storage with compute gathered on use (the
   reference's compiler partitions the products themselves).
-* ``--xla-overlap`` has no counterpart (launch tooling, ROADMAP Queue 1
-  item 14) and exits with a message.
+* ``--xla-overlap`` has no counterpart (it sets ``XLA_FLAGS``, which
+  PyTorch does not have) and exits with a message.
 
 Frontend architectures (vision, audio) exit with the reference's message:
 their batches need image embeddings or features, which the token stream
@@ -55,7 +55,7 @@ import torch
 from repro_torch.checkpoint import save as ckpt_save
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.distributed import make_distributed_ho_sgd
+from repro_torch.core.distributed import make_distributed_ho_sgd, takes_whole_batch
 from repro_torch.core.ho_sgd import HOSGDConfig, adaptive_tau_decision, parse_tau_schedule
 from repro_torch.data import shard_batches, token_batches
 from repro_torch.device import resolve_device
@@ -141,8 +141,7 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     if args.xla_overlap:
         raise SystemExit("--xla-overlap sets XLA's collective-overlap flags and has no "
-                         "counterpart in the port (launch tooling is ROADMAP Queue 1 "
-                         "item 14)")
+                         "counterpart in the port: PyTorch has no XLA_FLAGS")
     cfg = size_override(get_config(args.arch), args.reduce)
     if cfg.frontend != "none":
         raise SystemExit("use examples/ drivers for frontend archs")
@@ -153,17 +152,26 @@ def main(argv=None):
 
 def init_params(cfg: ModelConfig, mesh, seed: int, dev: torch.device):
     """``(params, params_like)``: this rank's shards of the seeded
-    parameters, and a tree of the global shapes (meta tensors when sharded).
-    A mesh that no placement cuts (``model`` of one rank, and no ``fsdp``
-    over several ``data`` ranks) gets the whole parameters."""
+    parameters, and a tree of the global shapes as meta tensors (no data:
+    the trainer keeps it for the whole run, where a tree of the initial
+    parameters would hold their bytes on the card).  A mesh that no
+    placement cuts (``model`` of one rank, and no ``fsdp`` over several
+    ``data`` ranks) gets the whole parameters."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = mesh_shape(mesh)
-    if shape.get("model", 1) == 1 and not (cfg.fsdp and shape.get("data", 1) > 1):
+    if not places_shards(cfg, mesh):
         params = init_model(gen, cfg, device=dev)
-        return params, params
+        return params, tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                                params)
     sharder = Sharder(cfg, mesh)
     params = init_model(gen, cfg, device=dev, shard=sharder)
     return params, sharder.global_like(params)
+
+
+def places_shards(cfg: ModelConfig, mesh) -> bool:
+    """Whether a placement cuts a leaf: ``model`` over several ranks, or
+    ``fsdp`` over several ``data`` ranks."""
+    shape = mesh_shape(mesh)
+    return shape.get("model", 1) > 1 or bool(cfg.fsdp and shape.get("data", 1) > 1)
 
 
 def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
@@ -219,7 +227,8 @@ def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
     with CSVLogger(args.log if lead else None,
                    ["step", "order", "loss", "dt", "comm_bytes"]) as logger:
         t_prev = time.perf_counter()
-        for t, batch in zip(range(args.steps), shard_batches(host, mesh, whole=cfg.fsdp)):
+        batches = shard_batches(host, mesh, whole=takes_whole_batch(cfg))
+        for t, batch in zip(range(args.steps), batches):
             if tau_sched is None:
                 is_fo, t_step = t % args.tau == 0, t
             else:

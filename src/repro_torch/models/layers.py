@@ -19,6 +19,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ModelConfig
 
@@ -41,9 +42,11 @@ def dense_init(gen, shape, dtype=torch.float32, scale: float = 1.0,
     gen = as_generator(gen)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    x = torch.nn.init.trunc_normal_(
-        torch.empty(tuple(shape), dtype=torch.float32, device=gen.device),
-        0.0, 1.0, -2.0, 2.0, generator=gen)
+    x = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if not is_fake(x):
+        # a fake tensor (the dry run) has no values to draw, and the draw's
+        # rejection loop reads them
+        x = torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(device=device, dtype=dtype)
 
 

@@ -71,10 +71,13 @@ FULL_WINDOW = 1 << 30
 MOE_AUX_COEF = 0.01
 
 
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Each layer's window, ``FULL_WINDOW`` for a full-attention layer."""
+    return [FULL_WINDOW if w is None else int(w) for w in cfg.layer_windows()]
+
+
 def windows_array(cfg: ModelConfig) -> torch.Tensor:
-    return torch.tensor(
-        [FULL_WINDOW if w is None else int(w) for w in cfg.layer_windows()],
-        dtype=torch.int32)
+    return torch.tensor(layer_windows(cfg), dtype=torch.int32)
 
 
 def uniform_static_window(cfg: ModelConfig) -> Optional[int]:
@@ -94,8 +97,8 @@ def _layers(cfg: ModelConfig, params: Params) -> List[Tuple[Params, int]]:
     pass."""
     leaves, treedef = tree_flatten(params["layers"])
     per_layer = zip(*(x.unbind(0) for x in leaves))
-    return [(tree_unflatten(treedef, list(views)), int(w))
-            for views, w in zip(per_layer, windows_array(cfg).tolist())]
+    return [(tree_unflatten(treedef, list(views)), w)
+            for views, w in zip(per_layer, layer_windows(cfg))]
 
 
 # --------------------------------------------------------------------------- #

@@ -34,7 +34,7 @@ from repro_torch.core import zo_grad as TZ
 from repro_torch.core.engine import PallasEngine, make_engine
 from repro_torch.core.ho_sgd import HOSGDConfig, make_ho_sgd, run_method
 from repro_torch.data.synthetic import batches, make_classification
-from repro_torch.kernels import ops
+from repro_torch.kernels import fake, ops
 from repro_torch.kernels import zo_direction as cu
 from repro_torch.models.mlp import mlp_loss
 from repro_torch.tree import tree_leaves
@@ -133,9 +133,14 @@ def test_cpu_path_launches_nothing_and_the_kernels_take_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cu.zo_sumsq(8, 1, device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.zo_sumsq(8, 1, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.zo_perturb(torch.zeros(8, device="meta"), 1, 0.1)
+        ops.zo_sumsq(8, 1, device="xpu")
+    # a tensor without data (the dry run's meta device) takes the kernel's
+    # operator (kernels.fake): no launch, the plain version's shape
+    fake.reset_calls()
+    assert ops.zo_sumsq(8, 1, device="meta").device.type == "meta"
+    assert ops.zo_perturb(torch.zeros(8, device="meta"), 1, 0.1).shape == (8,)
+    assert fake.CALLS["zo_sumsq"] == fake.CALLS["zo_perturb"] == 1
+    assert cu.LAUNCHES == before
 
 
 # --------------------------------------------------------------------------- #

@@ -33,6 +33,14 @@ gathers, the engines over shards (``core.engine``), the process-group steps
   sharded ``--ckpt`` restores through ``repro.checkpoint.restore`` bit for
   bit the gathered parameters that rank 0 saved, and through the port's
   ``restore(..., shards=)`` as each rank's slice.
+* 4 ranks, (data=2, model=2), fsdp off: qwen3-moe reduced, 6 steps at tau
+  4 with m=2, every rank the global batch: the losses within 5e-7 of the
+  one-process m=2 run (the FO step's gradient is the global batch's, so the
+  MoE capacity and load-balance loss are too) and the final parameters
+  within 2% of its update; the ZO steps' loss sees the worker's rows, the
+  per-worker codec's FO step too, the legacy codec's the global batch; a
+  dense FO step (qwen3-14b) bit for bit the rank-per-worker step written
+  out.
 * 2 ranks, (data=1, model=2): the FO step bit for bit the one-process step
   (gathered leaves are the whole ones and the update is elementwise); the
   ``pallas`` engine's per-run branch on a leaf cut into three runs against
@@ -271,6 +279,20 @@ def two(qwen, tmp_path_factory):
                                     timeout=420)
 
 
+MOE_STEPS = 6
+
+
+def _moe_batches():
+    return [{k: np.roll(v, 3 * i, axis=1) for k, v in _batch(512).items()}
+            for i in range(MOE_STEPS)]
+
+
+@pytest.fixture(scope="module")
+def moe4(moe, qwen, tmp_path_factory):
+    return spawn_ranks(H.run_moe_4, 4, str(tmp_path_factory.mktemp("moe4") / "init"), moe[2],
+                       qwen[2], _moe_batches(), MOE_STEPS, timeout=420)
+
+
 def _one_process(cfg, np_tree, batch, mesh, ho, kind, t, **kw):
     """The port's one-process step (a 1x1 mesh, m workers held here):
     ``(params, loss, every loss evaluation in order, ledger bytes)``."""
@@ -456,3 +478,48 @@ def test_sharded_trainer_cli_and_its_checkpoint(four, one, tmp_path):
         for i, (x, s) in enumerate(zip(tree_leaves(got), saved)):
             assert tuple(x.shape) == geom.local_shapes[i]
             assert np.array_equal(x.numpy(), s[geom.slices[i]])
+
+
+def test_moe_fo_on_data2_model2_takes_the_global_batch(moe, moe4, one):
+    _, _, np_tree = moe
+    cfg, d = get_config("qwen3-moe-235b-a22b").reduced(), _d(np_tree)
+    assert not cfg.fsdp and TD.takes_whole_batch(cfg)
+    full = params_from_numpy(np_tree, device="cpu")
+    fo, zo = TD.make_distributed_ho_sgd(lambda p, b: T.loss_fn(cfg, p, b), one,
+                                        H.llm_config(d, 2), model_cfg=cfg, params_like=full)
+    p, losses = full, []
+    for t, b in enumerate(_moe_batches()):
+        p, _, loss = (fo if t % H.TAU == 0 else zo)(t, p, (), b)
+        losses.append(float(loss))
+    start = [np.asarray(x) for x in jax.tree.leaves(np_tree)]
+    want = [x.numpy() for x in tree_leaves(p)]
+    for out in moe4:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], losses))
+        assert rel <= 5.0e-7, (out["losses"], losses)
+        assert out["bytes"] == [4 * d if t % H.TAU == 0 else 4 * 2 for t in range(MOE_STEPS)]
+    assert_update_close(moe4[0]["final"], want, start, "moe m=2")
+
+
+def test_moe_zo_and_per_worker_codec_keep_the_worker_rows(moe4):
+    batches = _moe_batches()
+    for out in moe4:
+        w = out["worker"]
+        assert out["whole"]
+        for t, seen in enumerate(out["rows"]):
+            whole, mine = batches[t]["tokens"], batches[t]["tokens"][4 * w:4 * w + 4]
+            assert seen and all(np.array_equal(r, whole if t % H.TAU == 0 else mine)
+                                for r in seen), t
+        assert all(np.array_equal(r, batches[0]["tokens"][4 * w:4 * w + 4])
+                   for r in out["rows-per_worker"]) and out["rows-per_worker"]
+        assert all(np.array_equal(r, batches[0]["tokens"]) for r in out["rows-legacy"])
+    assert sorted(out["worker"] for out in moe4) == [0, 0, 1, 1]
+
+
+def test_dense_fo_on_a_group_is_the_rank_per_worker_step(moe4):
+    batch = _moe_batches()[0]
+    for out in moe4:
+        dense = out["dense"]
+        w = out["worker"]
+        assert not dense["whole"]
+        np.testing.assert_array_equal(dense["rows"], batch["tokens"][4 * w:4 * w + 4])
+        assert dense["equal"] and dense["loss_equal"]

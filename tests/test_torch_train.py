@@ -29,6 +29,11 @@
   bytes and CSV losses as above (the MoE aux term is in both losses).
 * What the port refuses: ``--xla-overlap``, a frontend architecture (with
   the reference's own message), and ``--device cuda`` without a GPU.
+* ``init_params`` on a mesh that cuts nothing gives the shapes' tree as
+  meta tensors.
+* An SSM model (falcon-mamba-7b smoke): its loss and gradients against
+  ``jax.value_and_grad``, the never-read ``norm2`` leaves' gradients zero in
+  both, and the CLI's FO step runs.
 """
 import csv
 import os
@@ -272,3 +277,43 @@ def test_cli_device_cuda_without_a_gpu_raises():
         pytest.skip("a GPU is present: the default device is used, not refused")
     with pytest.raises(RuntimeError, match="cuda"):
         TTR.main(SMOKE)
+
+
+def test_ssm_gradient_matches_reference_and_unread_leaves_get_zero(tmp_path):
+    """falcon-mamba has no feed-forward sublayer, so its layers' ``norm2``
+    is never read: ``value_and_grad`` gives it a zero gradient, as
+    ``jax.grad`` does, and the trainer's FO step runs (it raised before)."""
+    jcfg = jget_config("falcon-mamba-7b").reduced()
+    cfg = get_config("falcon-mamba-7b").reduced()
+    jp = _ref_params(jcfg)
+    p = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks, labels = _batch()
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    jl, jg = jax.value_and_grad(lambda q: JT.loss_fn(jcfg, q, jb))(jp)
+    tl, tg = value_and_grad(lambda q, b: T.loss_fn(cfg, q, b), p, tb)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(jg), tree_leaves(tg)):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-4, atol=1e-4 * np.abs(a).max())
+    assert not tg["layers"]["norm2"]["scale"].any()
+    assert not np.asarray(jg["layers"]["norm2"]["scale"]).any()
+    loss = TTR.main(["--device", "cpu", "--arch", "falcon-mamba-7b", "--reduce", "smoke",
+                    "--steps", "3", "--tau", "3", "--batch", "4", "--seq", "32",
+                    "--log", str(tmp_path / "l.csv")])
+    assert np.isfinite(loss)
+
+
+def test_init_params_keeps_no_second_tree_on_an_unsharded_mesh():
+    """The shapes' tree the trainer keeps for the whole run holds no data:
+    meta tensors on a mesh that cuts nothing (the initial parameters
+    themselves before, a dead copy on the card, 5.3 GB at gemma2-2b)."""
+    from torch_dist_helpers import FakeMesh
+
+    cfg = get_config("gemma2-2b").reduced()
+    mesh = FakeMesh(dict(data=0, model=0), data=2, model=1)
+    params, like = TTR.init_params(cfg, mesh, 0, torch.device("cpu"))
+    assert all(x.device.type == "meta" for x in tree_leaves(like))
+    assert [(tuple(x.shape), x.dtype) for x in tree_leaves(like)] == \
+        [(tuple(x.shape), x.dtype) for x in tree_leaves(params)]
+    assert all(x.device.type == "cpu" for x in tree_leaves(params))

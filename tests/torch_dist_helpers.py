@@ -12,7 +12,8 @@ parameters gathered whole.
 """
 import torch
 
-from repro_torch.core.distributed import make_distributed_ho_sgd, make_fo_step, make_zo_step
+from repro_torch.core.distributed import (
+    make_distributed_ho_sgd, make_fo_step, make_zo_step, takes_whole_batch)
 from repro_torch.core.ho_sgd import HOSGDConfig
 from repro_torch.data.pipeline import shard_batches, take
 from repro_torch.dist import CommLedger, collectives as coll
@@ -160,7 +161,7 @@ def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
     fo, zo = make_distributed_ho_sgd(loss, mesh, ho, model_cfg=cfg, params_like=full, **kw)
     ledger = CommLedger()
     step = ledger.wrap(kind, fo if kind == "fo" else zo)
-    b = next(iter(shard_batches(iter([batch]), mesh, whole=cfg.fsdp)))
+    b = next(iter(shard_batches(iter([batch]), mesh, whole=takes_whole_batch(cfg))))
     p, _, out = step(t, shards, (), b)
     whole = [x.numpy() for x in tree_leaves(gather_tree(p, specs, mesh))]
     return {"params": whole if dist.get_rank() == 0 else None,
@@ -275,6 +276,80 @@ def run_sharded_2(rank, world, full_np, batch, quad_batch):
     return out
 
 
+def _rows_seen(loss):
+    """``loss`` that also records the token rows of every batch it sees."""
+    seen = []
+
+    def wrapped(p, b):
+        seen.append(b["tokens"].numpy().copy())
+        return loss(p, b)
+
+    return wrapped, seen
+
+
+def run_moe_4(rank, world, moe_np, dense_np, batches, steps):
+    """(data=2, model=2), fsdp off, m=2: qwen3-moe reduced for ``steps``
+    steps at tau 4 (every rank the global batch: the FO step's gradient is
+    the global batch's, the ZO step cuts the worker's rows), the rows each
+    step's loss saw; the FO step with per-worker and legacy QSGD (their
+    rows); a dense FO step (qwen3-14b reduced) against the rank-per-worker
+    step written out: the worker's rows, their gradient averaged over the
+    worker axes, the SGD update."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ho_sgd import value_and_grad
+    from repro_torch.dist.sharding import gather_tree, worker_axes
+    from repro_torch.opt.optimizers import apply_deltas
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=2, model=2, device="cpu")
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    full, d = _full(moe_np)
+    shards, specs, loss, _ = sharded_model(cfg, mesh, full)
+    loss, seen = _rows_seen(loss)
+    ho = llm_config(d, 2)
+    fo, zo = make_distributed_ho_sgd(loss, mesh, ho, model_cfg=cfg, params_like=full)
+    ledger = CommLedger()
+    fo, zo = ledger.wrap("fo", fo), ledger.wrap("zo", zo)
+    out = {"worker": worker_index(mesh), "whole": takes_whole_batch(cfg), "losses": [],
+           "rows": [], "bytes": []}
+    p, state = shards, ()
+    host = shard_batches(iter(batches), mesh, whole=takes_whole_batch(cfg))
+    for t, b in enumerate(take(host, steps)):
+        kind = "fo" if t % TAU == 0 else "zo"
+        del seen[:]
+        p, state, l = (fo if kind == "fo" else zo)(t, p, state, b)
+        out["losses"].append(float(l))
+        out["rows"].append([r for r in seen])
+        out["bytes"].append(ledger.bytes_per_step(kind))
+    out["final"] = [x.numpy() for x in tree_leaves(gather_tree(p, specs, mesh))]
+    for mode in ("per_worker", "legacy"):
+        del seen[:]
+        f, _ = make_distributed_ho_sgd(loss, mesh, ho, model_cfg=cfg, params_like=full,
+                                       compressor=qsgd(8), compress_mode=mode)
+        f(0, shards, (), next(iter(shard_batches(iter(batches[:1]), mesh, whole=True))))
+        out[f"rows-{mode}"] = [r for r in seen]
+    # the dense FO step, and the same step written out as the rank-per-worker
+    # formulation computes it
+    dcfg = get_config("qwen3-14b").reduced()
+    dfull, dd = _full(dense_np)
+    dshards, dspecs, dloss, _ = sharded_model(dcfg, mesh, dfull)
+    dho = llm_config(dd, 2)
+    dfo, _ = make_distributed_ho_sgd(dloss, mesh, dho, model_cfg=dcfg, params_like=dfull)
+    b = next(iter(shard_batches(iter(batches[:1]), mesh, whole=takes_whole_batch(dcfg))))
+    got, _, gl = dfo(0, dshards, (), b)
+    l, g = value_and_grad(dloss, dshards, b)
+    g = coll.pmean(g, worker_axes(mesh), mesh=mesh)
+    want = apply_deltas(dshards, tree_map(lambda x: -dho.lr * x.to(torch.float32), g))
+    out["dense"] = {"whole": takes_whole_batch(dcfg),
+                    "rows": b["tokens"].numpy().copy(),
+                    "equal": all(torch.equal(a, w) for a, w in
+                                 zip(tree_leaves(got), tree_leaves(want))),
+                    "loss_equal": float(gl) == float(coll.pmean(l, worker_axes(mesh),
+                                                                mesh=mesh))}
+    return out
+
+
 def card_gather(rank, world):
     """``gather_cat`` between ranks that share ``cuda:0`` (the same-card
     exchange): a bf16 part on dims 0 and 1, then a part that grows the
@@ -288,4 +363,44 @@ def card_gather(rank, world):
     big = torch.full((1 << 20,), float(rank + 1), device="cuda")
     out["big"] = coll.gather_cat(big, "model", mesh=mesh, dim=0).cpu().numpy()
     out["card"] = coll._CARDS[mesh][("model",)] is not None
+    return out
+
+
+def run_dry_twin(rank, world, batch):
+    """(data=2, model=2): gemma2-2b reduced, this rank's shards drawn as the
+    trainer draws them, one FO and one ZO step on the CPU: the gathers each
+    step made (``collectives.GATHERS``), the ledger's payload bytes by kind,
+    and the FO step's peak live bytes and arguments by ``launch.dryrun``'s
+    ``Meter`` on these real CPU tensors (the dry run's twin)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import worker_rows
+    from repro_torch.dist.sharding import ShardedParams, param_specs
+    from repro_torch.launch.dryrun import Meter
+    from repro_torch.launch.train import init_params
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    torch.set_num_threads(1)
+    cfg = get_config("gemma2-2b").reduced()
+    mesh = make_test_mesh(data=2, model=2, device="cpu")
+    out = {}
+    for kind in ("fo", "zo"):
+        meter = Meter(device="cpu")
+        with meter:
+            params, like = init_params(cfg, mesh, 0, torch.device("cpu"))
+            gathered = ShardedParams(param_specs(cfg, like, mesh), mesh)
+            fo, zo = make_distributed_ho_sgd(
+                lambda p, b: T.loss_fn(cfg, p, b, gathered), mesh,
+                HOSGDConfig(tau=8, mu=1e-3, m=2, lr=1e-2, zo_lr=1e-8, engine="flat"),
+                sgd(const_schedule(1e-2)), model_cfg=cfg, params_like=like)
+            b = worker_rows(tree_map(torch.from_numpy, batch), mesh)
+            args = (0 if kind == "fo" else 1, params, (), b)
+            arguments = meter.held(args)
+            meter.peak = meter.live
+            coll.reset_gathers()
+            ledger = CommLedger()
+            ledger.wrap(kind, fo if kind == "fo" else zo)(*args)
+        out[kind] = {"gathers": {k: list(v) for k, v in coll.GATHERS.items()},
+                     "ledger": [(r.kind, r.nbytes) for r in ledger.programs[kind] if r.payload],
+                     "peak": meter.peak, "arguments": arguments}
     return out
