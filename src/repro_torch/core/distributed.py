@@ -47,35 +47,40 @@ reduction its partitioner inserts; the dense mean also appears in the ledger
 as a ``payload=False`` ``pmean``.
 
 Sharded placements (``param_specs_tree``: the reference's ``param_specs``,
-tensor-parallel over ``model`` and, under ``fsdp``, over ``data``) run as
-sharded storage with compute gathered on use: each rank holds its shard of
-every parameter, of the optimizer state and of every direction buffer, and
-the loss gathers each leaf just before it is used
-(``dist.sharding.ShardedParams``; the caller's ``loss_fn`` does it, as the
-trainer's does).  The engines run on the shards with global counters, the
-global d and the global norm (``core.engine``); the ZO exchange stays one
-float32 scalar per worker rank (4·m); the FO gradient reaches each rank as
-its shard (``gather``'s backward slices it) and is averaged over the worker
-axes; codecs work on shards.  Under ``fsdp`` a worker is the whole data x
-model slice (the reference's config: its ZO step runs m = 1, and its
-products are the global batch's): every rank takes the whole batch
+tensor-parallel over ``model`` and, under ``fsdp``, over ``data``): each
+rank holds its shard of every parameter, of the optimizer state and of
+every direction buffer; the ``model`` axis partitions the forward by
+Megatron's convention and the other axes are storage, gathered just before
+use (``dist.sharding.ShardedParams``; the caller's ``loss_fn`` runs it, as
+the trainer's does).  The loss, and so f0 and f1, is the same scalar on
+every rank of a worker (the partitioned forward's all-reduces sum in rank
+order).  The engines run on the shards with global counters, the global d
+and the global norm (``core.engine``); the ZO exchange stays one float32
+scalar per worker rank (4·m); the FO gradient of a ``model``-cut leaf is
+computed on the rank's shard, a replicated leaf's is the same on every rank
+of the axis, and both are averaged over the worker axes; codecs work on
+shards.  Under ``fsdp`` a worker is the whole data x model slice (the
+reference's config: its ZO step runs m = 1, and its products are the
+global batch's): every rank takes the whole batch
 (``data.pipeline.shard_batches(..., whole=True)``) and runs the one-process
 formulation on its shards, so a MoE layer's capacity and load-balance loss
 are the global batch's, as in the reference.  Every exchange is booked at the
 GLOBAL tree's bytes (4·d FO, per-worker codec ``nbytes`` of the global
 leaves x m), as the reference's traced global shapes book it, never at a
-shard's.  The fused flat round stays off under specs (it scales by its own
-buffer's norm).  The reference's own placement hints (its engine's
-``_constrain``) have no counterpart: nothing is compiled.
+shard's; the partitioned forward's all-reduces are the model's internal
+traffic and are counted apart (``collectives.REDUCES``), not booked.  The
+fused flat round stays off under specs (it scales by its own buffer's
+norm).  The reference's own placement hints (its engine's ``_constrain``)
+have no counterpart: nothing is compiled.
 
-What differs from the reference: the products are computed on gathered
-whole leaves on every rank of a ``model`` axis (the reference's GSPMD
-partitions them, Megatron-style; a partitioned-compute forward is ROADMAP
-work).  ``scan_unroll`` and ``buckets`` have no meaning in eager PyTorch
-and are accepted for the signature: the reference chunks its flat gradient
-into ``buckets`` so that its compiler may overlap each chunk's reduction
-with compute, with the same values and bytes; eager PyTorch has nothing to
-overlap, so every ``buckets`` runs the one reduction.
+What differs from the reference: a row-parallel product's partials are
+float32 and summed in rank order, rounded once (the reference's compiler
+sums what it chooses).  ``scan_unroll`` and ``buckets`` have no meaning in
+eager PyTorch and are accepted for the signature: the reference chunks its
+flat gradient into ``buckets`` so that its compiler may overlap each
+chunk's reduction with compute, with the same values and bytes; eager
+PyTorch has nothing to overlap, so every ``buckets`` runs the one
+reduction.
 ``jit_with_shardings`` has no counterpart: nothing is compiled.  Steps run
 eagerly; a batch may be numpy arrays or tensors and is moved to the
 parameters' device.
@@ -409,8 +414,8 @@ def make_distributed_ho_sgd(
     ``fsdp``; the parameter specs when ``model_cfg`` and ``params_like`` are
     given: ``params_like`` has the GLOBAL shapes, a whole tree or meta
     tensors of it, and when a spec cuts a leaf over an axis of more than one
-    rank the steps take and return this rank's shards, ``loss_fn`` gathering
-    them on use).  ``compressor`` quantizes the FO gradient exchange; the ZO step's
+    rank the steps take and return this rank's shards, ``loss_fn`` running
+    the partitioned forward on them).  ``compressor`` quantizes the FO gradient exchange; the ZO step's
     traffic is already one scalar per worker.  The worker count is
     ``ho.m``: one process holds all of them when the mesh's worker axes span
     one rank, and a group must have ``ho.m`` worker ranks (``ValueError``

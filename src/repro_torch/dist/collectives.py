@@ -37,13 +37,27 @@ placements' storage collective (``dist.sharding.gather``), books nothing.
 Ranks that share one card (gloo ranks on ``cuda:0``) run ``gather_cat``
 device to device through CUDA IPC handles rather than through host memory.
 
+The partitioned forward's all-reduces (``all_reduce_sum``, and
+``reduce_parts`` for a combine that is not a sum) are built as a
+``gather_cat`` of the partials on a new leading dim followed by a sum in
+group-rank order on every rank, so every rank of the group holds the same
+bits: the replicated activations, a MoE layer's routing and the losses of
+one worker must agree bit for bit on its ranks.  They go through the
+same-card exchange or the group's backend as ``gather_cat`` does (never
+gloo's ``all_reduce``, which stages through host memory and sums in an
+order of its own), and book nothing: they are the model's internal
+traffic, not the method's exchange, as the reference's compiler books them
+nowhere either.
+
 ``GATHERS`` counts ``gather_cat``'s calls and the bytes of its results per
-tuple of axes (``reset_gathers`` sets them to 0): the dry run's gathered
-bytes (``launch.dryrun``).  Every collective that runs over the group
-(``gather_cat``, ``all_gather``, ``psum``, ``pmean``) is one
-``record_function`` span named ``collective:<kind>`` (``all-gather`` or
-``all-reduce``), which ``launch.overlap`` pairs with the kernels a profiler
-trace shows between its ends.
+tuple of axes, ``REDUCES`` the partitioned forward's all-reduces and the
+bytes of their reduced payloads (``reset_gathers`` sets both to 0): the dry
+run's collective bytes (``launch.dryrun``).  Every collective that runs
+over the group (``gather_cat``, ``reduce_parts``, ``all_gather``,
+``psum``, ``pmean``) is one ``record_function`` span named
+``collective:<kind>`` (``all-gather`` or ``all-reduce``), which
+``launch.overlap`` pairs with the kernels a profiler trace shows between
+its ends.
 """
 from __future__ import annotations
 
@@ -62,10 +76,21 @@ _ACTIVE: List[Tuple["CommLedger", str]] = []
 
 #: axes -> [calls, bytes of the gathered results] of ``gather_cat``
 GATHERS: Dict[Tuple[str, ...], List[int]] = {}
+#: axes -> [calls, bytes of the reduced payloads] of ``reduce_parts`` (every
+#: ``all_reduce_sum`` is one)
+REDUCES: Dict[Tuple[str, ...], List[int]] = {}
 
 
 def reset_gathers() -> None:
+    """Set ``GATHERS`` and ``REDUCES`` to 0."""
     GATHERS.clear()
+    REDUCES.clear()
+
+
+def _count(table: Dict[Tuple[str, ...], List[int]], axes: Axes, t: torch.Tensor) -> None:
+    stat = table.setdefault((axes,) if isinstance(axes, str) else tuple(axes), [0, 0])
+    stat[0] += 1
+    stat[1] += t.numel() * t.element_size()
 
 
 def _span(kind: str):
@@ -286,10 +311,31 @@ def gather_cat(x: torch.Tensor, axes: Axes, *, mesh, dim: int) -> torch.Tensor:
     through host memory)."""
     with _span("all-gather"):
         out = _gather_cat(x, axes, mesh, dim)
-    stat = GATHERS.setdefault((axes,) if isinstance(axes, str) else tuple(axes), [0, 0])
-    stat[0] += 1
-    stat[1] += out.numel() * out.element_size()
+    _count(GATHERS, axes, out)
     return out
+
+
+def reduce_parts(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
+    """Every rank's ``x`` over the ``axes`` of ``mesh``, stacked on a new
+    leading dim in group-rank order: the exchange of the partitioned
+    forward's all-reduces, whose combine every rank computes alike
+    (``all_reduce_sum``; the vocab-parallel cross-entropy's max and sum).
+    Counted in ``REDUCES`` at ``x``'s bytes; books nothing."""
+    with _span("all-reduce"):
+        out = _gather_cat(x.unsqueeze(0), axes, mesh, 0)
+    _count(REDUCES, axes, x)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ``axes`` of ``mesh``, the same bits on
+    every rank: the parts exchanged in ``x``'s dtype (``reduce_parts``),
+    added in float32 in group-rank order, rounded once to ``x``'s dtype."""
+    parts = reduce_parts(x, axes, mesh=mesh)
+    out = parts[0].to(torch.float32)
+    for part in parts[1:]:
+        out = out + part.to(torch.float32)
+    return out.to(x.dtype)
 
 
 def _gather_cat(x: torch.Tensor, axes: Axes, mesh, dim: int) -> torch.Tensor:

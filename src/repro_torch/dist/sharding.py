@@ -21,25 +21,41 @@ so the specs can be taken for a 512-rank mesh in one process.  A spec is a
 names, or None), trailing Nones dropped, as in JAX.  ``named`` turns a spec
 into ``DeviceMesh`` placements.
 
-Running the placements (the port's formulation: sharded storage, compute
-gathered on use).  A rank holds plain local tensors, its shard of every
-leaf: a dim that a spec names is cut into as many equal parts as its axes
-have ranks, and the rank keeps the part at its coordinate on them
-(``shard_slices``; several axes flattened major to minor).  ``ShardGeometry``
-holds every leaf's slice, the global d and the shard as runs of consecutive
-global row-major indices (``leaf_runs``), which is how the direction engines
-keep the hash's counters global.  ``Sharder`` cuts each leaf as it is made
-(the trainer's initialisation), ``shard_tree`` a whole tree, ``gather`` a
-leaf back over the axes its spec names and ``gather_tree`` a whole tree;
-``ShardedParams`` is what the transformer gathers each layer with, just
-before the layer runs.  ``gather`` is differentiable, and its backward is
-this rank's slice of the gradient: every rank that shares a leaf's shards
-computed the same full gradient (the ranks of a ``model`` axis hold one
-worker's rows; under fsdp the ``data`` axis is storage too, since a worker
-is the whole data x model slice, so a sum over the axis divided by its size
-would only add rounding).  Nothing here is a ``DTensor``: the models launch
-kernels on raw pointers, and gloo carries a CUDA payload only through host
-memory (``dist.collectives``).
+Running the placements (the port's formulation: the ``model`` axis
+partitions the compute, every other axis is storage).  A rank holds plain
+local tensors, its shard of every leaf: a dim that a spec names is cut into
+as many equal parts as its axes have ranks, and the rank keeps the part at
+its coordinate on them (``shard_slices``; several axes flattened major to
+minor).  ``ShardGeometry`` holds every leaf's slice, the global d and the
+shard as runs of consecutive global row-major indices (``leaf_runs``),
+which is how the direction engines keep the hash's counters global.
+``Sharder`` cuts each leaf as it is made (the trainer's initialisation),
+``shard_tree`` a whole tree, ``gather`` a leaf back over the axes its spec
+names (or a subset of them) and ``gather_tree`` a whole tree.
+
+``ShardedParams`` is what the transformer runs with.  Each layer's leaves
+(and the embedding, head and final norm) are gathered over the storage axes
+only (``data`` under fsdp: ZeRO storage) just before they are used; the
+``model`` cut stays, and the layers compute on it by Megatron's convention,
+through the group of the ``model`` axis (``ModelAxis``): a column-parallel
+product on the cut output dim, whose input enters through ``enter``
+(identity forward, all-reduce of the gradient backward), and a
+row-parallel product on the cut contraction dim, computed in float32 on
+every rank and summed through ``reduce`` (all-reduce forward, identity
+backward), once per sublayer.  Replicated leaves used on a rank's part
+(attention's ``q_norm``/``k_norm``) enter too, so that their gradient is
+the whole one on every rank.  The mamba mixer is the exception: its
+``in_proj`` is cut on its last dim, which ``torch.chunk`` splits into u and
+z, so a rank's columns are not a column-parallel half of the mixer; its
+leaves are gathered whole (``model`` included) and every rank computes the
+whole mixer.  ``gather`` is differentiable, and its backward is this rank's
+slice of the gradient: that is right for a storage axis (every rank that
+shares a leaf's shards computed the same full gradient) and for a mixer
+that every rank computes whole; a leaf gathered over ``model`` to be used
+on a rank's part enters after the gather, so that the gradient is summed
+over the axis before it is sliced.  Nothing here is a ``DTensor``: the
+models launch kernels on raw pointers, and gloo carries a CUDA payload only
+through host memory (``dist.collectives``).
 """
 from __future__ import annotations
 
@@ -455,46 +471,158 @@ class _GatherDim(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None
 
 
-def gather(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
-    """The whole leaf from this rank's shard ``x``: every dim that ``spec``
-    cuts over axes of more than one rank is all-gathered over them, in dim
-    order; differentiable (``_GatherDim``).  A leaf that no axis cuts comes
+def gather(x: torch.Tensor, spec: PartitionSpec, mesh,
+           axes: Sequence[str] = None) -> torch.Tensor:
+    """The leaf from this rank's shard ``x`` with every dim that ``spec``
+    cuts over axes of more than one rank all-gathered over them, in dim
+    order (``axes``: only the dims that name those axes, the others' cut
+    kept); differentiable (``_GatherDim``).  A leaf that no axis cuts comes
     back as itself."""
     sizes, coord = mesh_shape(mesh), None
     for dim in range(min(len(spec), x.dim())):
-        axes = tuple(a for a in spec_axes(spec[dim]) if sizes[a] > 1)
-        if not axes:
+        names = tuple(a for a in spec_axes(spec[dim]) if sizes[a] > 1)
+        if not names or (axes is not None and not set(names) <= set(axes)):
             continue
         coord = coord or mesh_coordinate(mesh)
         index = 0
-        for a in axes:
+        for a in names:
             index = index * sizes[a] + coord[a]
-        x = _GatherDim.apply(x, dim, axes, mesh, index)
+        x = _GatherDim.apply(x, dim, names, mesh, index)
     return x
 
 
-def gather_tree(tree: Any, specs: Any, mesh) -> Any:
-    """Every leaf of a tree of shards gathered whole (``gather``)."""
-    return tree_map(lambda x, s: gather(x, s, mesh), tree, specs)
+def gather_tree(tree: Any, specs: Any, mesh, axes: Sequence[str] = None) -> Any:
+    """Every leaf of a tree of shards gathered (``gather``)."""
+    return tree_map(lambda x, s: gather(x, s, mesh, axes), tree, specs)
+
+
+class _Enter(torch.autograd.Function):
+    """Where a replicated tensor enters a rank's part of a sublayer: the
+    identity; backward: the gradient summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.sum(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Where the ranks' partial outputs leave a sublayer: their sum over
+    the axis; backward: the identity (the sum is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Parts(torch.autograd.Function):
+    """Every rank's tensor stacked in rank order, for a combine that every
+    rank computes alike; backward: this rank's row of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from repro_torch.dist import collectives as coll
+
+        ctx.rank = axis.rank
+        return coll.reduce_parts(x, axis.name, mesh=axis.mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None
+
+
+class ModelAxis:
+    """The ``model`` axis of a mesh as the partitioned layers use it:
+    ``size`` ranks, this rank at ``rank``; ``enter`` and ``reduce`` are the
+    conjugate pair of Megatron's tensor parallelism, ``sum`` the
+    rank-ordered all-reduce (``collectives.all_reduce_sum``: the same bits
+    on every rank), ``parts`` every rank's tensor stacked in rank order, and
+    ``whole`` a leaf gathered over the axis to be used on this rank's part
+    (its gradient summed over the axis, then sliced)."""
+
+    name = "model"
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = mesh_shape(mesh)[self.name]
+        self.rank = mesh_coordinate(mesh)[self.name]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.dist import collectives as coll
+
+        return coll.all_reduce_sum(x, self.name, mesh=self.mesh)
+
+    def parts(self, x: torch.Tensor) -> torch.Tensor:
+        return _Parts.apply(x, self)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self)
+
+    def reduce(self, partial: torch.Tensor, dtype) -> torch.Tensor:
+        """The float32 partials' sum over the axis, rounded once to ``dtype``."""
+        return _Reduce.apply(partial, self).to(dtype)
+
+    def whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return self.enter(_GatherDim.apply(x, dim % x.dim(), (self.name,), self.mesh,
+                                           self.rank))
+
+
+def row_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial on this rank's part of the
+    contraction, in float32 (``ModelAxis.reduce`` sums the partials and
+    rounds once)."""
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 class ShardedParams:
-    """Gather on use: what the transformer calls to see whole leaves.
+    """What the transformer runs a rank's shards with: the leaves gathered
+    over the storage axes just before they are used, the ``model`` cut
+    kept, and the ``model`` axis (``ModelAxis``) for every sublayer whose
+    leaves it cuts (the module docstring).
 
     ``layer(lp)`` gathers one layer's leaves (the views ``unbind`` gives of
-    the stacked shards; the stacked layer dim is never cut), ``top(name,
-    sub)`` a top-level entry (embed, head, final norm)."""
+    the stacked shards; the stacked layer dim is never cut), the mamba
+    mixer's over every axis; ``top(name, sub)`` a top-level entry (embed,
+    head, final norm); ``axis_for(path)`` is the ``ModelAxis`` when the
+    ``model`` axis cuts a leaf under ``path`` (a tuple of dict keys, from
+    the layer's root or, with ``top=True``, the tree's), else None."""
+
+    #: a layer's subtree whose leaves are gathered whole (the module docstring)
+    GATHERED_WHOLE = ("mamba",)
 
     def __init__(self, specs: Any, mesh):
         self.specs, self.mesh = specs, mesh
+        sizes = mesh_shape(mesh)
         self.layer_specs = tree_map(lambda s: PartitionSpec(*s.parts[1:]),
                                     specs.get("layers"))
+        self.storage = tuple(a for a in sizes if a != ModelAxis.name)
+        self.model = ModelAxis(mesh) if sizes.get(ModelAxis.name, 1) > 1 else None
 
     def layer(self, lp: Any) -> Any:
-        return gather_tree(lp, self.layer_specs, self.mesh)
+        return {k: gather_tree(v, self.layer_specs[k], self.mesh,
+                               None if k in self.GATHERED_WHOLE else self.storage)
+                for k, v in lp.items()}
 
     def top(self, name: str, sub: Any) -> Any:
-        return gather_tree(sub, self.specs[name], self.mesh)
+        return gather_tree(sub, self.specs[name], self.mesh, self.storage)
+
+    def axis_for(self, path: Sequence[str], top: bool = False):
+        if self.model is None:
+            return None
+        sub = self.specs if top else self.layer_specs
+        for k in path:
+            sub = sub[k]
+        cut = any(ModelAxis.name in spec_axes(part) for spec in tree_leaves(sub)
+                  for part in spec)
+        return self.model if cut else None
 
 
 class Sharder:

@@ -9,8 +9,8 @@ multi-pod mesh; ``REPRO_TEST_MESH``, e.g. ``2x2`` or ``2x2x2``, gives a small
 one), the mesh is ``launch.mesh``'s, and the step is what the port runs:
 
 * ``fo`` / ``zo``: ``core.distributed.make_distributed_ho_sgd`` as the trainer
-  builds it (this rank's shards, ``transformer.loss_fn`` gathering them on
-  use, the engine ``flat``, SGD), with the reference's dry-run config
+  builds it (this rank's shards, ``transformer.loss_fn`` partitioned over
+  ``model``, the engine ``flat``, SGD), with the reference's dry-run config
   ``HOSGDConfig(tau=8, mu=1e-3, lr=1e-2, zo_lr=1e-8)``, on this rank's rows
   of the global batch (every row for an fsdp or MoE model,
   ``core.distributed.takes_whole_batch``);
@@ -43,9 +43,13 @@ where they mean something here:
   (peak minus arguments), ``output_size_in_bytes``;
 * ``collectives``: the keys of ``hlo.collective_bytes``, from the
   ``CommLedger``'s booking of the step (the worker exchange: 4·d FO, 4·m
-  ZO) and the gathers that ``dist.sharding.gather`` made
-  (``collectives.GATHERS``: their results' bytes; over ``model`` on
-  ``axis_model``, over ``data`` (fsdp) on ``axis_worker``);
+  ZO), the gathers that ``dist.sharding.gather`` made
+  (``collectives.GATHERS``: their results' bytes, on ``all-gather``) and
+  the partitioned forward's all-reduces (``collectives.REDUCES``: their
+  payloads' bytes, on ``all-reduce``); over ``model`` on ``axis_model``,
+  over ``data`` (fsdp) on ``axis_worker``.  ``gathers`` and ``reduces``
+  count the calls per axes, ``gather_bytes`` and ``reduce_bytes`` their
+  bytes;
 * ``kernels``: the calls of each hand-written kernel in the step;
 * ``run_s`` in place of ``lower_s`` / ``compile_s``.
 
@@ -274,9 +278,10 @@ def _collectives(ledger: CommLedger, name: str, mesh) -> Dict[str, float]:
         if r.payload:
             out[_LEDGER_KIND.get(r.kind, "all-reduce")] += r.nbytes
             out["axis_worker"] += r.nbytes
-    for axes, (_, nbytes) in coll.GATHERS.items():
-        out["all-gather"] += nbytes
-        out["axis_model" if set(axes) == {"model"} else "axis_worker"] += nbytes
+    for kind, table in (("all-gather", coll.GATHERS), ("all-reduce", coll.REDUCES)):
+        for axes, (_, nbytes) in table.items():
+            out[kind] += nbytes
+            out["axis_model" if set(axes) == {"model"} else "axis_worker"] += nbytes
     out["total"] = sum(out[k] for k in COLLECTIVE_KINDS)
     return out
 
@@ -364,7 +369,9 @@ def run_one(arch: str, shape_name: Union[str, ShapeConfig], multi_pod: bool, ste
         a["temp_size_in_bytes"] = a["peak_memory_in_bytes"] - a["argument_size_in_bytes"]
         rec["cost"] = {"flops": float(flops.get_total_flops()), "bytes": float(meter.bytes)}
         rec["collectives"] = _collectives(ledger, step, mesh)
-        rec["gathers"] = {"+".join(k): v[0] for k, v in coll.GATHERS.items()}
+        for name, table in (("gather", coll.GATHERS), ("reduce", coll.REDUCES)):
+            rec[f"{name}s"] = {"+".join(k): v[0] for k, v in table.items()}
+            rec[f"{name}_bytes"] = {"+".join(k): v[1] for k, v in table.items()}
         rec["kernels"] = {k: v for k, v in fake.CALLS.items() if v}
     rec["run_s"] = round(time.perf_counter() - t0, 2)
     if verbose:

@@ -16,10 +16,12 @@ tensor-parallel placements and an ``fsdp`` architecture (arctic-480b,
 qwen3-moe-235b-a22b) also shards over ``data``: each rank keeps only its
 shard of every leaf, drawn from the same generator in the same order as the
 replicated run's (``models.transformer.init_model(..., shard=)``), and the
-loss gathers each leaf on use (``dist.sharding``).  Rank 0 prints, writes
-the CSV, the trace and ``--ckpt`` (gathered whole, in the one on-disk format,
-so it restores in either package and on any mesh; ``checkpoint.restore(...,
-shards=)`` slices it onto a sharded mesh).
+loss runs the forward partitioned over ``model`` (Megatron's convention:
+each rank its heads, hidden columns and vocabulary columns, one all-reduce
+a sublayer), the ``data`` cut gathered on use (``dist.sharding``).  Rank 0
+prints, writes the CSV, the trace and ``--ckpt`` (gathered whole, in the
+one on-disk format, so it restores in either package and on any mesh;
+``checkpoint.restore(..., shards=)`` slices it onto a sharded mesh).
 
 Every ``--tau``-th step (or as ``--tau-schedule`` decides) is a first-order
 step, an all-reduce of the gradient (4·d bytes with ``grad_accum`` > 1, the
@@ -35,8 +37,9 @@ What differs from the reference:
   When the caller has not initialised one, ``main`` opens a world-size-1
   gloo group over a ``file://`` store in a temporary directory and destroys
   it on exit; under the caller's group the device count is its world size.
-* Sharded placements are sharded storage with compute gathered on use (the
-  reference's compiler partitions the products themselves).
+* The partitioned forward's all-reduces are written out (float32 partials
+  summed in rank order), where the reference's compiler inserts its own;
+  the mamba mixer's leaves are gathered whole (``dist.sharding``).
 * ``--xla-overlap`` has no counterpart (it sets ``XLA_FLAGS``, which
   PyTorch does not have) and exits with a message.
 
@@ -194,8 +197,8 @@ def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
     d = sum(leaf_dims)
     if geom.sharded:
         held = sum(x.numel() * x.element_size() for x in tree_leaves(params))
-        say(f"sharded over {geom.shard_axes}: rank 0 holds {held:,} of "
-            f"{geom.global_nbytes(params):,} parameter bytes")
+        say(f"sharded over {geom.shard_axes} (the forward partitioned over 'model'): rank 0 "
+            f"holds {held:,} of {geom.global_nbytes(params):,} parameter bytes")
     zo_lr = args.zo_lr if args.zo_lr is not None else args.lr * 50.0 / d
     ho = HOSGDConfig(tau=args.tau, mu=args.mu, m=m, lr=args.lr, zo_lr=zo_lr,
                      seed=args.seed, engine=args.engine)

@@ -11,9 +11,21 @@ Masked logits are -1e30, not -inf: an inactive decode slot (``pos == -1``)
 masks every key, and -inf would make its don't-care logits NaN.
 
 The KV cache is updated in place (the reference returns new arrays), and the
-updated cache is returned as well.  ``_constrain_hd`` (the reference's
-sharding constraint on the head width under a device mesh) has no
-counterpart on one card.
+updated cache is returned as well.
+
+Partitioned over the ``model`` axis (``attention_forward(..., tp=)``, the
+training loss on sharded placements), a rank runs the heads whose columns
+of the attention output its rows of ``wo`` take, and ``wo`` is
+row-parallel: one rank-ordered all-reduce of float32 partials.  On whole
+heads (``H`` and ``KV`` divisible by the axis) the rank's ``H/ms`` query
+heads and ``KV/ms`` KV heads are its own columns of ``wq``, ``wk`` and
+``wv``, contiguous as ``shard_slices`` cuts them, and the GQA grouping
+``h // (H/KV)`` holds within them.  A leaf cut inside a head (``KV % ms``:
+the divisibility guard cuts ``KV·hd``) is gathered over the axis and the
+rank takes the heads it needs; the gather is counted
+(``collectives.GATHERS``).  ``q_norm``, ``k_norm``, rope and the softcap
+act per head.  This is what the reference's ``_constrain_hd`` pins for its
+compiler.  Serving keeps whole parameters.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import row_partial
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, softcap
 
@@ -44,11 +57,13 @@ def init_attention(gen, cfg: ModelConfig, dtype, device="cpu") -> Params:
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """q (B, S, heads, hd), k and v (B, S, kv heads, hd), the heads those of
+    ``p``'s columns."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (x @ p["wk"]).reshape(B, S, kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, kv, hd)
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k = (x @ p["wk"]).reshape(B, S, -1, hd)
+    v = (x @ p["wv"]).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -130,11 +145,61 @@ def _flash_kernel_call(cfg: ModelConfig, q, k, v, causal, w_static):
 
 
 def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence attention (train / prefill), causal unless encoder_only."""
+                      window: Optional[int] = None, tp=None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill), causal unless encoder_only;
+    with ``tp`` (a ``dist.sharding.ModelAxis``) partitioned over it (the
+    module docstring)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if tp is not None:
+        return tp.reduce(_attention_partial(cfg, p, tp.enter(x), positions, window, tp),
+                         x.dtype)
     q, k, v = _project_qkv(cfg, p, x, positions)
     return _attend_seq(cfg, q, k, v, positions, window) @ p["wo"]
+
+
+def _rank_heads(cfg: ModelConfig, p: Params, tp) -> Tuple[Params, int, int]:
+    """``(this rank's q/k/v weights and norms, its query heads' first
+    column, its wo rows' first column)``: the query heads ``[h0, h1)`` that
+    cover the columns ``[c0, c1)`` of the attention output its rows of
+    ``wo`` take, and the KV heads ``[kv0, kv1)`` they read."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = H // KV
+    c0 = tp.rank * p["wo"].shape[0]
+    c1 = c0 + p["wo"].shape[0]
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    kv0, kv1 = h0 // group, (h1 - 1) // group + 1
+    wq = p["wq"]
+    if c0 % hd or c1 % hd:                      # wq cut inside a head
+        wq = tp.whole(wq, -1)[:, h0 * hd:h1 * hd]
+    if p["wk"].shape[-1] == KV * hd:            # replicated: a rank's heads enter
+        wk, wv = (tp.enter(p[n])[:, kv0 * hd:kv1 * hd] for n in ("wk", "wv"))
+    elif KV % tp.size:                          # cut inside a head
+        wk, wv = (tp.whole(p[n], -1)[:, kv0 * hd:kv1 * hd] for n in ("wk", "wv"))
+    else:                                       # this rank's own KV heads
+        wk, wv = p["wk"], p["wv"]
+    local = {"wq": wq, "wk": wk, "wv": wv}
+    for n in ("q_norm", "k_norm"):
+        if n in p:
+            local[n] = tp.enter(p[n])
+    return local, h0 * hd, c0
+
+
+def _attention_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
+                       positions: torch.Tensor, window: Optional[int], tp) -> torch.Tensor:
+    """This rank's float32 partial of the attention sublayer's output, from
+    ``x_in`` (``x`` after ``tp.enter``)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = H // KV
+    local, q0, c0 = _rank_heads(cfg, p, tp)
+    q, k, v = _project_qkv(cfg, local, x_in, positions)
+    h0, nq, nk = q0 // hd, q.shape[2], k.shape[2]
+    if nk > 1 and (h0 % group or nq % group):
+        # the rank's query heads part a group: one KV head per query head
+        idx = (torch.arange(h0, h0 + nq, device=x_in.device) // group) - h0 // group
+        k, v = k[:, :, idx], v[:, :, idx]
+    out = _attend_seq(cfg, q, k, v, positions, window)
+    out = out[..., c0 - q0:c0 - q0 + p["wo"].shape[0]]
+    return row_partial(out, p["wo"])
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import row_partial
 
 Params = Dict[str, torch.Tensor]
 
@@ -107,14 +108,28 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: int, dtype, device="cpu") -> Params:
     }
 
 
-def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp_hidden(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-    elif cfg.activation == "geglu":
-        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
-    else:
-        h = F.gelu(x @ p["wu"], approximate="tanh")
-    return h @ p["wd"]
+        return F.silu(x @ p["wg"]) * (x @ p["wu"])
+    if cfg.activation == "geglu":
+        return F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
+    return F.gelu(x @ p["wu"], approximate="tanh")
+
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The MLP on x; with ``tp`` (a ``dist.sharding.ModelAxis``) ``wg`` and
+    ``wu`` hold this rank's columns and ``wd`` its rows: the product summed
+    over the axis by one all-reduce (``mlp_partial``)."""
+    if tp is None:
+        return _mlp_hidden(cfg, p, x) @ p["wd"]
+    return tp.reduce(mlp_partial(cfg, p, tp.enter(x)), x.dtype)
+
+
+def mlp_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor) -> torch.Tensor:
+    """This rank's float32 partial of a partitioned MLP, from ``x_in``
+    (``x`` after ``ModelAxis.enter``): column-parallel ``wg``/``wu``, then
+    the row-parallel ``wd`` on the rank's rows."""
+    return row_partial(_mlp_hidden(cfg, p, x_in), p["wd"])
 
 
 # --------------------------------------------------------------------------- #

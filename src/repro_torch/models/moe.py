@@ -17,9 +17,15 @@ Two rules are the reference's, not PyTorch's defaults:
   clamps an index past the end), and its zero weight zeroes it; an empty
   slot reads token 0 and is zeroed by its validity mask.
 
-The reference's ``_expert_spec`` and ``_constrain`` (sharding constraints
-that pin the dispatch tensors to the expert weights' mesh placement) have
-no meaning on one device and no counterpart here.
+Partitioned over the ``model`` axis (``moe_partial``, the training loss on
+sharded placements; what the reference's ``_expert_spec`` and
+``_constrain`` pin for its compiler): the routing runs on the replicated
+activations, the same on every rank; under ``moe_sharding='tensor'`` a
+rank's experts hold its columns of the hidden dim (``wg``/``wu``
+column-parallel, ``wd`` row-parallel), under ``'expert'`` a rank runs its
+own experts.  Either way the rank's combine of its float32 expert rows is a
+partial of the layer's output, summed by one all-reduce of (T, D) after the
+combine, not of (E, C, D).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import row_partial
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -95,11 +102,14 @@ def dispatch(expert_ids: torch.Tensor, E: int, C: int):
     return flat_e, flat_pos, keep, tok_for_slot[:, :C], slot_valid[:, :C]
 
 
+def _expert_hidden(p: Params, expert_in: torch.Tensor) -> torch.Tensor:
+    g = torch.bmm(expert_in, p["wg"])
+    return g * torch.sigmoid(g) * torch.bmm(expert_in, p["wu"])
+
+
 def experts(p: Params, expert_in: torch.Tensor) -> torch.Tensor:
     """The swiglu experts on their buffers: (E, C, D) -> (E, C, D)."""
-    g = torch.bmm(expert_in, p["wg"])
-    h = g * torch.sigmoid(g) * torch.bmm(expert_in, p["wu"])
-    return torch.bmm(h, p["wd"])
+    return torch.bmm(_expert_hidden(p, expert_in), p["wd"])
 
 
 def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor):
@@ -116,5 +126,31 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor):
     # combine: each (token, slot)'s expert row, a dropped route's clamped to C - 1
     gathered = out_e[flat_e, flat_pos.clamp(max=C - 1)]                 # (T*k, D)
     w = (gate.reshape(T * k) * keep.to(torch.float32)).to(x.dtype)
+    y = (gathered * w[:, None]).reshape(T, k, D).sum(dim=1)
+    return y.reshape(B, S, D), aux
+
+
+def moe_partial(cfg: ModelConfig, p: Params, x: torch.Tensor, x_in: torch.Tensor, tp):
+    """This rank's float32 partial of the layer's output (B, S, D) and the
+    aux loss: routed on ``x`` (replicated), its experts run on ``x_in``
+    (``x`` after ``tp.enter``), the gates entering the rank's part too (each
+    rank's combine sees only its own expert rows).  ``p["wg"]``'s leading
+    dim is the rank's experts: all E (``'tensor'``: its hidden columns) or
+    E/ms from ``tp.rank * E/ms`` (``'expert'``)."""
+    B, S, D = x.shape
+    T, k, E = B * S, cfg.top_k, cfg.n_experts
+    C = moe_capacity(cfg, T)
+    gate, expert_ids, aux = route(cfg, p, x.reshape(T, D))
+    with torch.no_grad():
+        flat_e, flat_pos, keep, tok_for_slot, slot_valid = dispatch(expert_ids, E, C)
+    n = p["wg"].shape[0]
+    e0 = 0 if n == E else tp.rank * n
+    xf = x_in.reshape(T, D)
+    expert_in = xf[tok_for_slot[e0:e0 + n]] * slot_valid[e0:e0 + n, :, None].to(x.dtype)
+    out_e = row_partial(_expert_hidden(p, expert_in), p["wd"])
+    local = flat_e - e0
+    mine = (local >= 0) & (local < n)
+    gathered = out_e[local.clamp(0, n - 1), flat_pos.clamp(max=C - 1)]   # (T*k, D)
+    w = tp.enter(gate).reshape(T * k) * (keep & mine).to(torch.float32)
     y = (gathered * w[:, None]).reshape(T, k, D).sum(dim=1)
     return y.reshape(B, S, D), aux

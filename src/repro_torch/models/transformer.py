@@ -24,17 +24,23 @@ values, less activation memory.  Without autograd (serving, the ZO step's
 evaluations) nothing is wrapped.
 
 Sharded placements (``dist.sharding``): with ``shards`` (a
-``ShardedParams``) the parameters are this rank's shards, and the training
-loss gathers each leaf on use: each layer's leaves just before the layer
-runs, inside its ``checkpoint`` when ``cfg.remat`` is on (so the backward
-gathers again instead of keeping the whole model alive), and the embedding,
-head and final norm where they are used.  Every block, the MoE, SSM and
-frontend code and every kernel call see whole tensors, as on one rank.  The
-reference's placement hints for its compiler (``moe._expert_spec`` and
-``_constrain``, attention's head-dim constraint) have no counterpart here.
-``init_model(..., shard=)`` keeps each rank's slice of every leaf as it is
-drawn (``dist.sharding.Sharder``), from the same generator in the same
-order, so the shards are bit for bit slices of the replicated parameters.
+``ShardedParams``) the parameters are this rank's shards and the training
+loss runs the partitioned forward of Megatron's convention over the
+``model`` axis, as the reference's compiler partitions its products under
+its placements (``attention._constrain_hd``, ``moe._constrain``).  Each
+layer's leaves are gathered over the storage axes only (``data`` under
+fsdp) just before the layer runs, inside its ``checkpoint`` when
+``cfg.remat`` is on; attention runs this rank's heads, the MLP and the
+experts its columns of the hidden dim (or, ``moe_sharding='expert'``, its
+experts), each sublayer summed by one rank-ordered all-reduce of float32
+partials; the embedding is a vocab-parallel lookup, the head and the
+cross-entropy vocab-parallel (each rank its columns, the carries combined
+over the axis).  The loss is the same scalar on every rank.  The mamba
+mixer gathers its leaves whole and every rank computes it (its ``in_proj``
+is not column-parallel: ``dist.sharding``).  ``init_model(..., shard=)``
+keeps each rank's slice of every leaf as it is drawn
+(``dist.sharding.Sharder``), from the same generator in the same order, so
+the shards are bit for bit slices of the replicated parameters.
 
 Entry points that make tensors (``init_model``, ``init_caches``) run on the
 card unless the caller asks for ``device="cpu"``; without a card the default
@@ -60,6 +66,7 @@ from repro_torch.models.layers import (
     embed_init,
     init_mlp,
     init_norm,
+    mlp_partial,
     rmsnorm,
     softcap,
 )
@@ -167,16 +174,28 @@ def init_model(gen, cfg: ModelConfig, device="cuda", shard=None) -> Params:
 # --------------------------------------------------------------------------- #
 # blocks
 # --------------------------------------------------------------------------- #
-def _ffn(cfg: ModelConfig, lp: Params, xn: torch.Tensor):
-    """The feed-forward sublayer: (y, aux loss), aux 0 without experts."""
+def _ffn(cfg: ModelConfig, lp: Params, xn: torch.Tensor, shards=None):
+    """The feed-forward sublayer: (y, aux loss), aux 0 without experts.  With
+    ``shards`` a sublayer the ``model`` axis cuts runs partitioned; the
+    experts' and arctic's dense residual's partials share one all-reduce."""
+    axis = (lambda name: None) if shards is None else (lambda name: shards.axis_for((name,)))
     if cfg.is_moe:
-        y, aux = moe_mod.moe_forward(cfg, lp["moe"], xn)
-        if cfg.moe_dense_residual:
-            y = y + apply_mlp(cfg, lp["dense_mlp"], xn)
+        tp = axis("moe")
+        dense = axis("dense_mlp") if cfg.moe_dense_residual else None
+        if tp is None:
+            y, aux = moe_mod.moe_forward(cfg, lp["moe"], xn)
+        else:
+            x_in = tp.enter(xn)
+            part, aux = moe_mod.moe_partial(cfg, lp["moe"], xn, x_in, tp)
+            if dense is not None:
+                part = part + mlp_partial(cfg, lp["dense_mlp"], x_in)
+            y = tp.reduce(part, xn.dtype)
+        if cfg.moe_dense_residual and (tp is None or dense is None):
+            y = y + apply_mlp(cfg, lp["dense_mlp"], xn, dense)
         return y, aux
     zero = torch.zeros((), dtype=torch.float32, device=xn.device)
     if cfg.d_ff:
-        return apply_mlp(cfg, lp["mlp"], xn), zero
+        return apply_mlp(cfg, lp["mlp"], xn, axis("mlp")), zero
     return torch.zeros_like(xn), zero
 
 
@@ -187,24 +206,26 @@ def _fuse(cfg: ModelConfig, lp: Params, a: torch.Tensor, m: torch.Tensor) -> tor
                   + rmsnorm(m, lp["mamba_out_scale"], cfg.norm_eps))
 
 
-def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int) -> torch.Tensor:
+def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int,
+         shards=None) -> torch.Tensor:
     """Sequence-mixing sublayer: attention, mamba, or both (hybrid)."""
     if cfg.arch_type == "ssm":
         return ssm_mod.mamba_forward(cfg, lp["mamba"], xn)
+    tp = None if shards is None else shards.axis_for(("attn",))
+    a = attn.attention_forward(cfg, lp["attn"], xn, window, tp)
     if cfg.arch_type == "hybrid":
-        return _fuse(cfg, lp, attn.attention_forward(cfg, lp["attn"], xn, window),
-                     ssm_mod.mamba_forward(cfg, lp["mamba"], xn))
-    return attn.attention_forward(cfg, lp["attn"], xn, window)
+        return _fuse(cfg, lp, a, ssm_mod.mamba_forward(cfg, lp["mamba"], xn))
+    return a
 
 
 def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int, shards=None):
     if shards is not None:
-        lp = shards.layer(lp)           # gather on use: this layer's leaves whole
-    mix = _mix(cfg, lp, apply_norm(cfg, lp["norm1"], x), window)
+        lp = shards.layer(lp)           # the storage axes gathered, the model cut kept
+    mix = _mix(cfg, lp, apply_norm(cfg, lp["norm1"], x), window, shards)
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
     x = x + mix
-    ff, aux = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x))
+    ff, aux = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x), shards)
     if cfg.post_norms:
         ff = apply_norm(cfg, lp["post_norm2"], ff)
     return x + ff, aux
@@ -214,31 +235,47 @@ def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int, shards=No
 # embedding / inputs
 # --------------------------------------------------------------------------- #
 def _top(params: Params, name: str, shards=None):
-    """A top-level entry (embed, head, final norm), gathered when sharded."""
+    """A top-level entry (embed, head, final norm), its storage axes
+    gathered when sharded."""
     return params[name] if shards is None else shards.top(name, params[name])
 
 
-def _head(params: Params, shards=None) -> torch.Tensor:
-    return _top(params, "embed", shards).T if "head" not in params else \
-        _top(params, "head", shards)
+def _head(params: Params, shards=None):
+    """``(head (D, V) or this rank's vocabulary columns, the model axis when
+    it cuts them)``: the tied ``embed.T`` when there is no head."""
+    name = "head" if "head" in params else "embed"
+    w = _top(params, name, shards)
+    tp = None if shards is None else shards.axis_for((name,), top=True)
+    return (w if name == "head" else w.T), tp
 
 
 def embed_batch(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch.Tensor:
     """The input sequence: ``batch["features"]`` (B, S, D) for audio; else the
     scaled embeddings of ``batch["tokens"]``, after ``batch["image_embeds"]``
-    (B, P, D, cast to the embeddings' dtype) for vision."""
+    (B, P, D, cast to the embeddings' dtype) for vision.  A table cut over
+    ``model`` is a vocab-parallel lookup: each rank its rows, the ids outside
+    them zero, summed over the axis (one term per id, so the sum is exact)."""
     if cfg.frontend == "audio":
         return batch["features"]
-    text = _top(params, "embed", shards)[batch["tokens"]] * math.sqrt(cfg.d_model)
+    table = _top(params, "embed", shards)
+    tp = None if shards is None else shards.axis_for(("embed",), top=True)
+    if tp is None:
+        text = table[batch["tokens"]]
+    else:
+        n = table.shape[0]
+        local = batch["tokens"].to(torch.int64) - tp.rank * n
+        mine = ((local >= 0) & (local < n))[..., None]
+        rows = table[local.clamp(0, n - 1)]
+        text = tp.reduce(torch.where(mine, rows, torch.zeros_like(rows)), rows.dtype)
+    text = text * math.sqrt(cfg.d_model)
     if cfg.frontend == "vision":
         return torch.cat([batch["image_embeds"].to(text.dtype), text], dim=1)
     return text
 
 
-def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
-                   shards=None) -> torch.Tensor:
-    h = apply_norm(cfg, _top(params, "final_norm", shards), h)
-    logits = h @ _head(params, shards)
+def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, params["final_norm"], h)
+    logits = h @ _head(params)[0]
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
@@ -258,10 +295,10 @@ def forward_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor, shards=Non
     return h, aux
 
 
-def forward_logits(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
-    h = embed_batch(cfg, params, batch, shards)
-    h, aux = forward_hidden(cfg, params, h, shards)
-    return compute_logits(cfg, params, h, shards), aux
+def forward_logits(cfg: ModelConfig, params: Params, batch: Dict):
+    h = embed_batch(cfg, params, batch)
+    h, aux = forward_hidden(cfg, params, h)
+    return compute_logits(cfg, params, h), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -291,7 +328,9 @@ def ce_chunk_size(cfg: ModelConfig) -> int:
 
 def _ce_chunk(cfg: ModelConfig, c_idx: int, chunk: int, m, s, gold, hf, head, safe):
     """One vocab chunk of the streaming CE: the running (max, sum of exp,
-    gold logit) carry updated with columns ``[start, start + chunk)``."""
+    gold logit) carry updated with columns ``[start, start + chunk)`` of
+    ``head``'s V (a rank's own columns under a vocab-parallel head, ``safe``
+    the labels relative to its first column)."""
     V = head.shape[1]
     start = max(min(c_idx * chunk, V - chunk), 0)
     logits = (hf @ head[:, start:start + chunk]).to(torch.float32)     # (T, chunk)
@@ -309,6 +348,25 @@ def _ce_chunk(cfg: ModelConfig, c_idx: int, chunk: int, m, s, gold, hf, head, sa
     return m_new, s, gold
 
 
+def _ce_carry(cfg: ModelConfig, chunk: int, hf: torch.Tensor, head: torch.Tensor,
+              safe: torch.Tensor):
+    """The (max, sum of exp, gold logit) carry over every column of
+    ``head``, chunk by chunk; under autograd each chunk's logits are
+    recomputed in the backward pass instead of stored."""
+    T = hf.shape[0]
+    n_chunks = (head.shape[1] + chunk - 1) // chunk
+    carry = (torch.full((T,), -1e30, dtype=torch.float32, device=hf.device),
+             torch.zeros((T,), dtype=torch.float32, device=hf.device),
+             torch.zeros((T,), dtype=torch.float32, device=hf.device))
+    for c_idx in range(n_chunks):
+        if torch.is_grad_enabled():
+            carry = checkpoint(_ce_chunk, cfg, c_idx, chunk, *carry, hf, head, safe,
+                               use_reentrant=False)
+        else:
+            carry = _ce_chunk(cfg, c_idx, chunk, *carry, hf, head, safe)
+    return carry
+
+
 def cross_entropy_streaming(cfg: ModelConfig, head: torch.Tensor, h: torch.Tensor,
                             labels: torch.Tensor) -> torch.Tensor:
     """CE with vocab-chunked logits: a loop over (D, chunk) head slices with
@@ -321,23 +379,49 @@ def cross_entropy_streaming(cfg: ModelConfig, head: torch.Tensor, h: torch.Tenso
     V = head.shape[1]
     if not chunk or V <= chunk:
         return cross_entropy(h @ head, labels)
-    T = B * S
-    hf = h.reshape(T, D)
-    lab = labels.reshape(T)
+    lab = labels.reshape(B * S)
     mask = lab >= 0
-    safe = lab.clamp(min=0).to(torch.int64)
-    n_chunks = (V + chunk - 1) // chunk
-    carry = (torch.full((T,), -1e30, dtype=torch.float32, device=h.device),
-             torch.zeros((T,), dtype=torch.float32, device=h.device),
-             torch.zeros((T,), dtype=torch.float32, device=h.device))
-    for c_idx in range(n_chunks):
-        if torch.is_grad_enabled():
-            carry = checkpoint(_ce_chunk, cfg, c_idx, chunk, *carry, hf, head, safe,
-                               use_reentrant=False)
-        else:
-            carry = _ce_chunk(cfg, c_idx, chunk, *carry, hf, head, safe)
-    m, s, gold = carry
+    m, s, gold = _ce_carry(cfg, chunk, h.reshape(B * S, D), head,
+                           lab.clamp(min=0).to(torch.int64))
     ce = (m + torch.log(s) - gold) * mask
+    return ce.sum() / mask.sum().clamp(min=1)
+
+
+def cross_entropy_vocab_parallel(cfg: ModelConfig, head: torch.Tensor, h: torch.Tensor,
+                                 labels: torch.Tensor, tp) -> torch.Tensor:
+    """The CE of a head whose vocabulary columns the ``model`` axis cuts:
+    ``head`` is this rank's ``V/ms`` columns, ``h`` the normed hidden state
+    after ``tp.enter``.  Each rank runs its columns to a local (max, sum of
+    exp, gold logit) carry, streamed in ``ce_chunk_size`` chunks when its
+    columns are more than a chunk (the last chunk's clamp and overlap mask
+    within its own columns), else dense with the dense path's softcap; the
+    carries are combined over the axis in rank order with the global max M:
+    ``M + log(sum s·exp(m - M)) - sum gold``, the same scalar on every rank."""
+    B, S, D = h.shape
+    hf = h.reshape(B * S, D)
+    lab = labels.reshape(B * S)
+    mask = lab >= 0
+    n = head.shape[1]
+    local = lab.clamp(min=0).to(torch.int64) - tp.rank * n
+    chunk = ce_chunk_size(cfg)
+    if chunk and n > chunk:
+        m, s, gold = _ce_carry(cfg, chunk, hf, head, local)
+    else:
+        logits = hf @ head
+        if cfg.final_softcap:
+            logits = softcap(logits, cfg.final_softcap)
+        lf = logits.to(torch.float32)
+        m = lf.amax(dim=-1)
+        s = torch.exp(lf - m[:, None]).sum(-1)
+        got = torch.gather(lf, 1, local.clamp(0, n - 1)[:, None])[:, 0]
+        gold = torch.where((local >= 0) & (local < n), got, torch.zeros_like(got))
+    parts = tp.parts(torch.stack([m, s, gold]))                 # (ms, 3, T)
+    big = parts[:, 0].amax(dim=0)
+    total, gold = parts[0, 1] * torch.exp(parts[0, 0] - big), parts[0, 2]
+    for r in range(1, parts.shape[0]):
+        total = total + parts[r, 1] * torch.exp(parts[r, 0] - big)
+        gold = gold + parts[r, 2]
+    ce = (big + torch.log(total) - gold) * mask
     return ce.sum() / mask.sum().clamp(min=1)
 
 
@@ -345,15 +429,21 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch
     """Mean next-token CE over ``batch["labels"] >= 0`` plus ``MOE_AUX_COEF``
     times the layers' summed MoE aux loss (0 without experts); ``batch``
     holds ``labels`` (B, S) ints and the inputs ``embed_batch`` reads.  With
-    ``shards`` the parameters are this rank's shards, gathered on use (the
-    module docstring)."""
+    ``shards`` the parameters are this rank's shards and the forward is
+    partitioned over the ``model`` axis (the module docstring)."""
     h = embed_batch(cfg, params, batch, shards)
     h, aux = forward_hidden(cfg, params, h, shards)
-    if ce_chunk_size(cfg):
-        h = apply_norm(cfg, _top(params, "final_norm", shards), h)
-        ce = cross_entropy_streaming(cfg, _head(params, shards), h, batch["labels"])
+    h = apply_norm(cfg, _top(params, "final_norm", shards), h)
+    head, tp = _head(params, shards)
+    if tp is not None:
+        ce = cross_entropy_vocab_parallel(cfg, head, tp.enter(h), batch["labels"], tp)
+    elif ce_chunk_size(cfg):
+        ce = cross_entropy_streaming(cfg, head, h, batch["labels"])
     else:
-        ce = cross_entropy(compute_logits(cfg, params, h, shards), batch["labels"])
+        logits = h @ head
+        if cfg.final_softcap:
+            logits = softcap(logits, cfg.final_softcap)
+        ce = cross_entropy(logits, batch["labels"])
     return ce + MOE_AUX_COEF * aux
 
 

@@ -5,14 +5,17 @@
   (data=2, model=2) mesh (``REPRO_TEST_MESH``): the record carries the
   reference's keys, the kernels the step called (the flat pair in a ZO
   step), and the collectives are the ``CommLedger``'s booking (4·d FO, 4·m
-  ZO) plus the counted gathers; a MoE rank's FO step computes the global
-  batch (the same flops on one rank and on four), a dense rank's its
-  worker's rows (half).
+  ZO) plus the counted gathers and the partitioned forward's all-reduces
+  (on ``model``: no gather there for these dense and MoE layers); a MoE
+  rank's FO step computes the global batch (the same flops on the (data=1,
+  model=2) mesh and on (data=2, model=2)), a dense rank's its worker's rows
+  (half of them there; a quarter of one rank's flops on (2, 2), every
+  product partitioned over ``model``).
 * ``cost.flops`` of a 1-layer prefill equals the hand count of its matrix
   products (flash attention's 4·hd per live pair and head).
 * The twin: the same FO step on real CPU tensors in 4 spawned gloo ranks
-  (``tests/torch_dist_helpers.run_dry_twin``): rank 0's gathers, gathered
-  bytes and ledger bytes equal the dry run's, and the ``Meter``'s peak and
+  (``tests/torch_dist_helpers.run_dry_twin``): rank 0's gathers and
+  all-reduces, their bytes and the ledger bytes equal the dry run's, and the ``Meter``'s peak and
   arguments over the real step equal the dry run's over the meta one.
 * ``main --all`` over a reduced matrix (two archs, small shapes) exits 0,
   writes one JSON a target, resumes done targets and exits 1 on a failure.
@@ -70,14 +73,17 @@ def test_run_one_on_smoke_configs(arch, step, mesh, monkeypatch):
                                 ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                                  "collective-permute"))
     m = 1 if mesh == "1x1" else 2
+    reduced = sum(rec["reduce_bytes"].values())
     if step == "fo":
         assert rec["kernels"] == {}
-        assert coll["all-reduce"] == coll["axis_worker"] == _d_bytes(arch)
+        assert coll["all-reduce"] - reduced == coll["axis_worker"] == _d_bytes(arch)
     if step == "zo":
         assert rec["kernels"] == {"zo_perturb_flat": 1, "zo_reconstruct_flat": 1}
-        assert coll["all-gather"] - coll["axis_model"] == coll["axis_worker"] == 4 * m
+        assert coll["all-gather"] == coll["axis_worker"] == 4 * m
     if step in ("fo", "zo"):
-        assert (coll["axis_model"] > 0) == (mesh == "2x2")
+        assert "model" not in rec["gathers"]
+        assert (coll["axis_model"] > 0) == (reduced > 0) == (mesh == "2x2")
+        assert coll["axis_model"] == rec["reduce_bytes"].get("model", 0)
         assert rec["workers"] == m
     if step in ("prefill", "decode"):
         # gemma2's windows differ by layer: its attention takes the plain path
@@ -87,13 +93,14 @@ def test_run_one_on_smoke_configs(arch, step, mesh, monkeypatch):
 def test_a_moe_rank_takes_the_global_batch(monkeypatch):
     flops = {}
     for arch in ("gemma2-2b", "qwen3-moe-235b-a22b"):
-        for mesh in ("1x1", "2x2"):
+        for mesh in ("1x1", "1x2", "2x2"):
             monkeypatch.setenv("REPRO_TEST_MESH", mesh)
             rec = dryrun.run_one(arch, SMALL["train"], False, "fo", verbose=False,
                                  reduce="smoke")
             flops[arch, mesh] = rec["cost"]["flops"]
-    assert flops["gemma2-2b", "2x2"] * 2 == flops["gemma2-2b", "1x1"]
-    assert flops["qwen3-moe-235b-a22b", "2x2"] == flops["qwen3-moe-235b-a22b", "1x1"]
+    assert flops["gemma2-2b", "2x2"] * 2 == flops["gemma2-2b", "1x2"]
+    assert flops["gemma2-2b", "2x2"] * 4 == flops["gemma2-2b", "1x1"]
+    assert flops["qwen3-moe-235b-a22b", "2x2"] == flops["qwen3-moe-235b-a22b", "1x2"]
 
 
 def test_flops_of_a_one_layer_prefill_are_its_matrix_products(monkeypatch):
@@ -133,8 +140,11 @@ def test_dry_run_matches_the_real_step(twin, step, monkeypatch):
     rec = dryrun.run_one("gemma2-2b", SMALL["train"], False, step, verbose=False,
                          reduce="smoke")
     real = twin[0][step]
-    assert {"+".join(k): n for k, (n, _) in real["gathers"].items()} == rec["gathers"]
-    assert sum(b for _, b in real["gathers"].values()) == rec["collectives"]["axis_model"]
+    for kind in ("gathers", "reduces"):
+        assert {"+".join(k): n for k, (n, _) in real[kind].items()} == rec[kind]
+    assert rec["reduces"]["model"] > 0
+    assert sum(b for kind in ("gathers", "reduces") for axes, (_, b) in real[kind].items()
+               if axes == ("model",)) == rec["collectives"]["axis_model"]
     assert sum(b for _, b in real["ledger"]) == rec["collectives"]["axis_worker"]
     assert real["arguments"] == rec["memory"]["argument_size_in_bytes"]
     if step == "fo":                    # no kernel: the same operations on both

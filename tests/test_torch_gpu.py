@@ -404,6 +404,30 @@ def test_gather_between_ranks_on_one_card(tmp_path):
 
 
 @pytest.mark.gpu
+def test_all_reduce_between_ranks_on_one_card(tmp_path):
+    """Three gloo ranks on ``cuda:0``: ``collectives.all_reduce_sum`` takes
+    the same-card exchange and gives every rank the same bits, the parts
+    added in float32 in rank order (bf16 parts rounded once), counted in
+    ``REDUCES`` and not in ``GATHERS``."""
+    import torch_dist_helpers as H
+    from repro_torch.launch.mesh import spawn_ranks
+
+    _cuda()
+    res = spawn_ranks(H.card_all_reduce, 3, str(tmp_path / "init"), timeout=120)
+    parts = [torch.randn(3, 1000, generator=torch.Generator().manual_seed(r)) for r in range(3)]
+    for dt in (torch.float32, torch.bfloat16):
+        want = parts[0].to(dt).float()
+        for p in parts[1:]:
+            want = want + p.to(dt).float()
+        want = want.to(dt).float().numpy()
+        for out in res:
+            assert out["card"]
+            np.testing.assert_array_equal(out["sums"][dt], want)
+    for out in res:
+        assert out["reduces"] == {("model",): [2, 3 * 1000 * (4 + 2)]} and out["gathers"] == {}
+
+
+@pytest.mark.gpu
 def test_zo_reconstruct_update_takes_lr_by_value():
     """lr as a float and as a CPU float32 tensor (a schedule's value) give
     the same update; a tensor on the card raises TypeError (no sync)."""

@@ -93,13 +93,12 @@ def run_sharded_quad(mesh, batches, steps):
     ``model`` (2 workers, FO and ZO steps), and under fsdp over ``data``
     (one worker, every rank the whole batch; ZO steps).  Returns the shapes
     this rank holds, x gathered whole and the losses."""
-    from repro_torch.dist.sharding import P, ShardedParams, gather_tree, shard_tree
+    from repro_torch.dist.sharding import P, gather, gather_tree, shard_tree
 
     out = {}
     for case, spec, fsdp in (("model", P("model"), False), ("fsdp", P("data"), True)):
         specs = {"x": spec}
-        gathered = ShardedParams({"layers": {}, **specs}, mesh)
-        loss = lambda p, b: quad_loss({"x": gathered.top("x", p["x"])}, b)  # noqa: E731
+        loss = lambda p, b, s=spec: quad_loss({"x": gather(p["x"], s, mesh)}, b)  # noqa: E731
         opt = sgd(const_schedule(0.1))
         ho = ho_config("tree", m=1 if fsdp else 2)
         fo = make_fo_step(loss, mesh, opt, m=2, param_specs_tree=specs, fsdp=fsdp)
@@ -150,8 +149,10 @@ def sharded_model(cfg, mesh, full):
 def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
     """One FO or ZO step of ``make_distributed_ho_sgd`` on this rank's
     shards: the gathered parameters (numpy, on rank 0), their checksum, the
-    shapes held, the loss, this rank's first loss evaluation (its f0 on a
-    ZO step), the ledger's bytes and this rank's rows."""
+    shapes held, the loss, this rank's loss evaluations in order (the first
+    its f0 on a ZO step), the ledger's bytes, this rank's rows, and the
+    gathers and all-reduces the step made (``collectives.GATHERS``,
+    ``REDUCES``: axes -> [calls, bytes])."""
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import gather_tree
@@ -162,13 +163,16 @@ def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
     ledger = CommLedger()
     step = ledger.wrap(kind, fo if kind == "fo" else zo)
     b = next(iter(shard_batches(iter([batch]), mesh, whole=takes_whole_batch(cfg))))
+    coll.reset_gathers()
     p, _, out = step(t, shards, (), b)
+    counts = {"gathers": {k: list(v) for k, v in coll.GATHERS.items()},
+              "reduces": {k: list(v) for k, v in coll.REDUCES.items()}}
     whole = [x.numpy() for x in tree_leaves(gather_tree(p, specs, mesh))]
     return {"params": whole if dist.get_rank() == 0 else None,
             "checksum": float(sum(x.astype("float64").sum() for x in whole)),
             "held": [tuple(x.shape) for x in tree_leaves(p)], "loss": float(out),
-            "f0": losses[0], "bytes": ledger.bytes_per_step(kind),
-            "kinds": ledger.by_kind(kind), "rows": b["tokens"].numpy().copy()}
+            "f0": losses[0], "losses": list(losses), "bytes": ledger.bytes_per_step(kind),
+            "kinds": ledger.by_kind(kind), "rows": b["tokens"].numpy().copy(), **counts}
 
 
 def engine_pins(cfg, mesh, full, engine, m):
@@ -251,21 +255,49 @@ def quad_rows(params, batch):
     return 0.5 * torch.mean(torch.sum((params["w"].reshape(-1) - batch["t"]) ** 2, -1))
 
 
+def without_mlp_reduce():
+    """A failing control: the partitioned MLP's all-reduce removed (each
+    rank keeps its own partial), for as long as the context is open."""
+    import contextlib
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    @contextlib.contextmanager
+    def patched():
+        real = T.apply_mlp
+
+        def apply_mlp(cfg, p, x, tp=None):
+            if tp is None:
+                return real(cfg, p, x)
+            return layers.mlp_partial(cfg, p, tp.enter(x)).to(x.dtype)
+
+        T.apply_mlp = apply_mlp
+        try:
+            yield
+        finally:
+            T.apply_mlp = real
+
+    return patched()
+
+
 def run_sharded_2(rank, world, full_np, batch, quad_batch):
     """(data=1, model=2): the FO step of qwen3-14b reduced (m=4 held in the
-    process), and the pallas engine's per-run branch on a (3, 8, 6) leaf
-    cut on dim 1 (three runs) against the tree engine."""
+    process), the same step without the MLP's all-reduce (the control), and
+    the pallas engine's per-run branch on a (3, 8, 6) leaf cut on dim 1
+    (three runs) against the tree engine."""
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import P, ShardedParams, gather_tree, shard_tree
+    from repro_torch.dist.sharding import P, gather, gather_tree, shard_tree
 
     torch.set_num_threads(1)
     cfg = get_config("qwen3-14b").reduced()
     full, d = _full(full_np)
     mesh = make_test_mesh(data=1, model=2, device="cpu")
     out = {"fo": sharded_step(cfg, mesh, full, batch, llm_config(d, 4), "fo", 0)}
+    with without_mlp_reduce():
+        out["fo-no-mlp-reduce"] = sharded_step(cfg, mesh, full, batch, llm_config(d, 4), "fo", 0)
     specs = {"w": P(None, "model")}
-    gathered = ShardedParams({"layers": {}, **specs}, mesh)
-    loss = lambda p, b: quad_rows({"w": gathered.top("w", p["w"])}, b)  # noqa: E731
+    loss = lambda p, b: quad_rows({"w": gather(p["w"], specs["w"], mesh)}, b)  # noqa: E731
     w = torch.linspace(-1.0, 1.0, 144).reshape(3, 8, 6)
     for engine in ("pallas", "tree"):
         ho = HOSGDConfig(tau=4, mu=1e-3, m=2, lr=0.1, zo_lr=0.05, engine=engine)
@@ -366,10 +398,27 @@ def card_gather(rank, world):
     return out
 
 
+def card_all_reduce(rank, world):
+    """``collectives.all_reduce_sum`` between ranks that share ``cuda:0``:
+    a float32 and a bf16 part of each rank's own values (the bf16 sum
+    rounded once), the result's bits on this rank and what the counter
+    booked."""
+    torch.cuda.set_device(0)
+    mesh = make_test_mesh(data=1, model=world, device="cuda")
+    gen = torch.Generator().manual_seed(rank)
+    x = torch.randn(3, 1000, generator=gen).cuda()
+    coll.reset_gathers()
+    out = {dt: coll.all_reduce_sum(x.to(dt), "model", mesh=mesh).float().cpu().numpy()
+           for dt in (torch.float32, torch.bfloat16)}
+    return {"sums": out, "reduces": dict(coll.REDUCES), "gathers": dict(coll.GATHERS),
+            "card": coll._CARDS[mesh][("model",)] is not None}
+
+
 def run_dry_twin(rank, world, batch):
     """(data=2, model=2): gemma2-2b reduced, this rank's shards drawn as the
-    trainer draws them, one FO and one ZO step on the CPU: the gathers each
-    step made (``collectives.GATHERS``), the ledger's payload bytes by kind,
+    trainer draws them, one FO and one ZO step on the CPU: the gathers and
+    all-reduces each step made (``collectives.GATHERS``, ``REDUCES``), the
+    ledger's payload bytes by kind,
     and the FO step's peak live bytes and arguments by ``launch.dryrun``'s
     ``Meter`` on these real CPU tensors (the dry run's twin)."""
     from repro_torch.configs import get_config
@@ -401,6 +450,187 @@ def run_dry_twin(rank, world, batch):
             ledger = CommLedger()
             ledger.wrap(kind, fo if kind == "fo" else zo)(*args)
         out[kind] = {"gathers": {k: list(v) for k, v in coll.GATHERS.items()},
+                     "reduces": {k: list(v) for k, v in coll.REDUCES.items()},
                      "ledger": [(r.kind, r.nbytes) for r in ledger.programs[kind] if r.payload],
                      "peak": meter.peak, "arguments": arguments}
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the partitioned forward: the spawned ranks of tests/test_torch_partitioned.py
+# --------------------------------------------------------------------------- #
+def _tokens(vocab, rows=4, seq=16, seed=0):
+    import numpy as np
+
+    toks = np.random.default_rng(seed).integers(0, vocab, (rows, seq))
+    labels = np.concatenate([toks[:, 1:], -np.ones((rows, 1), np.int64)], 1)
+    return {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+
+
+def loss_and_grads(cfg, params, batch, shards=None):
+    """``(loss, gradient leaves, gathers, all-reduces)`` of ``loss_fn`` on
+    ``params`` (this rank's shards with ``shards``); a leaf the loss does
+    not reach gets a zero gradient.  The counts are the step's
+    (``collectives.GATHERS``, ``REDUCES``: axes -> [calls, bytes])."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+
+    p = tree_map(lambda x: x.detach().clone().requires_grad_(True), params)
+    leaves = tree_leaves(p)
+    coll.reset_gathers()
+    loss = T.loss_fn(cfg, p, batch, shards)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    counts = ({k: list(v) for k, v in coll.GATHERS.items()},
+              {k: list(v) for k, v in coll.REDUCES.items()})
+    return (float(loss.detach()),
+            [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)], *counts)
+
+
+def partitioned_case(cfg, mesh, full, batch):
+    """One rank's partitioned loss and gradient against the one-process ones
+    on the whole parameters ``full``: both losses, per leaf the largest
+    difference of this rank's gradient shard from its slice of the whole
+    gradient over that slice's largest |g| (the tied embedding's: its
+    rows), and the counts of the partitioned step."""
+    from repro_torch.dist.sharding import (
+        ShardGeometry, ShardedParams, map_with_paths, param_specs, shard_tree)
+
+    specs = param_specs(cfg, full, mesh)
+    geom = ShardGeometry.from_global(specs, full, mesh)
+    l1, g1, _, _ = loss_and_grads(cfg, full, batch)
+    l2, g2, gathers, reduces = loss_and_grads(cfg, shard_tree(full, specs, mesh), batch,
+                                              ShardedParams(specs, mesh))
+    paths = []
+    map_with_paths(lambda names, x: paths.append(names), full)
+    rel = {}
+    for i, (a, b) in enumerate(zip(g2, g1)):
+        want = b[geom.slices[i]]
+        rel["/".join(paths[i])] = float((a - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    return {"loss": l2, "loss1": l1, "grad_rel": rel, "gathers": gathers, "reduces": reduces}
+
+
+def rotated_sum():
+    """A failing control: ``collectives.all_reduce_sum`` summing the parts
+    from this rank's own, a different order on every rank."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def patched():
+        real = coll.all_reduce_sum
+
+        def all_reduce_sum(x, axes, *, mesh):
+            parts = coll._gather_cat(x.unsqueeze(0), axes, mesh, 0)
+            n = parts.shape[0]
+            me = dist.get_rank(coll.axes_group(mesh, axes))
+            out = parts[me].to(torch.float32)
+            for r in range(1, n):
+                out = out + parts[(me + r) % n].to(torch.float32)
+            return out.to(x.dtype)
+
+        coll.all_reduce_sum = all_reduce_sum
+        try:
+            yield
+        finally:
+            coll.all_reduce_sum = real
+
+    return patched()
+
+
+def _recorded(fn):
+    """``(fn()'s result, records)``: the expert ids of every route it made
+    (``models.moe.route``) and a digest of every all-reduce's result
+    (``dist.sharding.ModelAxis.sum``: the replicated activations and
+    gradients), in order, on this rank."""
+    import hashlib
+
+    from repro_torch.dist.sharding import ModelAxis
+    from repro_torch.models import moe
+
+    rec = {"ids": [], "sums": []}
+    route, total = moe.route, ModelAxis.sum
+
+    def recorded_route(cfg, p, xf):
+        out = route(cfg, p, xf)
+        rec["ids"].append(out[1].numpy().copy())
+        return out
+
+    def recorded_sum(self, x):
+        out = total(self, x)
+        rec["sums"].append(hashlib.sha1(out.detach().numpy().tobytes()).hexdigest())
+        return out
+
+    moe.route, ModelAxis.sum = recorded_route, recorded_sum
+    try:
+        return fn(), rec
+    finally:
+        moe.route, ModelAxis.sum = route, total
+
+
+def run_partitioned_2(rank, world, qwen_np, batch):
+    """(data=1, model=2): qwen3-14b reduced from the reference's parameters,
+    an FO and a ZO step (m=4 held in the process) with their counts and the
+    digests of every all-reduce (``_recorded``); the
+    vocab-parallel cross-entropy of gemma2-2b reduced (tied embedding,
+    vocabulary 512, 256 columns a rank) streamed at ``ce_chunk`` 96 and 100
+    (256 not a multiple of either), dense (``ce_chunk`` -1) and dense on a
+    rank while one process streams (300); a KV = 1 config whose ``wk``/``wv``
+    cut falls inside a head; the gemma2 step without the MLP's all-reduce
+    (the control)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=1, model=2, device="cpu")
+    qcfg = get_config("qwen3-14b").reduced()
+    full, d = _full(qwen_np)
+    out = {}
+    for kind, t in (("fo", 0), ("zo", ZO_T)):
+        out[kind], out[f"{kind}-records"] = _recorded(
+            lambda: sharded_step(qcfg, mesh, full, batch, llm_config(d, 4), kind, t))
+    gcfg = get_config("gemma2-2b").reduced()
+    for chunk in (96, 100, -1, 300):
+        cfg = gcfg.with_(ce_chunk=chunk)
+        out[f"ce{chunk}"] = partitioned_case(cfg, mesh, T.init_model(0, cfg, device="cpu"),
+                                             _tokens(cfg.vocab_size))
+    kcfg = qcfg.with_(n_kv_heads=1)
+    out["kv1"] = partitioned_case(kcfg, mesh, T.init_model(1, kcfg, device="cpu"),
+                                  _tokens(kcfg.vocab_size))
+    with without_mlp_reduce():
+        out["no-mlp-reduce"] = partitioned_case(gcfg, mesh, T.init_model(0, gcfg, device="cpu"),
+                                                _tokens(gcfg.vocab_size))
+    return out
+
+
+def run_partitioned_4(rank, world, moe_np, qwen_np, batch):
+    """(data=2, model=2): qwen3-moe reduced under fsdp (one worker: every
+    rank the whole batch), a ZO and an FO step with the expert ids of every
+    route and the digests of every all-reduce (``_recorded``); the same
+    config under ``moe_sharding='expert'`` against one process.  (data=1,
+    model=4): qwen3-14b reduced, a ZO step (m=4 held in the process), then
+    the same step with a rank-order-free sum (the control)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=2, model=2, device="cpu")
+    cfg = get_config("qwen3-moe-235b-a22b").reduced().with_(fsdp=True)
+    full, d = _full(moe_np)
+    out = {}
+    for kind, t in (("zo", ZO_T), ("fo", 0)):
+        out[kind], out[f"{kind}-records"] = _recorded(
+            lambda: sharded_step(cfg, mesh, full, batch, llm_config(d, 1), kind, t))
+    ecfg = get_config("qwen3-moe-235b-a22b").reduced().with_(moe_sharding="expert")
+    out["expert"] = partitioned_case(ecfg, make_test_mesh(data=1, model=4, device="cpu"),
+                                     T.init_model(2, ecfg, device="cpu"),
+                                     _tokens(ecfg.vocab_size))
+    qcfg = get_config("qwen3-14b").reduced()
+    qfull, qd = _full(qwen_np)
+    mesh4 = make_test_mesh(data=1, model=4, device="cpu")
+    step = lambda: sharded_step(qcfg, mesh4, qfull, batch, llm_config(qd, 4), "zo",  # noqa: E731
+                                ZO_T)
+    out["model4"], out["model4-records"] = _recorded(step)
+    with rotated_sum():
+        out["model4-rotated"], out["model4-rotated-records"] = _recorded(step)
     return out
