@@ -60,6 +60,12 @@ Phases (any failed check exits non-zero):
      offset ignored, float32 accumulator for bfloat16), and their times at
      the w2 leaf (n=1,690,000; zo_perturb also at every Fig. 2 leaf size and
      back to back, zo_sumsq back to back and each of its launches alone);
+     zo_perturb (float32, bf16) and zo_reconstruct (m=4, both accumulators)
+     on a shard's run table (``RUN_TABLES``: runs of 1024 at and off a
+     16-byte boundary, of 1027, of 3, starts across 2^32) bit for bit their
+     plain versions, shard-local counters failing, and at gemma2-2b's
+     stacked ``wq`` shard at model=2 (59,904 runs of 1024) timed beside one
+     contiguous run of the same size and the bound;
   8. the Fig. 2 method set: all seven methods through
      ``run_comparison(..., engine="pallas")`` at hidden=1300, 32 steps, with
      HO-SGD's per-leaf launch counts, HO-SGD pallas against fused and
@@ -120,7 +126,16 @@ Phases (any failed check exits non-zero):
      run of the same config in this process, losses within rtol 1e-6
      (arctic's until a route parts from the replicated run's, and then at
      most 1% of a step's routes parting) and rank 0's final shards within
-     2% of the update; per step the ms, the
+     2% of the update; (c) (a)'s model on ``--engine pallas``, F Z Z: the
+     CSV's losses and every loss evaluation bit for bit (a)'s, one
+     zo_perturb and one zo_reconstruct launch per leaf per ZO step on each
+     rank (the run tables), their outputs held on the shards' runs; (d)
+     hymba-1.5b at full width and depth, ``--model-axis 2``, F Z Z F, the
+     mamba mixer partitioned, against one process: losses within rtol 1e-3,
+     the FO update within 2% (or one bf16 ulp), f0 and f1 the same bits on
+     both ranks, the gathers over ``model`` those of ``in_proj``, ``wq``,
+     ``wk`` and ``wv`` alone, the loss without the mixer's all-reduce
+     leaving 1e-3 (the control); per step the ms, the
      all-reduces and gathers with their bytes and their shares of the step
      by host clock;
   8d''. the launch tooling held to this run: ``launch.dryrun.run_one``
@@ -128,7 +143,9 @@ Phases (any failed check exits non-zero):
      (a) mesh, an FO and a ZO step each, in four spawned processes on the
      CPU (a fake process group, ``meta`` tensors): each predicted peak
      within 10% of the card's first step of that kind, (b)'s all-reduced
-     and gathered bytes of an FO step equal to rank 0's; (c) one FO step of
+     and gathered bytes of an FO step equal to rank 0's, and (e) rank 0 of
+     8d''s (d), hymba-1.5b at model=2, FO and ZO: its all-reduces' and
+     gathers' calls and bytes equal to the card's; (c) one FO step of
      gemma2-2b at 100m on 2 gloo ranks (``--model-axis 2``) traced by
      ``torch.profiler`` on rank 0: ``launch.overlap.overlap_stats``' pairs
      equal to the all-reduces and gathers counted in the step; (d)
@@ -286,7 +303,8 @@ RAGGED_LEAVES = (1, 4095, 4097, 5000)
 EXTRA_KEYS = ("sumsq_rel_err", "gauss_instructions", "launches_per_call", "stream_ms",
               "floor_ms", "mu_fill_stream_ms", "lr_fill_stream_ms", "launch_stream_ms",
               "compute_only_ms", "uniforms_only_ms", "by_size", "bitwise_diff_lanes",
-              "host_scale_ms", "lanes_compared", "registers", "gauss_probes", "unrolled_m_ab")
+              "host_scale_ms", "lanes_compared", "registers", "gauss_probes", "unrolled_m_ab",
+              "run_table")
 UNROLLED_M = 4               # the reconstruct kernels' m with kernels of its own (kUnrolledM)
 METHODS = ["ho_sgd", "sync_sgd", "ri_sgd", "pa_sgd", "zo_sgd", "zo_svrg_ave", "qsgd"]
 SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -1445,12 +1463,113 @@ def perturb_into(torch, x, out, salt, scale, offset):
 
     dev = x.device
     cu._launch("zo_perturb", "zo_perturb_leaf_launch", x.data_ptr(), out.data_ptr(),
-               x.numel(), salt, offset, scale.reshape(1).data_ptr(), 0, dev.index,
-               torch.cuda.current_stream(dev).cuda_stream)
+               x.numel(), salt, offset, None, x.numel(), scale.reshape(1).data_ptr(), 0,
+               dev.index, torch.cuda.current_stream(dev).cuda_stream)
+
+
+#: the run tables leaf_kernel_phase holds (a shard of a leaf: ``runs`` runs
+#: of ``run`` values, run r starting at counter ``first + r * step`` mod
+#: 2^32), each on a buffer ``shift`` values past a 16-byte boundary: runs of
+#: 1024 (a column-parallel shard's rows) at and off the boundary (there every
+#: vector crosses a run's edge), a run length that is no multiple of a
+#: vector, runs shorter than one, and starts across 2^32 (run 300 wraps
+#: inside itself)
+RUN_TABLES = ((1650, 1024, 0, 2048, 0), (1650, 1024, 12345, 2048, 1),
+              (1601, 1027, 7, 4099, 0), (3001, 3, 5, 8, 3),
+              (700, 1024, 2 ** 32 - 300 * 1024 - 500, 1024, 0))
+#: the run table timed: gemma2-2b's stacked wq shard at --model-axis 2, (26,
+#: 2304, 1024) of (26, 2304, 2048), 59,904 runs of 1024 (sharded_phase (c))
+TIMED_RUNS = (26 * 2304, 1024)
+
+
+def run_table_checks(torch, dev, gauss_instr, tables=RUN_TABLES, timed=TIMED_RUNS):
+    """The per-leaf kernels on run tables: ``zo_perturb`` (float32, bf16)
+    and ``zo_reconstruct`` (m = 4, float32 and bf16 accumulators) bit for
+    bit their plain versions on each of ``tables``, with shard-local
+    counters (the shard taken for a leaf of its own) as the failing control;
+    then, at ``timed``, each call with its table beside a contiguous call of
+    the same size (one run) in turns, the plain version and the bound
+    (perturb in bf16, reconstruct at m = 1: sharded_phase (c)'s)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import zo_direction as cu
+
+    g = torch.Generator().manual_seed(29)
+    salt, scale = 0x2545F491, torch.tensor(0.37, device=dev)
+    salts = torch.tensor([101, 202, 303, 404], dtype=torch.int64).to(torch.uint32)
+    coeffs = torch.tensor([0.5, -1.0, 2.0, 0.1], device=dev)
+    s4 = salts.to(dev)
+    err = {"zo_perturb": 0.0, "zo_reconstruct": 0.0}
+    cases = 0
+
+    def table(runs, first, step):
+        return ((first + step * torch.arange(runs, dtype=torch.int64)) % 2 ** 32).to(
+            torch.uint32).to(dev)
+
+    for runs, run, first, step, shift in tables:
+        n = runs * run
+        starts = table(runs, first, step)
+        base = torch.randn(n + shift, generator=g).to(dev)
+        what = f"{runs} runs of {run}, first {first}, step {step}, x +{4 * shift} bytes"
+        for name, kern, plain, local in (
+                ("zo_perturb", lambda x: cu.zo_perturb(x, salt, scale, starts=starts),
+                 lambda x: ref.ref_zo_perturb(x, salt, scale, starts=starts),
+                 lambda x: ref.ref_zo_perturb(x, salt, scale)),
+                ("zo_reconstruct",
+                 lambda acc: cu.zo_reconstruct(n, s4, coeffs, acc_dtype=acc, starts=starts),
+                 lambda acc: ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
+                                                    device=dev, starts=starts),
+                 lambda acc: ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
+                                                    device=dev))):
+            args = ((base[shift:], base.to(torch.bfloat16)[shift:]) if name == "zo_perturb"
+                    else ("float32", "bfloat16"))
+            for a in args:
+                got, want = kern(a), plain(a)
+                e = float((got.float() - want.float()).abs().max())
+                kind = a.dtype if name == "zo_perturb" else f"m=4 acc={a}"
+                print(f"  {name:15s} run table: {what}, {kind}: max_abs_err={e:.3e} (bitwise)")
+                check(torch.equal(got, want), f"{name} run table ({what}, {kind}): the kernel "
+                      f"and its plain version disagree ({e})")
+                check(not torch.equal(got, local(a)), f"{name} run table ({what}, {kind}): the "
+                      f"control (shard-local counters) passed")
+                err[name] = max(err[name], e)
+                cases += 1
+    print(f"  run tables: {cases} cases bit for bit their plain versions; shard-local "
+          f"counters fail every one")
+    # the timed shape: the table call against one contiguous run of the
+    # same size, in turns, then the plain version and the bound
+    runs, run = timed
+    n = runs * run
+    starts = table(runs, 2048 + 0, 2 * run)
+    xb = torch.randn(n, generator=g).to(dev).to(torch.bfloat16)
+    c1, s1 = coeffs[:1].contiguous(), s4[:1].contiguous()
+    out = {}
+    for name, kern, contiguous, plain, nbytes, ninstr in (
+            ("zo_perturb", lambda: cu.zo_perturb(xb, salt, scale, starts=starts),
+             lambda: cu.zo_perturb(xb, salt, scale, 2048),
+             lambda: ref.ref_zo_perturb(xb, salt, scale, starts=starts),
+             4 * n + 4 * runs + 4, n * gauss_instr),
+            ("zo_reconstruct", lambda: cu.zo_reconstruct(n, s1, c1, starts=starts),
+             lambda: cu.zo_reconstruct(n, s1, c1, 2048),
+             lambda: ref.ref_zo_reconstruct(n, salts[:1], c1, device=dev, starts=starts),
+             4 * n + 4 * runs + 8, n * gauss_instr)):
+        k0, t1, t2, k3 = (cuda_ms(torch, f, reps=10) for f in (contiguous, kern, kern,
+                                                               contiguous))
+        p_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+        b, by = bound_ms(nbytes, ninstr)
+        ms, one = (t1 + t2) / 2, (k0 + k3) / 2
+        out[name] = {"runs": runs, "run": run, "n": n, "ms": ms, "contiguous_ms": one,
+                     "ratio": ms / one, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
+                     "dtype": "bfloat16" if name == "zo_perturb" else "float32, m=1",
+                     "max_abs_err": err[name]}
+        print(f"  {name:15s} run table of {runs} runs of {run} (n={n}, "
+              f"{out[name]['dtype']}): ms={ms:.4f}, one contiguous run of the same size "
+              f"{one:.4f} (ratio {ms / one:.3f}), plain_ms={p_ms:.3f}, bound_ms={b:.4f} ({by})")
+    return out
 
 
 def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
-                      sizes=FIG2_LEAVES + RAGGED_LEAVES, timed_sizes=FIG2_LEAVES):
+                      sizes=FIG2_LEAVES + RAGGED_LEAVES, timed_sizes=FIG2_LEAVES,
+                      timed_runs=TIMED_RUNS):
     from repro_torch.kernels import ref
     from repro_torch.kernels import zo_direction as cu
 
@@ -1641,6 +1760,10 @@ def leaf_kernel_phase(torch, dev, gauss_instr, uniform_instr,
           f"{issue:.5f}); the per-call floor {rows['zo_perturb']['floor_ms']:.5f} ms")
     rows["zo_perturb"]["compute_only_ms"] = compute
     rows["zo_perturb"]["uniforms_only_ms"] = hashed
+    # a shard's run table, one launch a leaf (PallasEngine on shards)
+    for name, row in run_table_checks(torch, dev, gauss_instr, timed=timed_runs).items():
+        rows[name]["run_table"] = row
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
     return rows
 
 
@@ -2137,6 +2260,31 @@ def sampler(torch, cfg, whole, like=None):
     return sample
 
 
+def leaf_windows(n, offset=0, starts=None, window=4096):
+    """``(lo, w, offset, starts)`` of a leaf's first, middle and last
+    windows, each held as a call of its own: ``window`` elements at
+    ``offset + lo`` of a whole leaf; of a shard with a run table, ``window``
+    elements inside one run at its start plus the lane (runs of ``window`` or
+    more), or whole runs (as many as ``window`` holds) with their rows of the
+    table."""
+    w = min(window, n)
+    spots = sorted({0, (n - w) // 2, n - w})
+    if starts is None:
+        return [(lo, w, offset + lo, None) for lo in spots]
+    runs = int(starts.shape[0])
+    run = n // runs
+    if run >= window:               # inside one run: its start read back, plus the lane
+        out = []
+        for lo in spots:
+            r = lo // run
+            lo = min(lo, r * run + run - w)
+            out.append((lo, w, int(starts[r]) + lo - r * run, None))
+        return out
+    k = min(runs, max(1, window // run))
+    return [(r * run, k * run, 0, starts[r:r + k].contiguous())
+            for r in sorted({0, (runs - k) // 2, runs - k})]
+
+
 def bf16_ulp(torch, x):
     """One bf16 ulp at |x| (the spacing of bf16 values there)."""
     e = torch.floor(torch.log2(x.abs().clamp(min=1e-30)))
@@ -2200,16 +2348,17 @@ class TrainProbe:
               f"first and last, {past} past element 2^31 of {out.numel():,}) vs the plain "
               f"version: max abs err {err:.3e} ({tol}) ok={ok}")
 
-    def hold_leaf(self, name, out, x, plain, offset, n, bf16, window=4096):
+    def hold_leaf(self, name, out, x, plain, offset, n, bf16, window=4096, starts=None):
         """One leaf's ``out`` (of ``n`` elements, the kernel's) against
-        ``plain(base, lo, w)`` on its first, middle and last ``window``
-        elements; ``held[name]`` sums the windows and leaves over a step."""
+        ``plain(base, offset, w, starts)`` on its first, middle and last
+        windows (``leaf_windows``: ``window`` elements, or with a shard's run
+        table whole runs); ``held[name]`` sums the windows and leaves over a
+        step."""
         torch = self.torch
-        w = min(window, n)
         oks, err = [], 0.0
-        for lo in sorted({0, (n - w) // 2, n - w}):
+        for lo, w, off, st in leaf_windows(n, offset, starts, window):
             base = None if x is None else x[lo:lo + w]
-            ok, e, tol = agree(torch, out[lo:lo + w], plain(base, offset + lo, w),
+            ok, e, tol = agree(torch, out[lo:lo + w], plain(base, off, w, st),
                                base=base, bf16=bf16)
             oks.append(ok)
             err = max(err, e)
@@ -2254,23 +2403,25 @@ class TrainProbe:
                               s, coeffs, c, n, block, acc_dtype))
             return out
 
-        def perturb(x, salt, scale, offset=0):
-            out = pl(x, salt, scale, offset)
+        def perturb(x, salt, scale, offset=0, starts=None):
+            out = pl(x, salt, scale, offset, starts)
             if self.checking:
                 self.hold_leaf("zo_perturb", out, x,
-                               lambda xb, off, w: ref.ref_zo_perturb(xb, salt, scale, off),
-                               offset, x.numel(), x.dtype == torch.bfloat16)
+                               lambda xb, off, w, st: ref.ref_zo_perturb(xb, salt, scale, off,
+                                                                         st),
+                               offset, x.numel(), x.dtype == torch.bfloat16, starts=starts)
             return out
 
-        def reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32"):
-            out = rl(n, salts, coeffs, offset, acc_dtype)
+        def reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32", starts=None):
+            out = rl(n, salts, coeffs, offset, acc_dtype, starts)
             if self.checking:
                 host = salts.view(torch.int32) if salts.dtype == torch.uint32 else salts
                 s = [int(v) & 0xFFFFFFFF for v in host.cpu().tolist()]
                 self.hold_leaf("zo_reconstruct", out, None,
-                               lambda _, off, w: ref.ref_zo_reconstruct(
-                                   w, s, coeffs, off, acc_dtype, device=coeffs.device),
-                               offset, n, False)
+                               lambda _, off, w, st: ref.ref_zo_reconstruct(
+                                   w, s, coeffs, off, acc_dtype, device=coeffs.device,
+                                   starts=st),
+                               offset, n, False, starts=starts)
             return out
 
         def steps(*a, **kw):
@@ -2812,12 +2963,34 @@ class ShardProbe(TrainProbe):
         control, _, _ = agree(torch, got, wrong, base=base)
         leaves = [self.paths[i] for i in np.unique(lf)]
         column = int(np.isin(lf, [self.paths.index(SHARD_LEAVES[0])]).sum())
-        self.held[name] = [int(idx.numel()), len(leaves), column, ok, err, control]
+        self.held[name] = [int(idx.numel()), len(leaves), column, ok, err, control,
+                           bool((got == 0).all())]
         print(f"  {name:20s} rank 0's first ZO step: {idx.numel()} sampled blocks of its "
               f"packed shard ({len(leaves)} leaves, {column} of the column-sharded "
               f"{'/'.join(SHARD_LEAVES[0])}, and {'/'.join(SHARD_LEAVES[1])}'s) vs the plain "
               f"version: max abs err {err:.3e} ({tol}) ok={ok}; with shard-local counters "
               f"(the control) ok={control}", flush=True)
+
+
+@contextlib.contextmanager
+def without_mixer_reduce():
+    """A failing control: the partitioned mamba mixer's ``out_proj``
+    all-reduce removed (each rank keeps its own partial) while the context
+    is open."""
+    from repro_torch.models import ssm
+
+    real = ssm.mamba_forward
+
+    def mamba_forward(cfg, p, x, tp=None):
+        if tp is None:
+            return real(cfg, p, x)
+        return ssm._mamba_partial(cfg, p, tp.enter(x), tp).to(x.dtype)
+
+    ssm.mamba_forward = mamba_forward
+    try:
+        yield
+    finally:
+        ssm.mamba_forward = real
 
 
 @contextlib.contextmanager
@@ -2841,8 +3014,13 @@ def without_mlp_reduce():
         T.apply_mlp = real
 
 
+#: the failing controls a sampled sharded run evaluates: a sublayer's
+#: all-reduce removed
+CONTROLS = {"mlp": without_mlp_reduce, "mixer": without_mixer_reduce}
+
+
 def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type, sample=False,
-                 routes=False):
+                 routes=False, control="mlp"):
     """One rank of ``sharded_phase``: ``launch.train.main(argv)`` under the
     group on ``cuda:0`` with a ``ShardProbe``; returns what the phase holds:
     the launches, per-step memory, parameter bytes, loss evaluations, and
@@ -2852,9 +3030,10 @@ def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type, sample=False,
     their slices of the final ones.  With ``sample`` (gemma2-2b at full
     width, (data=1, model=2)): rank 0's shards sampled around its first FO
     step (``sampler``), and on every rank the loss of the first FO batch's
-    first row on the final parameters, with and without the MLP's
-    all-reduce (the control).  With ``routes``, rank 0's MoE expert ids of
-    each step."""
+    first row on the final parameters, with and without the all-reduce of
+    the sublayer ``control`` names (``CONTROLS``: the MLP's or the mamba
+    mixer's ``out_proj``).  With ``routes``, rank 0's MoE expert ids of each
+    step."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2884,8 +3063,8 @@ def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type, sample=False,
            "peak_gb": probe.peak_gb, "start_gb": probe.start_gb,
            "held_bytes": probe.held_bytes, "comm": probe.comm, "step_comm": probe.step_comm,
            "gather_axes": probe.gather_axes, "evals": probe.evals,
-           "held": probe.held, "block": probe.engine.block,
-           "packed_over_shard": probe.engine.packed_over_shard,
+           "held": probe.held, "block": probe.engine.block, "n_leaves": len(leaves),
+           "packed_over_shard": getattr(probe.engine, "packed_over_shard", None),
            "shard_bytes": sum(math.prod(s) * x.element_size()
                               for s, x in zip(geom.local_shapes, leaves)),
            "global_bytes": geom.global_nbytes(leaves),
@@ -2898,9 +3077,9 @@ def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type, sample=False,
         row = {k: v[:1] for k, v in probe.first_batch.items()}
         with torch.no_grad():
             normal = float(probe.loss_fn(probe.params, row))
-            with without_mlp_reduce():
-                control = float(probe.loss_fn(probe.params, row))
-        out["control"] = {"loss": normal, "without_mlp_reduce": control}
+            with CONTROLS[control]():
+                removed = float(probe.loss_fn(probe.params, row))
+        out["control"] = {"loss": normal, f"without_{control}_reduce": removed}
     if ref_path is not None:
         ref = torch.load(ref_path)
         diff = scale = 0.0
@@ -2913,7 +3092,7 @@ def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type, sample=False,
 
 
 def sharded_spawn(torch, dev, argv, world, log, hold=False, ref_path=None, timeout=900.0,
-                  sample=False, routes=False):
+                  sample=False, routes=False, control="mlp"):
     import tempfile
 
     from repro_torch.launch.mesh import spawn_ranks
@@ -2921,7 +3100,7 @@ def sharded_spawn(torch, dev, argv, world, log, hold=False, ref_path=None, timeo
     with tempfile.TemporaryDirectory() as tmp:
         try:
             return spawn_ranks(sharded_rank, world, str(Path(tmp) / "init"), argv, log, hold,
-                               ref_path, dev.type, sample, routes, timeout=timeout)
+                               ref_path, dev.type, sample, routes, control, timeout=timeout)
         except (RuntimeError, TimeoutError) as e:
             fail(f"sharded ranks ({' '.join(argv)}): {e}")
 
@@ -2961,9 +3140,10 @@ def sharded_report(what, res, rows, smi):
           f"{r0['comm']['gather']['calls']} gathers ({r0['comm']['gather']['bytes'] / 1e9:.3f} GB, "
           f"{r0['comm']['gather']['s']:.2f} s; by axes {r0['gather_axes']})")
     for rank, r in enumerate(res):
+        packing = ("" if r["packed_over_shard"] is None else
+                   f" (flat block {r['block']}, packed/shard {r['packed_over_shard']:.4f})")
         print(f"  {what}: rank {rank} holds {r['shard_bytes']:,} of {r['global_bytes']:,} "
-              f"parameter bytes (flat block {r['block']}, packed/shard "
-              f"{r['packed_over_shard']:.4f}); allocated at each step's start (GB) "
+              f"parameter bytes{packing}; allocated at each step's start (GB) "
               f"{[round(v, 2) for v in r['start_gb']['fo'] + r['start_gb']['zo']]}; peak (GB) "
               f"FO {[round(v, 2) for v in r['peak_gb']['fo']]}, ZO "
               f"{[round(v, 2) for v in r['peak_gb']['zo']]}; launches {r['launches']}")
@@ -3047,8 +3227,181 @@ def route_flips(torch, a, b):
     return out
 
 
+SHARDED_PALLAS = "train gemma2-2b --reduce full --model-axis 2 (2 gloo ranks), engine=pallas"
+SHARDED_MIXER = "train hymba-1.5b --reduce full --model-axis 2 (2 gloo ranks), engine=flat"
+#: (d): hymba-1.5b at full width and depth, train_phase (a)'s batch, seq and tau
+MIXER_FLAGS = ["--arch", "hymba-1.5b", "--tau", "3", "--batch", "8", "--seq", "128"]
+
+
+def model_gathers_per_layer(cfg, ms=2) -> list:
+    """The leaves a layer of the partitioned forward gathers over ``model``
+    (``ms`` ranks) a forward: the mamba mixer's ``in_proj``, and
+    attention's ``wq`` when the axis cuts inside a query head and ``wk``,
+    ``wv`` when it cuts inside a KV head."""
+    names = ["in_proj"] if cfg.arch_type in ("ssm", "hybrid") else []
+    if cfg.arch_type != "ssm":
+        names += ["wq"] * (cfg.n_heads % ms != 0) + ["wk", "wv"] * (cfg.n_kv_heads % ms != 0)
+    return names
+
+
+def sharded_pallas_run(torch, dev, reduce_a, a_rows, a_evals, steps=3):
+    """(c) ``launch.train.main`` on gemma2-2b ``--reduce full --model-axis 2
+    --engine pallas`` (2 ranks on the card), ``steps`` steps (F Z Z): the
+    per-leaf kernels on every shard through their run tables.  The CSV's
+    losses and every loss evaluation bit for bit (a)'s first ``steps``; one
+    ``zo_perturb`` and one ``zo_reconstruct`` launch per leaf per ZO step on
+    each rank, nothing else launched; the first ZO step's per-leaf outputs
+    held on every leaf's first, middle and last runs against the plain
+    versions (``TrainProbe.hold_leaf``) on both ranks; no gather over
+    ``model``; rank 0 books 4·d and 4 bytes."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import size_override
+
+    d = size_override(get_config("gemma2-2b"), reduce_a).param_count()
+    argv = TRAIN_FLAGS + ["--reduce", reduce_a, "--steps", str(steps), "--engine", "pallas",
+                          "--model-axis", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        log = str(Path(tmp) / "c.csv")
+        t0 = time.perf_counter()
+        res = sharded_spawn(torch, dev, argv, 2, log)
+        wall = time.perf_counter() - t0
+        rows = csv_rows(log)
+    order = [int(r["order"]) for r in rows]
+    n_zo = order.count(0)
+    check(order == [1 if t % 3 == 0 else 0 for t in range(steps)], f"sharded (c): order {order}")
+    check([r["loss"] for r in rows] == [r["loss"] for r in a_rows[:steps]],
+          f"sharded (c): losses {[r['loss'] for r in rows]}, (a)'s "
+          f"{[r['loss'] for r in a_rows[:steps]]}")
+    want = {"fo": a_evals["fo"][:order.count(1)], "zo": a_evals["zo"][:n_zo]}
+    check([int(r["comm_bytes"]) for r in rows] == [4 * d if o else 4 for o in order],
+          f"sharded (c): rank 0 books {[r['comm_bytes'] for r in rows]}")
+    for rank, r in enumerate(res):
+        check(r["evals"] == want, f"sharded (c) rank {rank}: loss evaluations {r['evals']}, "
+              f"(a)'s {want}")
+        per = {"zo_perturb": r["n_leaves"] * n_zo, "zo_reconstruct": r["n_leaves"] * n_zo}
+        check(r["launches"] == per, f"sharded (c) rank {rank}: launches {r['launches']}, one "
+              f"per leaf per primitive would be {per}")
+        for name in per:
+            held = r["held"].get(name)
+            check(held is not None and held[3], f"sharded (c) rank {rank}: {name} disagrees "
+                  f"with its plain version on the shards' runs: {held}")
+        check(("model",) not in r["gather_axes"], f"sharded (c) rank {rank}: gathers by axes "
+              f"{r['gather_axes']}")
+    held = {name: res[0]["held"][name] for name in ("zo_perturb", "zo_reconstruct")}
+    print(f"  (c) gemma2-2b --reduce {reduce_a} --model-axis 2 --engine pallas, 2 gloo ranks, "
+          f"{steps} steps in {wall:.1f} s: losses and all {sum(map(len, want['zo']))} ZO loss "
+          f"evaluations bit for bit (a)'s; launches a rank {res[0]['launches']} "
+          f"({res[0]['n_leaves']} leaves x {n_zo} ZO steps); rank 0's first ZO step held "
+          + "; ".join(f"{k} on {h[0]} windows of {h[1]} leaves, max abs err {h[4]:.3e} ({h[5]})"
+                      for k, h in held.items()))
+    return {"launches": {k: sum(r["launches"].get(k, 0) for r in res)
+                         for k in res[0]["launches"]},
+            "launches_per_rank_zo_step": {k: v // n_zo for k, v in res[0]["launches"].items()},
+            "n_leaves": res[0]["n_leaves"], "held": held, "wall_s": wall,
+            **sharded_report("(c)", res, rows, smi_line())}
+
+
+def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
+    """(d) ``launch.train.main`` on hymba-1.5b at full width and depth,
+    ``--model-axis 2`` (2 ranks on the card), engine flat, ``steps`` steps
+    (F Z Z F), against a one-process run of the same flags in this process:
+    the mamba mixer and attention partitioned (hymba's 25 query and 5 KV
+    heads do not split on whole heads at model=2, so ``wq``, ``wk``, ``wv``
+    are gathered, with the mixer's ``in_proj``: ``model_gathers_per_layer``).
+    Losses within ``LOSS_RTOL_BF16`` of one process's; rank 0's shards after
+    the first FO step within 2% of the update (or one bf16 ulp) of one
+    process's on sampled elements; every loss evaluation the same bits on
+    both ranks; the gathers over ``model`` alone, ``model_gathers_per_layer``
+    per layer and forward (twice in an FO step: remat recomputes it);
+    rank 0 books 4·d and 4 bytes; the flat kernels held on rank 0's first ZO
+    step with shard-local counters failing; the loss of one row without the
+    mixer's ``out_proj`` all-reduce leaving ``LOSS_RTOL_BF16`` (the control).
+    FO and ZO ms, the all-reduces and gathers, peaks per rank printed."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import size_override
+
+    cfg = size_override(get_config("hymba-1.5b"), reduce)
+    d = leaf_count(cfg)
+    argv = MIXER_FLAGS + ["--reduce", reduce, "--steps", str(steps), "--engine", "flat"]
+    probe, rows1, _ = train_run(torch, dev, argv, sample_fo=sampler(torch, cfg, whole=True))
+    one = {"losses": [float(r["loss"]) for r in rows1], "peak_gb": probe.peak_gb,
+           "fo_samples": probe.fo_samples, "fo_ms": step_ms(rows1, 1), "zo_ms": step_ms(rows1, 0)}
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = str(Path(tmp) / "d.csv")
+        t0 = time.perf_counter()
+        res = sharded_spawn(torch, dev, argv + ["--model-axis", "2"], 2, log, hold=True,
+                            sample=True, control="mixer")
+        wall = time.perf_counter() - t0
+        rows = csv_rows(log)
+    losses = [float(r["loss"]) for r in rows]
+    order = [int(r["order"]) for r in rows]
+    check(order == [1 if t % 3 == 0 else 0 for t in range(steps)], f"sharded (d): order {order}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    check(all(math.isfinite(v) for v in losses) and max(rel) <= LOSS_RTOL_BF16,
+          f"sharded (d): losses {losses} vs one process's {one['losses']}: relative {rel}")
+    got = {k: [torch.from_numpy(x) for x in v] for k, v in res[0]["fo_samples"].items()}
+    ok, diff, scale, worst = fo_update_hold(torch, got, one["fo_samples"])
+    check(ok, f"sharded (d): rank 0's shards after the FO step {diff:.3e} from one process's "
+          f"(the largest update {scale:.3e}; worst at {worst:.2f} of its tolerance)")
+    check([int(r["comm_bytes"]) for r in rows] == [4 * d if o else 4 for o in order],
+          f"sharded (d): rank 0 books {[r['comm_bytes'] for r in rows]}")
+    check(res[0]["evals"] == res[1]["evals"], "sharded (d): the loss evaluations differ "
+          "between the ranks")
+    gathered = model_gathers_per_layer(cfg)
+    per_layer = len(gathered)
+    for rank, r in enumerate(res):
+        check(set(r["gather_axes"]) == {("model",)}, f"sharded (d) rank {rank}: gathers by "
+              f"axes {r['gather_axes']}")
+        for kind in ("fo", "zo"):
+            want = [per_layer * cfg.n_layers * len(ev) * (2 if kind == "fo" and cfg.remat
+                                                          else 1) for ev in r["evals"][kind]]
+            got_calls = r["step_comm"]["gather"]["calls"][kind]
+            check(got_calls == want, f"sharded (d) rank {rank}: {kind.upper()} steps' gathers "
+                  f"{got_calls}, {per_layer} a layer and forward would be {want}")
+        ctrl = r["control"]
+        check(abs(ctrl["without_mixer_reduce"] - ctrl["loss"]) > LOSS_RTOL_BF16 * abs(ctrl["loss"]),
+              f"sharded (d) rank {rank}: the control without the mixer's all-reduce passed: "
+              f"{ctrl}")
+    for name in ("zo_perturb_flat", "zo_reconstruct_flat"):
+        held = res[0]["held"].get(name)
+        check(held is not None and held[3] and held[2] > 0,
+              f"sharded (d): {name} disagrees with its plain version on rank 0's shard: {held}")
+        # a reconstruction whose coefficients are 0 (f1 == f0) is 0 at any counter
+        check(not held[5] or (name == "zo_reconstruct_flat" and held[6]),
+              f"sharded (d): {name}'s control (shard-local counters) passed")
+    one_peak = max(max(v) for v in one["peak_gb"].values())
+    print(f"  (d) hymba-1.5b --reduce {reduce} --model-axis 2 (d={d:,}), 2 gloo ranks, {steps} "
+          f"steps in {wall:.1f} s: losses {losses} against one process's {one['losses']}: "
+          f"relative {[f'{v:.2e}' for v in rel]} (tol {LOSS_RTOL_BF16}); rank 0's shards after "
+          f"the FO step {diff:.3e} from one process's (largest update {scale:.3e}, worst at "
+          f"{worst:.3f} of its tolerance); {per_layer} gathers over model a layer and forward "
+          f"({', '.join(gathered)}); control without "
+          f"the mixer's all-reduce {res[0]['control']}; one process FO ms "
+          f"{[round(v, 1) for v in one['fo_ms']]}, ZO ms {[round(v, 1) for v in one['zo_ms']]}, "
+          f"peak {one_peak:.2f} GB")
+    return {"launches": {k: sum(r["launches"].get(k, 0) for r in res)
+                         for k in res[0]["launches"]},
+            "rank0": {"peak_gb": res[0]["peak_gb"],
+                      **{f"step_{c}_{k}": res[0]["step_comm"][c][k]
+                         for c in ("gather", "reduce") for k in ("bytes", "calls")}},
+            "losses": losses, "one_process_losses": one["losses"], "rel": rel,
+            "fo_hold": [diff, scale, worst], "control": res[0]["control"],
+            "gathered_per_layer": gathered, "one_process_fo_ms": one["fo_ms"],
+            "one_process_zo_ms": one["zo_ms"], "one_process_peak_gb": one_peak,
+            "peak_gb": [max(max(v) for v in r["peak_gb"].values()) for r in res],
+            "wall_s": wall, "d": d, "reduce": reduce,
+            **sharded_report("(d)", res, rows, smi_line())}
+
+
 def sharded_phase(torch, dev, train_a, reduce_a="full", steps_a=4, reduce_b="100m",
-                  steps_b=8):
+                  steps_b=8, steps_c=3, steps_d=4, reduce_d="full"):
     """Sharded placements on gloo ranks that share ``cuda:0``, the forward
     partitioned over ``model``.
 
@@ -3172,6 +3525,11 @@ def sharded_phase(torch, dev, train_a, reduce_a="full", steps_a=4, reduce_b="100
     gc.collect()
     torch.cuda.empty_cache()
 
+    # (c) the same model on the pallas engine: the per-leaf kernels' run tables
+    out["c"] = sharded_pallas_run(torch, dev, reduce_a, rows, res[0]["evals"], steps_c)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # (b) 100m on (data=2, model=2) against the replicated run in this process
     out["b"] = {}
     for arch, flags in SHARDED_100M.items():
@@ -3245,6 +3603,11 @@ def sharded_phase(torch, dev, train_a, reduce_a="full", steps_a=4, reduce_b="100
                           "route_flips": flips, "wall_s": wall,
                           "final_diff": r0["final_diff"], "update_scale": r0["update_scale"],
                           **sharded_report(label, res, rows, smi)}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) hymba-1.5b: the mamba mixer partitioned over model
+    out["d"] = sharded_mixer_run(torch, dev, steps_d, reduce_d)
     return out
 
 
@@ -3260,10 +3623,11 @@ OVERLAP_ARGV = ["--arch", "gemma2-2b", "--reduce", "100m", "--tau", "3", "--batc
                 "--seq", "128", "--steps", "1", "--engine", "flat", "--model-axis", "2"]
 
 
-def dryrun_target(mesh: str, step: str, reduce: str):
-    """One ``launch.dryrun.run_one`` record of train_phase (a)'s
-    configuration on ``mesh`` (a spawned process of its own: the dry run
-    makes a fake process group, and runs on the CPU)."""
+def dryrun_target(mesh: str, step: str, reduce: str, flags=TRAIN_FLAGS):
+    """One ``launch.dryrun.run_one`` record of the trainer's configuration
+    ``flags`` (train_phase (a)'s by default) on ``mesh`` (a spawned process
+    of its own: the dry run makes a fake process group, and runs on the
+    CPU)."""
     import os
 
     os.environ["REPRO_TEST_MESH"] = mesh
@@ -3272,10 +3636,10 @@ def dryrun_target(mesh: str, step: str, reduce: str):
     from repro_torch.launch import dryrun
     from repro_torch.launch.train import size_override
 
-    flags = dict(zip(TRAIN_FLAGS[::2], TRAIN_FLAGS[1::2]))
+    flags = dict(zip(flags[::2], flags[1::2]))
     cfg = size_override(get_config(flags["--arch"]), reduce)
     shape = ShapeConfig("train_phase", int(flags["--seq"]), int(flags["--batch"]), "train")
-    return dryrun.run_one("gemma2-2b", shape, False, step, verbose=False, cfg=cfg)
+    return dryrun.run_one(flags["--arch"], shape, False, step, verbose=False, cfg=cfg)
 
 
 def overlap_rank(rank, world, argv, dev_type):
@@ -3324,7 +3688,8 @@ def overlap_rank(rank, world, argv, dev_type):
     return out
 
 
-def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVERLAP_ARGV):
+def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVERLAP_ARGV,
+                 sharded_d=None):
     """The launch tooling, held to what this run measured.
 
     (a) ``launch.dryrun.run_one`` prices train_phase (a)'s configuration
@@ -3340,7 +3705,12 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     0's step traced by ``torch.profiler``; ``launch.overlap.overlap_stats``'
     pairs equal to the all-reduces and gathers counted in that step.  (d)
     ``bench.kernels_bench --smoke`` on the card: every kernel row within its
-    tolerance of its plain version.  Returns what it printed."""
+    tolerance of its plain version.  (e) With ``sharded_d`` (sharded_phase
+    (d)'s rank 0), it also prices (d)'s configuration, hymba-1.5b at full
+    width and depth on rank 0 of (data=1, model=2), an FO and a ZO step:
+    the all-reduces' and gathers' calls and bytes of each equal to the
+    card's first step of that kind, each peak within ``PEAK_TOL`` of the
+    card's.  Returns what it printed."""
     import multiprocessing as mp
     import tempfile
     from concurrent.futures import ProcessPoolExecutor
@@ -3351,10 +3721,12 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     smi = smi_line()
     out = {}
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(2 * len(DRYRUN_TARGETS),
-                             mp_context=mp.get_context("spawn")) as pool:
-        futures = {(k, step): pool.submit(dryrun_target, mesh, step, reduce)
-                   for k, mesh in DRYRUN_TARGETS.items() for step in ("fo", "zo")}
+    targets = {k: (mesh, TRAIN_FLAGS, reduce) for k, mesh in DRYRUN_TARGETS.items()}
+    if sharded_d is not None:
+        targets["e"] = ("1x2", MIXER_FLAGS, sharded_d["reduce"])
+    with ProcessPoolExecutor(2 * len(targets), mp_context=mp.get_context("spawn")) as pool:
+        futures = {(k, step): pool.submit(dryrun_target, mesh, step, red, flags)
+                   for k, (mesh, flags, red) in targets.items() for step in ("fo", "zo")}
         # (c) while the dry runs work on the CPU
         with tempfile.TemporaryDirectory() as tmp:
             try:
@@ -3392,13 +3764,16 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
         recs = {k: f.result() for k, f in futures.items()}
     wall = time.perf_counter() - t0
     measured = {"a": train_a["peak_gb"], "b": sharded_a["rank0"]["peak_gb"]}
+    if sharded_d is not None:
+        measured["e"] = sharded_d["rank0"]["peak_gb"]
     for (k, step), rec in sorted(recs.items()):
         mem = rec["memory"]
         pred = mem["peak_memory_in_bytes"] / 1e9
         got = measured[k][step][0]
         rel = abs(pred - got) / got
-        print(f"  ({k}) dry run {step.upper()} of {DRYRUN_TARGETS[k]} (gemma2-2b --reduce "
-              f"{reduce}, batch 8, seq 128): predicted peak {pred:.3f} GB, arguments "
+        mesh, flags, red = targets[k]
+        print(f"  ({k}) dry run {step.upper()} of {mesh} ({flags[1]} --reduce "
+              f"{red}, batch 8, seq 128): predicted peak {pred:.3f} GB, arguments "
               f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
               f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; the card's first {step.upper()} step "
               f"peaked at {got:.3f} GB (relative {rel:.4f}, tol {PEAK_TOL}); flops "
@@ -3419,6 +3794,19 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
                   f"{pred}, measured {got} ({got / 1e9:.3f} GB; calls predicted "
                   f"{recs[('b', step)][f'{kind}s']}) [{smi}]")
             out[f"{kind}_bytes_{step}"] = {"predicted": pred, "measured": got}
+    if sharded_d is not None:
+        for kind in ("reduce", "gather"):
+            for step in ("fo", "zo"):
+                rec = recs[("e", step)]
+                pred = (sum(rec[f"{kind}s"].values()), sum(rec[f"{kind}_bytes"].values()))
+                got = (sharded_d["rank0"][f"step_{kind}_calls"][step][0],
+                       sharded_d["rank0"][f"step_{kind}_bytes"][step][0])
+                check(pred == got, f"dry run (e): predicted {kind}s of a {step.upper()} step "
+                      f"(calls, bytes) {pred}, (d)'s rank 0 {got}")
+                print(f"  (e) {kind}s of hymba-1.5b's first {step.upper()} step on rank 0 "
+                      f"of model=2 (calls, bytes): predicted {pred}, measured {got} "
+                      f"(by axes {rec[f'{kind}s']}) [{smi}]")
+                out[f"e_{kind}_{step}"] = {"predicted": pred, "measured": got}
     out["wall_s"] = wall
     return out
 
@@ -4968,8 +5356,9 @@ def main() -> None:
     arch_train = {arch: train_100m(torch, dev, flags, aux=arch == "arctic-480b")
                   for arch, flags in TRAIN_ARCHS.items()}
     print("# phase: sharded placements, launch.train main on gloo ranks sharing cuda:0: "
-          "gemma2-2b --reduce full --model-axis 2; gemma2-2b and arctic-480b (fsdp) at 100m on "
-          "(data=2, model=2)")
+          "gemma2-2b --reduce full --model-axis 2 (flat, then pallas); gemma2-2b and "
+          "arctic-480b (fsdp) at 100m on (data=2, model=2); hymba-1.5b --reduce full "
+          "--model-axis 2")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4979,7 +5368,7 @@ def main() -> None:
           "bytes, launch.overlap over a traced sharded FO step, bench.kernels_bench --smoke")
     gc.collect()
     torch.cuda.empty_cache()
-    tooling = dryrun_phase(torch, dev, train["a"], sharded["a"])
+    tooling = dryrun_phase(torch, dev, train["a"], sharded["a"], sharded_d=sharded["d"])
     print(f"  launch tooling phase: {tooling['wall_s']:.1f} s")
     sim_launches = sim_phase(torch, dev)
     print("# phase: open-loop serving traffic, launch.serve --traffic poisson:50.0,mixed on "
@@ -4992,6 +5381,8 @@ def main() -> None:
                      TRAIN_FULL: train["a"]["launches"],
                      TRAIN_100M: train["b"]["pallas"]["launches"], **sim_launches,
                      SHARDED_FULL: sharded["a"]["launches"],
+                     SHARDED_PALLAS: sharded["c"]["launches"],
+                     SHARDED_MIXER: sharded["d"]["launches"],
                      **{sharded_path(arch): run["launches"]
                         for arch, run in sharded["b"].items()},
                      **{f"train {arch} --reduce 100m, engine={engine}": run[engine]["launches"]
@@ -5090,8 +5481,10 @@ def main() -> None:
                        ("zo_reconstruct", "federated fed-HO-SGD engine=pallas"),
                        ("zo_perturb_flat", TRAIN_FULL), ("zo_reconstruct_flat", TRAIN_FULL),
                        ("zo_perturb", TRAIN_100M), ("zo_reconstruct", TRAIN_100M),
+                       ("zo_perturb", SHARDED_PALLAS), ("zo_reconstruct", SHARDED_PALLAS),
                        *((name, path) for name in GENERIC_PAIR
-                         for path in (SHARDED_FULL, *map(sharded_path, SHARDED_100M)))):
+                         for path in (SHARDED_FULL, SHARDED_MIXER,
+                                      *map(sharded_path, SHARDED_100M)))):
         check(path_launches[path].get(name, 0) > 0, f"{name} was not launched on {path}")
     for row in kernels:
         if row["name"] in train["shape"]:

@@ -138,8 +138,8 @@ def engine_compare(dev: torch.device, smoke: bool = False) -> Dict:
 
 
 def kernel_rows(dev: torch.device, smoke: bool = False) -> List[Dict]:
-    """The reference's seven kernel rows, each timed and (on the card) held
-    against its plain version."""
+    """The reference's seven kernel rows and the per-leaf kernels on a run
+    table, each timed and (on the card) held against its plain version."""
     g = torch.Generator().manual_seed(0)
     card = dev.type == "cuda"
     rows: List[Dict] = []
@@ -204,6 +204,25 @@ def kernel_rows(dev: torch.device, smoke: bool = False) -> List[Dict]:
     row("kern/zo_reconstruct", lambda: ops.zo_reconstruct(npar, salts, coeffs, 0),
         npar * 4, npar * 4 * 2 * m,
         lambda: ref.ref_zo_reconstruct(npar, list(range(m)), coeffs, 0, device=dev),
+        close_change)
+
+    # the same two on a shard's run table (a column-parallel leaf's rows):
+    # runs of 1027 lanes (no multiple of a 16-byte vector), their counters
+    # crossing 2^32 between runs
+    run = 1027
+    nruns = -(-npar // run)
+    xr = randn(nruns * run)
+    starts = ((torch.arange(nruns, dtype=torch.int64) * 2 * run + 2 ** 32 - 5 * run)
+              % 2 ** 32).to(torch.uint32).to(dev)
+    row("kern/zo_perturb_runs", lambda: ops.zo_perturb(xr, 55, 0.01, starts=starts),
+        xr.numel() * 4 * 2 + nruns * 4, xr.numel() * 4 * 4,
+        lambda: ref.ref_zo_perturb(xr, 55, 0.01, starts=starts),
+        lambda a, b: close_change(a, b, xr))
+    row("kern/zo_reconstruct_runs",
+        lambda: ops.zo_reconstruct(xr.numel(), salts, coeffs, starts=starts),
+        xr.numel() * 4 + nruns * 4, xr.numel() * 4 * 2 * m,
+        lambda: ref.ref_zo_reconstruct(xr.numel(), list(range(m)), coeffs, device=dev,
+                                       starts=starts),
         close_change)
 
     # the flat kernels on a block-aligned packed buffer

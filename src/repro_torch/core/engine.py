@@ -40,8 +40,10 @@ fixed order, ``ShardGeometry.reduce_sums``, booked ``payload=False``).
 ``tree``/``fused`` generate a shard from its counters; ``flat`` packs the
 shard as runs of consecutive global counters, each run cut into blocks of a
 size picked from the runs (``shard_block``), so the flat kernels run on it
-unchanged; ``pallas`` launches its per-leaf kernels once per run when a leaf
-has at most ``PALLAS_MAX_RUNS`` runs and raises ``ValueError`` otherwise.
+unchanged; ``pallas`` hands its per-leaf kernels each sharded leaf's run
+table (every run's first global counter, ``ShardGeometry.runs``, built on
+the card once when the engine is made), one launch per leaf and primitive
+whatever the placement (a column-parallel shard has a run per row).
 The flat engine's fused pair (``fused_*``) scales by its own buffer's norm
 and raises under sharded specs.  ``specs`` without a mesh raise; specs that
 cut no leaf over an axis of more than one rank leave the engine as it is
@@ -69,11 +71,6 @@ from repro_torch.dtypes import acc_dtype_of
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 _F32 = torch.float32
-#: the per-leaf kernels of the ``pallas`` engine launch once per run of a
-#: shard up to this many runs a leaf (the deepest config has 94 layers, so a
-#: stacked row-parallel or fsdp leading-dim shard fits); a column-parallel
-#: shard has a run per row and raises (ROADMAP Queue 1 item 11c)
-PALLAS_MAX_RUNS = 128
 #: the smallest block the flat engine cuts a shard's runs into
 MIN_SHARD_BLOCK = 64
 
@@ -293,38 +290,26 @@ class PallasEngine(DirectionEngine):
     per leaf) from the coefficients pre-scaled by ``inv_norm``, which stays
     the shared plain reduction.  The salts are folded on the host: a
     perturb passes its leaf's salt by value, and a reconstruct copies its
-    (leaves, m) salt table to the card once, without blocking the host.
+    (leaves, m) salt table to the card once, without blocking the host.  A
+    sharded leaf's counters go as its run table (``starts``), on the card
+    from the engine's construction on.
     """
 
     name = "pallas"
 
     def __init__(self, params_like: Any, seed: int, **kw):
         super().__init__(params_like, seed, **kw)
-        # a sharded leaf: one launch per run, at the run's first global counter
-        self.runs: List[Optional[List[Tuple[int, int]]]] = [None] * len(self.shapes)
-        for i in range(len(self.shapes)):
-            if not self._sharded(i):
-                continue
-            starts, n = self.geometry.runs(i)
-            if len(starts) > PALLAS_MAX_RUNS:
-                raise ValueError(
-                    f"the pallas engine launches its per-leaf kernels once per run of a "
-                    f"shard; leaf {i} {self.geometry.shapes[i]} placed by "
-                    f"{self.geometry.specs[i]} has {len(starts)} runs of {n} (at most "
-                    f"{PALLAS_MAX_RUNS}): use engine='flat' (ROADMAP Queue 1 item 11c)")
-            self.runs[i] = [(int(st) & D.MASK, n) for st in starts]
+        # a sharded leaf's run table: its runs' first global counters (mod
+        # 2**32) on the card, made once; a whole leaf runs from counter 0
+        self.starts: List[Optional[torch.Tensor]] = [
+            host_to_device((self.geometry.runs(i)[0] & D.MASK).astype(np.uint32), self.device)
+            if self._sharded(i) else None for i in range(len(self.shapes))]
 
     def perturb(self, params, t, worker, scale):
         from repro_torch.kernels import ops  # deferred, as in FlatEngine
 
-        out = []
-        for x, s, runs in zip(tree_leaves(params), self.salts(t, worker), self.runs):
-            if runs is None:
-                out.append(ops.zo_perturb(x.reshape(-1), s, scale).reshape(x.shape))
-                continue
-            rows = x.reshape(len(runs), -1)
-            out.append(torch.cat([ops.zo_perturb(rows[r], s, scale, st)
-                                  for r, (st, _) in enumerate(runs)]).reshape(x.shape))
+        out = [ops.zo_perturb(x.reshape(-1), s, scale, starts=st).reshape(x.shape)
+               for x, s, st in zip(tree_leaves(params), self.salts(t, worker), self.starts)]
         return tree_unflatten(self.treedef, out)
 
     def _reconstruct(self, coeffs, t, workers):
@@ -333,15 +318,9 @@ class PallasEngine(DirectionEngine):
         scaled = self._prescaled(coeffs, t, workers)
         table = np.asarray([self.salts(t, w) for w in workers], np.uint32).T
         salts = host_to_device(table, self.device)
-        out = []
-        for li, (n, shape, runs) in enumerate(zip(self.sizes, self.shapes, self.runs)):
-            if runs is None:
-                out.append(ops.zo_reconstruct(n, salts[li], scaled,
-                                              acc_dtype=self.acc_dtype).reshape(shape))
-                continue
-            out.append(torch.cat([ops.zo_reconstruct(k, salts[li], scaled, st,
-                                                     acc_dtype=self.acc_dtype)
-                                  for st, k in runs]).reshape(shape))
+        out = [ops.zo_reconstruct(n, salts[li], scaled, acc_dtype=self.acc_dtype,
+                                  starts=st).reshape(shape)
+               for li, (n, shape, st) in enumerate(zip(self.sizes, self.shapes, self.starts))]
         return tree_unflatten(self.treedef, out)
 
 

@@ -43,17 +43,16 @@ product on the cut output dim, whose input enters through ``enter``
 row-parallel product on the cut contraction dim, computed in float32 on
 every rank and summed through ``reduce`` (all-reduce forward, identity
 backward), once per sublayer.  Replicated leaves used on a rank's part
-(attention's ``q_norm``/``k_norm``) enter too, so that their gradient is
-the whole one on every rank.  The mamba mixer is the exception: its
-``in_proj`` is cut on its last dim, which ``torch.chunk`` splits into u and
-z, so a rank's columns are not a column-parallel half of the mixer; its
-leaves are gathered whole (``model`` included) and every rank computes the
-whole mixer.  ``gather`` is differentiable, and its backward is this rank's
-slice of the gradient: that is right for a storage axis (every rank that
-shares a leaf's shards computed the same full gradient) and for a mixer
-that every rank computes whole; a leaf gathered over ``model`` to be used
-on a rank's part enters after the gather, so that the gradient is summed
-over the axis before it is sliced.  Nothing here is a ``DTensor``: the
+(attention's ``q_norm``/``k_norm``, the mamba mixer's ``conv_w``,
+``conv_b``, ``dt_b`` and ``D``) enter too, so that their gradient is the
+whole one on every rank.  ``gather`` is differentiable, and its backward is
+this rank's slice of the gradient: that is right for a storage axis (every
+rank that shares a leaf's shards computed the same full gradient); a leaf
+gathered over ``model`` to be used on a rank's part (``ModelAxis.whole``:
+the mixer's ``in_proj``, whose cut on its last dim gives rank 0 all of u
+and rank 1 all of z at model=2, or a ``wk`` cut inside a head) enters
+after the gather, so that the gradient is summed over the axis before it
+is sliced.  Nothing here is a ``DTensor``: the
 models launch kernels on raw pointers, and gloo carries a CUDA payload only
 through host memory (``dist.collectives``).
 """
@@ -589,14 +588,10 @@ class ShardedParams:
     leaves it cuts (the module docstring).
 
     ``layer(lp)`` gathers one layer's leaves (the views ``unbind`` gives of
-    the stacked shards; the stacked layer dim is never cut), the mamba
-    mixer's over every axis; ``top(name, sub)`` a top-level entry (embed,
+    the stacked shards; the stacked layer dim is never cut); ``top(name, sub)`` a top-level entry (embed,
     head, final norm); ``axis_for(path)`` is the ``ModelAxis`` when the
     ``model`` axis cuts a leaf under ``path`` (a tuple of dict keys, from
     the layer's root or, with ``top=True``, the tree's), else None."""
-
-    #: a layer's subtree whose leaves are gathered whole (the module docstring)
-    GATHERED_WHOLE = ("mamba",)
 
     def __init__(self, specs: Any, mesh):
         self.specs, self.mesh = specs, mesh
@@ -607,8 +602,7 @@ class ShardedParams:
         self.model = ModelAxis(mesh) if sizes.get(ModelAxis.name, 1) > 1 else None
 
     def layer(self, lp: Any) -> Any:
-        return {k: gather_tree(v, self.layer_specs[k], self.mesh,
-                               None if k in self.GATHERED_WHOLE else self.storage)
+        return {k: gather_tree(v, self.layer_specs[k], self.mesh, self.storage)
                 for k, v in lp.items()}
 
     def top(self, name: str, sub: Any) -> Any:

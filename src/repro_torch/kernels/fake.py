@@ -18,7 +18,8 @@ the plain version on a CPU one), and calling one on real tensors raises.
 ``CALLS`` counts the calls per kernel since ``reset_calls``; they are not
 launches (``kernels.ops.launch_counts``).  Scalars that only the arithmetic
 needs (a perturbation's ``mu``, an update's ``lr``) are not passed; a scale
-given as a tensor is, as the operand it is.
+given as a tensor is, as the operand it is, and so is a per-leaf kernel's
+run table (``starts``).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from torch._subclasses.fake_tensor import is_fake
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import selective_scan as _ss
+from repro_torch.kernels.ref import run_length
 
 CALLS: Dict[str, int] = {k: 0 for k in (
     "zo_perturb_flat", "zo_reconstruct_flat", "zo_perturb_sumsq", "zo_reconstruct_update",
@@ -133,22 +135,26 @@ def _(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, block):
 
 
 @_op("zo_perturb")
-def _zo_perturb(x: Tensor, salt: int, scale: Optional[Tensor], offset: int) -> Tensor:
+def _zo_perturb(x: Tensor, salt: int, scale: Optional[Tensor], offset: int,
+                starts: Optional[Tensor]) -> Tensor:
     _no_data()
 
 
 @_zo_perturb.register_fake
-def _(x, salt, scale, offset):
+def _(x, salt, scale, offset, starts):
+    run_length(x.numel(), starts, offset)
     return torch.empty_like(x)
 
 
 @_op("zo_reconstruct")
-def _zo_reconstruct(n: int, salts: Tensor, coeffs: Tensor, offset: int) -> Tensor:
+def _zo_reconstruct(n: int, salts: Tensor, coeffs: Tensor, offset: int,
+                    starts: Optional[Tensor]) -> Tensor:
     _no_data()
 
 
 @_zo_reconstruct.register_fake
-def _(n, salts, coeffs, offset):
+def _(n, salts, coeffs, offset, starts):
+    run_length(n, starts, offset)
     return coeffs.new_empty((n,), dtype=torch.float32)
 
 
@@ -238,15 +244,15 @@ def zo_reconstruct_update(p, mom, salts, ctrs, nvalid, bf16_mask, coeffs, block=
     return p, mom
 
 
-def zo_perturb(x, salt, scale, offset=0):
+def zo_perturb(x, salt, scale, offset=0, starts=None):
     _count("zo_perturb")
     return _zo_perturb(x, int(salt) & 0xFFFFFFFF, _scale_operand(scale),
-                       int(offset) & 0xFFFFFFFF)
+                       int(offset) & 0xFFFFFFFF, starts)
 
 
-def zo_reconstruct(n, salts, coeffs, offset=0):
+def zo_reconstruct(n, salts, coeffs, offset=0, starts=None):
     _count("zo_reconstruct")
-    return _zo_reconstruct(int(n), salts, coeffs, int(offset) & 0xFFFFFFFF)
+    return _zo_reconstruct(int(n), salts, coeffs, int(offset) & 0xFFFFFFFF, starts)
 
 
 def zo_sumsq(n, salt, offset, device):

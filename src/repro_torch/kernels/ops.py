@@ -19,7 +19,9 @@ also be a tensor there, while ``zo_perturb_sumsq``'s ``mu`` and
 (a tensor on the card raises).  ``zo_reconstruct_update`` updates
 ``p`` and ``mom`` in place on both paths and returns them.  A per-leaf salt
 and counter offset are Python ints; ``zo_reconstruct`` takes its m salts as
-a uint32 tensor on the coefficients' device.  The reference's ``block``
+a uint32 tensor on the coefficients' device.  ``zo_perturb`` and
+``zo_reconstruct`` take a shard of a leaf as a run table ``starts`` (uint32,
+on the tensors' device; ``ref.leaf_counters``) in place of the offset.  The reference's ``block``
 argument has no counterpart here: the CUDA kernels' tiles are their own.
 """
 from __future__ import annotations
@@ -115,20 +117,20 @@ def zo_sumsq(n: int, salt, offset=0, *, device) -> torch.Tensor:
     return _cu.zo_sumsq(n, salt, offset, device)
 
 
-def zo_perturb(x, salt, scale, offset=0):
+def zo_perturb(x, salt, scale, offset=0, starts=None):
     if _no_data(x):
-        return _fk.zo_perturb(x, salt, scale, offset)
+        return _fk.zo_perturb(x, salt, scale, offset, starts)
     if _on_cpu(x, "zo_perturb"):
-        return ref.ref_zo_perturb(x, salt, scale, offset)
-    return _cu.zo_perturb(x, salt, scale, offset)
+        return ref.ref_zo_perturb(x, salt, scale, offset, starts)
+    return _cu.zo_perturb(x, salt, scale, offset, starts)
 
 
-def zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32"):
+def zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32", starts=None):
     if _no_data(coeffs):
-        return _fk.zo_reconstruct(n, salts, coeffs, offset)
+        return _fk.zo_reconstruct(n, salts, coeffs, offset, starts)
     if _on_cpu(coeffs, "zo_reconstruct"):
-        return ref.ref_zo_reconstruct(n, salts, coeffs, offset, acc_dtype)
-    return _cu.zo_reconstruct(n, salts, coeffs, offset, acc_dtype)
+        return ref.ref_zo_reconstruct(n, salts, coeffs, offset, acc_dtype, starts=starts)
+    return _cu.zo_reconstruct(n, salts, coeffs, offset, acc_dtype, starts)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,

@@ -75,22 +75,51 @@ def ref_zo_sumsq(n: int, salt, offset=0, device="cpu") -> torch.Tensor:
     return torch.sum(g * g)
 
 
-def ref_zo_perturb(x: torch.Tensor, salt, scale, offset=0) -> torch.Tensor:
-    g = gaussian_from_salt(tuple(x.shape), salt, offset, device=x.device)
-    return (x.to(torch.float32) + _f32(scale, x.device) * g).to(x.dtype)
+def run_length(n: int, starts, offset=0) -> int:
+    """The run length of a per-leaf call on ``n`` values: ``n`` for one run
+    at ``offset`` (``starts`` None), else ``n / len(starts)``, which must be
+    whole; a run table and a nonzero offset together raise (the table holds
+    every run's start)."""
+    if starts is None:
+        return n
+    runs = int(starts.shape[0]) if starts.dim() == 1 else -1
+    if runs < 1 or n % runs:
+        raise ValueError(f"starts: shape {tuple(starts.shape)} does not cut {n} values into "
+                         f"equal runs")
+    if int(offset) & MASK:
+        raise ValueError("a run table holds every run's start: pass offset=0 with starts")
+    return n // runs
+
+
+def leaf_counters(n: int, offset=0, starts=None, device="cpu") -> torch.Tensor:
+    """The hash counters of a per-leaf kernel's ``n`` values (int64, mod
+    2**32): ``offset + i``, or with a run table ``starts`` (``n / len(starts)``
+    values a run) ``starts[r] + j`` for value ``r * run + j``."""
+    run = run_length(int(n), starts, offset)
+    lanes = torch.arange(run, dtype=torch.int64, device=device)
+    if starts is None:
+        return (lanes + (int(offset) & MASK)) & MASK
+    first = starts.to(device=device, dtype=torch.int64)
+    return ((first[:, None] + lanes[None, :]) & MASK).reshape(-1)
+
+
+def ref_zo_perturb(x: torch.Tensor, salt, scale, offset=0, starts=None) -> torch.Tensor:
+    """``(f32(x) + scale * v).to(x.dtype)``, v at ``leaf_counters``."""
+    g = gaussian_from_counters(leaf_counters(x.numel(), offset, starts, x.device), salt)
+    return (x.to(torch.float32) + _f32(scale, x.device) * g.reshape(x.shape)).to(x.dtype)
 
 
 def ref_zo_reconstruct(n: int, salts, coeffs, offset=0, acc_dtype="float32",
-                       device="cpu") -> torch.Tensor:
-    """``sum_w coeffs[w] * v_w`` over one leaf, rounding the accumulator to
-    ``acc_dtype`` after each worker; ``salts`` holds m salts (ints or a
-    tensor on the CPU)."""
+                       device="cpu", starts=None) -> torch.Tensor:
+    """``sum_w coeffs[w] * v_w`` over one leaf at ``leaf_counters``, rounding
+    the accumulator to ``acc_dtype`` after each worker; ``salts`` holds m
+    salts (ints or a tensor on the CPU)."""
     adt = acc_dtype_of(acc_dtype)
     coeffs = _f32(coeffs, device)
+    idx = leaf_counters(n, offset, starts, device)
     acc = torch.zeros((n,), dtype=torch.float32, device=device)
     for w in range(int(coeffs.shape[0])):
-        g = gaussian_from_salt((n,), int(salts[w]), offset, device=device)
-        acc = _round(acc + coeffs[w] * g, adt)
+        acc = _round(acc + coeffs[w] * gaussian_from_counters(idx, int(salts[w])), adt)
     return acc
 
 

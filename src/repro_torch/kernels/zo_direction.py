@@ -21,8 +21,13 @@ launches: one partial sum per block of a grid that the card holds at once
 sums the partials in one fixed order, the same result run to run.
 
 A leaf's salt and counter offset are Python ints and go to the kernel by
-value, as do ``zo_perturb_sumsq``'s ``mu`` and ``zo_reconstruct_update``'s
-``lr`` (host numbers: every caller has one, a schedule's value is a CPU
+value.  A shard of a leaf takes a run table in place of the offset
+(``starts``: a uint32 tensor on the card, one entry a run, each run's first
+global counter; the leaf's values the runs in order, equally long), which
+the caller builds once and keeps on the card: ``zo_perturb`` and
+``zo_reconstruct`` launch once for the whole shard, and a whole leaf is
+their one-run case.  ``zo_perturb_sumsq``'s ``mu`` and
+``zo_reconstruct_update``'s ``lr`` go by value too (host numbers: every caller has one, a schedule's value is a CPU
 tensor, and no fill kernel runs for them; ``_host_f32``); any other scale is
 read from device memory (``_scalar``), so a scale computed on the card is
 never synced to the host.
@@ -38,6 +43,7 @@ from repro_torch.kernels.binding import check as _check
 from repro_torch.kernels.binding import cuda_device as _cuda_device
 from repro_torch.kernels.binding import launch, library
 from repro_torch.kernels.binding import stream as _stream
+from repro_torch.kernels.ref import run_length
 
 LAUNCHES = {"zo_perturb_flat": 0, "zo_reconstruct_flat": 0,
             "zo_perturb_sumsq": 0, "zo_reconstruct_update": 0,
@@ -56,8 +62,8 @@ _SIGNATURES = {
     "zo_apply_v_launch": [_P, _P, _P, _I, _F, _P, _P, _I64, _I, _P],
     "zo_reconstruct_update_launch": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I64, _I,
                                      _I, _I, _I, _P],
-    "zo_perturb_leaf_launch": [_P, _P, _I64, _U32, _U32, _P, _I, _I, _P],
-    "zo_reconstruct_leaf_launch": [_P, _P, _P, _I64, _U32, _I, _I, _I, _P],
+    "zo_perturb_leaf_launch": [_P, _P, _I64, _U32, _U32, _P, _I64, _P, _I, _I, _P],
+    "zo_reconstruct_leaf_launch": [_P, _P, _P, _I64, _U32, _P, _I64, _I, _I, _I, _P],
     "zo_sumsq_partials_launch": [_P, _I, _I64, _U32, _U32, _I, _P],
     "zo_sumsq_total_launch": [_P, _I, _I64, _P, _I, _P],
     "zo_check_gauss_launch": [_P, _I, _I, _P],
@@ -202,37 +208,50 @@ def _u32(v) -> int:
     return int(v) & 0xFFFFFFFF
 
 
-def zo_perturb(x, salt, scale, offset=0):
+def _runs(n: int, starts, offset, dev) -> tuple:
+    """``(the table's pointer or None, the run length)`` for a launch."""
+    run = run_length(n, starts, offset)
+    if starts is None:
+        return None, run
+    return _check(starts, "starts", torch.uint32, dev, (n // run,)), run
+
+
+def zo_perturb(x, salt, scale, offset=0, starts=None):
     """``(f32(x) + scale * v).to(x.dtype)`` for one flat leaf of float32 or
-    bfloat16 values, out of place; one launch.  The output has x's alignment
-    mod 16 bytes, so a view of a leaf (``x[1:]``) still takes the kernel's
-    16-byte accesses."""
+    bfloat16 values, out of place; one launch.  The counters are ``offset +
+    i``, or with a run table ``starts`` (uint32 on the card) ``starts[r] +
+    j`` for value ``r * run + j`` (``run_length``).  The output has x's
+    alignment mod 16 bytes, so a view of a leaf (``x[1:]``) still takes the
+    kernel's 16-byte accesses."""
     dev = _cuda_device(x)
     if x.dtype not in LEAF_DTYPES:
         raise TypeError(f"x: dtype {x.dtype}, expected one of {LEAF_DTYPES}")
     n = _leaf_size(x.numel())
     px = _check(x, "x", x.dtype, dev, (n,))
+    pst, run = _runs(n, starts, offset, dev)
     sc = _scalar(scale, dev)
     out = _aligned_like(x)
     _launch("zo_perturb", "zo_perturb_leaf_launch", px, out.data_ptr(), n,
-            _u32(salt), _u32(offset), sc.data_ptr(), int(x.dtype == torch.bfloat16),
-            dev.index, _stream(dev))
+            _u32(salt), _u32(offset), pst, run, sc.data_ptr(),
+            int(x.dtype == torch.bfloat16), dev.index, _stream(dev))
     return out
 
 
-def zo_reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32"):
+def zo_reconstruct(n, salts, coeffs, offset=0, acc_dtype="float32", starts=None):
     """``sum_w coeffs[w] * v_w`` for one leaf of ``n`` values (float32), the
     accumulator rounded to ``acc_dtype`` after each worker; ``salts`` is a
-    (m,) uint32 and ``coeffs`` a (m,) float32 tensor on the card; one launch."""
+    (m,) uint32 and ``coeffs`` a (m,) float32 tensor on the card, the
+    counters as in ``zo_perturb``; one launch."""
     dev = _cuda_device(coeffs)
     n = _leaf_size(n)
     m = int(coeffs.shape[0])
     pco = _check(coeffs, "coeffs", torch.float32, dev, (m,))
     ps = _check(salts, "salts", torch.uint32, dev, (m,))
+    pst, run = _runs(n, starts, offset, dev)
     acc_bf16 = int(acc_dtype_of(acc_dtype) == torch.bfloat16)
     out = torch.empty(n, dtype=torch.float32, device=dev)
     _launch("zo_reconstruct", "zo_reconstruct_leaf_launch", ps, pco, out.data_ptr(),
-            n, _u32(offset), m, acc_bf16, dev.index, _stream(dev))
+            n, _u32(offset), pst, run, m, acc_bf16, dev.index, _stream(dev))
     return out
 
 

@@ -39,7 +39,7 @@ What differs from the reference:
   it on exit; under the caller's group the device count is its world size.
 * The partitioned forward's all-reduces are written out (float32 partials
   summed in rank order), where the reference's compiler inserts its own;
-  the mamba mixer's leaves are gathered whole (``dist.sharding``).
+  the mamba mixer gathers its ``in_proj`` over ``model`` (``models.ssm``).
 * ``--xla-overlap`` has no counterpart (it sets ``XLA_FLAGS``, which
   PyTorch does not have) and exits with a message.
 

@@ -13,6 +13,24 @@ the caller recomputes the state with the plain scan, as the reference does.
 
 Softplus is ``jax.nn.softplus``'s ``logaddexp(x, 0)`` (no threshold) and SiLU
 ``x * sigmoid(x)``, each in its input's dtype, as in the reference.
+
+Partitioned over the ``model`` axis (``mamba_forward(..., tp=)``, the
+training loss on sharded placements), a rank runs the mixer on its
+channels ``[r·di/ms, (r+1)·di/ms)`` of ``d_inner``, the channels that the
+reference's placements give it of ``x_proj``, ``A_log``, ``out_proj`` (rows)
+and ``dt_w`` (columns).  ``in_proj`` is cut on its last dim, ``2·di``, so at
+model=2 rank 0 holds all of u and rank 1 all of z: it is gathered over the
+axis (``ModelAxis.whole``, the mixer's one gather, counted in
+``collectives.GATHERS``) and the rank takes u's and z's columns of its
+channels.  The replicated ``conv_w``, ``conv_b``, ``dt_b`` and ``D`` enter
+before they are sliced, so that their gradient is the whole one on every
+rank.  ``x_proj`` is row-parallel: ``x_dbl``'s float32 partials are summed
+once over the axis and rounded as the product in u's dtype rounds, and the
+sum enters (dt_low, B and C feed this rank's channels only, so their
+gradient is summed over the axis); the scan runs on the rank's channels
+(the plain scan's ``(B, S, di/ms, n)`` states), and ``out_proj`` is
+row-parallel, one all-reduce of float32 partials.  Prefill and decode keep
+whole parameters, as all serving does.
 """
 from __future__ import annotations
 
@@ -21,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import row_partial
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
@@ -63,18 +82,23 @@ def _causal_conv(p: Params, u: torch.Tensor, K: int) -> torch.Tensor:
     return (y + p["conv_b"]).to(u.dtype)
 
 
-def _split_x(cfg: ModelConfig, p: Params, u: torch.Tensor):
-    """u (B, S, di) -> (dt (B, S, di), B (B, S, n), C (B, S, n)), float32."""
+def _split_x(cfg: ModelConfig, p: Params, u: torch.Tensor, tp=None):
+    """u (B, S, di) -> (dt (B, S, di), B (B, S, n), C (B, S, n)), float32;
+    with ``tp`` u and the leaves are this rank's channels, and ``x_proj``'s
+    partials are summed over the axis (the module docstring)."""
     dtr, n = cfg.dt_rank_actual, cfg.ssm_state
-    x_dbl = (u @ p["x_proj"]).to(torch.float32)
+    if tp is None:
+        x_dbl = (u @ p["x_proj"]).to(torch.float32)
+    else:
+        x_dbl = tp.enter(tp.reduce(row_partial(u, p["x_proj"]), u.dtype).to(torch.float32))
     dt_low, Bmat, Cmat = torch.split(x_dbl, [dtr, n, n], dim=-1)
     dt = softplus(dt_low @ p["dt_w"].to(torch.float32) + p["dt_b"])
     return dt, Bmat, Cmat
 
 
-def _ssm_inputs(cfg: ModelConfig, p: Params, u: torch.Tensor):
+def _ssm_inputs(cfg: ModelConfig, p: Params, u: torch.Tensor, tp=None):
     """u (B, S, di) -> (deltaA, deltaBu, C) with shapes (B, S, di, n) / (B, S, n)."""
-    dt, Bmat, Cmat = _split_x(cfg, p, u)
+    dt, Bmat, Cmat = _split_x(cfg, p, u, tp)
     A = -torch.exp(p["A_log"])                                   # (di, n)
     deltaA = torch.exp(dt[..., None] * A)                        # (B, S, di, n)
     deltaBu = (dt * u.to(torch.float32))[..., None] * Bmat[..., None, :]
@@ -121,8 +145,10 @@ def kernel_path(cfg: ModelConfig, seq_len: int) -> bool:
     return bool(cfg.use_pallas) and seq_len % 64 == 0 and cfg.d_inner % 64 == 0
 
 
-def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, return_state: bool = False):
-    """Sequence mixing only (conv + selective scan), u (B, S, di) -> (B, S, di).
+def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, return_state: bool = False,
+              tp=None):
+    """Sequence mixing only (conv + selective scan), u (B, S, di) -> (B, S, di);
+    with ``tp``, u and the leaves are this rank's channels (``_split_x``).
 
     With ``return_state``, ``(y, h_S)``: on the kernel path the kernel's final
     ``(B, di, n)`` float32 state, elsewhere None (the plain path keeps the
@@ -130,26 +156,26 @@ def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, return_state: bool =
     u = silu(_causal_conv(p, u, cfg.ssm_conv))
     if kernel_path(cfg, u.shape[1]):
         # the kernel path: its inputs, without the (B, S, di, n) state
-        dt, Bm, Cm = _split_x(cfg, p, u)
+        dt, Bm, Cm = _split_x(cfg, p, u, tp)
         A = -torch.exp(p["A_log"])
         y = ops.selective_scan(u.to(torch.float32), dt, Bm.contiguous(), Cm.contiguous(),
                                A, p["D"], return_state)
         if return_state:
             return y[0].to(u.dtype), y[1]
         return y.to(u.dtype)
-    y = _plain_mix(cfg, p, u)
+    y = _plain_mix(cfg, p, u, tp)
     return (y, None) if return_state else y
 
 
-def _plain_mix(cfg: ModelConfig, p: Params, u: torch.Tensor) -> torch.Tensor:
+def _plain_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, tp=None) -> torch.Tensor:
     """The plain scan of the conv output u: the associative scan over the
     (B, S, di, n) state, by ``cfg.ssm_chunk`` chunks when set."""
-    deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u)
+    deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u, tp)
     if cfg.ssm_chunk and u.shape[1] > cfg.ssm_chunk:
         S, ck = u.shape[1], cfg.ssm_chunk
         if S % ck:
             raise ValueError(f"sequence length {S} is not a multiple of ssm_chunk={ck}")
-        B, di, n = u.shape[0], cfg.d_inner, cfg.ssm_state
+        B, di, n = u.shape[0], u.shape[2], cfg.ssm_state
         h = torch.zeros((B, di, n), dtype=torch.float32, device=u.device)
         chunks = []
         for c in range(S // ck):
@@ -173,9 +199,44 @@ def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, return_state: bool):
     return (y * silu(z)) @ p["out_proj"], u, h
 
 
-def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Full mamba block: x (B, S, D) -> (B, S, D)."""
+def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Full mamba block: x (B, S, D) -> (B, S, D); with ``tp`` (a
+    ``dist.sharding.ModelAxis``) partitioned over it (the module docstring)."""
+    if tp is not None:
+        return tp.reduce(_mamba_partial(cfg, p, tp.enter(x), tp), x.dtype)
     return _block(cfg, p, x, return_state=False)[0]
+
+
+def _rank_channels(cfg: ModelConfig, p: Params, tp) -> Params:
+    """This rank's channels ``[c0, c0 + k)`` of every mixer leaf, with u's
+    and z's columns of ``in_proj`` as ``u_proj`` and ``z_proj``.  With
+    ``d_inner`` divisible by the axis, the placements cut ``x_proj``,
+    ``A_log``, ``out_proj`` and ``dt_w`` on it (they are the rank's already)
+    and ``in_proj`` on ``2·di`` (gathered, ``ModelAxis.whole``), and leave
+    ``conv_w``, ``conv_b``, ``dt_b`` and ``D`` replicated (entered, then
+    sliced)."""
+    di = cfg.d_inner
+    if di % tp.size:
+        raise ValueError(f"the partitioned mamba mixer takes d_inner={di} in equal parts on "
+                         f"the {tp.size} ranks of the model axis")
+    k = di // tp.size
+    c0 = tp.rank * k
+    w = tp.whole(p["in_proj"], -1)
+    local = {"u_proj": w[:, c0:c0 + k], "z_proj": w[:, di + c0:di + c0 + k],
+             **{n: p[n] for n in ("x_proj", "A_log", "out_proj", "dt_w")}}
+    for name, dim in (("conv_w", 1), ("conv_b", 0), ("dt_b", 0), ("D", 0)):
+        local[name] = tp.enter(p[name]).narrow(dim, c0, k)
+    return local
+
+
+def _mamba_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's float32 partial of the mamba block's output, from
+    ``x_in`` (``x`` after ``tp.enter``): ``_block`` on its channels, the
+    row-parallel ``out_proj`` last."""
+    local = _rank_channels(cfg, p, tp)
+    u, z = x_in @ local["u_proj"], x_in @ local["z_proj"]
+    y = mamba_mix(cfg, local, u, tp=tp)
+    return row_partial(y * silu(z), local["out_proj"])
 
 
 def mamba_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor):

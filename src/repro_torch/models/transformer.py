@@ -33,11 +33,12 @@ fsdp) just before the layer runs, inside its ``checkpoint`` when
 ``cfg.remat`` is on; attention runs this rank's heads, the MLP and the
 experts its columns of the hidden dim (or, ``moe_sharding='expert'``, its
 experts), each sublayer summed by one rank-ordered all-reduce of float32
-partials; the embedding is a vocab-parallel lookup, the head and the
-cross-entropy vocab-parallel (each rank its columns, the carries combined
-over the axis).  The loss is the same scalar on every rank.  The mamba
-mixer gathers its leaves whole and every rank computes it (its ``in_proj``
-is not column-parallel: ``dist.sharding``).  ``init_model(..., shard=)``
+partials; the mamba mixer its channels of ``d_inner`` (``models.ssm``:
+``in_proj`` gathered over the axis, its one gather there; ``x_proj`` and
+``out_proj`` row-parallel, an all-reduce each); the embedding is a
+vocab-parallel lookup, the head and the cross-entropy vocab-parallel (each
+rank its columns, the carries combined over the axis).  The loss is the
+same scalar on every rank.  ``init_model(..., shard=)``
 keeps each rank's slice of every leaf as it is drawn
 (``dist.sharding.Sharder``), from the same generator in the same order, so
 the shards are bit for bit slices of the replicated parameters.
@@ -208,13 +209,14 @@ def _fuse(cfg: ModelConfig, lp: Params, a: torch.Tensor, m: torch.Tensor) -> tor
 
 def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int,
          shards=None) -> torch.Tensor:
-    """Sequence-mixing sublayer: attention, mamba, or both (hybrid)."""
+    """Sequence-mixing sublayer: attention, mamba, or both (hybrid); with
+    ``shards`` each partitioned over ``model`` where the axis cuts it."""
+    axis = (lambda name: None) if shards is None else (lambda name: shards.axis_for((name,)))
     if cfg.arch_type == "ssm":
-        return ssm_mod.mamba_forward(cfg, lp["mamba"], xn)
-    tp = None if shards is None else shards.axis_for(("attn",))
-    a = attn.attention_forward(cfg, lp["attn"], xn, window, tp)
+        return ssm_mod.mamba_forward(cfg, lp["mamba"], xn, axis("mamba"))
+    a = attn.attention_forward(cfg, lp["attn"], xn, window, axis("attn"))
     if cfg.arch_type == "hybrid":
-        return _fuse(cfg, lp, a, ssm_mod.mamba_forward(cfg, lp["mamba"], xn))
+        return _fuse(cfg, lp, a, ssm_mod.mamba_forward(cfg, lp["mamba"], xn, axis("mamba")))
     return a
 
 

@@ -250,10 +250,11 @@ def test_sharded_placements_raise_until_their_port(mesh, ranks):
     """The placements that once raised build and take a step: fsdp
     over several data ranks and specs that cut a leaf over ``model`` (on
     the 4 spawned ranks, (data=2, model=2): each rank holds half of x, the
-    step moves it, and every rank gathers the same x).  What still raises:
-    the pallas engine on a shard of more than ``PALLAS_MAX_RUNS`` runs, a
-    column-parallel leaf's (ROADMAP Queue 1 item 11c)."""
-    from repro_torch.core.engine import PALLAS_MAX_RUNS, make_engine
+    step moves it, and every rank gathers the same x); and the pallas
+    engine on a column-parallel shard of many runs (129 of 2), once refused
+    for its per-run launches, now one call per primitive with a run table,
+    its perturb and reconstruct bit for bit the tree engine's."""
+    from repro_torch.core.engine import make_engine
     from repro_torch.dist.sharding import P
 
     opt = sgd(const_schedule(0.1))
@@ -271,9 +272,16 @@ def test_sharded_placements_raise_until_their_port(mesh, ranks):
             assert np.isfinite(got["losses"]).all()
             assert float(np.abs(got["x"] - x0()["x"].numpy()).max()) > 0
     column = H.FakeMesh(dict(data=0, model=1), data=1, model=2)
-    with pytest.raises(ValueError, match="11c"):
-        make_engine("pallas", {"x": torch.zeros(PALLAS_MAX_RUNS + 1, 1, 2)}, 0,
-                    specs=[P(None, None, "model")], mesh=column)
+    x = {"x": torch.linspace(-1.0, 1.0, 129 * 2).reshape(129, 1, 2)}
+    engines = [make_engine(e, x, 0, specs=[P(None, None, "model")], mesh=column)
+               for e in ("pallas", "tree")]
+    for eng in engines:            # the norm a group would reduce: one worker's, by hand
+        eng._inv_norms = lambda t, workers: torch.ones(len(workers))
+    pal, tree = engines
+    assert tuple(pal.starts[0].shape) == (129,)
+    assert torch.equal(pal.perturb(x, 2, 1, 0.5)["x"], tree.perturb(x, 2, 1, 0.5)["x"])
+    c = torch.tensor([0.5, -2.0])
+    assert torch.equal(pal.reconstruct(c, 2)["x"], tree.reconstruct(c, 2)["x"])
 
 
 # --------------------------------------------------------------------------- #

@@ -6,7 +6,8 @@ This file imports no JAX (the GPU machine has none): each kernel is held
 against its plain PyTorch version on the same inputs.  Per-leaf kernels: fp32
 outputs bitwise, bf16 ones to one bf16 ulp, the sum of squares to rtol
 1e-6 (also where the counters wrap past 2^32, and over a split leaf);
-zo_perturb also on views off a 16-byte boundary.  zo_reconstruct_update,
+zo_perturb also on views off a 16-byte boundary; both per-leaf kernels
+on a shard's run table bit for bit.  zo_reconstruct_update,
 zo_reconstruct_flat and zo_perturb_flat are held bit for bit at every m, at
 blocks of 256, 257 and 4096 and off 16-byte boundaries.  The Gaussian is
 held to libdevice's on every value of its two uniforms.  Other flat kernels: fp32 outputs to
@@ -155,10 +156,41 @@ def test_per_leaf_kernels_match_plain_versions(n, offset):
     # the masked tail: a canary after the leaf in the same allocation
     buf = torch.full((n + 256,), 7.0, device=dev)
     cu._launch("zo_perturb", "zo_perturb_leaf_launch", x.data_ptr(), buf.data_ptr(), n,
-               99, offset, scale.reshape(1).data_ptr(), 0, x.device.index,
+               99, offset, None, n, scale.reshape(1).data_ptr(), 0, x.device.index,
                torch.cuda.current_stream(x.device).cuda_stream)
     assert torch.equal(buf[:n], ref.ref_zo_perturb(x, 99, scale, offset))
     assert bool((buf[n:] == 7.0).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runs,run,first,step", [(600, 1024, 0, 2048), (257, 1027, 7, 4099),
+                                                 (1001, 3, 5, 8), (9, 1, 11, 3),
+                                                 (40, 1024, 2 ** 32 - 20 * 1024 - 500, 1024)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_per_leaf_kernels_on_a_run_table(runs, run, first, step, shift):
+    """zo_perturb (float32 and bfloat16) and zo_reconstruct (m = 4, both
+    accumulators) on a shard's run table, bit for bit their plain versions:
+    runs of 1024, of a length no multiple of a vector, shorter than one, of
+    one value, and starts across 2^32; the leaf at and off a 16-byte
+    boundary.  The shard taken for a leaf of its own (local counters)
+    differs."""
+    dev = _cuda()
+    n = runs * run
+    starts = ((first + step * torch.arange(runs, dtype=torch.int64)) % 2 ** 32).to(
+        torch.uint32).to(dev)
+    base = to_t(leaf(n + shift)).to(dev)
+    scale = torch.tensor(0.37, device=dev)
+    for x in (base[shift:], base.to(torch.bfloat16)[shift:]):
+        got = cu.zo_perturb(x, 99, scale, starts=starts)
+        assert torch.equal(got, ref.ref_zo_perturb(x, 99, scale, starts=starts))
+        assert not torch.equal(got, ref.ref_zo_perturb(x, 99, scale))
+    salts = torch.arange(11, 15, dtype=torch.int32).to(torch.uint32)
+    coeffs = torch.linspace(-1.5, 2.0, 4, device=dev)
+    for acc in ("float32", "bfloat16"):
+        got = cu.zo_reconstruct(n, salts.to(dev), coeffs, acc_dtype=acc, starts=starts)
+        assert torch.equal(got, ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
+                                                       device=dev, starts=starts))
     torch.cuda.synchronize()
 
 
@@ -187,7 +219,7 @@ def test_zo_perturb_on_views_off_a_16_byte_boundary(n, shift):
     for at in (0, 1):
         buf = torch.full((n + 257,), 7.0, device=dev)
         cu._launch("zo_perturb", "zo_perturb_leaf_launch", x.data_ptr(), buf[at:].data_ptr(),
-                   n, 7, 0, scale.reshape(1).data_ptr(), 0, x.device.index,
+                   n, 7, 0, None, n, scale.reshape(1).data_ptr(), 0, x.device.index,
                    torch.cuda.current_stream(x.device).cuda_stream)
         assert torch.equal(buf[at:at + n], ref.ref_zo_perturb(x, 7, scale, 0))
         assert bool((buf[:at] == 7.0).all()) and bool((buf[at + n:] == 7.0).all())

@@ -8,6 +8,9 @@ package, on the CPU.
   atol 1e-6 (the Gaussians differ by ulps of log/cos between the two math
   libraries), the bf16 accumulator bitwise (its rounding after every worker
   quantizes those ulps away at these inputs);
+* the run-table plain versions (a shard of a leaf: runs of consecutive
+  global counters, one kernel call) bit for bit the contiguous ones called
+  run by run, across 2^32 and at run lengths no multiple of a vector;
 * ``PallasEngine`` against the JAX ``PallasEngine`` on the Fig. 2 MLP at
   hidden=16 (salts bitwise, Gaussians rtol 1e-5 / atol 1e-6) and against the
   port's own ``tree`` engine bitwise (the same float32 expressions);
@@ -102,6 +105,62 @@ def test_split_leaf_calls_equal_one_call():
                        ops.zo_reconstruct(n, s, c))
     parts = ops.zo_sumsq(k, 77, device="cpu") + ops.zo_sumsq(n - k, 77, k, device="cpu")
     assert float(parts) == pytest.approx(float(ops.zo_sumsq(n, 77, device="cpu")), rel=1e-6)
+
+
+#: (runs, run length, first start, start step): runs of 1024 (a column-
+#: parallel shard's rows), lengths no multiple of 4 or 8 (1027, 3, 1), and
+#: starts across 2^32 (run 20 wraps inside itself)
+RUN_TABLES = [(40, 1024, 0, 2048), (9, 1027, 7, 4099), (101, 3, 5, 8), (17, 1, 11, 3),
+              (40, 1024, 2 ** 32 - 20 * 1024 - 500, 1024)]
+
+
+def _starts(runs, first, step):
+    return ((first + step * torch.arange(runs, dtype=torch.int64)) % 2 ** 32).to(torch.uint32)
+
+
+@pytest.mark.parametrize("runs,run,first,step", RUN_TABLES)
+def test_run_table_plain_versions_are_the_contiguous_ones_run_by_run(runs, run, first, step):
+    """``zo_perturb`` and ``zo_reconstruct`` on a run table (their plain
+    versions, as ``kernels.ops`` runs them on the CPU) bit for bit the
+    contiguous plain versions called once per run at its start; the shard
+    taken for a leaf of its own (local counters) differs (the control)."""
+    n = runs * run
+    starts = _starts(runs, first, step)
+    g = torch.Generator().manual_seed(runs)
+    for x in (torch.randn(n, generator=g), torch.randn(n, generator=g).to(torch.bfloat16)):
+        got = ops.zo_perturb(x, 77, 0.3, starts=starts)
+        assert got.dtype == x.dtype
+        assert torch.equal(got, torch.cat([ops.zo_perturb(x[r * run:(r + 1) * run], 77, 0.3,
+                                                          offset=int(starts[r]))
+                                           for r in range(runs)]))
+        assert not torch.equal(got, ops.zo_perturb(x, 77, 0.3))
+    s, c = torch.from_numpy(SALTS), torch.from_numpy(COEFFS)
+    for acc in ("float32", "bfloat16"):
+        got = ops.zo_reconstruct(n, s, c, acc_dtype=acc, starts=starts)
+        assert torch.equal(got, torch.cat([ops.zo_reconstruct(run, s, c, int(starts[r]), acc)
+                                           for r in range(runs)]))
+        assert not torch.equal(got, ops.zo_reconstruct(n, s, c, acc_dtype=acc))
+
+
+def test_run_tables_are_checked_and_fake_operators_take_them():
+    """A table that does not cut the leaf into equal runs, or one beside a
+    nonzero offset, raises on every path; a leaf without data takes the
+    operator with its table (one call)."""
+    starts = _starts(3, 0, 16)
+    for call in (lambda: ops.zo_perturb(torch.zeros(10), 1, 0.1, starts=starts),
+                 lambda: ops.zo_perturb(torch.zeros(12), 1, 0.1, offset=5, starts=starts),
+                 lambda: ops.zo_reconstruct(10, torch.from_numpy(SALTS),
+                                            torch.from_numpy(COEFFS), starts=starts),
+                 lambda: ops.zo_perturb(torch.zeros(10, device="meta"), 1, 0.1,
+                                        starts=starts.to("meta"))):
+        with pytest.raises(ValueError, match="starts"):
+            call()
+    fake.reset_calls()
+    out = ops.zo_perturb(torch.zeros(12, device="meta"), 1, 0.1, starts=starts.to("meta"))
+    rec = ops.zo_reconstruct(12, torch.zeros(4, dtype=torch.uint32, device="meta"),
+                             torch.zeros(4, device="meta"), starts=starts.to("meta"))
+    assert out.shape == rec.shape == (12,) and rec.dtype == torch.float32
+    assert fake.CALLS["zo_perturb"] == fake.CALLS["zo_reconstruct"] == 1
 
 
 @pytest.mark.parametrize("n,block,offset", [(5000, 4096, 2 ** 32 - 1000),

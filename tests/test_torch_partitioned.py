@@ -1,6 +1,6 @@
 """The partitioned forward over the ``model`` axis on spawned gloo ranks
 (``dist.sharding.ShardedParams``, ``ModelAxis``; the layers of
-``models/{layers,attention,moe,transformer}``).
+``models/{layers,attention,moe,ssm,transformer}``).
 
 Tolerances, and why.  A row-parallel product sums float32 partials in rank
 order where one process's product sums its contraction in one pass, and the
@@ -39,23 +39,39 @@ every rank, or a token could go to different experts on two ranks.
   evaluation and on a digest of every all-reduce's result (the replicated
   activations, and in an FO step the gradients entering the replicated
   part).
+* The mamba mixer partitioned (``models.ssm``): falcon-mamba-7b and
+  hymba-1.5b reduced from the reference's parameters on (data=1, model=2)
+  and (data=2, model=2), m=2, an FO and a ZO step within 2e-5 of the
+  reference's, f0, f1 and the loss within rtol 1e-6 of one process's, the
+  update within 2% (or one float32 ulp) of one process's, the ZO step's
+  given the same f0 and f1 (``test_mixer_step_matches_reference_and_one_process``
+  says why), every all-reduce and loss evaluation the same bits on the
+  ranks of a worker, and the only gather over ``model`` the mixer's
+  ``in_proj``; the loss and gradients on model=2 against one process.
 * Controls that must fail: the gemma2 step without the MLP's all-reduce
   (its loss and gradients leave the tolerances); on (data=1, model=4) a
   sum that starts from each rank's own part (the all-reduces' results part
   between the ranks; the losses, means over many terms, may still round
-  alike, as they do here).
+  alike, as they do here); the mixer without its ``out_proj`` all-reduce
+  (loss and gradients), and ``conv_w`` sliced without entering (its
+  gradient one rank's share, the loss unchanged).
 """
 import jax
 import numpy as np
 import pytest
+import torch
 
 import torch_dist_helpers as H
 from repro import compat
 from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import distributed as TD
 from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.models import transformer as T
+from repro_torch.tree import tree_leaves
 from test_torch_sharded import (  # noqa: F401  (fixtures: one, qwen, moe)
-    _batch, _d, _max_diff, _one_process, _reference_fo, _reference_zo, assert_update_close,
-    moe, one, qwen)
+    _batch, _d, _max_diff, _one_process, _ref, _reference_fo, _reference_zo,
+    assert_update_close, moe, one, qwen)
 
 GRAD_REL = 2e-5
 
@@ -66,15 +82,23 @@ def reference_auto_branch(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def two(qwen, tmp_path_factory):
-    return spawn_ranks(H.run_partitioned_2, 2, str(tmp_path_factory.mktemp("part2") / "init"),
-                       qwen[2], _batch(512), timeout=420)
+def ssm():
+    """arch -> the reference's reduced config, parameters and their numpy
+    tree, for ``H.SSM_ARCHS``."""
+    return {arch: _ref(arch) for arch in H.SSM_ARCHS}
 
 
 @pytest.fixture(scope="module")
-def four(moe, qwen, tmp_path_factory):
+def two(qwen, ssm, tmp_path_factory):
+    return spawn_ranks(H.run_partitioned_2, 2, str(tmp_path_factory.mktemp("part2") / "init"),
+                       qwen[2], _batch(512), {a: r[2] for a, r in ssm.items()}, timeout=420)
+
+
+@pytest.fixture(scope="module")
+def four(moe, qwen, ssm, tmp_path_factory):
     return spawn_ranks(H.run_partitioned_4, 4, str(tmp_path_factory.mktemp("part4") / "init"),
-                       moe[2], qwen[2], _batch(512), timeout=420)
+                       moe[2], qwen[2], _batch(512), {a: r[2] for a, r in ssm.items()},
+                       timeout=420)
 
 
 def _expected_reduces(cfg, kind, evaluations):
@@ -208,3 +232,110 @@ def test_model4_agrees_and_a_rank_order_free_sum_does_not(qwen, four, one):
     # losses, means over many terms, may still round alike)
     assert any(out["model4-rotated-records"]["sums"] != four[0]["model4-rotated-records"]["sums"]
                for out in four)
+
+
+def assert_update_or_ulp_close(got, want, start, what=""):
+    """Every element within 2% of the largest update (``assert_update_close``)
+    or one float32 ulp of its value: a ZO update of the SSM archs is the size
+    of an ulp of ``A_log``'s largest values (log 16 = 2.77, an ulp 2.4e-7; the
+    update at zo_lr = 0.05 / d is 2.7e-7), so a coefficient a few ulps of the
+    loss away can round it to the next value; the card's rule is the same
+    with a bf16 ulp (``chip_smoke.fo_update_hold``)."""
+    scale = max(float(np.abs(w - s).max()) for w, s in zip(want, start))
+    assert scale > 0
+    for g, w in zip(got, want):
+        tol = np.maximum(0.02 * scale + 1e-7, np.spacing(np.abs(w)))
+        assert (np.abs(g - w) <= tol).all(), (what, float(np.abs(g - w).max()), scale)
+
+
+def _one_process_replayed(cfg, np_tree, batch, mesh, ho, t, evals):
+    """The port's one-process ZO step whose loss evaluations return
+    ``evals`` (another run's f0, f1 of every worker, in order, float32), so
+    that its coefficients are that run's: its parameters."""
+    full = params_from_numpy(np_tree, device="cpu")
+    queue = list(evals)
+
+    def loss(p, b):
+        T.loss_fn(cfg, p, b)                      # the same evaluation, its value replaced
+        return torch.tensor(queue.pop(0), dtype=torch.float32)
+
+    _, zo = TD.make_distributed_ho_sgd(loss, mesh, ho, model_cfg=cfg, params_like=full)
+    p, _, _ = zo(t, full, (), batch)
+    assert not queue
+    return [x.numpy() for x in tree_leaves(p)]
+
+
+def _mixer_gathers(cfg, kind, evaluations):
+    """The partitioned mamba mixer's gathers over ``model`` in a step: one
+    of ``in_proj`` a layer a forward, and in an FO step under remat once
+    more in the layer's recompute."""
+    return cfg.n_layers * evaluations * (2 if kind == "fo" and cfg.remat else 1)
+
+
+@pytest.mark.parametrize("mesh", ["model2", "data2-model2"])
+@pytest.mark.parametrize("kind", ["fo", "zo"])
+@pytest.mark.parametrize("arch", H.SSM_ARCHS)
+def test_mixer_step_matches_reference_and_one_process(ssm, two, four, one, arch, kind, mesh):
+    """The SSM and hybrid archs, the mixer partitioned (m=2: held in the
+    process on model=2, a data rank each on (data=2, model=2)): within
+    2e-5 of the reference's step; f0, f1 and the step's loss within rtol
+    1e-6 of the port's one-process step's, and the parameters within 2% of
+    the update (or one float32 ulp, ``assert_update_or_ulp_close``) of its
+    FO step, and of its ZO step given this run's f0 and f1
+    (``_one_process_replayed``): the coefficient ``(d/mu)(f1 - f0)`` turns
+    the losses' last ulps (rtol 1e-7 here) into tens of percent of a ZO
+    update at mu = 1e-3, so the partitioned forward is held by its losses
+    and the sharded update by the same coefficients.  The ranks of a worker
+    evaluate the same bits, and the only gather over ``model`` is the
+    mixer's ``in_proj``."""
+    _, _, np_tree = ssm[arch]
+    cfg, d = get_config(arch).reduced(), _d(np_tree)
+    t = 0 if kind == "fo" else H.ZO_T
+    res = [out[f"{arch}-{kind}"] for out in (two if mesh == "model2" else four)]
+    recs = [out[f"{arch}-{kind}-records"] for out in (two if mesh == "model2" else four)]
+    ref = (_reference_fo if kind == "fo" else _reference_zo)(arch, 2)
+    assert _max_diff(res[0]["params"], ref) < 2e-5
+    p1, loss1, losses1, bytes1 = _one_process(cfg, np_tree, _batch(512), one,
+                                              H.llm_config(d, 2), kind, t)
+    if kind == "zo":
+        # the one-process step given this run's f0 and f1 of every worker
+        evals = (res[0]["losses"] if mesh == "model2" else
+                 [v for w in (0, 1) for v in next(r for r in res if r["worker"] == w)["losses"]])
+        p1 = _one_process_replayed(cfg, np_tree, _batch(512), one, H.llm_config(d, 2), t,
+                                   evals)
+    assert_update_or_ulp_close(res[0]["params"], p1, _start(np_tree), kind)
+    assert res[0]["bytes"] == bytes1 == (4 * d if kind == "fo" else 4 * 2)
+    for i, (r, rec) in enumerate(zip(res, recs)):
+        np.testing.assert_allclose(r["loss"], loss1, rtol=1e-6)
+        if kind == "zo" or mesh == "model2":
+            # f0, f1 of the worker (every worker's, held in the process)
+            want = losses1 if mesh == "model2" else losses1[2 * r["worker"]:2 * r["worker"] + 2]
+            np.testing.assert_allclose(r["losses"], want, rtol=1e-6)
+        mate = next(j for j, o in enumerate(res) if o["worker"] == r["worker"] and j != i)
+        assert r["losses"] == res[mate]["losses"]
+        assert rec["sums"] == recs[mate]["sums"]
+        assert set(r["gathers"]) == {("model",)}
+        calls, nbytes = r["gathers"][("model",)]
+        assert calls == _mixer_gathers(cfg, kind, len(r["losses"]))
+        assert nbytes == calls * 4 * cfg.d_model * 2 * cfg.d_inner       # in_proj, float32
+
+
+@pytest.mark.parametrize("arch", H.SSM_ARCHS)
+def test_mixer_gradients_match_one_process_and_controls_fail(two, arch):
+    """Loss and every gradient of the partitioned forward within rtol 1e-6
+    and 2e-5 of a leaf's largest |g| of one process's; without the mixer's
+    ``out_proj`` all-reduce the loss and gradients leave those bounds, and
+    with ``conv_w`` sliced but not entered its gradient does (one rank's
+    share), while the loss stays."""
+    for out in two:
+        r = out[f"{arch}-grads"]
+        np.testing.assert_allclose(r["loss"], r["loss1"], rtol=1e-6)
+        assert max(r["grad_rel"].values()) <= GRAD_REL, r["grad_rel"]
+        bad = out[f"{arch}-no-mixer-reduce"]
+        assert abs(bad["loss"] - bad["loss1"]) > 1e-6 * abs(bad["loss1"])
+        assert max(bad["grad_rel"].values()) > GRAD_REL
+        conv = out[f"{arch}-conv-w-not-entered"]
+        np.testing.assert_allclose(conv["loss"], conv["loss1"], rtol=1e-6)
+        assert conv["grad_rel"]["layers/mamba/conv_w"] > GRAD_REL
+        assert max(v for k, v in conv["grad_rel"].items()
+                   if k != "layers/mamba/conv_w") <= GRAD_REL

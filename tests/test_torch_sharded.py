@@ -7,13 +7,18 @@ gathers, the engines over shards (``core.engine``), the process-group steps
   row, the embedding's vocab rows, the expert dim, fsdp's largest dim,
   an fsdp vector) and every coordinate of a (data=2, model=2) mesh, a
   shard's direction from the ``tree``, ``fused``, ``flat`` (plain
-  versions) and ``pallas`` (per run) engines is bit for bit the slice of
+  versions) and ``pallas`` (a run table) engines is bit for bit the slice of
   the whole leaf's direction, and a shard generated with local counters is
   not (the control); the flat layout keeps counters past 2**32 (wrapped
   as the hash wraps them); the flat block comes from the runs; an engine's
-  ``dim`` is the global d; a column-parallel shard with more runs than
-  ``PALLAS_MAX_RUNS`` makes the ``pallas`` engine raise (ROADMAP item 11c),
-  and the fused flat pair raises under sharded specs.
+  ``dim`` is the global d; the ``pallas`` engine on the shards of every
+  rule, on (data=1, model=2) and (data=2, model=2): one kernel call per
+  leaf and primitive whatever its runs (a column-parallel shard of 129
+  runs too), its perturb and reconstruct bit for bit ``tree``'s and
+  ``flat``'s, and within the reference's ``pallas`` engine's parity rules
+  (rtol 1e-5 / atol 1e-6: the Gaussians' ulps between the two math
+  libraries) of the whole leaf's, sliced by ``shard_slices``; the fused flat
+  pair raises under sharded specs.
 * 8 spawned gloo ranks, (data=4, model=2), qwen3-14b reduced from the
   reference's parameters (tests/helpers/dist_check.py's case), the forward
   partitioned over ``model``: one ZO step at t=5 with m=4 on ``tree`` and
@@ -53,7 +58,7 @@ gathers, the engines over shards (``core.engine``), the process-group steps
   rank computed the whole model on gathered leaves; the partitioned
   forward sums float32 partials in rank order), and the same step without
   the MLP's all-reduce outside both (the control); the ``pallas`` engine's
-  per-run branch on a leaf cut into three runs against the ``tree``
+  run table on a leaf cut into three runs against the ``tree``
   engine.
 
 The reference's ``HAS_PARTIAL_AUTO_COLLECTIVES`` is switched off by an
@@ -84,8 +89,8 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import directions as D
 from repro_torch.core import distributed as TD
-from repro_torch.core.engine import (
-    MIN_SHARD_BLOCK, PALLAS_MAX_RUNS, flat_layout, make_engine, shard_block)
+from repro.core.engine import make_engine as jmake_engine
+from repro_torch.core.engine import MIN_SHARD_BLOCK, flat_layout, make_engine, shard_block
 from repro_torch.dist import CommLedger
 from repro_torch.dist import sharding as S
 from repro_torch.dist.compress import qsgd
@@ -216,14 +221,97 @@ def test_engine_dim_is_the_global_d():
 
 
 def test_pallas_column_shard_raises_and_fused_pair_refuses_shards():
-    mesh = FakeMesh(COORDS[0], **SIZES)
+    """A column-parallel shard of 129 runs (once past the per-run launch
+    limit, which raised) builds the ``pallas`` engine: a run table of 129
+    starts, its perturb bit for bit ``tree``'s; the fused flat pair still
+    refuses shards."""
+    mesh = FakeMesh(COORDS[1], **SIZES)
     spec = P(None, None, "model")
-    x = {"x": torch.zeros(PALLAS_MAX_RUNS + 1, 1, 4)}
-    with pytest.raises(ValueError, match="11c"):
-        make_engine("pallas", x, 0, specs=[spec], mesh=mesh)
+    x = {"x": torch.randn(129, 1, 4, generator=torch.Generator().manual_seed(0))}
+    pal = make_engine("pallas", x, 0, specs=[spec], mesh=mesh)
+    assert pal.starts[0].dtype == torch.uint32 and pal.starts[0].shape == (129,)
+    assert torch.equal(pal.perturb(x, 1, 0, 0.5)["x"],
+                       make_engine("tree", x, 0, specs=[spec], mesh=mesh).perturb(x, 1, 0, 0.5)["x"])
     eng = make_engine("flat", x, 0, specs=[spec], mesh=mesh)
     with pytest.raises(ValueError, match="global"):
         eng.fused_perturb_sumsq(eng.pack(x), 1, 0, 1e-3)
+
+
+#: (data, model) meshes the pallas engine's shards are held on
+PALLAS_MESHES = {"data1-model2": dict(data=1, model=2), "data2-model2": SIZES}
+PALLAS_RULES = ("column", "row", "fsdp-largest", "fsdp-vector", "embed-rows", "expert-dim")
+
+
+def _pallas_cases(rule, mesh_name):
+    """Per coordinate of the mesh: ``(mesh, geometry, this rank's shard of
+    a random whole leaf, the whole leaf)`` for a rule of ``RULES``."""
+    _, shape, _ = RULES[rule]
+    sizes = PALLAS_MESHES[mesh_name]
+    cfg = types.SimpleNamespace(fsdp=rule.startswith("fsdp"),
+                                moe_sharding="expert" if rule == "expert-dim" else "tensor")
+    path = RULES[rule][0]
+    whole = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    for a, b in itertools.product(range(sizes["data"]), range(sizes["model"])):
+        coord = dict(data=a, model=b)
+        mesh = FakeMesh(coord, **sizes)
+        spec = tree_leaves(S.param_specs(cfg, _nest(path, whole), mesh))[0]
+        geom = S.ShardGeometry([spec], [shape], S.mesh_shape(mesh), coord)
+        yield mesh, spec, geom, whole[geom.slices[0]].contiguous(), whole
+
+
+def _whole_norms(eng, whole):
+    """``eng``'s per-worker inverse norms taken from an engine over the whole
+    leaf (the global norm; on a process group it is one collective)."""
+    ref = make_engine("tree", {"x": whole}, eng.seed)
+    eng._inv_norms = lambda t, workers: ref._inv_norms(t, workers)
+    return eng
+
+
+@pytest.mark.parametrize("mesh_name", sorted(PALLAS_MESHES))
+@pytest.mark.parametrize("rule", PALLAS_RULES)
+def test_pallas_shards_bit_for_bit_tree_and_flat_one_call_per_leaf(rule, mesh_name, monkeypatch):
+    calls = {"zo_perturb": 0, "zo_reconstruct": 0}
+    for name in calls:
+        real = getattr(ops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    coeffs = torch.tensor([0.5, -1.0, 2.0])
+    for mesh, spec, geom, shard, whole in _pallas_cases(rule, mesh_name):
+        x = {"x": shard}
+        engines = {e: _whole_norms(make_engine(e, x, 7, specs=[spec], mesh=mesh), whole)
+                   for e in ("pallas", "tree", "flat")}
+        before = dict(calls)
+        got = engines["pallas"].perturb(x, 3, 2, 0.25)["x"]
+        rec = engines["pallas"].reconstruct(coeffs, 3, [0, 2, 5])["x"]
+        assert {k: calls[k] - before[k] for k in calls} == {"zo_perturb": 1,
+                                                           "zo_reconstruct": 1}
+        for e in ("tree", "flat"):
+            assert torch.equal(got, engines[e].perturb(x, 3, 2, 0.25)["x"]), (e, mesh._coord)
+            assert torch.equal(rec, engines[e].reconstruct(coeffs, 3, [0, 2, 5])["x"]), e
+
+
+@pytest.mark.parametrize("mesh_name", sorted(PALLAS_MESHES))
+@pytest.mark.parametrize("rule", ["column", "row", "fsdp-largest"])
+def test_pallas_shards_match_the_reference_pallas_engine_sliced(rule, mesh_name):
+    coeffs = np.asarray([0.5, -1.0, 2.0], np.float32)
+    for mesh, spec, geom, shard, whole in _pallas_cases(rule, mesh_name):
+        jx = {"x": jnp.asarray(whole.numpy())}
+        je = jmake_engine("pallas", jx, 7, block=64)
+        jinv = float(jax.jit(je.inv_norm)(jnp.int32(3), jnp.uint32(2)))
+        jout = jax.jit(lambda p: je.perturb(p, jnp.int32(3), jnp.uint32(2),
+                                            jnp.float32(0.25 * jinv)))(jx)["x"]
+        jrec = jax.jit(lambda: je.reconstruct(jnp.asarray(coeffs), jnp.int32(3)))()["x"]
+        eng = _whole_norms(make_engine("pallas", {"x": shard}, 7, specs=[spec], mesh=mesh),
+                           whole)
+        got = eng.perturb({"x": shard}, 3, 2, torch.tensor(0.25 * jinv))["x"]
+        sl = geom.slices[0]
+        np.testing.assert_allclose((got - shard).numpy(), np.asarray(jout)[sl] - shard.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        rec = eng.reconstruct(torch.from_numpy(coeffs), 3)["x"]
+        np.testing.assert_allclose(rec.numpy(), np.asarray(jrec)[sl], rtol=1e-5, atol=1e-6)
 
 
 # --------------------------------------------------------------------------- #
@@ -450,7 +538,7 @@ def test_pallas_runs_its_kernels_per_run_of_a_row_shard(two):
     start = np.linspace(-1.0, 1.0, 144, dtype=np.float32).reshape(3, 8, 6)
     pal, tree = res[0]["quad-pallas"], res[0]["quad-tree"]
     assert pal["loss"] == tree["loss"]
-    assert_update_close([pal["w"]], [tree["w"]], [start], "pallas per run")
+    assert_update_close([pal["w"]], [tree["w"]], [start], "pallas run table")
     assert float(np.abs(pal["w"] - start).max()) > 0
     assert all(np.array_equal(out["quad-pallas"]["w"], pal["w"]) for out in res)
 

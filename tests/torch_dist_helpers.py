@@ -150,7 +150,7 @@ def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
     """One FO or ZO step of ``make_distributed_ho_sgd`` on this rank's
     shards: the gathered parameters (numpy, on rank 0), their checksum, the
     shapes held, the loss, this rank's loss evaluations in order (the first
-    its f0 on a ZO step), the ledger's bytes, this rank's rows, and the
+    its f0 on a ZO step), the ledger's bytes, this rank's rows and worker, and the
     gathers and all-reduces the step made (``collectives.GATHERS``,
     ``REDUCES``: axes -> [calls, bytes])."""
     import torch.distributed as dist
@@ -172,7 +172,8 @@ def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
             "checksum": float(sum(x.astype("float64").sum() for x in whole)),
             "held": [tuple(x.shape) for x in tree_leaves(p)], "loss": float(out),
             "f0": losses[0], "losses": list(losses), "bytes": ledger.bytes_per_step(kind),
-            "kinds": ledger.by_kind(kind), "rows": b["tokens"].numpy().copy(), **counts}
+            "kinds": ledger.by_kind(kind), "rows": b["tokens"].numpy().copy(),
+            "worker": worker_index(mesh), **counts}
 
 
 def engine_pins(cfg, mesh, full, engine, m):
@@ -284,7 +285,7 @@ def without_mlp_reduce():
 def run_sharded_2(rank, world, full_np, batch, quad_batch):
     """(data=1, model=2): the FO step of qwen3-14b reduced (m=4 held in the
     process), the same step without the MLP's all-reduce (the control), and
-    the pallas engine's per-run branch on a (3, 8, 6) leaf cut on dim 1
+    the pallas engine's run table on a (3, 8, 6) leaf cut on dim 1
     (three runs) against the tree engine."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import P, gather, gather_tree, shard_tree
@@ -568,7 +569,81 @@ def _recorded(fn):
         moe.route, ModelAxis.sum = route, total
 
 
-def run_partitioned_2(rank, world, qwen_np, batch):
+#: the SSM and hybrid architectures whose mamba mixer runs partitioned
+SSM_ARCHS = ("falcon-mamba-7b", "hymba-1.5b")
+
+
+def without_mixer_reduce():
+    """A failing control: the partitioned mamba mixer's ``out_proj``
+    all-reduce removed (each rank keeps its own partial), while the context
+    is open."""
+    import contextlib
+
+    from repro_torch.models import ssm
+
+    @contextlib.contextmanager
+    def patched():
+        real = ssm.mamba_forward
+
+        def mamba_forward(cfg, p, x, tp=None):
+            if tp is None:
+                return real(cfg, p, x)
+            return ssm._mamba_partial(cfg, p, tp.enter(x), tp).to(x.dtype)
+
+        ssm.mamba_forward = mamba_forward
+        try:
+            yield
+        finally:
+            ssm.mamba_forward = real
+
+    return patched()
+
+
+def conv_w_not_entered():
+    """A failing control: the replicated ``conv_w`` sliced to this rank's
+    channels without ``ModelAxis.enter`` (its gradient one rank's share),
+    while the context is open."""
+    import contextlib
+
+    from repro_torch.models import ssm
+
+    @contextlib.contextmanager
+    def patched():
+        real = ssm._rank_channels
+
+        def rank_channels(cfg, p, tp):
+            local = real(cfg, p, tp)
+            k = cfg.d_inner // tp.size
+            local["conv_w"] = p["conv_w"].narrow(1, tp.rank * k, k)
+            return local
+
+        ssm._rank_channels = rank_channels
+        try:
+            yield
+        finally:
+            ssm._rank_channels = real
+
+    return patched()
+
+
+def ssm_steps(mesh, ssm_np, batch, m=2):
+    """Per arch of ``SSM_ARCHS`` (its reduced config, the reference's
+    parameters ``ssm_np[arch]``): an FO step (t=0) and a ZO step (t=ZO_T)
+    of m workers on ``mesh``, with the digests of every all-reduce
+    (``_recorded``)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch).reduced()
+        full, d = _full(ssm_np[arch])
+        for kind, t in (("fo", 0), ("zo", ZO_T)):
+            out[f"{arch}-{kind}"], out[f"{arch}-{kind}-records"] = _recorded(
+                lambda: sharded_step(cfg, mesh, full, batch, llm_config(d, m), kind, t))
+    return out
+
+
+def run_partitioned_2(rank, world, qwen_np, batch, ssm_np):
     """(data=1, model=2): qwen3-14b reduced from the reference's parameters,
     an FO and a ZO step (m=4 held in the process) with their counts and the
     digests of every all-reduce (``_recorded``); the
@@ -577,7 +652,10 @@ def run_partitioned_2(rank, world, qwen_np, batch):
     (256 not a multiple of either), dense (``ce_chunk`` -1) and dense on a
     rank while one process streams (300); a KV = 1 config whose ``wk``/``wv``
     cut falls inside a head; the gemma2 step without the MLP's all-reduce
-    (the control)."""
+    (the control); the SSM archs' steps (``ssm_steps``, m=2 held in the
+    process), their loss and gradients against one process, and the same
+    without the mixer's ``out_proj`` all-reduce and with ``conv_w`` not
+    entered (the controls)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
@@ -600,16 +678,28 @@ def run_partitioned_2(rank, world, qwen_np, batch):
     with without_mlp_reduce():
         out["no-mlp-reduce"] = partitioned_case(gcfg, mesh, T.init_model(0, gcfg, device="cpu"),
                                                 _tokens(gcfg.vocab_size))
+    out.update(ssm_steps(mesh, ssm_np, batch))
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch).reduced()
+        full = T.init_model(3, cfg, device="cpu")
+        out[f"{arch}-grads"] = partitioned_case(cfg, mesh, full, _tokens(cfg.vocab_size))
+        with without_mixer_reduce():
+            out[f"{arch}-no-mixer-reduce"] = partitioned_case(cfg, mesh, full,
+                                                              _tokens(cfg.vocab_size))
+        with conv_w_not_entered():
+            out[f"{arch}-conv-w-not-entered"] = partitioned_case(cfg, mesh, full,
+                                                                 _tokens(cfg.vocab_size))
     return out
 
 
-def run_partitioned_4(rank, world, moe_np, qwen_np, batch):
+def run_partitioned_4(rank, world, moe_np, qwen_np, batch, ssm_np):
     """(data=2, model=2): qwen3-moe reduced under fsdp (one worker: every
     rank the whole batch), a ZO and an FO step with the expert ids of every
     route and the digests of every all-reduce (``_recorded``); the same
     config under ``moe_sharding='expert'`` against one process.  (data=1,
     model=4): qwen3-14b reduced, a ZO step (m=4 held in the process), then
-    the same step with a rank-order-free sum (the control)."""
+    the same step with a rank-order-free sum (the control).  Then, on
+    (data=2, model=2), the SSM archs' steps (``ssm_steps``, m=2)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
@@ -633,4 +723,5 @@ def run_partitioned_4(rank, world, moe_np, qwen_np, batch):
     out["model4"], out["model4-records"] = _recorded(step)
     with rotated_sum():
         out["model4-rotated"], out["model4-rotated-records"] = _recorded(step)
+    out.update(ssm_steps(mesh, ssm_np, batch))
     return out
