@@ -150,7 +150,9 @@ Phases (any failed check exits non-zero):
      ``torch.profiler`` on rank 0: ``launch.overlap.overlap_stats``' pairs
      equal to the all-reduces and gathers counted in the step; (d)
      ``bench.kernels_bench --smoke``: every kernel row within its tolerance
-     of its plain version;
+     of its plain version; (f) serving qwen3-14b at full width on rank 0
+     of model=2, a 1024-token prefill and a decode step over 8 slots of
+     1056, which phase 13b holds to the card;
   8e. the cluster simulator, ``make_sim_methods`` + ``simulate``, at Fig. 2's
      width (hidden=1300, m=4, B=64, tau=8, 32 iterations) on
      bandwidth-constrained flat clusters: (a) HO-SGD, sync-SGD, ZO-SGD; (b)
@@ -214,6 +216,15 @@ Phases (any failed check exits non-zero):
      scan kernel's share; the plain tail-state scan's calls, 0 through the
      kernel, which gives the state, and one per layer on the plain path;
      device time and peak memory of each) and one decode step over 8 slots;
+  13b. serving on sharded placements (``sharded_serve_phase``): flash at a
+     rank's H=20, KV=4 and the scan at a rank's di=4096, held to their
+     plain versions and timed; then 2 gloo ranks sharing ``cuda:0``, each
+     its shards at model=2 through ``Engine.generate``: (e) qwen3-14b and
+     (f) falcon-mamba-7b at full width and depth, the same weights,
+     prompts and slots as phases 10 and 12, held to their kernel runs by
+     phase 10's rule, both ranks the same tokens and logits bits, the
+     launches a rank, (e)'s collectives of a prefill and a decode step and
+     rank 0's peak against the dry run's (phase 8d'' (f));
   14. serving qwen3-moe-235b-a22b at full width (d_model 4096, 64/4 heads,
      128 experts, top-8, expert d_ff 1536), depth cut to 4 layers
      (11,195,683,840 random bf16 parameters), as phase 10: 32 flash
@@ -3710,7 +3721,11 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     width and depth on rank 0 of (data=1, model=2), an FO and a ZO step:
     the all-reduces' and gathers' calls and bytes of each equal to the
     card's first step of that kind, each peak within ``PEAK_TOL`` of the
-    card's.  Returns what it printed."""
+    card's.  (f) It also prices serving qwen3-14b at full width on rank 0
+    of (data=1, model=2) at ``SERVE_DRYRUN``'s shapes
+    (``serve_dryrun_target``), which ``sharded_serve_phase`` (e) holds to
+    the card; those records are returned as ``serve_dry``.  Returns what it
+    printed."""
     import multiprocessing as mp
     import tempfile
     from concurrent.futures import ProcessPoolExecutor
@@ -3724,9 +3739,12 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     targets = {k: (mesh, TRAIN_FLAGS, reduce) for k, mesh in DRYRUN_TARGETS.items()}
     if sharded_d is not None:
         targets["e"] = ("1x2", MIXER_FLAGS, sharded_d["reduce"])
-    with ProcessPoolExecutor(2 * len(targets), mp_context=mp.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(2 * len(targets) + len(SERVE_DRYRUN),
+                             mp_context=mp.get_context("spawn")) as pool:
         futures = {(k, step): pool.submit(dryrun_target, mesh, step, red, flags)
                    for k, (mesh, flags, red) in targets.items() for step in ("fo", "zo")}
+        serve_futures = {step: pool.submit(serve_dryrun_target, "1x2", step, "qwen3-14b", *shape)
+                         for step, shape in SERVE_DRYRUN.items()}
         # (c) while the dry runs work on the CPU
         with tempfile.TemporaryDirectory() as tmp:
             try:
@@ -3762,7 +3780,14 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
               + f" [{smi}]")
         out["bench"] = bench
         recs = {k: f.result() for k, f in futures.items()}
+        out["serve_dry"] = {step: f.result() for step, f in serve_futures.items()}
     wall = time.perf_counter() - t0
+    for step, rec in out["serve_dry"].items():
+        print(f"  (f) dry run of serving qwen3-14b {step} at (S, rows) {SERVE_DRYRUN[step]} on "
+              f"rank 0 of model=2: predicted peak {rec['memory']['peak_memory_in_bytes'] / 1e9:.3f}"
+              f" GB, arguments {rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, gathers "
+              f"{rec['gathers']} ({rec['gather_bytes']} B), all-reduces {rec['reduces']} "
+              f"({rec['reduce_bytes']} B), run {rec['run_s']} s")
     measured = {"a": train_a["peak_gb"], "b": sharded_a["rank0"]["peak_gb"]}
     if sharded_d is not None:
         measured["e"] = sharded_d["rank0"]["peak_gb"]
@@ -4571,7 +4596,8 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
               f"(first {dec[0]:.3f}); {n_tok} tokens in {rec['wall_s']:.3f} s = "
               f"{n_tok / rec['wall_s']:.1f} tok/s; peak memory {rec['peak_gb']:.1f} GB")
     return {"launches": fast["launches"], "plain_launches": plain["launches"],
-            "params": params, "prompts": prompts, "cfg": cfg,
+            "params": params, "prompts": prompts, "cfg": cfg, "kernel_run": fast,
+            "max_new": max_new, "slots": slots, "max_seq": max_seq,
             "decode_ms": {name: statistics.median(rec["decode_ms"])
                           for name, rec in (("kernel", fast), ("plain", plain))}}
 
@@ -4929,6 +4955,366 @@ def mamba_profiles(torch, cfg, params, tokens, slots=8):
                  lambda: T.decode_step_slots(c, params, cur, pos, caches),
                  key="selective_scan_kernel", label="scan kernel")
     return paths
+
+
+# --------------------------------------------------------------------------- #
+# phase 13b: serving on sharded placements
+# --------------------------------------------------------------------------- #
+SHARDED_SERVE = {"e": "serve qwen3-14b --model-axis 2 (2 gloo ranks) prefill",
+                 "f": "serve falcon-mamba-7b --model-axis 2 (2 gloo ranks) prefill"}
+#: the dry run's serving targets at (e)'s shapes: a prefill of the longest
+#: prompt's bucket (B=1, S=1024) and a decode step of the 8-slot pool (S=1056)
+SERVE_DRYRUN = {"prefill": (1024, 1), "decode": (1056, 8)}
+
+
+def serve_dryrun_target(mesh: str, step: str, arch: str, seq: int, batch: int):
+    """One ``launch.dryrun.run_one`` record of serving ``arch`` at full
+    width (``use_pallas``, as the serving CLI runs it) for rank 0 of
+    ``mesh``: a prefill of ``batch`` rows of ``seq`` tokens, or a decode
+    step over ``batch`` slots of ``seq`` positions (a spawned process of its
+    own, on the CPU)."""
+    import os
+
+    os.environ["REPRO_TEST_MESH"] = mesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_one(arch, ShapeConfig(f"serve_{step}", seq, batch, step), False, step,
+                          verbose=False)
+
+
+def collective_probe(torch, stack, rec):
+    """Time every gather and all-reduce exchange (``collectives.gather_cat``,
+    ``reduce_parts``) by host clock, each between two synchronizes, into
+    ``rec["comm_s"]`` and ``rec["comm_calls"]``."""
+    from repro_torch.dist import collectives as coll
+
+    for name in ("gather_cat", "reduce_parts"):
+        fn = getattr(coll, name)
+
+        def timed(*a, fn=fn, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["comm_s"] += time.perf_counter() - t0
+            rec["comm_calls"] += 1
+            return out
+
+        setattr(coll, name, timed)
+        stack.callback(setattr, coll, name, fn)
+
+
+def count_collectives(torch, sch, rec):
+    """Around each prefill and decode of the scheduler ``sch`` (after
+    ``instrument``): the gathers and all-reduces over ``model`` it made
+    (calls, bytes), the collective seconds and calls within it, and a digest
+    of each decode step's logits."""
+    import hashlib
+
+    from repro_torch.dist import collectives as coll
+
+    prefill, decode = sch._prefill, sch._decode
+
+    def counts():
+        return {kind: {"+".join(k): list(v) for k, v in table.items()}
+                for kind, table in (("gathers", coll.GATHERS), ("reduces", coll.REDUCES))}
+
+    def counted_prefill(bucket):
+        fn = prefill(bucket)
+
+        def run(*args):
+            coll.reset_gathers()
+            s0, c0 = rec["comm_s"], rec["comm_calls"]
+            out = fn(*args)
+            rec["prefill_comm"].append((bucket, counts(), rec["comm_s"] - s0,
+                                        rec["comm_calls"] - c0))
+            return out
+        return run
+
+    def counted_decode(*args):
+        coll.reset_gathers()
+        s0, c0 = rec["comm_s"], rec["comm_calls"]
+        logits, caches = decode(*args)
+        rec["decode_comm"].append((counts(), rec["comm_s"] - s0, rec["comm_calls"] - c0))
+        rec["decode_digests"].append(
+            hashlib.sha1(logits.float().cpu().numpy().tobytes()).hexdigest())
+        return logits, caches
+
+    sch._prefill, sch._decode = counted_prefill, counted_decode
+
+
+def sharded_serve_rank(rank, world, runs, dev_type):
+    """One rank of ``sharded_serve_phase``: per run, its config (``use_pallas``)
+    initialised from the seed-0 generator on the card
+    as this rank's shards (``init_model(..., shard=Sharder)``, the same
+    draws as one process), served through ``Engine.generate`` on
+    (data=1, model=``world``) with ``shards``, every rank on ``cuda:0``;
+    returns per run the generated tokens, each prefill's logits, the
+    decode steps' top-2 margins and logits digests, the launches, the
+    collectives of each prefill and decode step, times and the peak
+    memory."""
+    import torch
+
+    from repro_torch.dist.sharding import ShardedParams, Sharder, param_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    mesh = make_test_mesh(data=1, model=world, device=dev_type)
+    out = {}
+    for key, (cfg, prompts, max_new, slots, max_seq) in runs.items():
+        t0 = time.perf_counter()
+        sharder = Sharder(cfg, mesh)
+        params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                              shard=sharder)
+        shards = ShardedParams(param_specs(cfg, sharder.global_like(params), mesh), mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eng = Engine(cfg, params, ServeConfig(max_seq=max_seq, slots=slots), shards=shards)
+        rec = {"prefill": [], "decode_ms": [], "margins": {}, "prefill_comm": [],
+               "decode_comm": [], "decode_digests": [], "comm_s": 0.0, "comm_calls": 0}
+        instrument(torch, eng.scheduler, rec)
+        count_collectives(torch, eng.scheduler, rec)
+        with contextlib.ExitStack() as stack:
+            collective_probe(torch, stack, rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec["outs"] = eng.generate(prompts, max_new)
+            torch.cuda.synchronize()
+            rec["wall_s"] = time.perf_counter() - t0
+            rec["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+        rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+                          else 0.0)
+        rec["held_gb"] = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
+        rec["pool_gb"] = sum(c.numel() * c.element_size()
+                             for c in eng.scheduler.pool.caches.values()) / 1e9
+        rec["pool_shapes"] = {k: tuple(c.shape) for k, c in eng.scheduler.pool.caches.items()}
+        rec["init_s"] = init_s
+        # numpy across the process boundary (a tensor would go by a file descriptor)
+        rec["prefill"] = [(b, ms, lg.numpy(), m) for b, ms, lg, m in rec["prefill"]]
+        out[key] = rec
+        del eng, params, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serving_hold(one, got, lens, max_new, label):
+    """``serve_phase``'s rule between one process's run ``one`` and a
+    sharded rank's ``got``: last-prompt-token logits within 5% of the
+    largest logit, greedy tokens identical except where one process's top-2
+    margin at the parting token is within that tolerance.  Returns (max
+    |diff|, tolerance, requests identical)."""
+    top = max(float(lg.abs().max()) for _, _, lg, _ in one["prefill"])
+    tol = 0.05 * top
+    check(len(got["prefill"]) == len(one["prefill"]),
+          f"{label}: {len(got['prefill'])} prefills, one process {len(one['prefill'])}")
+    diffs = [float((a[2] - b[2]).abs().max()) for a, b in zip(got["prefill"], one["prefill"])]
+    check(all(math.isfinite(d) for d in diffs) and max(diffs) <= tol,
+          f"{label}: last-prompt-token logits {max(diffs):.4f} from one process's (tol "
+          f"{tol:.4f})")
+    same = 0
+    for rid, (a, b) in enumerate(zip(got["outs"], one["outs"])):
+        check(len(a) == len(b) == lens[rid] + max_new, f"{label}: wrong output length")
+        gen_a, gen_b = a[lens[rid]:], b[lens[rid]:]
+        if gen_a == gen_b:
+            same += 1
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(gen_a, gen_b)) if x != y)
+        margins = [one["prefill"][rid][3]] + one["margins"][rid]
+        print(f"  {label} request {rid}: tokens part from one process's at generated token "
+              f"{t} ({gen_a[t]} vs {gen_b[t]}); one process's top-2 margin there is "
+              f"{margins[t]:.4f}")
+        check(margins[t] <= tol, f"{label} request {rid}: tokens differ where one process's "
+              f"top-2 margin {margins[t]:.4f} exceeds {tol:.4f}")
+    return max(diffs), tol, same
+
+
+def rank_shape_kernels(torch, dev, exp_instr, flash_rows, scan_rows, S=1024):
+    """The kernels at a rank's shapes on model=2, each held to its plain
+    version and timed beside the full-width row: flash at qwen3-14b's 20
+    query and 4 KV heads (bf16, causal, S and 2S), the scan at 4096 of
+    falcon-mamba-7b's 8192 channels (float32, final state written)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    g = torch.Generator().manual_seed(12)
+    out = {"flash": [], "scan": None}
+    for s in (S, 2 * S):
+        q, k, v = (torch.randn(1, s, h, 128, generator=g).to(dev, torch.bfloat16)
+                   for h in (20, 4, 4))
+        ok, err, tol = attn_agree(torch, fa.flash_attention(q, k, v, True),
+                                  ref.ref_flash_attention(q, k, v, True))
+        check(ok, f"flash_attention at a rank's H=20 KV=4 hd=128 S={s}: kernel and plain "
+              f"version disagree ({err}, {tol})")
+        row = {**time_flash(torch, q, k, v), "max_abs_err": err}
+        whole = next((r for r in flash_rows if r["S"] == s), None)
+        if whole:
+            print(f"    beside the full width (H=40 KV=8) at S={s}: ms {whole['ms']:.4f}, "
+                  f"bound {whole['bound_ms']:.5f}; a rank's {row['ms']:.4f} = "
+                  f"{row['ms'] / whole['ms']:.3f} of it")
+        out["flash"].append(row)
+    args = scan_inputs(torch, dev, 1, S, 4096, 16, torch.float32, seed=S)
+    got, h = ss.selective_scan(*args, return_state=True)
+    want, h_want = ref.ref_selective_scan(*args, return_state=True)
+    ok, err, tol = max_agree(torch, got, want)
+    ok_h, err_h, tol_h = max_agree(torch, h, h_want, rel=1e-5, of="h")
+    check(ok and ok_h, f"selective_scan at a rank's di=4096: kernel and plain version disagree "
+          f"(y {err}, state {err_h})")
+    kern = lambda: ss.selective_scan(*args, return_state=True)       # noqa: E731
+    plain = lambda: ref.ref_selective_scan(*args)                    # noqa: E731
+    p1, k1 = cuda_ms(torch, plain, reps=5), cuda_ms(torch, kern)
+    k2, p2 = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
+    (b, by), _, _ = scan_bound(S, 4096, 16, exp_instr)
+    whole = next(r for r in scan_rows if r["S"] == S)
+    out["scan"] = {"S": S, "di": 4096, "n": 16, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                   "bound_ms": b, "bound_by": by, "max_abs_err": err,
+                   "state_max_abs_err": err_h}
+    print(f"  selective_scan B=1 S={S} di=4096 n=16 float32 (a rank's channels on model=2): "
+          f"y max_abs_err={err:.3e} ({tol}); final state {err_h:.3e} ({tol_h}); "
+          f"ms={out['scan']['ms']:.4f} plain_ms={out['scan']['plain_ms']:.3f} bound_ms={b:.5f} "
+          f"({by}); beside di=8192: ms {whole['ms']:.4f}, bound {whole['bound_ms']:.5f} "
+          f"[{smi_line()}]")
+    return out
+
+
+def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, scan_rows,
+                        timeout=900.0):
+    """Serving on sharded placements: 2 gloo ranks sharing ``cuda:0``, each
+    its shards partitioned over ``model`` (the same-card exchange; no CPU
+    path, no caught failure), through ``Engine.generate``.
+
+    (e) qwen3-14b at full width and depth (40 layers, 40/8 heads: a rank
+    20/4) on model=2: ``serve_phase``'s seed-0 weights, 8 prompts, 32 new
+    tokens, 8 slots, held to its kernel run (``qwen``) by its rule
+    (``serving_hold``); every rank the same tokens, the same prefill logits
+    bits and the same decode logits (digests); flash launches a rank =
+    prefills x 40 layers, all ``wgmma`` at hd 128; the gathers and
+    all-reduces of the prefill at bucket 1024 and of one decode step equal
+    to the dry run's (``dry``, ``SERVE_DRYRUN``); rank 0's peak within
+    ``PEAK_TOL`` of the dry run's prediction: the larger of the prefill's
+    peak plus the pool and the decode step's peak.
+    (f) falcon-mamba-7b at full width and depth on model=2: the scan on a
+    rank's 4096 of 8192 channels, conv and ssm caches cut over d_inner,
+    held to ``mamba`` (one process) by the same rule, both ranks the same
+    tokens; scan launches a rank = prefills x layers.
+    The kernels at a rank's shapes (``rank_shape_kernels``) first.  Prints
+    wall time, prefill ms, decode ms a step, collective calls and their
+    share, and peak GB a rank against one process's."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    smi = smi_line()
+    kernels = rank_shape_kernels(torch, dev, exp_instr, flash_rows, scan_rows)
+    runs = {key: (ref["cfg"].with_(use_pallas=True), ref["prompts"], ref["max_new"],
+                  ref["slots"], ref["max_seq"]) for key, ref in (("e", qwen), ("f", mamba))}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            ranks = spawn_ranks(sharded_serve_rank, 2, str(Path(tmp) / "init"), runs, dev.type,
+                                timeout=timeout)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"sharded serving ranks: {e}")
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for rec in r.values():
+            rec["prefill"] = [(b, ms, torch.from_numpy(lg), m) for b, ms, lg, m in rec["prefill"]]
+    out = {"kernels": kernels, "wall_s": wall}
+    for key, ref, kernel in (("e", qwen, "flash_attention"), ("f", mamba, "selective_scan")):
+        cfg, one = ref["cfg"], ref["kernel_run"]
+        label = f"({key}) {SHARDED_SERVE[key]}"
+        lens = [len(p) for p in ref["prompts"]]
+        r0 = ranks[0][key]
+        for rank, r in enumerate(ranks):
+            rec = r[key]
+            check(rec["outs"] == r0["outs"], f"{label}: rank {rank}'s tokens differ from rank 0's")
+            check(all(torch.equal(a[2], b[2]) for a, b in zip(rec["prefill"], r0["prefill"])),
+                  f"{label}: rank {rank}'s prefill logits are not rank 0's bits")
+            check(rec["decode_digests"] == r0["decode_digests"],
+                  f"{label}: rank {rank}'s decode logits are not rank 0's bits")
+            n_prefill = len(rec["prefill"])
+            want = n_prefill * cfg.n_layers
+            got = rec["launches"].get(kernel, 0)
+            check(n_prefill == len(lens) and got == want,
+                  f"{label} rank {rank}: {got} {kernel} launches, prefills x layers = {want}")
+            if kernel == "flash_attention":
+                check(rec["launches"].get("flash_attention_wgmma", 0) == got ==
+                      rec["launches"].get(f"flash_attention_hd{cfg.head_dim}", 0),
+                      f"{label} rank {rank}: not every flash launch ran the wgmma kernel at "
+                      f"hd={cfg.head_dim}: {rec['launches']}")
+        diff, tol, same = serving_hold(one, r0, lens, ref["max_new"], label)
+        dec = statistics.median(r0["decode_ms"])
+        dec_comm = [c for _, c, _ in r0["decode_comm"]]
+        calls = r0["decode_comm"][0][2]
+        by_bucket = {}
+        for (b, ms, *_), (_, _, s, n) in zip(r0["prefill"], r0["prefill_comm"]):
+            by_bucket.setdefault(b, []).append((round(ms, 3), n, round(1e3 * s, 3)))
+        n_tok = len(lens) * ref["max_new"]
+        print(f"  {label}: {cfg.n_layers} layers; rank 0 holds "
+              f"{r0['held_gb']:.3f} GB of parameters and a {r0['pool_gb']:.3f} GB pool "
+              f"{r0['pool_shapes']} (initialised in {r0['init_s']:.1f} s); last-prompt-token "
+              f"logits {diff:.4f} from one process's (tol 5% of the largest, {tol:.4f}); "
+              f"greedy tokens of {same} of {len(lens)} requests identical to one process's "
+              f"over all {ref['max_new']} tokens; both ranks the same tokens and logits bits; "
+              f"{kernel} launches a rank {r0['launches'].get(kernel, 0)}")
+        print(f"    times [{smi}]: generate {r0['wall_s']:.3f} s ({n_tok} tokens, "
+              f"{n_tok / r0['wall_s']:.1f} tok/s; one process {one['wall_s']:.3f} s); prefill "
+              f"(ms, collective calls, their ms) by bucket {by_bucket}; decode {len(r0['decode_ms'])}"
+              f" steps, median {dec:.3f} ms/step (one process "
+              f"{statistics.median(one['decode_ms']):.3f}), {calls} collective calls a step, "
+              f"median {1e3 * statistics.median(dec_comm):.3f} ms of them = "
+              f"{1e3 * statistics.median(dec_comm) / dec:.3f} of the step; all collectives "
+              f"{r0['comm_calls']} calls, {r0['comm_s']:.3f} s = {r0['comm_s'] / r0['wall_s']:.3f}"
+              f" of generate; peak {', '.join(f'{r[key]['peak_gb']:.3f}' for r in ranks)} GB "
+              f"by rank, one process {one['peak_gb']:.3f} GB")
+        out[key] = {"launches": {k: sum(r[key]["launches"].get(k, 0) for r in ranks)
+                                 for k in r0["launches"]},
+                    "logits_max_abs_diff": diff, "tol": tol, "identical_requests": same,
+                    "wall_s": r0["wall_s"], "decode_ms": dec,
+                    "one_process_decode_ms": statistics.median(one["decode_ms"]),
+                    "decode_collective_calls": calls,
+                    "decode_collective_ms": 1e3 * statistics.median(dec_comm),
+                    "collective_share": r0["comm_s"] / r0["wall_s"],
+                    "peak_gb": [r[key]["peak_gb"] for r in ranks],
+                    "one_process_peak_gb": one["peak_gb"], "held_gb": r0["held_gb"],
+                    "prefill_ms": {str(b): [x[0] for x in v] for b, v in by_bucket.items()}}
+    # (e)'s collectives and peak against the dry run
+    r0 = ranks[0]["e"]
+    seq, _ = SERVE_DRYRUN["prefill"]
+    measured = {"prefill": next(c for b, c, _, _ in r0["prefill_comm"] if b == seq),
+                "decode": r0["decode_comm"][0][0]}
+    for step, rec in dry.items():
+        for kind in ("gathers", "reduces"):
+            pred = {k: [rec[kind][k], rec[f"{kind[:-1]}_bytes"][k]] for k in rec[kind]}
+            got = measured[step][kind]
+            check(pred == got, f"(e) {kind} of one {step} {SERVE_DRYRUN[step]}: dry run {pred}, "
+                  f"rank 0 {got}")
+        print(f"  (e) one {step} at (S, rows) {SERVE_DRYRUN[step]}: gathers and all-reduces "
+              f"(calls, bytes) on rank 0 {measured[step]}, the dry run's the same")
+    pool_gb = r0["pool_gb"]
+    pre, dec = (dry[s]["memory"] for s in ("prefill", "decode"))
+    pred = max(pre["peak_memory_in_bytes"] / 1e9 + pool_gb, dec["peak_memory_in_bytes"] / 1e9)
+    rel = abs(pred - r0["peak_gb"]) / max(r0["peak_gb"], 1e-12)
+    print(f"  (e) rank 0's peak {r0['peak_gb']:.3f} GB; the dry run's prediction {pred:.3f} GB "
+          f"(prefill peak {pre['peak_memory_in_bytes'] / 1e9:.3f} + pool {pool_gb:.3f}, decode "
+          f"peak {dec['peak_memory_in_bytes'] / 1e9:.3f}; arguments "
+          f"{pre['argument_size_in_bytes'] / 1e9:.3f} / {dec['argument_size_in_bytes'] / 1e9:.3f}"
+          f"): relative {rel:.4f} (tol {PEAK_TOL}) [{smi}]")
+    check(rel <= PEAK_TOL, f"(e) rank 0's peak {r0['peak_gb']:.3f} GB, the dry run's "
+          f"{pred:.3f} (relative {rel:.4f} > {PEAK_TOL})")
+    out["e"]["dry_run_peak_gb"], out["e"]["peak_rel"] = pred, rel
+    print(f"  sharded serving: {wall:.1f} s for both runs on 2 ranks")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -5419,6 +5805,12 @@ def main() -> None:
     del mamba["params"]                   # falcon-mamba-7b's 14 GB go before qwen3-moe's
     gc.collect()
     torch.cuda.empty_cache()
+    print("# phase: serving on sharded placements, Engine.generate on 2 gloo ranks sharing "
+          "cuda:0 at model=2: (e) qwen3-14b and (f) falcon-mamba-7b at full width and depth")
+    sharded_serve = sharded_serve_phase(torch, dev, serve, mamba, tooling["serve_dry"],
+                                        exp_instr, flash["rows"], scan["rows"])
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"# phase: serving qwen3-moe-235b-a22b at full width, {MOE_LAYERS} layers (kernel vs "
           f"plain path)")
     moe = moe_serve_phase(torch, dev)
@@ -5492,6 +5884,7 @@ def main() -> None:
     head = flash["rows"][-1]                  # the serving shape at S=2048
     check(serve["launches"]["flash_attention"] > 0, "flash_attention was not launched")
     flash_paths = {TRAFFIC_PATH: traffic["launches"], MOE_PATH: moe["launches"],
+                   SHARDED_SERVE["e"]: sharded_serve["e"]["launches"],
                    **{FRONTEND_PATHS[name]: run["launches"] for name, run in frontends.items()}}
     for path, counts in flash_paths.items():
         check(counts.get("flash_attention", 0) > 0, f"flash_attention was not launched on {path}")
@@ -5514,6 +5907,8 @@ def main() -> None:
             "S", "H", "KV", "hd", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "qwen3_moe_serve": {k: v for k, v in moe.items() if "launches" not in k},
         "frontends": frontends,
+        "sharded_serve": {k: v for k, v in sharded_serve["e"].items() if k != "launches"},
+        "rank_shapes": sharded_serve["kernels"]["flash"],
         "shape": "B=1 S=2048 H=40 KV=8 hd=128 bf16 causal",
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for r in flash["rows"]],
@@ -5548,11 +5943,14 @@ def main() -> None:
         "by_length": [{k: r[k] for k in ("S", "ms", "plain_ms", "bound_ms", "ms_by_lanes",
                                          "fastest_lanes")} for r in scan["rows"]],
         "sass": scan_sass[ss.SERVED_LANES], "prefill_1024": prefill_paths,
-        "launches_by_path": {HYMBA_PATH: hymba["launches"]["selective_scan"]},
+        "launches_by_path": {HYMBA_PATH: hymba["launches"]["selective_scan"],
+                             SHARDED_SERVE["f"]: sharded_serve["f"]["launches"]["selective_scan"]},
+        "rank_shape": sharded_serve["kernels"]["scan"],
+        "sharded_serve": {k: v for k, v in sharded_serve["f"].items() if k != "launches"},
         "hymba_serve": {k: hymba[k] for k in ("decode_ms", "cache_rel")},
     })
-    check(hymba["launches"]["selective_scan"] > 0, f"selective_scan was not launched on "
-          f"{HYMBA_PATH}")
+    for path, n in kernels[-1]["launches_by_path"].items():
+        check(n > 0, f"selective_scan was not launched on {path}")
     check(norm["launches"] > 0, "rmsnorm was not launched")
     head = norm["rows"][0]
     kernels.append({

@@ -52,7 +52,10 @@ gathered over ``model`` to be used on a rank's part (``ModelAxis.whole``:
 the mixer's ``in_proj``, whose cut on its last dim gives rank 0 all of u
 and rank 1 all of z at model=2, or a ``wk`` cut inside a head) enters
 after the gather, so that the gradient is summed over the axis before it
-is sliced.  Nothing here is a ``DTensor``: the
+is sliced.  Serving runs on the same placements: a rank's caches are its
+slices of ``cache_specs`` over ``model`` (``cache_slices``), and
+``ModelAxis.cat`` gathers what a rank needs whole (the logits' vocabulary
+columns, an ``hd``-cut cache).  Nothing here is a ``DTensor``: the
 models launch kernels on raw pointers, and gloo carries a CUDA payload only
 through host memory (``dist.collectives``).
 """
@@ -273,6 +276,19 @@ def cache_specs(cfg, mesh, caches: Any, seq_sharded: bool = False) -> Any:
         return PartitionSpec(*parts)
 
     return map_with_paths(spec, caches)
+
+
+def cache_slices(cfg, mesh, caches: Dict[str, Any]) -> Dict[str, Tuple[slice, ...]]:
+    """This rank's slice of every leaf of a cache tree of whole shapes
+    (tensors or meta tensors): ``cache_specs``' cut over ``model``, through
+    ``shard_slices``.  The worker axes' cut of the batch is not taken: every
+    rank of the ``model`` axis serves the same slots."""
+    sizes, coord = mesh_shape(mesh), mesh_coordinate(mesh)
+    specs = cache_specs(cfg, mesh, caches)
+    return {name: shard_slices(PartitionSpec(*(ModelAxis.name if ModelAxis.name in spec_axes(p)
+                                                else None for p in specs[name])),
+                               tuple(x.shape), sizes, coord)
+            for name, x in caches.items()}
 
 
 def named(mesh, spec_tree: Any) -> Any:
@@ -569,9 +585,13 @@ class ModelAxis:
         """The float32 partials' sum over the axis, rounded once to ``dtype``."""
         return _Reduce.apply(partial, self).to(dtype)
 
+    def cat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated on ``dim`` in rank order (serving's
+        logits and an ``hd``-cut cache); its gradient this rank's slice."""
+        return _GatherDim.apply(x, dim % x.dim(), (self.name,), self.mesh, self.rank)
+
     def whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return self.enter(_GatherDim.apply(x, dim % x.dim(), (self.name,), self.mesh,
-                                           self.rank))
+        return self.enter(self.cat(x, dim))
 
 
 def row_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,12 @@ one), the mesh is ``launch.mesh``'s, and the step is what the port runs:
   encoder-only model) and ``decode``: ``serving.engine.serve_step`` at the
   last position of full-length caches, both as the serving CLI runs them on
   the card (``use_pallas``), on this rank's rows (all of them when the
-  worker count does not divide the batch).  The port's serving has no
-  sharded placements: a rank holds the whole parameters and, for
-  ``long_500k``, the whole cache.
+  worker count does not divide the batch), on this rank's shards
+  partitioned over ``model`` (``dist.sharding.ShardedParams``) and its
+  slices of the caches (``init_caches(..., shards=)``: ``cache_specs``'
+  cut over ``model``).  ``long_500k`` (batch 1) keeps whole parameters and
+  the whole cache on every rank: its ``cache_specs`` cut the cache's
+  sequence over the worker axes, which the port does not run.
 
 Each kernel runs through its operator in ``kernels.fake`` (the same dispatch
 as on the card).  Every step runs at full depth: an eager run counts every
@@ -302,18 +305,23 @@ def _build(cfg: ModelConfig, shape: ShapeConfig, mesh, step: str):
         batch = _rows(specs.train_batch_structs(cfg, shape), mesh, takes_whole_batch(cfg))
         t = 0 if step == "fo" else 1
         return (fo if step == "fo" else zo), (t, params, opt.init(params), batch)
-    params = specs.abstract_params(cfg)
+    sharder = (Sharder(cfg, mesh) if places_shards(cfg, mesh) and shape.name != "long_500k"
+               else None)
+    params = specs.abstract_params(cfg, shard=sharder)
+    gathered = (None if sharder is None else
+                ShardedParams(param_specs(cfg, sharder.global_like(params), mesh), mesh))
     if step == "prefill":
         batch = _rows(specs.train_batch_structs(cfg, shape, with_labels=cfg.encoder_only),
                       mesh, False)
         if cfg.encoder_only:
-            return (lambda p, b: T.forward_logits(cfg, p, b)[0]), (params, batch)
-        return (lambda p, b: T.prefill(cfg, p, b)), (params, batch)
+            return (lambda p, b: T.forward_logits(cfg, p, b, gathered)[0]), (params, batch)
+        return (lambda p, b: T.prefill(cfg, p, b, gathered)), (params, batch)
     if step == "decode":
         m = n_workers(mesh)
         rows = shape.global_batch // m if shape.global_batch % m == 0 else shape.global_batch
-        token, pos, caches = specs.decode_structs(cfg, shape, batch=rows)
-        return (lambda p, tok, c: serve_step(cfg, p, tok, pos, c)), (params, token, caches)
+        token, pos, caches = specs.decode_structs(cfg, shape, batch=rows, shards=gathered)
+        return ((lambda p, tok, c: serve_step(cfg, p, tok, pos, c, gathered)),
+                (params, token, caches))
     raise ValueError(step)
 
 

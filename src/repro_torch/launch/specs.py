@@ -9,8 +9,8 @@ nothing either, and hands back meta tensors of the same shapes and dtypes.
 Leaves flatten in ``jax.tree.leaves`` order (``repro_torch.tree``).
 
 Decode shapes include the full-length caches (attention's k and v, an SSM's
-states); ``long_500k`` shards the cache's sequence over the worker axes
-(batch 1).  The placements are the port's ``dist.sharding`` specs, the
+states; with ``shards`` a rank's slices of them); ``long_500k`` shards the
+cache's sequence over the worker axes (batch 1).  The placements are the port's ``dist.sharding`` specs, the
 reference's rules.
 """
 from __future__ import annotations
@@ -71,16 +71,17 @@ def train_batch_structs(cfg: ModelConfig, shape: ShapeConfig,
     return b
 
 
-def decode_structs(cfg: ModelConfig, shape: ShapeConfig, batch: int = 0
+def decode_structs(cfg: ModelConfig, shape: ShapeConfig, batch: int = 0, shards=None
                    ) -> Tuple[torch.Tensor, int, Dict]:
     """``(token, pos, caches)``: one token per row, the last position of the
     full-length caches (``pos`` is a Python int, as ``serve_step`` takes it;
     the reference's is a 0-d int32 struct), the caches of ``init_caches``.
-    ``batch`` overrides the global batch (a rank's rows)."""
+    ``batch`` overrides the global batch (a rank's rows), ``shards`` (a
+    ``dist.sharding.ShardedParams``) gives this rank's slices of the caches."""
     B, S = batch or shape.global_batch, shape.seq_len
     act = getattr(torch, cfg.dtype)
     with stand_ins():
-        caches = T.init_caches(cfg, B, S, act, device=DEVICE)
+        caches = T.init_caches(cfg, B, S, act, device=DEVICE, shards=shards)
         return _struct((B,), torch.int32), S - 1, caches
 
 

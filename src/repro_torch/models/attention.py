@@ -25,7 +25,16 @@ the divisibility guard cuts ``KV·hd``) is gathered over the axis and the
 rank takes the heads it needs; the gather is counted
 (``collectives.GATHERS``).  ``q_norm``, ``k_norm``, rope and the softcap
 act per head.  This is what the reference's ``_constrain_hd`` pins for its
-compiler.  Serving keeps whole parameters.
+compiler.
+
+Serving on sharded placements (``attention_prefill``/``attention_decode``
+with ``tp``) runs the same heads, and the rank's k/v cache is its slice of
+``dist.sharding.cache_specs`` (``cache_cut``): its own KV heads when ``KV``
+divides the axis, else a slice of ``hd`` of every KV head.  In the second
+case the rank computes every KV head's k and v (``wk``/``wv`` gathered, as
+above), stores its ``hd`` slice, and at use gathers the layer's cache over
+the axis (``ModelAxis.cat``, counted) to read the heads its query heads
+need.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import row_partial
+from repro_torch.dist.sharding import cache_slices, row_partial
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, softcap
 
@@ -157,11 +166,15 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return _attend_seq(cfg, q, k, v, positions, window) @ p["wo"]
 
 
-def _rank_heads(cfg: ModelConfig, p: Params, tp) -> Tuple[Params, int, int]:
+def _rank_heads(cfg: ModelConfig, p: Params, tp, every_kv: bool = False
+                ) -> Tuple[Params, int, int, int]:
     """``(this rank's q/k/v weights and norms, its query heads' first
-    column, its wo rows' first column)``: the query heads ``[h0, h1)`` that
-    cover the columns ``[c0, c1)`` of the attention output its rows of
-    ``wo`` take, and the KV heads ``[kv0, kv1)`` they read."""
+    column, its wo rows' first column, the first KV head of its wk/wv)``:
+    the query heads ``[h0, h1)`` that cover the columns ``[c0, c1)`` of the
+    attention output its rows of ``wo`` take, and the KV heads ``[kv0,
+    kv1)`` they read; with ``every_kv`` (serving, where the cache may hold
+    a slice of every KV head) all the KV heads unless the rank's own are
+    the cache's too."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     group = H // KV
     c0 = tp.rank * p["wo"].shape[0]
@@ -171,44 +184,115 @@ def _rank_heads(cfg: ModelConfig, p: Params, tp) -> Tuple[Params, int, int]:
     wq = p["wq"]
     if c0 % hd or c1 % hd:                      # wq cut inside a head
         wq = tp.whole(wq, -1)[:, h0 * hd:h1 * hd]
-    if p["wk"].shape[-1] == KV * hd:            # replicated: a rank's heads enter
-        wk, wv = (tp.enter(p[n])[:, kv0 * hd:kv1 * hd] for n in ("wk", "wv"))
-    elif KV % tp.size:                          # cut inside a head
-        wk, wv = (tp.whole(p[n], -1)[:, kv0 * hd:kv1 * hd] for n in ("wk", "wv"))
-    else:                                       # this rank's own KV heads
-        wk, wv = p["wk"], p["wv"]
+    if p["wk"].shape[-1] != KV * hd and not KV % tp.size:
+        wk, wv = p["wk"], p["wv"]               # this rank's own KV heads
+    else:
+        # replicated (a rank's heads enter), or cut inside a head (gathered)
+        whole = [tp.enter(p[n]) if p[n].shape[-1] == KV * hd else tp.whole(p[n], -1)
+                 for n in ("wk", "wv")]
+        kv0, kv1 = (0, KV) if every_kv else (kv0, kv1)
+        wk, wv = (w[:, kv0 * hd:kv1 * hd] for w in whole)
     local = {"wq": wq, "wk": wk, "wv": wv}
     for n in ("q_norm", "k_norm"):
         if n in p:
             local[n] = tp.enter(p[n])
-    return local, h0 * hd, c0
+    return local, h0 * hd, c0, kv0
+
+
+def _query_kv(cfg: ModelConfig, t: torch.Tensor, k0: int, q0: int, nq: int) -> torch.Tensor:
+    """Of ``t`` (k or v, its KV heads from ``k0``), the heads that the query
+    heads ``[h0, h0 + nq)`` read (``h0 = q0 / hd``): one per query head
+    where those heads part a group."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    h0 = q0 // cfg.head_dim
+    kv0, kv1 = h0 // group, (h0 + nq - 1) // group + 1
+    t = t[:, :, kv0 - k0:kv1 - k0]
+    if kv1 - kv0 > 1 and (h0 % group or nq % group):
+        t = t[:, :, (torch.arange(h0, h0 + nq, device=t.device) // group) - kv0]
+    return t
+
+
+def _rank_out(out: torch.Tensor, q0: int, c0: int, wo: torch.Tensor) -> torch.Tensor:
+    """The float32 partial of the rank's rows of ``wo`` on its columns of
+    the attention output ``out`` (its query heads' from ``q0``)."""
+    return row_partial(out[..., c0 - q0:c0 - q0 + wo.shape[0]], wo)
 
 
 def _attention_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
                        positions: torch.Tensor, window: Optional[int], tp) -> torch.Tensor:
     """This rank's float32 partial of the attention sublayer's output, from
     ``x_in`` (``x`` after ``tp.enter``)."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    group = H // KV
-    local, q0, c0 = _rank_heads(cfg, p, tp)
+    local, q0, c0, k0 = _rank_heads(cfg, p, tp)
     q, k, v = _project_qkv(cfg, local, x_in, positions)
-    h0, nq, nk = q0 // hd, q.shape[2], k.shape[2]
-    if nk > 1 and (h0 % group or nq % group):
-        # the rank's query heads part a group: one KV head per query head
-        idx = (torch.arange(h0, h0 + nq, device=x_in.device) // group) - h0 // group
-        k, v = k[:, :, idx], v[:, :, idx]
-    out = _attend_seq(cfg, q, k, v, positions, window)
-    out = out[..., c0 - q0:c0 - q0 + p["wo"].shape[0]]
-    return row_partial(out, p["wo"])
+    nq = q.shape[2]
+    out = _attend_seq(cfg, q, _query_kv(cfg, k, k0, q0, nq), _query_kv(cfg, v, k0, q0, nq),
+                      positions, window)
+    return _rank_out(out, q0, c0, p["wo"])
+
+
+def cache_cut(cfg: ModelConfig, tp) -> Tuple[slice, slice]:
+    """This rank's slices of the KV-head and ``hd`` dims of the k/v cache:
+    ``dist.sharding.cache_specs``' cut (KV heads when ``KV`` divides the
+    axis, else ``hd``)."""
+    like = torch.empty((1, 1, 1, cfg.n_kv_heads, cfg.head_dim), device="meta")
+    return cache_slices(cfg, tp.mesh, {"k": like})["k"][3:]
+
+
+class _RankProjection:
+    """Serving's attention on this rank (the module docstring): ``q`` of its
+    query heads; ``k`` and ``v`` of the KV heads its wk/wv give; ``cached``
+    their part in this rank's slice of the cache; ``read`` a cache slice
+    turned into the k or v its query heads attend (gathered over the axis
+    when the cache is cut on ``hd``); ``out`` the attention output summed
+    over the axis."""
+
+    def __init__(self, cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 positions: torch.Tensor, tp):
+        local, self.q0, self.c0, self.k0 = _rank_heads(cfg, p, tp, every_kv=True)
+        self.cfg, self.tp, self.wo, self.dtype = cfg, tp, p["wo"], x.dtype
+        self.q, self.k, self.v = _project_qkv(cfg, local, tp.enter(x), positions)
+        self.kv_cut, self.hd_cut = cache_cut(cfg, tp)
+
+    def cached(self, t: torch.Tensor) -> torch.Tensor:
+        a = self.kv_cut.start - self.k0
+        return t[:, :, a:a + self.kv_cut.stop - self.kv_cut.start, self.hd_cut]
+
+    def read(self, cache: torch.Tensor) -> torch.Tensor:
+        if cache.shape[-1] != self.cfg.head_dim:
+            cache = self.tp.cat(cache, -1)
+        return _query_kv(self.cfg, cache, self.kv_cut.start, self.q0, self.q.shape[2])
+
+    def attended(self, t: torch.Tensor) -> torch.Tensor:
+        return _query_kv(self.cfg, t, self.k0, self.q0, self.q.shape[2])
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        return self.tp.reduce(_rank_out(o, self.q0, self.c0, self.wo), self.dtype)
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      window: Optional[int] = None
+                      window: Optional[int] = None, tp=None
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Like forward but also returns the (k, v) cache."""
+    """Like forward but also returns the (k, v) cache; with ``tp`` the
+    rank's heads, and the cache this rank's slice (``cache_cut``)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if tp is not None:
+        r = _RankProjection(cfg, p, x, positions, tp)
+        out = _attend_seq(cfg, r.q, r.attended(r.k), r.attended(r.v), positions, window)
+        return r.out(out), (r.cached(r.k), r.cached(r.v))
     q, k, v = _project_qkv(cfg, p, x, positions)
     return _attend_seq(cfg, q, k, v, positions, window) @ p["wo"], (k, v)
+
+
+def _decode_projection(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       positions: torch.Tensor, tp):
+    """``(q, new k, new v, read, out)`` of a decode step: whole heads
+    without ``tp``; else this rank's (``_RankProjection``), the new k and v
+    its slice of the cache."""
+    if tp is None:
+        q, k, v = _project_qkv(cfg, p, x, positions)
+        return q, k, v, (lambda c: c), (lambda o: o @ p["wo"])
+    r = _RankProjection(cfg, p, x, positions, tp)
+    return r.q, r.cached(r.k), r.cached(r.v), r.read, r.out
 
 
 def attention_decode(
@@ -219,6 +303,7 @@ def attention_decode(
     pos,                                       # int, or (B,) tensor per slot
     window: Optional[int] = None,
     static_window: Optional[int] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode against a KV cache; writes the new k/v at ``pos``.
 
@@ -226,15 +311,16 @@ def attention_decode(
     (the serving slot pool: every slot at its own position, ``-1`` for an
     inactive slot, which writes nothing and whose reads are all masked).
     With a scalar ``pos`` and one static window over every layer,
-    ``static_window`` reads only the last ``W`` cache rows.
+    ``static_window`` reads only the last ``W`` cache rows.  With ``tp``
+    the cache is this rank's slice and the rank runs its heads.
     """
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        return _attention_decode_slots(cfg, p, x, cache, pos, window)
+        return _attention_decode_slots(cfg, p, x, cache, pos, window, tp)
     k_cache, v_cache = cache
     S = k_cache.shape[1]
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    q, k_new, v_new, read, finish = _decode_projection(cfg, p, x, positions, tp)
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     if static_window is not None and static_window < S:
@@ -246,8 +332,9 @@ def attention_decode(
         k_read, v_read = k_cache, v_cache
         k_positions = torch.arange(S, dtype=torch.int32, device=x.device)
     # beyond-pos rows are masked by the causal rel >= 0 test (q position == pos)
-    out = _attend(cfg, q, k_read, v_read, positions, k_positions, window, causal=True)
-    return out @ p["wo"], (k_cache, v_cache)
+    out = _attend(cfg, q, read(k_read), read(v_read), positions, k_positions, window,
+                  causal=True)
+    return finish(out), (k_cache, v_cache)
 
 
 def _write_slots(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -266,6 +353,7 @@ def _attention_decode_slots(
     cache: Tuple[torch.Tensor, torch.Tensor],  # k, v (B, S, KV, hd)
     pos: torch.Tensor,                         # (B,) per-slot position, -1 = inactive
     window: Optional[int] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Per-slot decode: each batch row writes and reads at its own position.
     Reads stream the full cache: the causal test ``q_pos - k_pos >= 0``
@@ -274,9 +362,10 @@ def _attention_decode_slots(
     k_cache, v_cache = cache
     S = k_cache.shape[1]
     positions = pos[:, None].to(torch.int32)              # (B, 1) q positions
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    q, k_new, v_new, read, finish = _decode_projection(cfg, p, x, positions, tp)
     _write_slots(k_cache, k_new, pos)
     _write_slots(v_cache, v_new, pos)
     k_positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    out = _attend(cfg, q, k_cache, v_cache, positions, k_positions, window, causal=True)
-    return out @ p["wo"], (k_cache, v_cache)
+    out = _attend(cfg, q, read(k_cache), read(v_cache), positions, k_positions, window,
+                  causal=True)
+    return finish(out), (k_cache, v_cache)

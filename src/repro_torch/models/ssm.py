@@ -29,8 +29,10 @@ once over the axis and rounded as the product in u's dtype rounds, and the
 sum enters (dt_low, B and C feed this rank's channels only, so their
 gradient is summed over the axis); the scan runs on the rank's channels
 (the plain scan's ``(B, S, di/ms, n)`` states), and ``out_proj`` is
-row-parallel, one all-reduce of float32 partials.  Prefill and decode keep
-whole parameters, as all serving does.
+row-parallel, one all-reduce of float32 partials.  Serving runs the same
+partition (``mamba_prefill``, ``mamba_decode`` with ``tp``): the conv and
+ssm states are the rank's channels, ``dist.sharding.cache_specs``' cut of
+``d_inner``.
 """
 from __future__ import annotations
 
@@ -229,24 +231,37 @@ def _rank_channels(cfg: ModelConfig, p: Params, tp) -> Params:
     return local
 
 
-def _mamba_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp) -> torch.Tensor:
-    """This rank's float32 partial of the mamba block's output, from
-    ``x_in`` (``x`` after ``tp.enter``): ``_block`` on its channels, the
-    row-parallel ``out_proj`` last."""
+def _partial_block(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp, return_state: bool):
+    """``_block`` on this rank's channels, from ``x_in`` (``x`` after
+    ``tp.enter``): (its float32 partial of the output, the row-parallel
+    ``out_proj`` last; its u; the mix's final state on its channels or
+    None)."""
     local = _rank_channels(cfg, p, tp)
     u, z = x_in @ local["u_proj"], x_in @ local["z_proj"]
-    y = mamba_mix(cfg, local, u, tp=tp)
-    return row_partial(y * silu(z), local["out_proj"])
+    y = mamba_mix(cfg, local, u, return_state, tp=tp)
+    y, h = y if return_state else (y, None)
+    return row_partial(y * silu(z), local["out_proj"]), u, h
 
 
-def mamba_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor):
+def _mamba_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's float32 partial of the mamba block's output, from
+    ``x_in`` (``x`` after ``tp.enter``)."""
+    return _partial_block(cfg, p, x_in, tp, return_state=False)[0]
+
+
+def mamba_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None):
     """The mamba block over a prompt, with the state a decode continues from:
     x (B, S, D) -> (out (B, S, D), (conv_state (B, K-1, di), ssm_state (B,
     di, n)) or None).  On the kernel path the ssm state is the kernel's final
     state and the conv state the last K-1 rows of the same ``in_proj``
     output; off it the state is None, and the caller recomputes it as the
-    reference does."""
-    out, u, h = _block(cfg, p, x, return_state=True)
+    reference does.  With ``tp`` the block runs on this rank's channels and
+    the state is its slice of ``d_inner``."""
+    if tp is None:
+        out, u, h = _block(cfg, p, x, return_state=True)
+    else:
+        part, u, h = _partial_block(cfg, p, tp.enter(x), tp, return_state=True)
+        out = tp.reduce(part, x.dtype)
     if h is None:
         return out, None
     # a copy, so that no cached view keeps the layer's u alive
@@ -266,17 +281,28 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
 
 
 def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 state: Tuple[torch.Tensor, torch.Tensor]):
+                 state: Tuple[torch.Tensor, torch.Tensor], tp=None):
     """One token: x (B, 1, D) and (conv_state, ssm_state) -> (out (B, 1, D),
-    (new conv_state, new ssm_state)); the state is returned, not written."""
+    (new conv_state, new ssm_state)); the state is returned, not written.
+    With ``tp`` the state is this rank's slice of ``d_inner`` and the step
+    runs on its channels (``_rank_channels``; ``x_proj`` and ``out_proj``
+    row-parallel, an all-reduce each)."""
     conv_state, h = state
-    u, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)        # (B, di)
+    if tp is None:
+        u, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)    # (B, di)
+    else:
+        p = _rank_channels(cfg, p, tp)
+        x_in = tp.enter(x[:, 0])
+        u, z = x_in @ p["u_proj"], x_in @ p["z_proj"]
     window = torch.cat([conv_state, u[:, None]], dim=1)            # (B, K, di)
     conv_y = torch.einsum("bkd,kd->bd", window.to(torch.float32),
                           p["conv_w"].to(torch.float32))
     u_c = silu(conv_y + p["conv_b"]).to(u.dtype)
-    deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u_c[:, None])     # seq dim 1
+    deltaA, deltaBu, Cmat = _ssm_inputs(cfg, p, u_c[:, None], tp)  # seq dim 1
     h = deltaA[:, 0] * h + deltaBu[:, 0]                           # (B, di, n)
     y = torch.einsum("bdn,bn->bd", h, Cmat[:, 0]) + p["D"] * u_c.to(torch.float32)
-    out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+    if tp is None:
+        out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+    else:
+        out = tp.reduce(row_partial(y.to(x.dtype) * silu(z), p["out_proj"]), x.dtype)
     return out[:, None], (window[:, 1:], h)

@@ -43,6 +43,14 @@ keeps each rank's slice of every leaf as it is drawn
 (``dist.sharding.Sharder``), from the same generator in the same order, so
 the shards are bit for bit slices of the replicated parameters.
 
+Serving runs the same partition (``prefill``, ``prefill_at``,
+``decode_step``, ``decode_step_slots`` with ``shards``): each rank holds its
+slices of the caches (``init_caches(..., shards=)``, the cut of
+``dist.sharding.cache_specs`` over ``model``), the decode's embedding is
+the vocab-parallel lookup, and the logits of a head cut over ``model`` are
+gathered over the axis before they are returned, so every rank samples
+from the same bits.
+
 Entry points that make tensors (``init_model``, ``init_caches``) run on the
 card unless the caller asks for ``device="cpu"``; without a card the default
 raises (``device.resolve_device``).
@@ -71,7 +79,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     softcap,
 )
-from repro_torch.dist.sharding import map_with_paths
+from repro_torch.dist.sharding import cache_slices, map_with_paths
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict
@@ -175,11 +183,17 @@ def init_model(gen, cfg: ModelConfig, device="cuda", shard=None) -> Params:
 # --------------------------------------------------------------------------- #
 # blocks
 # --------------------------------------------------------------------------- #
+def _axes(shards):
+    """``name -> the model axis`` when it cuts a leaf of the layer's
+    sublayer ``name`` (a ``dist.sharding.ModelAxis``), else None."""
+    return (lambda name: None) if shards is None else (lambda name: shards.axis_for((name,)))
+
+
 def _ffn(cfg: ModelConfig, lp: Params, xn: torch.Tensor, shards=None):
     """The feed-forward sublayer: (y, aux loss), aux 0 without experts.  With
     ``shards`` a sublayer the ``model`` axis cuts runs partitioned; the
     experts' and arctic's dense residual's partials share one all-reduce."""
-    axis = (lambda name: None) if shards is None else (lambda name: shards.axis_for((name,)))
+    axis = _axes(shards)
     if cfg.is_moe:
         tp = axis("moe")
         dense = axis("dense_mlp") if cfg.moe_dense_residual else None
@@ -211,7 +225,7 @@ def _mix(cfg: ModelConfig, lp: Params, xn: torch.Tensor, window: int,
          shards=None) -> torch.Tensor:
     """Sequence-mixing sublayer: attention, mamba, or both (hybrid); with
     ``shards`` each partitioned over ``model`` where the axis cuts it."""
-    axis = (lambda name: None) if shards is None else (lambda name: shards.axis_for((name,)))
+    axis = _axes(shards)
     if cfg.arch_type == "ssm":
         return ssm_mod.mamba_forward(cfg, lp["mamba"], xn, axis("mamba"))
     a = attn.attention_forward(cfg, lp["attn"], xn, window, axis("attn"))
@@ -251,36 +265,48 @@ def _head(params: Params, shards=None):
     return (w if name == "head" else w.T), tp
 
 
-def embed_batch(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch.Tensor:
-    """The input sequence: ``batch["features"]`` (B, S, D) for audio; else the
-    scaled embeddings of ``batch["tokens"]``, after ``batch["image_embeds"]``
-    (B, P, D, cast to the embeddings' dtype) for vision.  A table cut over
-    ``model`` is a vocab-parallel lookup: each rank its rows, the ids outside
-    them zero, summed over the axis (one term per id, so the sum is exact)."""
-    if cfg.frontend == "audio":
-        return batch["features"]
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  shards=None) -> torch.Tensor:
+    """The scaled embeddings of ``tokens``.  A table cut over ``model`` is a
+    vocab-parallel lookup: each rank its rows, the ids outside them zero,
+    summed over the axis (one term per id, so the sum is exact)."""
     table = _top(params, "embed", shards)
     tp = None if shards is None else shards.axis_for(("embed",), top=True)
     if tp is None:
-        text = table[batch["tokens"]]
+        text = table[tokens]
     else:
         n = table.shape[0]
-        local = batch["tokens"].to(torch.int64) - tp.rank * n
+        local = tokens.to(torch.int64) - tp.rank * n
         mine = ((local >= 0) & (local < n))[..., None]
         rows = table[local.clamp(0, n - 1)]
         text = tp.reduce(torch.where(mine, rows, torch.zeros_like(rows)), rows.dtype)
-    text = text * math.sqrt(cfg.d_model)
+    return text * math.sqrt(cfg.d_model)
+
+
+def embed_batch(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch.Tensor:
+    """The input sequence: ``batch["features"]`` (B, S, D) for audio; else the
+    scaled embeddings of ``batch["tokens"]`` (``_embed_tokens``), after
+    ``batch["image_embeds"]`` (B, P, D, cast to the embeddings' dtype) for
+    vision."""
+    if cfg.frontend == "audio":
+        return batch["features"]
+    text = _embed_tokens(cfg, params, batch["tokens"], shards)
     if cfg.frontend == "vision":
         return torch.cat([batch["image_embeds"].to(text.dtype), text], dim=1)
     return text
 
 
-def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg, params["final_norm"], h)
-    logits = h @ _head(params)[0]
+def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                   shards=None) -> torch.Tensor:
+    """The logits of the hidden states ``h``.  A head cut over ``model``
+    gives each rank its vocabulary columns; they are gathered over the axis
+    in rank order (whole rows, the same bits on every rank)."""
+    h = apply_norm(cfg, _top(params, "final_norm", shards), h)
+    head, tp = _head(params, shards)
+    logits = h @ head
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
-    return logits
+    return logits if tp is None else tp.cat(logits, -1)
 
 
 # --------------------------------------------------------------------------- #
@@ -297,10 +323,10 @@ def forward_hidden(cfg: ModelConfig, params: Params, h: torch.Tensor, shards=Non
     return h, aux
 
 
-def forward_logits(cfg: ModelConfig, params: Params, batch: Dict):
-    h = embed_batch(cfg, params, batch)
-    h, aux = forward_hidden(cfg, params, h)
-    return compute_logits(cfg, params, h), aux
+def forward_logits(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
+    h = embed_batch(cfg, params, batch, shards)
+    h, aux = forward_hidden(cfg, params, h, shards)
+    return compute_logits(cfg, params, h, shards), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -453,39 +479,50 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict, shards=None) -> torch
 # serving: prefill + single-token decode with stacked per-layer caches
 # --------------------------------------------------------------------------- #
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype,
-                device="cuda") -> Dict:
+                device="cuda", shards=None) -> Dict:
     """Zero caches, stacked over the layers: attention's k and v ``(L,
     batch, seq_len, KV, hd)``; an SSM's conv state ``(L, batch, K - 1,
     d_inner)`` in ``dtype`` and ssm state ``(L, batch, d_inner, n)`` in
     float32 (no sequence axis: ``seq_len`` does not size them); a hybrid
-    model holds all four."""
+    model holds all four.  With ``shards`` each is this rank's slice
+    (``dist.sharding.cache_slices``: k and v cut over KV heads, or over
+    ``hd`` when KV does not divide the axis; conv and ssm over
+    ``d_inner``)."""
     device = resolve_device(device)
     L = cfg.n_layers
-    caches: Dict = {}
+    shapes: Dict = {}
     if cfg.has_attention:
-        shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-        caches["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        caches["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        shapes["k"] = shapes["v"] = ((L, batch, seq_len, cfg.n_kv_heads, cfg.head_dim), dtype)
     if cfg.has_ssm:
-        caches["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, cfg.d_inner),
-                                     dtype=dtype, device=device)
-        caches["ssm"] = torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
-                                    dtype=torch.float32, device=device)
-    return caches
+        shapes["conv"] = ((L, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype)
+        shapes["ssm"] = ((L, batch, cfg.d_inner, cfg.ssm_state), torch.float32)
+    if shards is not None:
+        cut = cache_slices(cfg, shards.mesh, {name: torch.empty(shape, device="meta")
+                                              for name, (shape, _) in shapes.items()})
+        shapes = {name: (tuple(sl.stop - sl.start for sl in cut[name]), dt)
+                  for name, (_, dt) in shapes.items()}
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in shapes.items()}
 
 
-def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: int):
+def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: int,
+                  shards=None):
     """One layer of decode; writes this layer's cache rows (attention) and
     states (SSM: every row, an inactive slot's too, as in the reference) in
-    place.  A hybrid layer reads its own window (hymba's differ by layer)."""
+    place.  A hybrid layer reads its own window (hymba's differ by layer).
+    With ``shards`` the layer runs partitioned and ``cache_l`` is this
+    rank's slice."""
+    axis = _axes(shards)
+    if shards is not None:
+        lp = shards.layer(lp)
     xn = apply_norm(cfg, lp["norm1"], x)
     if cfg.has_attention:
         a, _ = attn.attention_decode(
             cfg, lp["attn"], xn, (cache_l["k"], cache_l["v"]), pos, window,
-            static_window=uniform_static_window(cfg))
+            static_window=uniform_static_window(cfg), tp=axis("attn"))
     if cfg.has_ssm:
         m, (conv, h) = ssm_mod.mamba_decode(cfg, lp["mamba"], xn,
-                                            (cache_l["conv"], cache_l["ssm"]))
+                                            (cache_l["conv"], cache_l["ssm"]), axis("mamba"))
         cache_l["conv"].copy_(conv)
         cache_l["ssm"].copy_(h)
     mix = (_fuse(cfg, lp, a, m) if cfg.arch_type == "hybrid" else
@@ -493,72 +530,84 @@ def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: i
     if cfg.post_norms:
         mix = apply_norm(cfg, lp["post_norm1"], mix)
     x = x + mix
-    ff, _ = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x))
+    ff, _ = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x), shards)
     if cfg.post_norms:
         ff = apply_norm(cfg, lp["post_norm2"], ff)
     return x + ff, cache_l
 
 
-def _decode(cfg: ModelConfig, params: Params, tokens, pos, caches: Dict):
-    h = params["embed"][tokens][:, None, :] * math.sqrt(cfg.d_model)  # (B, 1, D)
+def _decode(cfg: ModelConfig, params: Params, tokens, pos, caches: Dict, shards=None):
+    h = _embed_tokens(cfg, params, tokens[:, None], shards)          # (B, 1, D)
     for i, (lp, win) in enumerate(_layers(cfg, params)):
-        h, _ = _block_decode(cfg, lp, h, pos, {k: c[i] for k, c in caches.items()}, win)
-    return compute_logits(cfg, params, h)[:, 0], caches
+        h, _ = _block_decode(cfg, lp, h, pos, {k: c[i] for k, c in caches.items()}, win,
+                             shards)
+    return compute_logits(cfg, params, h, shards)[:, 0], caches
 
 
-def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos, caches: Dict):
+def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos, caches: Dict,
+                shards=None):
     """One decode step. token (B,) ints, pos an int; returns (logits (B, V),
     caches), the caches updated in place."""
-    return _decode(cfg, params, token, int(pos), caches)
+    return _decode(cfg, params, token, int(pos), caches, shards)
 
 
 def decode_step_slots(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                      pos: torch.Tensor, caches: Dict):
+                      pos: torch.Tensor, caches: Dict, shards=None):
     """One decode step over a slot pool: every row at its own position.
 
     tokens (B,) ints (row b's current token), pos (B,) ints (row b's
     position; -1 = inactive slot: nothing written, logits are don't-care);
     returns (logits (B, V), caches), the caches updated in place.  This is
     the continuous-batching decode: the batch axis is the KV-cache slot pool,
-    and admission or eviction change only ``tokens`` and ``pos``.
+    and admission or eviction change only ``tokens`` and ``pos``.  With
+    ``shards`` the step runs partitioned over ``model`` on this rank's
+    shards and its slices of the caches (``init_caches(..., shards)``); the
+    logits are whole on every rank.
     """
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
-    return _decode(cfg, params, tokens, pos, caches)
+    return _decode(cfg, params, tokens, pos, caches, shards)
 
 
-def prefill(cfg: ModelConfig, params: Params, batch: Dict):
-    """Process the prompt, returning last-position logits and filled caches."""
-    h, caches = _prefill_hidden(cfg, params, batch)
-    return compute_logits(cfg, params, h[:, -1:, :])[:, 0], caches
+def prefill(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
+    """Process the prompt, returning last-position logits and filled caches
+    (with ``shards``: this rank's slices)."""
+    h, caches = _prefill_hidden(cfg, params, batch, shards)
+    return compute_logits(cfg, params, h[:, -1:, :], shards)[:, 0], caches
 
 
-def prefill_at(cfg: ModelConfig, params: Params, batch: Dict, last_idx: torch.Tensor):
+def prefill_at(cfg: ModelConfig, params: Params, batch: Dict, last_idx: torch.Tensor,
+               shards=None):
     """Prefill over a (possibly right-padded) prompt rectangle, returning the
     logits at per-row position ``last_idx`` (B,) — the last real prompt
     token — and the filled caches.  Causal attention keeps positions up to
     ``last_idx`` blind to the pad tail, so one bucket length serves every
     prompt that fits in it."""
-    h, caches = _prefill_hidden(cfg, params, batch)
+    h, caches = _prefill_hidden(cfg, params, batch, shards)
     rows = torch.arange(h.shape[0], device=h.device)
     h_last = h[rows, last_idx.to(device=h.device, dtype=torch.int64)][:, None, :]
-    return compute_logits(cfg, params, h_last)[:, 0], caches
+    return compute_logits(cfg, params, h_last, shards)[:, 0], caches
 
 
-def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
+def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
     """Full-sequence hidden states + per-layer caches, stacked over the
     layers: k and v (L, B, S, KV, hd), an SSM's conv and ssm states, or a
-    hybrid's four."""
-    h = embed_batch(cfg, params, batch)
+    hybrid's four; with ``shards`` the layers partitioned over ``model`` and
+    the caches this rank's slices."""
+    axis = _axes(shards)
+    h = embed_batch(cfg, params, batch, shards)
     caches: Dict = {}
     for lp, win in _layers(cfg, params):
+        if shards is not None:
+            lp = shards.layer(lp)
         xn = apply_norm(cfg, lp["norm1"], h)
         layer: Dict = {}
         if cfg.has_attention:
-            a, (layer["k"], layer["v"]) = attn.attention_prefill(cfg, lp["attn"], xn, win)
+            a, (layer["k"], layer["v"]) = attn.attention_prefill(cfg, lp["attn"], xn, win,
+                                                                 axis("attn"))
         if cfg.has_ssm:
-            m, state = ssm_mod.mamba_prefill(cfg, lp["mamba"], xn)
+            m, state = ssm_mod.mamba_prefill(cfg, lp["mamba"], xn, axis("mamba"))
             if state is None:           # the plain path: the reference's recomputation
-                state = _mamba_tail_state(cfg, lp["mamba"], xn)
+                state = _mamba_tail_state(cfg, lp["mamba"], xn, axis("mamba"))
             layer["conv"], layer["ssm"] = state
         mix = (_fuse(cfg, lp, a, m) if cfg.arch_type == "hybrid" else
                m if cfg.has_ssm else a)
@@ -567,14 +616,14 @@ def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict):
         if cfg.post_norms:
             mix = apply_norm(cfg, lp["post_norm1"], mix)
         h = h + mix
-        ff, _ = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], h))
+        ff, _ = _ffn(cfg, lp, apply_norm(cfg, lp["norm2"], h), shards)
         if cfg.post_norms:
             ff = apply_norm(cfg, lp["post_norm2"], ff)
         h = h + ff
     return h, {name: torch.stack(cs) for name, cs in caches.items()}
 
 
-def _mamba_tail_state(cfg: ModelConfig, mp: Params, xn: torch.Tensor):
+def _mamba_tail_state(cfg: ModelConfig, mp: Params, xn: torch.Tensor, tp=None):
     """Recompute the post-prompt (conv, ssm) state for decode continuation,
     as the reference does: the plain associative scan over the whole
     prompt.  Only the plain path calls it; the kernel path takes the state
@@ -582,11 +631,16 @@ def _mamba_tail_state(cfg: ModelConfig, mp: Params, xn: torch.Tensor):
     prompt's last ``K - 1`` rows of u, or all of them when the prompt is
     shorter; the slot write then fills only that many rows (a reference
     behaviour the port keeps: a prompt under ``K - 1`` tokens decodes from
-    a misaligned conv window)."""
-    u, _ = torch.chunk(xn @ mp["in_proj"], 2, dim=-1)
+    a misaligned conv window).  With ``tp`` the state of this rank's
+    channels (``ssm._rank_channels``, ``x_proj`` summed over the axis)."""
+    if tp is None:
+        u, _ = torch.chunk(xn @ mp["in_proj"], 2, dim=-1)
+    else:
+        mp = ssm_mod._rank_channels(cfg, mp, tp)
+        u = tp.enter(xn) @ mp["u_proj"]
     K = cfg.ssm_conv
     # copies, so that no cached view keeps a layer's u or (B, S, di, n) state alive
     conv_state = u[:, -(K - 1):, :].clone()
     u_c = ssm_mod.silu(ssm_mod._causal_conv(mp, u, K))
-    deltaA, deltaBu, _ = ssm_mod._ssm_inputs(cfg, mp, u_c)
+    deltaA, deltaBu, _ = ssm_mod._ssm_inputs(cfg, mp, u_c, tp)
     return conv_state, ssm_mod._assoc_scan(deltaA, deltaBu)[:, -1].clone()

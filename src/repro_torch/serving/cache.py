@@ -9,7 +9,10 @@ whole pool driven with a per-slot position vector (``-1`` for free slots),
 so admission and eviction never change the decode's shapes.  ``gather``
 pulls per-slot copies back out for inspection and tests.  An SSM's pool holds
 per-slot conv and ssm states instead of (or beside) k and v.  The pool is on
-the card unless the caller asks for ``device="cpu"``.
+the card unless the caller asks for ``device="cpu"``.  On sharded placements
+(``shards``, a ``dist.sharding.ShardedParams``) the pool is this rank's
+slice of every cache leaf (``T.init_caches(..., shards=)``); the slot
+bookkeeping is host-side and the same on every rank.
 """
 from __future__ import annotations
 
@@ -39,13 +42,14 @@ def _scatter_slot(pool: Dict, prefill: Dict, slot: int) -> Dict:
 class SlotKVCache:
     """Fixed pool of ``slots`` KV-cache rows, each ``max_seq`` long."""
 
-    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int, device="cuda"):
+    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int, device="cuda",
+                 shards=None):
         assert slots >= 1 and max_seq >= 1
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
         self.caches: Dict = T.init_caches(cfg, slots, max_seq,
-                                          getattr(torch, cfg.dtype), device)
+                                          getattr(torch, cfg.dtype), device, shards)
         self._free: List[int] = list(range(slots - 1, -1, -1))  # pop() -> 0 first
         # host-side per-slot metadata: next write position (-1 = free slot)
         self.pos = np.full((slots,), -1, np.int64)

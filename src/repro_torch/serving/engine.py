@@ -4,6 +4,8 @@ Counterpart of ``repro.serving.engine``.  ``Engine.generate`` submits every
 prompt, drains the scheduler and returns the full sequences;
 ``Engine.submit``/``Engine.step`` are the open-loop surface.  ``serve_step``
 (one token against a full-length cache) is the scalar-position decode.
+Both take ``shards`` (a ``dist.sharding.ShardedParams``) to serve a rank's
+shards partitioned over ``model`` (``serving.scheduler``).
 """
 from __future__ import annotations
 
@@ -22,11 +24,11 @@ from repro_torch.serving.scheduler import (  # noqa: F401  (re-exported surface)
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
-                 key: Optional[int] = None):
+                 key: Optional[int] = None, shards=None):
         self.cfg = cfg
         self.params = params
         self.sc = serve_cfg
-        self.scheduler = Scheduler(cfg, params, serve_cfg, key=key)
+        self.scheduler = Scheduler(cfg, params, serve_cfg, key=key, shards=shards)
 
     # --- open-loop surface --------------------------------------------- #
     def submit(self, prompt: List[int], max_new: int,
@@ -61,6 +63,7 @@ class Engine:
         return [self.result(rid) for rid in rids]
 
 
-def serve_step(cfg: ModelConfig, params, token, pos, caches):
-    """One new token against a full-length KV cache (updated in place)."""
-    return T.decode_step(cfg, params, token, pos, caches)
+def serve_step(cfg: ModelConfig, params, token, pos, caches, shards=None):
+    """One new token against a full-length KV cache (updated in place); with
+    ``shards`` this rank's shards and cache slices."""
+    return T.decode_step(cfg, params, token, pos, caches, shards)

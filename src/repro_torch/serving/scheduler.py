@@ -17,6 +17,12 @@ counter hash (``sample_key``).  The draw never depends on the slot or on
 which step admitted the request, so sampling at temperature > 0 is the same
 under any admission order or pool packing, as in the reference.  It does not
 reproduce JAX's draws.
+
+On sharded placements (``shards``, a ``dist.sharding.ShardedParams``) every
+rank of the ``model`` axis runs one scheduler on its shards and its slices
+of the pool: admission, buckets and eviction are host-side and the same on
+every rank, and the logits each prefill and decode step returns are whole
+and the same bits on every rank, so every rank samples the same tokens.
 """
 from __future__ import annotations
 
@@ -82,15 +88,16 @@ class StepReport:
 
 class Scheduler:
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
-                 key: Optional[int] = None):
+                 key: Optional[int] = None, shards=None):
         assert not cfg.encoder_only, "encoder-only models don't decode"
         assert sc.slots >= 1
         self.cfg = cfg
         self.params = params
         self.sc = sc
         self.key = key            # sampling seed (None: greedy)
+        self.shards = shards
         self.device = params["embed"].device
-        self.pool = SlotKVCache(cfg, sc.slots, sc.max_seq, self.device)
+        self.pool = SlotKVCache(cfg, sc.slots, sc.max_seq, self.device, shards)
         self.queue: Deque[Request] = deque()
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
@@ -99,7 +106,7 @@ class Scheduler:
                          tuple(sorted(sc.buckets or default_buckets(sc.max_seq))))
         self._used_buckets: Set[int] = set()
         self._decode: Callable = (
-            lambda p, tok, pos, caches: T.decode_step_slots(cfg, p, tok, pos, caches))
+            lambda p, tok, pos, caches: T.decode_step_slots(cfg, p, tok, pos, caches, shards))
         self._slot_tokens = np.zeros((sc.slots,), np.int64)
 
     # ------------------------------------------------------------------ #
@@ -135,8 +142,8 @@ class Scheduler:
     # ------------------------------------------------------------------ #
     def _prefill(self, bucket: int) -> Callable:
         self._used_buckets.add(bucket)
-        cfg = self.cfg
-        return lambda p, toks, last: T.prefill_at(cfg, p, {"tokens": toks}, last)
+        cfg, shards = self.cfg, self.shards
+        return lambda p, toks, last: T.prefill_at(cfg, p, {"tokens": toks}, last, shards)
 
     def _sample(self, logits: torch.Tensor, key_id: int, step: int) -> int:
         if self.sc.temperature <= 0 or self.key is None:

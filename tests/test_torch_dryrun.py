@@ -17,6 +17,9 @@
   (``tests/torch_dist_helpers.run_dry_twin``): rank 0's gathers and
   all-reduces, their bytes and the ledger bytes equal the dry run's, and the ``Meter``'s peak and
   arguments over the real step equal the dry run's over the meta one.
+* The serving targets on (data=1, model=2): a rank's arguments are its
+  parameter shards and its ``cache_specs`` cache slices, its collectives
+  the partitioned layers' hand count; ``long_500k`` stays whole.
 * ``main --all`` over a reduced matrix (two archs, small shapes) exits 0,
   writes one JSON a target, resumes done targets and exits 1 on a failure.
 """
@@ -87,7 +90,83 @@ def test_run_one_on_smoke_configs(arch, step, mesh, monkeypatch):
         assert rec["workers"] == m
     if step in ("prefill", "decode"):
         # gemma2's windows differ by layer: its attention takes the plain path
-        assert rec["kernels"] == {} and coll["total"] == 0
+        assert rec["kernels"] == {}
+        # on (2, 2) partitioned over model: every collective is the layers'
+        assert coll["total"] == coll["axis_model"] == (
+            sum(rec["reduce_bytes"].values()) + sum(rec["gather_bytes"].values()))
+        assert (coll["total"] > 0) == (mesh == "2x2")
+
+
+#: serving configs on (data=1, model=2): KV heads cut (qwen3-14b), ``hd`` cut
+#: (hymba-1.5b with 5 KV heads), d_inner cut (falcon-mamba-7b), experts
+SERVE_TARGETS = [("qwen3-14b", {}), ("hymba-1.5b", {"n_heads": 10, "n_kv_heads": 5}),
+                 ("falcon-mamba-7b", {}), ("qwen3-moe-235b-a22b", {})]
+
+
+def _rounded(n):
+    return -(-n // dryrun.ALLOC_ROUND) * dryrun.ALLOC_ROUND
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+@pytest.mark.parametrize("arch,kw", SERVE_TARGETS)
+def test_serving_targets_price_a_ranks_shards_and_cache_slices(arch, kw, step, monkeypatch):
+    """On rank 0 of (data=1, model=2) the serving targets' arguments are
+    the rank's parameter shards (``param_specs`` cut through
+    ``shard_slices``) plus, at decode, its slices of the caches
+    (``cache_specs``' cut over ``model``) and the tokens, at prefill the
+    prompt; each storage rounded to the allocator's 512 bytes.  The
+    collectives are the partitioned layers' hand count
+    (``torch_dist_helpers.serve_collectives``), all on ``model``."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import config_for_shape
+    from repro_torch.dist.sharding import cache_specs, param_specs, shard_slices
+    from repro_torch.launch import specs
+    from repro_torch.tree import tree_leaves
+
+    monkeypatch.setenv("REPRO_TEST_MESH", "1x2")
+    cfg = get_config(arch).reduced().with_(**kw)
+    shape = _shape(step)
+    rec = dryrun.run_one(arch, shape, False, step, verbose=False, cfg=cfg)
+    mesh = H.FakeMesh({"data": 0, "model": 0}, data=1, model=2)
+    sizes, coord = {"data": 1, "model": 2}, {"data": 0, "model": 0}
+    run_cfg = config_for_shape(cfg, shape).with_(use_pallas=True)
+    like = specs.abstract_params(run_cfg)
+    pspecs = param_specs(run_cfg, like, mesh)
+    want = sum(_rounded(math.prod(sl.stop - sl.start for sl in shard_slices(
+        sp, x.shape, sizes, coord)) * x.element_size())
+        for sp, x in zip(tree_leaves(pspecs), tree_leaves(like)))
+    if step == "decode":
+        _, _, caches = specs.decode_structs(run_cfg, shape)
+        cspecs = cache_specs(run_cfg, mesh, caches)
+        want += sum(_rounded(math.prod(sl.stop - sl.start for sl in shard_slices(
+            cspecs[k], x.shape, sizes, coord)) * x.element_size()) for k, x in caches.items())
+        want += _rounded(shape.global_batch * 4)                  # the tokens
+    else:
+        want += _rounded(shape.global_batch * shape.seq_len * 4)  # the prompt
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    whole = sum(_rounded(x.numel() * x.element_size()) for x in tree_leaves(like))
+    assert want < whole
+    gathers, reduces = H.serve_collectives(run_cfg, step, 2)
+    assert (rec["gathers"], rec["reduces"]) == ({"model": gathers}, {"model": reduces})
+    assert rec["collectives"]["total"] == rec["collectives"]["axis_model"] > 0
+    if arch == "hymba-1.5b" and step == "decode":
+        # the hd-cut caches gathered at use: k and v of every layer, whole
+        L, B, S = run_cfg.n_layers, shape.global_batch, shape.seq_len
+        cache = 2 * L * B * S * run_cfg.n_kv_heads * run_cfg.head_dim * 4
+        assert rec["gather_bytes"]["model"] > cache
+    assert torch.float32 == getattr(torch, run_cfg.dtype)
+
+
+def test_long_500k_decode_keeps_whole_parameters(monkeypatch):
+    """``long_500k`` (its cache's sequence cut over the worker axes, which
+    the port does not run) is priced with whole parameters and caches."""
+    monkeypatch.setenv("REPRO_TEST_MESH", "1x2")
+    rec = dryrun.run_one("gemma2-2b", "long_500k", False, "decode", verbose=False,
+                         cfg=get_config("gemma2-2b").reduced())
+    assert rec["collectives"]["total"] == 0 and rec["gathers"] == rec["reduces"] == {}
 
 
 def test_a_moe_rank_takes_the_global_batch(monkeypatch):

@@ -725,3 +725,191 @@ def run_partitioned_4(rank, world, moe_np, qwen_np, batch, ssm_np):
         out["model4-rotated"], out["model4-rotated-records"] = _recorded(step)
     out.update(ssm_steps(mesh, ssm_np, batch))
     return out
+
+
+# --------------------------------------------------------------------------- #
+# serving on sharded placements: the spawned ranks of
+# tests/test_torch_sharded_serving.py
+# --------------------------------------------------------------------------- #
+#: case -> (arch, the reduced config's overrides): KV heads cut (dense GQA,
+#: hymba, MoE), ``hd`` cut (hymba with 5 KV heads, its query heads parting a
+#: group at model=2; and 5/5 heads, ``wq`` cut inside a head), d_inner cut
+#: (falcon-mamba); ``-pallas``: the kernels' dispatch (their plain versions
+#: on the CPU), the scan's final state in place of the recomputed tail
+SERVE_CASES = {
+    "dense": ("qwen3-14b", {"n_kv_heads": 2}),
+    "dense-pallas": ("qwen3-14b", {"n_kv_heads": 2, "use_pallas": True}),
+    "hymba": ("hymba-1.5b", {"n_layers": 4}),
+    "hymba-hd": ("hymba-1.5b", {"n_layers": 4, "n_heads": 10, "n_kv_heads": 5}),
+    "hymba-odd": ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5}),
+    "falcon-mamba": ("falcon-mamba-7b", {}),
+    "falcon-mamba-pallas": ("falcon-mamba-7b", {"use_pallas": True}),
+    "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
+}
+SERVE_STEPS = 3                  # decode steps after the prefill
+SERVE_LEN = 64                   # the prefill's bucket
+
+
+def serve_config(case):
+    from repro_torch.configs import get_config
+
+    arch, kw = SERVE_CASES[case]
+    return get_config(arch).reduced().with_(remat=False, **kw)
+
+
+def serve_prompts(cfg, seed=1):
+    """``(tokens (2, SERVE_LEN), last)``: two prompts right-padded to the
+    bucket (exact length for an SSM, which prefills unpadded)."""
+    import numpy as np
+
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, SERVE_LEN))
+    last = [SERVE_LEN - 1] * 2 if cfg.has_ssm else [40, SERVE_LEN - 1]
+    return torch.from_numpy(toks), torch.tensor(last)
+
+
+def serve_run(cfg, params, shards=None, steps=SERVE_STEPS):
+    """``prefill_at`` of ``serve_prompts``, its caches put in slots 0 and 2
+    of a 3-slot pool (slot 1 inactive), then ``steps`` decode steps, each
+    row fed its greedy token: the logits of the prefill and of every step
+    (numpy), the prefill's caches and the pool at the end, and the gathers
+    and all-reduces of the prefill and of the last decode step
+    (``collectives.GATHERS``, ``REDUCES``)."""
+    from repro_torch.models import transformer as T
+
+    def counts():
+        return ({k: list(v) for k, v in coll.GATHERS.items()},
+                {k: list(v) for k, v in coll.REDUCES.items()})
+
+    toks, last = serve_prompts(cfg)
+    with torch.no_grad():
+        coll.reset_gathers()
+        logits, caches = T.prefill_at(cfg, params, {"tokens": toks}, last, shards)
+        prefill_counts = counts()
+        pool = T.init_caches(cfg, 3, SERVE_LEN + 8, torch.float32, device="cpu", shards=shards)
+        for name, c in caches.items():
+            for row, slot in ((0, 0), (1, 2)):
+                pool[name][:, slot, :c.shape[2]] = c[:, row]
+        pos = torch.tensor([int(last[0]) + 1, -1, int(last[1]) + 1], dtype=torch.int32)
+        cur = torch.tensor([5, 0, 7])
+        out = [logits.numpy()]
+        for _ in range(steps):
+            coll.reset_gathers()
+            logits, pool = T.decode_step_slots(cfg, params, cur, pos, pool, shards)
+            out.append(logits.numpy())
+            cur = torch.where(pos >= 0, logits.argmax(-1), torch.zeros_like(cur))
+            pos = torch.where(pos >= 0, pos + 1, -1).to(torch.int32)
+    return {"logits": out, "caches": {k: v.numpy() for k, v in caches.items()},
+            "pool": {k: v.numpy() for k, v in pool.items()}, "prefill_counts": prefill_counts,
+            "decode_counts": counts()}
+
+
+def serve_collectives(cfg, kind, world):
+    """(gathers, all-reduces) over ``model`` of one prefill (``kind`` =
+    "prefill") or decode step on (data=1, model=``world``), the hand count
+    of the partitioned layers.  A layer: attention's all-reduce (and, where
+    ``KV`` does not divide the axis, its ``wk`` and ``wv`` gathered; ``wq``
+    too when its cut falls inside a head; at decode the k and v caches
+    gathered over ``hd``); the mamba mixer's ``in_proj`` gather and its two
+    all-reduces (``x_proj``, ``out_proj``), on the plain path's prefill
+    once more for the recomputed tail state; the MLP's or experts'
+    all-reduce.  Then the embedding's all-reduce and the logits' gather."""
+    gathers, reduces = 1, 1
+    plain_tail = kind == "prefill" and not (cfg.use_pallas and cfg.d_inner % 64 == 0)
+    for _ in range(cfg.n_layers):
+        if cfg.has_attention:
+            reduces += 1
+            if cfg.n_kv_heads % world:
+                gathers += 2 + 2 * (kind == "decode")
+            if (cfg.n_heads * cfg.head_dim // world) % cfg.head_dim:
+                gathers += 1
+        if cfg.has_ssm:
+            gathers += 1 + plain_tail
+            reduces += 2 + plain_tail
+        reduces += bool(cfg.d_ff)
+    return gathers, reduces
+
+
+def serve_generate(cfg, params, shards=None):
+    """``Engine.generate`` of three prompts through 2 slots, 5 new tokens."""
+    import numpy as np
+
+    from repro_torch.serving import Engine, ServeConfig
+
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)] for n in (5, 12, 9)]
+    eng = Engine(cfg, params, ServeConfig(max_seq=32, slots=2), shards=shards)
+    with torch.no_grad():
+        return eng.generate(prompts, 5)
+
+
+def without_attention_reduce():
+    """A failing control: the partitioned attention's all-reduce removed
+    (each rank keeps its own partial of ``wo``) while the context is open."""
+    import contextlib
+
+    from repro_torch.models import attention
+
+    @contextlib.contextmanager
+    def patched():
+        real = attention._RankProjection.out
+        attention._RankProjection.out = (
+            lambda self, o: attention._rank_out(o, self.q0, self.c0, self.wo).to(self.dtype))
+        try:
+            yield
+        finally:
+            attention._RankProjection.out = real
+
+    return patched()
+
+
+def cache_wrong_heads():
+    """A failing control: each rank writes its k/v cache with its KV heads
+    rotated by one (each head's rows under the next head) while the context
+    is open."""
+    import contextlib
+
+    from repro_torch.models import attention
+
+    @contextlib.contextmanager
+    def patched():
+        real = attention._RankProjection.cached
+        attention._RankProjection.cached = lambda self, t: torch.roll(real(self, t), 1, dims=2)
+        try:
+            yield
+        finally:
+            attention._RankProjection.cached = real
+
+    return patched()
+
+
+def run_serving(rank, world, ref_np, cases, generate):
+    """(data=1, model=world): per case of ``SERVE_CASES`` in ``cases``, the
+    reference's parameters ``ref_np[case]`` cut into this rank's shards and
+    served (``serve_run``); for the cases in ``generate``,
+    ``Engine.generate`` on the shards (``serve_generate``); on model=2 the
+    two controls on qwen3-14b reduced (4 KV heads, 2 a rank)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.sharding import ShardedParams, param_specs, shard_tree
+
+    torch.set_num_threads(1)
+    mesh = make_test_mesh(data=1, model=world, device="cpu")
+    out = {}
+    for case in cases:
+        cfg = serve_config(case)
+        full = params_from_numpy(ref_np[case], device="cpu")
+        specs = param_specs(cfg, full, mesh)
+        shards, gathered = shard_tree(full, specs, mesh), ShardedParams(specs, mesh)
+        out[case] = serve_run(cfg, shards, gathered)
+        out[case]["held"] = {k: tuple(v.shape) for k, v in out[case]["pool"].items()}
+        if case in generate:
+            out[f"{case}-generate"] = serve_generate(cfg, shards, gathered)
+    if world == 2:
+        cfg = serve_config("dense").with_(n_kv_heads=4)
+        full = params_from_numpy(ref_np["mha"], device="cpu")
+        specs = param_specs(cfg, full, mesh)
+        shards, gathered = shard_tree(full, specs, mesh), ShardedParams(specs, mesh)
+        for name, control in (("no-attention-reduce", without_attention_reduce),
+                              ("cache-wrong-heads", cache_wrong_heads)):
+            with control():
+                out[name] = serve_run(cfg, shards, gathered)
+    return out
