@@ -10,7 +10,8 @@ Phases (any failed check exits non-zero):
      expf, and the scan kernel's own instructions per (t, d, s) in its step
      loop (each n = 16 variant) beside the bound's count; ptxas's registers
      and spills of every ZO kernel (the kernels of zo_reconstruct_update,
-     zo_reconstruct_flat, zo_perturb_flat and zo_sumsq must not spill); then
+     zo_reconstruct_flat, zo_perturb_flat, zo_reconstruct and zo_sumsq must
+     not spill); then
      the Gaussian's parts timed apart: probes on zo_perturb's
      grid with no load and no store (the loop alone, the two hashes, the
      hashes and uniforms, log and sqrt, cos, the whole Gaussian with 1, 2, 4
@@ -60,8 +61,8 @@ Phases (any failed check exits non-zero):
      offset ignored, float32 accumulator for bfloat16), and their times at
      the w2 leaf (n=1,690,000; zo_perturb also at every Fig. 2 leaf size and
      back to back, zo_sumsq back to back and each of its launches alone);
-     zo_perturb (float32, bf16) and zo_reconstruct (m=4, both accumulators)
-     on a shard's run table (``RUN_TABLES``: runs of 1024 at and off a
+     zo_perturb (float32, bf16) and zo_reconstruct (m=4 and m=1, both
+     accumulators) on a shard's run table (``RUN_TABLES``: runs of 1024 at and off a
      16-byte boundary, of 1027, of 3, starts across 2^32) bit for bit their
      plain versions, shard-local counters failing, and at gemma2-2b's
      stacked ``wq`` shard at model=2 (59,904 runs of 1024) timed beside one
@@ -1495,9 +1496,10 @@ TIMED_RUNS = (26 * 2304, 1024)
 
 def run_table_checks(torch, dev, gauss_instr, tables=RUN_TABLES, timed=TIMED_RUNS):
     """The per-leaf kernels on run tables: ``zo_perturb`` (float32, bf16)
-    and ``zo_reconstruct`` (m = 4, float32 and bf16 accumulators) bit for
-    bit their plain versions on each of ``tables``, with shard-local
-    counters (the shard taken for a leaf of its own) as the failing control;
+    and ``zo_reconstruct`` (m = 4 and the timed m = 1, float32 and bf16
+    accumulators) bit for bit their plain versions on each of ``tables``,
+    with shard-local counters (the shard taken for a leaf of its own) as the
+    failing control;
     then, at ``timed``, each call with its table beside a contiguous call of
     the same size (one run) in turns, the plain version and the bound
     (perturb in bf16, reconstruct at m = 1: sharded_phase (c)'s)."""
@@ -1526,17 +1528,18 @@ def run_table_checks(torch, dev, gauss_instr, tables=RUN_TABLES, timed=TIMED_RUN
                  lambda x: ref.ref_zo_perturb(x, salt, scale, starts=starts),
                  lambda x: ref.ref_zo_perturb(x, salt, scale)),
                 ("zo_reconstruct",
-                 lambda acc: cu.zo_reconstruct(n, s4, coeffs, acc_dtype=acc, starts=starts),
-                 lambda acc: ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
-                                                    device=dev, starts=starts),
-                 lambda acc: ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
-                                                    device=dev))):
+                 lambda a: cu.zo_reconstruct(n, s4[:a[0]], coeffs[:a[0]], acc_dtype=a[1],
+                                             starts=starts),
+                 lambda a: ref.ref_zo_reconstruct(n, salts[:a[0]], coeffs[:a[0]],
+                                                  acc_dtype=a[1], device=dev, starts=starts),
+                 lambda a: ref.ref_zo_reconstruct(n, salts[:a[0]], coeffs[:a[0]],
+                                                  acc_dtype=a[1], device=dev))):
             args = ((base[shift:], base.to(torch.bfloat16)[shift:]) if name == "zo_perturb"
-                    else ("float32", "bfloat16"))
+                    else [(m, acc) for m in (4, 1) for acc in ("float32", "bfloat16")])
             for a in args:
                 got, want = kern(a), plain(a)
                 e = float((got.float() - want.float()).abs().max())
-                kind = a.dtype if name == "zo_perturb" else f"m=4 acc={a}"
+                kind = a.dtype if name == "zo_perturb" else f"m={a[0]} acc={a[1]}"
                 print(f"  {name:15s} run table: {what}, {kind}: max_abs_err={e:.3e} (bitwise)")
                 check(torch.equal(got, want), f"{name} run table ({what}, {kind}): the kernel "
                       f"and its plain version disagree ({e})")
@@ -5687,6 +5690,7 @@ def main() -> None:
                       ("zo_reconstruct_update", r"reconstruct_kernel<\d+, \d+, [12]>"),
                       ("zo_reconstruct_flat", r"reconstruct_kernel<\d+, \d+, 0>"),
                       ("zo_perturb_flat", "perturb_flat_kernel"),
+                      ("zo_reconstruct", r"reconstruct_leaf_kernel<\d+>"),
                       ("zo_sumsq", "sumsq_leaf_kernel|sumsq_total_kernel"))}
     for name, usage in redesigned.items():
         check(bool(usage) and all(u.get("spill_stores") == 0 and u.get("spill_loads") == 0

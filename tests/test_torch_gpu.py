@@ -123,13 +123,16 @@ def test_flat_engine_step_on_card_matches_fused(momentum):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 37, 4097, 70200])
-@pytest.mark.parametrize("offset", [0, 12345])
+@pytest.mark.parametrize("n", [1, 37, 4097, 70200, 1690001, 1690002, 1690007])
+@pytest.mark.parametrize("offset", [0, 12345, 2 ** 32 - 2])
 def test_per_leaf_kernels_match_plain_versions(n, offset):
     """zo_perturb (float32 bitwise, bfloat16 within one bf16 ulp),
-    zo_reconstruct (float32 bitwise, bfloat16 accumulator within one bf16
-    ulp, which a float32 accumulator fails), zo_sumsq (rtol 1e-6, the same
-    run to run) and no store past the leaf."""
+    zo_reconstruct (m = 1, 2, 4 and 5; float32 bitwise, bfloat16 accumulator
+    within one bf16 ulp, which a float32 accumulator fails), zo_sumsq (rtol
+    1e-6, the same run to run) and no store past the leaf.  The leaves past
+    1.69M values take zo_reconstruct's trips of several lanes and a scalar
+    tail of 1, 2 and 7 lanes (n % 4 = 1, 2, 3); at offset 2^32 - 2 the first
+    trip's counters wrap."""
     dev = _cuda()
     x = to_t(leaf(n)).to(dev)
     scale = torch.tensor(0.37, device=dev)
@@ -139,7 +142,7 @@ def test_per_leaf_kernels_match_plain_versions(n, offset):
     got = cu.zo_perturb(xb, 99, scale, offset)
     assert got.dtype == torch.bfloat16
     assert bf16_match(got, ref.ref_zo_perturb(xb, 99, scale, offset))
-    for m in (1, 4):
+    for m in (1, 2, 4, 5):
         salts = torch.arange(11, 11 + m, dtype=torch.int32).to(torch.uint32).to(dev)
         coeffs = torch.linspace(-1.5, 2.0, m, device=dev)
         want = {acc: ref.ref_zo_reconstruct(n, salts.cpu(), coeffs, offset, acc, device=dev)
@@ -160,21 +163,31 @@ def test_per_leaf_kernels_match_plain_versions(n, offset):
                torch.cuda.current_stream(x.device).cuda_stream)
     assert torch.equal(buf[:n], ref.ref_zo_perturb(x, 99, scale, offset))
     assert bool((buf[n:] == 7.0).all())
+    buf = torch.full((n + 256,), 7.0, device=dev)
+    cu._launch("zo_reconstruct", "zo_reconstruct_leaf_launch", salts.data_ptr(),
+               coeffs.data_ptr(), buf.data_ptr(), n, offset, None, n, m, 0, x.device.index,
+               torch.cuda.current_stream(x.device).cuda_stream)
+    assert torch.equal(buf[:n], want["float32"])
+    assert bool((buf[n:] == 7.0).all())
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("runs,run,first,step", [(600, 1024, 0, 2048), (257, 1027, 7, 4099),
                                                  (1001, 3, 5, 8), (9, 1, 11, 3),
-                                                 (40, 1024, 2 ** 32 - 20 * 1024 - 500, 1024)])
+                                                 (40, 1024, 2 ** 32 - 20 * 1024 - 500, 1024),
+                                                 (1601, 1027, 7, 4099), (500001, 3, 5, 8),
+                                                 (700, 1024, 2 ** 32 - 300 * 1024 - 500, 1024)])
 @pytest.mark.parametrize("shift", [0, 1])
-def test_per_leaf_kernels_on_a_run_table(runs, run, first, step, shift):
-    """zo_perturb (float32 and bfloat16) and zo_reconstruct (m = 4, both
+@pytest.mark.parametrize("m", [4, 1, 2, 5])
+def test_per_leaf_kernels_on_a_run_table(runs, run, first, step, shift, m):
+    """zo_perturb (float32 and bfloat16) and zo_reconstruct (m workers, both
     accumulators) on a shard's run table, bit for bit their plain versions:
     runs of 1024, of a length no multiple of a vector, shorter than one, of
     one value, and starts across 2^32; the leaf at and off a 16-byte
-    boundary.  The shard taken for a leaf of its own (local counters)
-    differs."""
+    boundary; the last three tables past 1.6M values, where zo_reconstruct's
+    trips of several lanes cross runs' edges.  The shard taken for a leaf of
+    its own (local counters) differs."""
     dev = _cuda()
     n = runs * run
     starts = ((first + step * torch.arange(runs, dtype=torch.int64)) % 2 ** 32).to(
@@ -185,12 +198,14 @@ def test_per_leaf_kernels_on_a_run_table(runs, run, first, step, shift):
         got = cu.zo_perturb(x, 99, scale, starts=starts)
         assert torch.equal(got, ref.ref_zo_perturb(x, 99, scale, starts=starts))
         assert not torch.equal(got, ref.ref_zo_perturb(x, 99, scale))
-    salts = torch.arange(11, 15, dtype=torch.int32).to(torch.uint32)
-    coeffs = torch.linspace(-1.5, 2.0, 4, device=dev)
+    salts = torch.arange(11, 11 + m, dtype=torch.int32).to(torch.uint32)
+    coeffs = torch.linspace(-1.5, 2.0, m, device=dev)
     for acc in ("float32", "bfloat16"):
         got = cu.zo_reconstruct(n, salts.to(dev), coeffs, acc_dtype=acc, starts=starts)
         assert torch.equal(got, ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
                                                        device=dev, starts=starts))
+        assert not torch.equal(got, ref.ref_zo_reconstruct(n, salts, coeffs, acc_dtype=acc,
+                                                           device=dev))
     torch.cuda.synchronize()
 
 

@@ -4,10 +4,11 @@ package, on the CPU.
 * ``kernels.ops.zo_sumsq``/``zo_perturb``/``zo_reconstruct`` (their plain
   versions on CPU tensors) against ``repro.kernels.ops`` (the Pallas kernels
   in interpret mode) at ``tests/test_kernels.py::test_zo_kernels_sweep``'s
-  ``(n, block)`` cases: sumsq rtol 1e-5, perturb and reconstruct rtol 1e-5 /
-  atol 1e-6 (the Gaussians differ by ulps of log/cos between the two math
-  libraries), the bf16 accumulator bitwise (its rounding after every worker
-  quantizes those ulps away at these inputs);
+  ``(n, block)`` cases, reconstruct also at m = 1, 2 and 5 and at an offset
+  whose counters wrap past 2^32: sumsq rtol 1e-5, perturb and reconstruct
+  rtol 1e-5 / atol 1e-6 (the Gaussians differ by ulps of log/cos between
+  the two math libraries), the bf16 accumulator bitwise (its rounding after
+  every worker quantizes those ulps away at these inputs);
 * the run-table plain versions (a shard of a leaf: runs of consecutive
   global counters, one kernel call) bit for bit the contiguous ones called
   run by run, across 2^32 and at run lengths no multiple of a vector;
@@ -50,14 +51,27 @@ SWEEP = [(4096, 1024), (8192, 4096), (2048, 2048), (5000, 4096), (1000, 512),
          (37, 8), (3, 4096), (1, 4096)]
 SALTS = np.asarray([1, 2, 3, 4], np.uint32)
 COEFFS = np.asarray([0.5, -1.0, 2.0, 0.1], np.float32)
+#: zo_reconstruct's cases beside m = 4 at a test's own offset: m = 1, 2 and 5
+#: workers (the first m of five salts and coefficients), at that offset and
+#: at 2^32 - 2, where the counters wrap at lane 2 (``wraps``)
+WRAP = 2 ** 32 - 2
+M_WRAPS = [(m, wraps) for m in (1, 2, 5) for wraps in (False, True)] + [(4, True)]
 
 
 def _np(t):
     return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
 
 
-@pytest.mark.parametrize("n,block", SWEEP)
-def test_per_leaf_ops_match_jax_kernels(n, block):
+def _workers(m, salts=(1, 2, 3, 4, 5), coeffs=(0.5, -1.0, 2.0, 0.1, -0.7)):
+    return np.asarray(salts[:m], np.uint32), np.asarray(coeffs[:m], np.float32)
+
+
+@pytest.mark.parametrize("n,block,m,offset",
+                         [pytest.param(n, block, 4, 9, id=f"{n}-{block}") for n, block in SWEEP]
+                         + [pytest.param(n, block, m, WRAP if wraps else 9,
+                                         id=f"{n}-{block}-m{m}" + "-wraps" * wraps)
+                            for n, block in ((5000, 4096), (37, 8)) for m, wraps in M_WRAPS])
+def test_per_leaf_ops_match_jax_kernels(n, block, m, offset):
     ss = ops.zo_sumsq(n, 1234, offset=77, device="cpu")
     assert ss.dtype == torch.float32 and ss.dim() == 0
     np.testing.assert_allclose(float(ss), float(jops.zo_sumsq(n, 1234, offset=77, block=block)),
@@ -66,22 +80,28 @@ def test_per_leaf_ops_match_jax_kernels(n, block):
     out = ops.zo_perturb(torch.from_numpy(x), 55, 0.01, offset=3)
     want = jops.zo_perturb(jnp.asarray(x), 55, 0.01, offset=3, block=block)
     np.testing.assert_allclose(_np(out), np.asarray(want), **FP32_TOL)
-    out = ops.zo_reconstruct(n, torch.from_numpy(SALTS), torch.from_numpy(COEFFS), offset=9)
-    want = jops.zo_reconstruct(n, jnp.asarray(SALTS), jnp.asarray(COEFFS), offset=9, block=block)
+    salts, coeffs = _workers(m)
+    out = ops.zo_reconstruct(n, torch.from_numpy(salts), torch.from_numpy(coeffs), offset=offset)
+    want = jops.zo_reconstruct(n, jnp.asarray(salts), jnp.asarray(coeffs),
+                               offset=np.uint32(offset), block=block)
     assert out.dtype == torch.float32 and out.shape == (n,)
     np.testing.assert_allclose(_np(out), np.asarray(want), **FP32_TOL)
 
 
-@pytest.mark.parametrize("n,block", [(1000, 512), (2048, 2048)])
-def test_per_leaf_bf16_paths_match_jax_kernels(n, block):
+@pytest.mark.parametrize("n,block,m,offset",
+                         [pytest.param(n, block, 4, 0, id=f"{n}-{block}")
+                          for n, block in ((1000, 512), (2048, 2048))]
+                         + [pytest.param(1000, 512, m, WRAP if wraps else 0,
+                                         id=f"1000-512-m{m}" + "-wraps" * wraps)
+                            for m, wraps in M_WRAPS])
+def test_per_leaf_bf16_paths_match_jax_kernels(n, block, m, offset):
     """bf16 leaves through zo_perturb and the bf16 accumulator of
     zo_reconstruct (cf. test_kernels.py::test_zo_reconstruct_acc_dtype)."""
-    salts, coeffs = np.asarray([7, 11, 13, 17], np.uint32), \
-        np.asarray([0.25, -0.75, 1.5, 0.3], np.float32)
-    out = ops.zo_reconstruct(n, torch.from_numpy(salts), torch.from_numpy(coeffs),
+    salts, coeffs = _workers(m, (7, 11, 13, 17, 19), (0.25, -0.75, 1.5, 0.3, -1.25))
+    out = ops.zo_reconstruct(n, torch.from_numpy(salts), torch.from_numpy(coeffs), offset,
                              acc_dtype="bfloat16")
-    want = jops.zo_reconstruct(n, jnp.asarray(salts), jnp.asarray(coeffs), offset=0,
-                               block=block, acc_dtype="bfloat16")
+    want = jops.zo_reconstruct(n, jnp.asarray(salts), jnp.asarray(coeffs),
+                               offset=np.uint32(offset), block=block, acc_dtype="bfloat16")
     np.testing.assert_array_equal(_np(out), np.asarray(want))
     x = np.random.default_rng(1).normal(size=n).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
