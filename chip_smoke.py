@@ -226,6 +226,17 @@ Phases (any failed check exits non-zero):
      phase 10's rule, both ranks the same tokens and logits bits, the
      launches a rank, (e)'s collectives of a prefill and a decode step and
      rank 0's peak against the dry run's (phase 8d'' (f));
+  13c. ``long_500k``'s sequence-sharded decode (``long_context_phase``):
+     gemma2-2b+swa at full width and depth (every layer windowed at 4096),
+     batch 1, S = 524,288, on 2 gloo ranks sharing ``cuda:0`` with the
+     sequence over data=2 (a rank 262,144 rows of k and v), the seed-0
+     weights of phase 10's init and the rows the windows read from the
+     counter hash at their global index; ``serve_step`` at 4 positions
+     from S/2 + 2047 (windows across the ranks' boundary), at 4096 and at
+     S - 1, held to one process's on the whole cache (run alone after the
+     ranks exit) by phase 13b's rule, both ranks the same logits bits, 26
+     combines a step over ``data`` and rank 0's peak against the dry run's
+     for rank 0 of (data=2, model=1); ms a step and its collective share;
   14. serving qwen3-moe-235b-a22b at full width (d_model 4096, 64/4 heads,
      128 experts, top-8, expert d_ff 1536), depth cut to 4 layers
      (11,195,683,840 random bf16 parameters), as phase 10: 32 flash
@@ -2830,7 +2841,8 @@ class ShardProbe(TrainProbe):
     start the parameter bytes the rank holds, every loss evaluation's value
     (in order, per step), and the host seconds, calls and bytes of the
     gathers (``collectives.gather_cat``, per axes) and of the partitioned
-    forward's all-reduces (their exchange, ``collectives.reduce_parts``),
+    forward's all-reduces (``collectives.all_reduce_sum`` and, for the
+    cross-entropy's combine, ``reduce_parts``),
     each after a synchronize, so that its time is its
     own and not the compute queued before it.  The flat kernels' outputs in
     the first ZO step are held on sampled blocks of this rank's packed
@@ -2916,8 +2928,8 @@ class ShardProbe(TrainProbe):
         patch(T, "loss_fn", recorded_loss)
         patch(coll, "gather_cat", timed("gather", coll.gather_cat,
                                         lambda x, out: nbytes(out)))
-        patch(coll, "reduce_parts", timed("reduce", coll.reduce_parts,
-                                          lambda x, out: nbytes(x)))
+        for name in ("all_reduce_sum", "reduce_parts"):
+            patch(coll, name, timed("reduce", getattr(coll, name), lambda x, out: nbytes(x)))
 
     def step(self, kind, fn):
         inner = super().step(kind, fn)
@@ -4988,11 +5000,11 @@ def serve_dryrun_target(mesh: str, step: str, arch: str, seq: int, batch: int):
 
 def collective_probe(torch, stack, rec):
     """Time every gather and all-reduce exchange (``collectives.gather_cat``,
-    ``reduce_parts``) by host clock, each between two synchronizes, into
-    ``rec["comm_s"]`` and ``rec["comm_calls"]``."""
+    ``all_reduce_sum``, ``reduce_parts``) by host clock, each between two
+    synchronizes, into ``rec["comm_s"]`` and ``rec["comm_calls"]``."""
     from repro_torch.dist import collectives as coll
 
-    for name in ("gather_cat", "reduce_parts"):
+    for name in ("gather_cat", "all_reduce_sum", "reduce_parts"):
         fn = getattr(coll, name)
 
         def timed(*a, fn=fn, **kw):
@@ -5318,6 +5330,270 @@ def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, sca
     out["e"]["dry_run_peak_gb"], out["e"]["peak_rel"] = pred, rel
     print(f"  sharded serving: {wall:.1f} s for both runs on 2 ranks")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 13c: long_500k's sequence-sharded decode
+# --------------------------------------------------------------------------- #
+LONG_PATH = "serve_step gemma2-2b+swa long_500k (S=524,288) on 2 gloo ranks, data=2"
+LONG_SEED = 7                 # the counter hash's seed of the cache rows the windows read
+
+
+def long_config():
+    """gemma2-2b as ``long_500k`` runs it: every layer windowed at 4096."""
+    from repro_torch.configs import SHAPES, config_for_shape, get_config
+
+    return config_for_shape(get_config("gemma2-2b"), SHAPES["long_500k"])
+
+
+def long_positions(S, W):
+    """The decode's positions in turn for a window of ``W``: 4 from S/2 +
+    W/2 - 1 (S/2 + 2047 at W = 4096: windows that straddle the ranks'
+    boundary at S/2), ``W`` (rank 0's rows only) and S - 1 (the dry run's
+    position; rank 1's rows only)."""
+    return [S // 2 + W // 2 - 1 + i for i in range(4)] + [W, S - 1]
+
+
+def long_fill(torch, cfg, caches, r0, S, positions):
+    """Write the k and v rows that the windows at ``positions`` read, of
+    this rank's rows ``[r0, r0 + n)``, from the counter hash at their
+    global index (``core.directions``: layer l's k and v under the salts
+    ``fold(LONG_SEED, l, 0)`` and ``fold(LONG_SEED, l, 1)``, the counter the
+    row-major index in ``(1, S, KV, hd)``), so that the ranks and one
+    process hold the same bits without a 500k-token prefill."""
+    from repro_torch.core.directions import fold, gaussian_from_salt
+
+    W, n, row = cfg.window, caches["k"].shape[2], cfg.n_kv_heads * cfg.head_dim
+    spans = []
+    for p in sorted(positions):
+        start = min(max(p - W + 1, 0), S - W)
+        if spans and start <= spans[-1][1]:
+            spans[-1][1] = max(spans[-1][1], start + W)
+        else:
+            spans.append([start, start + W])
+    for a, b in spans:
+        lo, hi = max(a, r0), min(b, r0 + n)
+        for layer in range(cfg.n_layers if lo < hi else 0):
+            for j, name in enumerate(("k", "v")):
+                vals = gaussian_from_salt((1, hi - lo, cfg.n_kv_heads, cfg.head_dim),
+                                          fold(LONG_SEED, layer, j), offset=lo * row,
+                                          device=caches[name].device)
+                caches[name][layer, :, lo - r0:hi - r0] = vals.to(caches[name].dtype)
+
+
+def long_steps(torch, cfg, params, caches, shards, positions, tokens, dev):
+    """``serve_step`` at each of ``positions`` in turn, fed ``tokens``: per
+    step its ms (host clock between synchronizes), its collectives' seconds
+    and calls (``collective_probe``), the all-reduces and combines it made
+    (``collectives.REDUCES``), its logits (numpy) and their digest; the
+    launches of the hand-written kernels; the peak memory over the steps
+    and the bytes of parameters and caches held."""
+    import hashlib
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import serve_step
+    from repro_torch.tree import tree_leaves
+
+    rec = {"ms": [], "comm_ms": [], "comm_calls": [], "reduces": [], "logits": [],
+           "digests": []}
+    probe = {"comm_s": 0.0, "comm_calls": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with contextlib.ExitStack() as stack, torch.no_grad():
+        collective_probe(torch, stack, probe)
+        for pos, tok in zip(positions, tokens):
+            coll.reset_gathers()
+            s0, c0 = probe["comm_s"], probe["comm_calls"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = serve_step(cfg, params, torch.tensor([int(tok)], device=dev), pos,
+                                        caches, shards)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["comm_ms"].append(1e3 * (probe["comm_s"] - s0))
+            rec["comm_calls"].append(probe["comm_calls"] - c0)
+            rec["reduces"].append({"+".join(k): list(v) for k, v in coll.REDUCES.items()})
+            lg = logits.float().cpu().numpy()
+            rec["logits"].append(lg)
+            rec["digests"].append(hashlib.sha1(lg.tobytes()).hexdigest())
+    rec["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    rec["held_gb"] = sum(x.numel() * x.element_size()
+                         for x in tree_leaves(params) + list(caches.values())) / 1e9
+    rec["cache_shapes"] = {k: tuple(c.shape) for k, c in caches.items()}
+    return rec
+
+
+def long_context_rank(rank, world, cfg, S, positions, tokens, dev_type):
+    """One rank of ``long_context_phase``: gemma2-2b+swa from the seed-0
+    generator on the card (``serve_phase``'s weights; whole, nothing cuts
+    them at model=1), a sequence-sharded ``ShardedParams`` on (data=world,
+    model=1), ``init_caches`` of the rank's ``S / world`` rows, the rows
+    the windows read filled (``long_fill``), then ``long_steps``."""
+    import torch
+
+    from repro_torch.dist.sharding import ShardedParams, param_specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    mesh = make_test_mesh(data=world, model=1, device=dev_type)
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    shards = ShardedParams(param_specs(cfg, params, mesh), mesh, seq_sharded=True)
+    caches = T.init_caches(cfg, 1, S, getattr(torch, cfg.dtype), device=dev, shards=shards)
+    r0, r1 = shards.seq.rows(S)
+    long_fill(torch, cfg, caches, r0, S, positions)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = long_steps(torch, cfg, params, caches, shards, positions, tokens, dev)
+    rec.update(init_s=init_s, rows=(r0, r1))
+    return rec
+
+
+def long_dryrun_target(mesh: str, cfg, S: int):
+    """``launch.dryrun.run_one`` of ``cfg`` at ``long_500k``'s shape (batch
+    1, ``S`` rows) for rank 0 of ``mesh`` (a spawned process of its own, on
+    the CPU)."""
+    import os
+
+    os.environ["REPRO_TEST_MESH"] = mesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_one("gemma2-2b", ShapeConfig("long_500k", S, 1, "decode"), False,
+                          "decode", verbose=False, cfg=cfg)
+
+
+def step_hold(one, got, label):
+    """``serving_hold``'s rule on ``serve_step``'s logits: every step's
+    within 5% of the largest of one process's, and its greedy token one
+    process's except where one process's top-2 margin is within that
+    tolerance.  Returns (max |diff|, tolerance, steps whose tokens agree)."""
+    import numpy as np
+
+    top = max(float(np.abs(lg).max()) for lg in one["logits"])
+    tol = 0.05 * top
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(got["logits"], one["logits"])]
+    check(len(diffs) == len(one["logits"]) and all(math.isfinite(d) for d in diffs)
+          and max(diffs) <= tol,
+          f"{label}: logits {max(diffs):.4f} from one process's (tol {tol:.4f})")
+    same = 0
+    for step, (a, b) in enumerate(zip(got["logits"], one["logits"])):
+        if int(a.argmax()) == int(b.argmax()):
+            same += 1
+            continue
+        top2 = np.sort(b[0])[-2:]
+        margin = float(top2[1] - top2[0])
+        print(f"  {label} step {step}: greedy token {int(a.argmax())} vs one process's "
+              f"{int(b.argmax())}; one process's top-2 margin {margin:.4f}")
+        check(margin <= tol, f"{label} step {step}: greedy tokens differ where one process's "
+              f"top-2 margin {margin:.4f} exceeds {tol:.4f}")
+    return max(diffs), tol, same
+
+
+def long_context_phase(torch, dev, cfg=None, S=524_288, world=2, timeout=600.0):
+    """``long_500k``'s sequence-sharded decode: gemma2-2b+swa at full width
+    and depth (26 layers, every one windowed at 4096), batch 1, S =
+    524,288, on ``world`` gloo ranks sharing ``cuda:0`` with the sequence
+    over data=``world`` (each rank ``S / world`` rows of k and v; no CPU
+    path, no caught failure): ``serve_step`` at ``long_positions(S)``, fed
+    seeded tokens, from the rows ``long_fill`` writes.  Held to one
+    process's ``serve_step`` on the whole cache, run alone on the card
+    after the ranks have exited (``step_hold``); every rank the same logits
+    bits (digests); 26 combines over ``data`` a step, one a layer, equal to
+    the dry run's count for rank 0 of (data=2, model=1); rank 0's peak
+    within ``PEAK_TOL`` of the dry run's.  The dry run works on the CPU
+    while the ranks run.  Prints ms a step and its collective share, the
+    peaks, and the phase's wall time.  ``cfg`` (a long-context config) and
+    ``S`` replace gemma2-2b+swa and 524,288 in a rehearsal."""
+    import multiprocessing as mp
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as T
+
+    smi = smi_line()
+    t_phase = time.perf_counter()
+    cfg = cfg or long_config()
+    positions = long_positions(S, cfg.window)
+    tokens = [int(t) for t in np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                               len(positions))]
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        dry_future = pool.submit(long_dryrun_target, f"{world}x1", cfg, S)
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                ranks = spawn_ranks(long_context_rank, world, str(Path(tmp) / "init"), cfg,
+                                    S, positions, tokens, dev.type, timeout=timeout)
+            except (RuntimeError, TimeoutError) as e:
+                fail(f"long-context ranks: {e}")
+        dry = dry_future.result()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    caches = T.init_caches(cfg, 1, S, getattr(torch, cfg.dtype), device=dev)
+    long_fill(torch, cfg, caches, 0, S, positions)
+    torch.cuda.synchronize()
+    one_init_s = time.perf_counter() - t0
+    one = long_steps(torch, cfg, params, caches, None, positions, tokens, dev)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = f"(g) {LONG_PATH}"
+    r0 = ranks[0]
+    for rank, rec in enumerate(ranks):
+        check(rec["digests"] == r0["digests"], f"{label}: rank {rank}'s logits are not rank "
+              f"0's bits")
+        check(rec["cache_shapes"]["k"][2] == S // world and rec["rows"] == (
+            rank * S // world, (rank + 1) * S // world),
+              f"{label}: rank {rank} holds rows {rec['rows']}, k {rec['cache_shapes']['k']}")
+        for step, red in enumerate(rec["reduces"]):
+            check(red.get("data", [0])[0] == cfg.n_layers == dry["reduces"].get("data"),
+                  f"{label} rank {rank} step {step}: combines {red}, layers {cfg.n_layers}, "
+                  f"the dry run's {dry['reduces']}")
+            check(red.get("data", [0, 0])[1] == dry["reduce_bytes"]["data"],
+                  f"{label} rank {rank} step {step}: combined bytes {red}, the dry run's "
+                  f"{dry['reduce_bytes']}")
+    diff, tol, same = step_hold(one, r0, label)
+    pred = dry["memory"]["peak_memory_in_bytes"] / 1e9
+    rel = abs(pred - r0["peak_gb"]) / max(r0["peak_gb"], 1e-12)
+    check(rel <= PEAK_TOL, f"{label}: rank 0's peak {r0['peak_gb']:.3f} GB, the dry run's "
+          f"{pred:.3f} (relative {rel:.4f} > {PEAK_TOL})")
+    wall = time.perf_counter() - t_phase
+    med = statistics.median(r0["ms"])
+    comm = statistics.median(r0["comm_ms"])
+    print(f"  {label}: {cfg.n_layers} layers, window {cfg.window}; rank 0 holds rows "
+          f"{r0['rows']} (k {r0['cache_shapes']['k']}), {r0['held_gb']:.3f} GB of parameters "
+          f"and caches (initialised and filled in {r0['init_s']:.1f} s); positions "
+          f"{positions}; logits {diff:.4f} from one process's (tol 5% of the largest, "
+          f"{tol:.4f}); greedy tokens of {same} of {len(positions)} steps identical; both ranks "
+          f"the same logits bits; combines a step {r0['reduces'][0]} (the dry run's "
+          f"{dry['reduces']}, {dry['reduce_bytes']} B); kernel launches {r0['launches']}")
+    print(f"    times [{smi}]: ms a step {[round(x, 3) for x in r0['ms']]} (median {med:.3f}; "
+          f"one process {[round(x, 3) for x in one['ms']]}, median "
+          f"{statistics.median(one['ms']):.3f}); collective calls a step "
+          f"{r0['comm_calls'][0]}, their ms median {comm:.3f} = {comm / med:.3f} of the step")
+    print(f"    peak [{smi}]: rank 0 {r0['peak_gb']:.3f} GB, rank 1 "
+          f"{ranks[1]['peak_gb']:.3f} GB; the dry run's prediction for rank 0 of "
+          f"(data={world}, model=1) {pred:.3f} GB (arguments "
+          f"{dry['memory']['argument_size_in_bytes'] / 1e9:.3f}): relative {rel:.4f} (tol "
+          f"{PEAK_TOL}); one process {one['peak_gb']:.3f} GB ({one['held_gb']:.3f} GB held, "
+          f"initialised and filled in {one_init_s:.1f} s); phase {wall:.1f} s")
+    return {"ms": r0["ms"], "one_process_ms": one["ms"], "comm_ms": r0["comm_ms"],
+            "comm_calls": r0["comm_calls"][0], "collective_share": comm / med,
+            "combines": r0["reduces"][0], "logits_max_abs_diff": diff, "tol": tol,
+            "identical_steps": same, "peak_gb": [r["peak_gb"] for r in ranks],
+            "dry_run_peak_gb": pred, "peak_rel": rel, "one_process_peak_gb": one["peak_gb"],
+            "launches": r0["launches"], "wall_s": wall}
 
 
 # --------------------------------------------------------------------------- #
@@ -5815,6 +6091,10 @@ def main() -> None:
                                         exp_instr, flash["rows"], scan["rows"])
     gc.collect()
     torch.cuda.empty_cache()
+    print("# phase: long_500k's sequence-sharded decode, serve_step of gemma2-2b+swa at full "
+          "width and depth, S=524,288, on 2 gloo ranks sharing cuda:0 (data=2), against one "
+          "process")
+    long_context_phase(torch, dev)
     print(f"# phase: serving qwen3-moe-235b-a22b at full width, {MOE_LAYERS} layers (kernel vs "
           f"plain path)")
     moe = moe_serve_phase(torch, dev)

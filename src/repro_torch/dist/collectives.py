@@ -37,13 +37,18 @@ placements' storage collective (``dist.sharding.gather``), books nothing.
 Ranks that share one card (gloo ranks on ``cuda:0``) run ``gather_cat``
 device to device through CUDA IPC handles rather than through host memory.
 
-The partitioned forward's all-reduces (``all_reduce_sum``, and
-``reduce_parts`` for a combine that is not a sum) are built as a
-``gather_cat`` of the partials on a new leading dim followed by a sum in
-group-rank order on every rank, so every rank of the group holds the same
-bits: the replicated activations, a MoE layer's routing and the losses of
-one worker must agree bit for bit on its ranks.  They go through the
-same-card exchange or the group's backend as ``gather_cat`` does (never
+The partitioned forward's all-reduces (``all_reduce_sum``) add every
+rank's partial into one float32 accumulator as it is read, in group-rank
+order, on every rank, so every rank of the group holds the same bits: the
+replicated activations, a MoE layer's routing and the losses of one worker
+must agree bit for bit on its ranks.  No rank holds every rank's partial at
+once: on one card each rank reads the others' buffers in turn
+(``_CardExchange.reduce_sum``); otherwise each rank's part is broadcast in
+rank order into one receive buffer and added before the next arrives.  A
+combine that is not a sum (``reduce_parts``: the vocab-parallel
+cross-entropy's carries, the sequence-sharded decode's softmax partials)
+stacks its small parts on a new leading dim, as ``gather_cat`` does.
+These go through the same-card exchange or the group's backend (never
 gloo's ``all_reduce``, which stages through host memory and sums in an
 order of its own), and book nothing: they are the model's internal
 traffic, not the method's exchange, as the reference's compiler books them
@@ -53,8 +58,8 @@ nowhere either.
 tuple of axes, ``REDUCES`` the partitioned forward's all-reduces and the
 bytes of their reduced payloads (``reset_gathers`` sets both to 0): the dry
 run's collective bytes (``launch.dryrun``).  Every collective that runs
-over the group (``gather_cat``, ``reduce_parts``, ``all_gather``,
-``psum``, ``pmean``) is one ``record_function`` span named
+over the group (``gather_cat``, ``all_reduce_sum``, ``reduce_parts``,
+``all_gather``, ``psum``, ``pmean``) is one ``record_function`` span named
 ``collective:<kind>`` (``all-gather`` or ``all-reduce``), which
 ``launch.overlap`` pairs with the kernels a profiler trace shows between
 its ends.
@@ -76,8 +81,8 @@ _ACTIVE: List[Tuple["CommLedger", str]] = []
 
 #: axes -> [calls, bytes of the gathered results] of ``gather_cat``
 GATHERS: Dict[Tuple[str, ...], List[int]] = {}
-#: axes -> [calls, bytes of the reduced payloads] of ``reduce_parts`` (every
-#: ``all_reduce_sum`` is one)
+#: axes -> [calls, bytes of the reduced payloads] of ``all_reduce_sum`` and
+#: ``reduce_parts``
 REDUCES: Dict[Tuple[str, ...], List[int]] = {}
 
 
@@ -234,10 +239,12 @@ def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 
 class _CardExchange:
-    """``gather_cat`` between ranks that share one CUDA device: each rank
-    copies its part into a buffer of its own that every rank of the group
-    has opened through a CUDA IPC handle, and every rank reads the parts
-    device to device.  A barrier after the writes and one after the reads
+    """``gather_cat`` and ``all_reduce_sum`` between ranks that share one
+    CUDA device: each rank copies its part into a buffer of its own that
+    every rank of the group has opened through a CUDA IPC handle, and every
+    rank reads the parts device to device (``gather``: concatenated;
+    ``reduce_sum``: added into one float32 accumulator one buffer at a
+    time).  A barrier after the writes and one after the reads
     (each behind a stream synchronize) keep a rank from reading a part
     before it is written, or overwriting its buffer before it is read.  The
     buffers grow in step on every rank: the ranks of a group gather the same
@@ -260,7 +267,9 @@ class _CardExchange:
         self.parts = [self.mine if r == me else rebuild(*args)
                       for r, (rebuild, args) in enumerate(handles)]
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def _read(self, x: torch.Tensor, combine):
+        """``combine`` of every rank's ``x`` (a generator of views of their
+        buffers, in group-rank order), between the two barriers."""
         import torch.distributed as dist
 
         x = x.contiguous()
@@ -271,10 +280,17 @@ class _CardExchange:
         self.mine[:n].copy_(x.reshape(-1).view(torch.uint8))
         stream.synchronize()
         dist.barrier(group=self.group)
-        out = torch.cat([p[:n].view(x.dtype).view(x.shape) for p in self.parts], dim)
+        out = combine(p[:n].view(x.dtype).view(x.shape) for p in self.parts)
         stream.synchronize()
         dist.barrier(group=self.group)
         return out
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._read(x, lambda parts: torch.cat(list(parts), dim))
+
+    def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The float32 sum of every rank's ``x``, each buffer read in turn."""
+        return self._read(x, _accumulate)
 
 
 #: per mesh and axes: the ``_CardExchange`` of their group, or None when its
@@ -317,10 +333,12 @@ def gather_cat(x: torch.Tensor, axes: Axes, *, mesh, dim: int) -> torch.Tensor:
 
 def reduce_parts(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
     """Every rank's ``x`` over the ``axes`` of ``mesh``, stacked on a new
-    leading dim in group-rank order: the exchange of the partitioned
-    forward's all-reduces, whose combine every rank computes alike
-    (``all_reduce_sum``; the vocab-parallel cross-entropy's max and sum).
-    Counted in ``REDUCES`` at ``x``'s bytes; books nothing."""
+    leading dim in group-rank order, for a combine that is not a sum and
+    that every rank computes alike: the vocab-parallel cross-entropy's
+    carries, the sequence-sharded decode's softmax partials.  Those parts
+    are small (a few floats a row); a sum goes through ``all_reduce_sum``,
+    which holds no stack.  Counted in ``REDUCES`` at ``x``'s bytes; books
+    nothing."""
     with _span("all-reduce"):
         out = _gather_cat(x.unsqueeze(0), axes, mesh, 0)
     _count(REDUCES, axes, x)
@@ -329,13 +347,55 @@ def reduce_parts(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
     """The sum of ``x`` over the ``axes`` of ``mesh``, the same bits on
-    every rank: the parts exchanged in ``x``'s dtype (``reduce_parts``),
-    added in float32 in group-rank order, rounded once to ``x``'s dtype."""
-    parts = reduce_parts(x, axes, mesh=mesh)
-    out = parts[0].to(torch.float32)
-    for part in parts[1:]:
-        out = out + part.to(torch.float32)
-    return out.to(x.dtype)
+    every rank: the parts exchanged in ``x``'s dtype, added in group-rank
+    order into one float32 accumulator as each is read, rounded once to
+    ``x``'s dtype.  A rank holds ``x``, the accumulator and at most one
+    received part.  Counted in ``REDUCES`` at ``x``'s bytes; books
+    nothing."""
+    with _span("all-reduce"):
+        out = _reduce_sum(x, axes, mesh)
+    _count(REDUCES, axes, x)
+    return out.to(x.device, x.dtype)
+
+
+def _accumulate(parts) -> torch.Tensor:
+    """The float32 sum of ``parts`` in their order: a copy of the first,
+    then each added in place (a bf16 part promoted inside the add, with no
+    float32 copy of it)."""
+    acc = None
+    for part in parts:
+        if acc is None:
+            acc = part.to(torch.float32, copy=True)
+        else:
+            acc.add_(part)
+    return acc
+
+
+def _reduce_sum(x: torch.Tensor, axes: Axes, mesh) -> torch.Tensor:
+    """``all_reduce_sum``'s float32 sum: through the same-card exchange, or
+    one broadcast per source rank in group-rank order into a single receive
+    buffer, each part added before the next arrives (on the host when gloo
+    stages a CUDA part there)."""
+    import torch.distributed as dist
+
+    if x.is_cuda:
+        card = _card_exchange(mesh, axes, x)
+        if card is not None:
+            return card.reduce_sum(x)
+    group = axes_group(mesh, axes)
+    y, _ = _staged(x.contiguous(), group)
+    me = dist.get_rank(group)
+
+    def received():
+        buf = None
+        for r in range(dist.get_world_size(group)):
+            if r != me and buf is None:
+                buf = torch.empty_like(y)
+            part = y if r == me else buf
+            dist.broadcast(part, src=dist.get_global_rank(group, r), group=group)
+            yield part
+
+    return _accumulate(received())
 
 
 def _gather_cat(x: torch.Tensor, axes: Axes, mesh, dim: int) -> torch.Tensor:

@@ -55,7 +55,9 @@ after the gather, so that the gradient is summed over the axis before it
 is sliced.  Serving runs on the same placements: a rank's caches are its
 slices of ``cache_specs`` over ``model`` (``cache_slices``), and
 ``ModelAxis.cat`` gathers what a rank needs whole (the logits' vocabulary
-columns, an ``hd``-cut cache).  Nothing here is a ``DTensor``: the
+columns, an ``hd``-cut cache).  A sequence-sharded cache (``long_500k``)
+is also cut on its sequence over the worker axes (``SequenceAxis``, carried
+by ``ShardedParams(..., seq_sharded=True)``).  Nothing here is a ``DTensor``: the
 models launch kernels on raw pointers, and gloo carries a CUDA payload only
 through host memory (``dist.collectives``).
 """
@@ -278,15 +280,25 @@ def cache_specs(cfg, mesh, caches: Any, seq_sharded: bool = False) -> Any:
     return map_with_paths(spec, caches)
 
 
-def cache_slices(cfg, mesh, caches: Dict[str, Any]) -> Dict[str, Tuple[slice, ...]]:
+def cache_slices(cfg, mesh, caches: Dict[str, Any], seq_sharded: bool = False
+                 ) -> Dict[str, Tuple[slice, ...]]:
     """This rank's slice of every leaf of a cache tree of whole shapes
-    (tensors or meta tensors): ``cache_specs``' cut over ``model``, through
-    ``shard_slices``.  The worker axes' cut of the batch is not taken: every
-    rank of the ``model`` axis serves the same slots."""
+    (tensors or meta tensors), through ``shard_slices``: ``cache_specs``'
+    cut over ``model``, and with ``seq_sharded`` also its cut of k's and v's
+    sequence dim over the worker axes (``SequenceAxis``).  The worker axes'
+    cut of the batch is not taken: every rank of the ``model`` axis serves
+    the same slots, and a sequence-sharded cache's conv and ssm states are
+    the same on every rank of the worker axes, as the reference's spec
+    leaves them."""
     sizes, coord = mesh_shape(mesh), mesh_coordinate(mesh)
-    specs = cache_specs(cfg, mesh, caches)
-    return {name: shard_slices(PartitionSpec(*(ModelAxis.name if ModelAxis.name in spec_axes(p)
-                                                else None for p in specs[name])),
+    specs = cache_specs(cfg, mesh, caches, seq_sharded)
+
+    def kept(name: str, dim: int, part):
+        seq = seq_sharded and name in ("k", "v") and dim == 2
+        return part if seq or ModelAxis.name in spec_axes(part) else None
+
+    return {name: shard_slices(PartitionSpec(*(kept(name, d, p)
+                                                for d, p in enumerate(specs[name]))),
                                tuple(x.shape), sizes, coord)
             for name, x in caches.items()}
 
@@ -594,6 +606,32 @@ class ModelAxis:
         return self.enter(self.cat(x, dim))
 
 
+class SequenceAxis:
+    """The worker axes of a mesh as a sequence-sharded cache uses them
+    (``cache_specs(..., seq_sharded=True)``, ``long_500k``): the attention
+    cache's sequence dim cut into ``size`` equal parts over ``axes``, this
+    rank holding the part at its coordinates on them flattened major to
+    minor (``shard_slices``); ``rows(S)`` is its global rows ``[r0, r1)``
+    of a cache of ``S`` rows, ``parts`` every rank's tensor stacked in
+    group-rank order (``collectives.reduce_parts``)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.axes = mesh, worker_axes(mesh)
+        if not self.axes:
+            raise ValueError("a sequence-sharded cache needs a worker axis on the mesh")
+        self.size = n_workers(mesh)
+
+    def rows(self, S: int) -> Tuple[int, int]:
+        sl = shard_slices(PartitionSpec(self.axes), (S,), mesh_shape(self.mesh),
+                          mesh_coordinate(self.mesh))[0]
+        return sl.start, sl.stop
+
+    def parts(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.dist import collectives as coll
+
+        return coll.reduce_parts(x, self.axes, mesh=self.mesh)
+
+
 def row_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A row-parallel product's partial on this rank's part of the
     contraction, in float32 (``ModelAxis.reduce`` sums the partials and
@@ -611,15 +649,19 @@ class ShardedParams:
     the stacked shards; the stacked layer dim is never cut); ``top(name, sub)`` a top-level entry (embed,
     head, final norm); ``axis_for(path)`` is the ``ModelAxis`` when the
     ``model`` axis cuts a leaf under ``path`` (a tuple of dict keys, from
-    the layer's root or, with ``top=True``, the tree's), else None."""
+    the layer's root or, with ``top=True``, the tree's), else None.  With
+    ``seq_sharded`` the serving caches are cut on their sequence over the
+    worker axes too, and ``seq`` is that cut (a ``SequenceAxis``; else
+    None)."""
 
-    def __init__(self, specs: Any, mesh):
+    def __init__(self, specs: Any, mesh, seq_sharded: bool = False):
         self.specs, self.mesh = specs, mesh
         sizes = mesh_shape(mesh)
         self.layer_specs = tree_map(lambda s: PartitionSpec(*s.parts[1:]),
                                     specs.get("layers"))
         self.storage = tuple(a for a in sizes if a != ModelAxis.name)
         self.model = ModelAxis(mesh) if sizes.get(ModelAxis.name, 1) > 1 else None
+        self.seq = SequenceAxis(mesh) if seq_sharded else None
 
     def layer(self, lp: Any) -> Any:
         return {k: gather_tree(v, self.layer_specs[k], self.mesh, self.storage)

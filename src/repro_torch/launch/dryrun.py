@@ -21,9 +21,10 @@ one), the mesh is ``launch.mesh``'s, and the step is what the port runs:
   worker count does not divide the batch), on this rank's shards
   partitioned over ``model`` (``dist.sharding.ShardedParams``) and its
   slices of the caches (``init_caches(..., shards=)``: ``cache_specs``'
-  cut over ``model``).  ``long_500k`` (batch 1) keeps whole parameters and
-  the whole cache on every rank: its ``cache_specs`` cut the cache's
-  sequence over the worker axes, which the port does not run.
+  cut over ``model``).  ``long_500k`` (batch 1) also cuts k's and v's
+  sequence over the worker axes (``ShardedParams(..., seq_sharded=True)``):
+  the rank holds ``S / m`` rows, and each attention layer combines the
+  ranks' partial softmaxes over those axes (``axis_worker``).
 
 Each kernel runs through its operator in ``kernels.fake`` (the same dispatch
 as on the card).  Every step runs at full depth: an eager run counts every
@@ -305,11 +306,12 @@ def _build(cfg: ModelConfig, shape: ShapeConfig, mesh, step: str):
         batch = _rows(specs.train_batch_structs(cfg, shape), mesh, takes_whole_batch(cfg))
         t = 0 if step == "fo" else 1
         return (fo if step == "fo" else zo), (t, params, opt.init(params), batch)
-    sharder = (Sharder(cfg, mesh) if places_shards(cfg, mesh) and shape.name != "long_500k"
-               else None)
+    seq_sharded = shape.name == "long_500k"
+    sharder = Sharder(cfg, mesh) if places_shards(cfg, mesh) else None
     params = specs.abstract_params(cfg, shard=sharder)
-    gathered = (None if sharder is None else
-                ShardedParams(param_specs(cfg, sharder.global_like(params), mesh), mesh))
+    like = params if sharder is None else sharder.global_like(params)
+    gathered = (None if sharder is None and not seq_sharded else
+                ShardedParams(param_specs(cfg, like, mesh), mesh, seq_sharded=seq_sharded))
     if step == "prefill":
         batch = _rows(specs.train_batch_structs(cfg, shape, with_labels=cfg.encoder_only),
                       mesh, False)

@@ -5,8 +5,9 @@ instructions its compiler scheduled between each async collective's
 ``-start`` and ``-done``.  The port has no HLO; its witness is a
 ``torch.profiler`` trace of a real step.  Every collective of
 ``dist.collectives`` that runs over the group (``gather_cat`` with the
-same-card exchange's copies, the partitioned forward's all-reduces through
-``reduce_parts``, ``all_gather``, the gloo all-reduces of ``psum`` /
+same-card exchange's copies, the partitioned forward's all-reduces
+(``all_reduce_sum``, and ``reduce_parts`` for a combine that is not a
+sum), ``all_gather``, the gloo all-reduces of ``psum`` /
 ``pmean``) is one ``record_function`` span named
 ``collective:<kind>``: a pair, whose gap is the number of kernels that ran
 on the card while the span was open and were launched before it began (the

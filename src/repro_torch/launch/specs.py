@@ -10,8 +10,9 @@ Leaves flatten in ``jax.tree.leaves`` order (``repro_torch.tree``).
 
 Decode shapes include the full-length caches (attention's k and v, an SSM's
 states; with ``shards`` a rank's slices of them); ``long_500k`` shards the
-cache's sequence over the worker axes (batch 1).  The placements are the port's ``dist.sharding`` specs, the
-reference's rules.
+cache's sequence over the worker axes (batch 1; a sequence-sharded
+``shards`` gives a rank's rows).  The placements are the port's
+``dist.sharding`` specs, the reference's rules.
 """
 from __future__ import annotations
 
@@ -77,7 +78,9 @@ def decode_structs(cfg: ModelConfig, shape: ShapeConfig, batch: int = 0, shards=
     full-length caches (``pos`` is a Python int, as ``serve_step`` takes it;
     the reference's is a 0-d int32 struct), the caches of ``init_caches``.
     ``batch`` overrides the global batch (a rank's rows), ``shards`` (a
-    ``dist.sharding.ShardedParams``) gives this rank's slices of the caches."""
+    ``dist.sharding.ShardedParams``) gives this rank's slices of the caches:
+    with ``shards.seq`` (``long_500k``) k and v hold the rank's ``S / m``
+    rows of the sequence."""
     B, S = batch or shape.global_batch, shape.seq_len
     act = getattr(torch, cfg.dtype)
     with stand_ins():

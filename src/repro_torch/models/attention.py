@@ -35,6 +35,11 @@ case the rank computes every KV head's k and v (``wk``/``wv`` gathered, as
 above), stores its ``hd`` slice, and at use gathers the layer's cache over
 the axis (``ModelAxis.cat``, counted) to read the heads its query heads
 need.
+
+A sequence-sharded cache (``long_500k``: ``dist.sharding.SequenceAxis``)
+holds a rank's rows of the sequence; a scalar-position decode on it reads
+the rank's rows of the window, and the ranks' partial softmaxes are
+combined over the worker axes (``_decode_seq_sharded``).
 """
 from __future__ import annotations
 
@@ -83,16 +88,8 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.
     return q, k, v
 
 
-def _attend(
-    cfg: ModelConfig,
-    q: torch.Tensor,              # (B, Sq, H, hd)
-    k: torch.Tensor,              # (B, Sk, KV, hd)
-    v: torch.Tensor,              # (B, Sk, KV, hd)
-    q_positions: torch.Tensor,    # (B, Sq) or (Sq,)
-    k_positions: torch.Tensor,    # (B, Sk) or (Sk,)
-    window: Optional[int],        # None = full attention
-    causal: bool,
-) -> torch.Tensor:
+def _logits(cfg: ModelConfig, q, k, q_positions, k_positions, window, causal) -> torch.Tensor:
+    """The masked float32 logits ``(B, KV, H/KV, Sq, Sk)`` of ``_attend``."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
@@ -109,10 +106,62 @@ def _attend(
         mask &= rel >= 0
     if window is not None:
         mask &= rel < window
-    logits = torch.where(mask[:, None, None], logits, torch.full_like(logits, -1e30))
+    return torch.where(mask[:, None, None], logits, torch.full_like(logits, -1e30))
+
+
+def _attend(
+    cfg: ModelConfig,
+    q: torch.Tensor,              # (B, Sq, H, hd)
+    k: torch.Tensor,              # (B, Sk, KV, hd)
+    v: torch.Tensor,              # (B, Sk, KV, hd)
+    q_positions: torch.Tensor,    # (B, Sq) or (Sq,)
+    k_positions: torch.Tensor,    # (B, Sk) or (Sk,)
+    window: Optional[int],        # None = full attention
+    causal: bool,
+) -> torch.Tensor:
+    B, Sq, H, hd = q.shape
+    logits = _logits(cfg, q, k, q_positions, k_positions, window, causal)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.to(torch.float32))
     return out.reshape(B, Sq, H * hd).to(q.dtype)
+
+
+def _attend_partial(cfg: ModelConfig, q, k, v, q_positions, k_positions, window
+                    ) -> torch.Tensor:
+    """``_attend``'s causal softmax over the keys given, left unnormalised,
+    for a combine over ranks that each hold a part of the keys
+    (``_combine_partials``): ``(B, Sq, KV, H/KV, hd + 2)`` float32, the last
+    dim the output ``o = sum exp(logit - m) v``, the row max ``m`` of the
+    masked logits and ``l = sum exp(logit - m)``, with the softcap and masks
+    of ``_attend``.  No keys (a rank whose rows miss the window) give
+    ``m = -1e30``, ``l = 0`` and ``o = 0``."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape[1] == 0:
+        out = torch.zeros((B, Sq, KV, H // KV, hd + 2), dtype=torch.float32, device=q.device)
+        out[..., hd] = -1e30
+        return out
+    logits = _logits(cfg, q, k, q_positions, k_positions, window, causal=True)
+    m = logits.amax(dim=-1)                                  # (B, KV, G, Sq)
+    e = torch.exp(logits - m[..., None])
+    o = torch.einsum("bgrqk,bkgd->bqgrd", e, v.to(torch.float32))
+    ml = torch.stack([m, e.sum(dim=-1)], dim=-1).permute(0, 3, 1, 2, 4)
+    return torch.cat([o, ml], dim=-1)
+
+
+def _combine_partials(parts: torch.Tensor, hd: int) -> torch.Tensor:
+    """The attention output ``(B, Sq, KV, H/KV, hd)`` from every rank's
+    ``_attend_partial`` stacked in rank order: ``m = max m_r``, ``l = sum
+    l_r exp(m_r - m)``, ``o = sum o_r exp(m_r - m) / l``, summed in rank
+    order, so every rank computes the same bits."""
+    m_r, l_r, o_r = parts[..., hd], parts[..., hd + 1], parts[..., :hd]
+    m = m_r.amax(dim=0)
+    l = o = None
+    for r in range(parts.shape[0]):
+        w = torch.exp(m_r[r] - m)
+        l = l_r[r] * w if l is None else l + l_r[r] * w
+        o = o_r[r] * w[..., None] if o is None else o + o_r[r] * w[..., None]
+    return o / l[..., None]
 
 
 def _attend_seq(cfg: ModelConfig, q, k, v, positions, window) -> torch.Tensor:
@@ -304,6 +353,7 @@ def attention_decode(
     window: Optional[int] = None,
     static_window: Optional[int] = None,
     tp=None,
+    seq=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode against a KV cache; writes the new k/v at ``pos``.
 
@@ -312,10 +362,16 @@ def attention_decode(
     inactive slot, which writes nothing and whose reads are all masked).
     With a scalar ``pos`` and one static window over every layer,
     ``static_window`` reads only the last ``W`` cache rows.  With ``tp``
-    the cache is this rank's slice and the rank runs its heads.
+    the cache is this rank's slice and the rank runs its heads.  With
+    ``seq`` (a ``dist.sharding.SequenceAxis``; scalar ``pos`` only) the
+    cache holds this rank's rows of the sequence (``_decode_seq_sharded``).
     """
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
+        if seq is not None:
+            raise ValueError("a sequence-sharded cache is decoded at one position")
         return _attention_decode_slots(cfg, p, x, cache, pos, window, tp)
+    if seq is not None:
+        return _decode_seq_sharded(cfg, p, x, cache, int(pos), window, static_window, tp, seq)
     k_cache, v_cache = cache
     S = k_cache.shape[1]
     pos = int(pos)
@@ -335,6 +391,52 @@ def attention_decode(
     out = _attend(cfg, q, read(k_read), read(v_read), positions, k_positions, window,
                   causal=True)
     return finish(out), (k_cache, v_cache)
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int, r0: int) -> None:
+    """``cache[:, pos - r0] = new[:, 0]`` on the rank whose rows ``[r0, r0 +
+    n)`` of the sequence hold ``pos``; the other ranks write nothing."""
+    if r0 <= pos < r0 + cache.shape[1]:
+        cache[:, pos - r0] = new[:, 0].to(cache.dtype)
+
+
+def _decode_seq_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, pos: int,
+                        window: Optional[int], static_window: Optional[int], tp, seq):
+    """``attention_decode`` on a cache whose sequence the worker axes cut
+    (``seq``): this rank holds rows ``[r0, r1)`` of the ``S`` positions.
+
+    Every rank of the worker axes computes the same q, new k and new v (its
+    heads under ``tp``, as ``_RankProjection`` gives them); the rank that
+    holds ``pos`` writes row ``pos - r0``.  Each rank reads the rows of the
+    reference's window that it holds, ``[start, start + W) ∩ [r0, r1)`` with
+    ``start = clip(pos - W + 1, 0, S - W)`` (all its rows without a static
+    window), and computes its unnormalised partial (``_attend_partial``);
+    the partials (B·H·(hd + 2) float32) are stacked over the worker axes
+    (``SequenceAxis.parts``, one combine a layer) and combined in rank
+    order (``_combine_partials``), then ``wo`` (and the ``model``
+    all-reduce) applies as on a whole cache.  The combine is exact: ``pos``
+    is live on exactly one rank, so ``m`` is a real logit, and a rank
+    whose rows miss the window, or whose rows the masks blank, has ``m_r =
+    -1e30`` and weighs ``exp(-1e30 - m) = 0``.  Every rank gets the same
+    bits."""
+    k_cache, v_cache = cache
+    S = k_cache.shape[1] * seq.size
+    r0, r1 = seq.rows(S)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new, read, finish = _decode_projection(cfg, p, x, positions, tp)
+    _write_row(k_cache, k_new, pos, r0)
+    _write_row(v_cache, v_new, pos, r0)
+    lo, hi = r0, r1
+    if static_window is not None and static_window < S:
+        start = min(max(pos - static_window + 1, 0), S - static_window)
+        lo, hi = max(start, r0), min(start + static_window, r1)
+    hi = max(lo, hi)
+    k_read, v_read = read(k_cache[:, lo - r0:hi - r0]), read(v_cache[:, lo - r0:hi - r0])
+    k_positions = torch.arange(lo, hi, dtype=torch.int32, device=x.device)
+    part = _attend_partial(cfg, q, k_read, v_read, positions, k_positions, window)
+    out = _combine_partials(seq.parts(part), cfg.head_dim)
+    B, Sq = q.shape[0], q.shape[1]
+    return finish(out.reshape(B, Sq, -1).to(q.dtype)), (k_cache, v_cache)
 
 
 def _write_slots(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:

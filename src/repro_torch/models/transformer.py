@@ -49,7 +49,11 @@ slices of the caches (``init_caches(..., shards=)``, the cut of
 ``dist.sharding.cache_specs`` over ``model``), the decode's embedding is
 the vocab-parallel lookup, and the logits of a head cut over ``model`` are
 gathered over the axis before they are returned, so every rank samples
-from the same bits.
+from the same bits.  ``decode_step`` also runs on caches whose sequence the
+worker axes cut (``ShardedParams(..., seq_sharded=True)``, ``long_500k``):
+each rank reads its rows of the window and the ranks' partial softmaxes
+are combined (``attention.attention_decode``); SSM states are whole on
+every rank of those axes.
 
 Entry points that make tensors (``init_model``, ``init_caches``) run on the
 card unless the caller asks for ``device="cpu"``; without a card the default
@@ -487,7 +491,9 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     model holds all four.  With ``shards`` each is this rank's slice
     (``dist.sharding.cache_slices``: k and v cut over KV heads, or over
     ``hd`` when KV does not divide the axis; conv and ssm over
-    ``d_inner``)."""
+    ``d_inner``), allocated at that size; a sequence-sharded ``shards``
+    (``shards.seq``) also cuts k's and v's ``seq_len`` rows over the worker
+    axes, the rank holding its rows ``shards.seq.rows(seq_len)``."""
     device = resolve_device(device)
     L = cfg.n_layers
     shapes: Dict = {}
@@ -498,7 +504,8 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, dtype,
         shapes["ssm"] = ((L, batch, cfg.d_inner, cfg.ssm_state), torch.float32)
     if shards is not None:
         cut = cache_slices(cfg, shards.mesh, {name: torch.empty(shape, device="meta")
-                                              for name, (shape, _) in shapes.items()})
+                                              for name, (shape, _) in shapes.items()},
+                           seq_sharded=shards.seq is not None)
         shapes = {name: (tuple(sl.stop - sl.start for sl in cut[name]), dt)
                   for name, (_, dt) in shapes.items()}
     return {name: torch.zeros(shape, dtype=dt, device=device)
@@ -511,7 +518,7 @@ def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: i
     states (SSM: every row, an inactive slot's too, as in the reference) in
     place.  A hybrid layer reads its own window (hymba's differ by layer).
     With ``shards`` the layer runs partitioned and ``cache_l`` is this
-    rank's slice."""
+    rank's slice (of the sequence too, with ``shards.seq``)."""
     axis = _axes(shards)
     if shards is not None:
         lp = shards.layer(lp)
@@ -519,7 +526,8 @@ def _block_decode(cfg: ModelConfig, lp: Params, x, pos, cache_l: Dict, window: i
     if cfg.has_attention:
         a, _ = attn.attention_decode(
             cfg, lp["attn"], xn, (cache_l["k"], cache_l["v"]), pos, window,
-            static_window=uniform_static_window(cfg), tp=axis("attn"))
+            static_window=uniform_static_window(cfg), tp=axis("attn"),
+            seq=None if shards is None else shards.seq)
     if cfg.has_ssm:
         m, (conv, h) = ssm_mod.mamba_decode(cfg, lp["mamba"], xn,
                                             (cache_l["conv"], cache_l["ssm"]), axis("mamba"))
@@ -547,7 +555,10 @@ def _decode(cfg: ModelConfig, params: Params, tokens, pos, caches: Dict, shards=
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor, pos, caches: Dict,
                 shards=None):
     """One decode step. token (B,) ints, pos an int; returns (logits (B, V),
-    caches), the caches updated in place."""
+    caches), the caches updated in place.  With ``shards`` this rank's
+    shards and cache slices; a sequence-sharded ``shards`` (``long_500k``)
+    combines each attention layer's partial softmaxes over the worker
+    axes, and the logits are the same bits on every rank."""
     return _decode(cfg, params, token, int(pos), caches, shards)
 
 

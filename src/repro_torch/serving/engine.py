@@ -5,7 +5,9 @@ prompt, drains the scheduler and returns the full sequences;
 ``Engine.submit``/``Engine.step`` are the open-loop surface.  ``serve_step``
 (one token against a full-length cache) is the scalar-position decode.
 Both take ``shards`` (a ``dist.sharding.ShardedParams``) to serve a rank's
-shards partitioned over ``model`` (``serving.scheduler``).
+shards partitioned over ``model`` (``serving.scheduler``); ``serve_step``
+also takes a sequence-sharded one (``ShardedParams(..., seq_sharded=True)``),
+whose caches hold a rank's rows of the sequence.
 """
 from __future__ import annotations
 
@@ -65,5 +67,6 @@ class Engine:
 
 def serve_step(cfg: ModelConfig, params, token, pos, caches, shards=None):
     """One new token against a full-length KV cache (updated in place); with
-    ``shards`` this rank's shards and cache slices."""
+    ``shards`` this rank's shards and cache slices, the sequence too when
+    ``shards.seq`` cuts it (``long_500k``: ``init_caches(..., shards=)``)."""
     return T.decode_step(cfg, params, token, pos, caches, shards)

@@ -19,7 +19,11 @@
   arguments over the real step equal the dry run's over the meta one.
 * The serving targets on (data=1, model=2): a rank's arguments are its
   parameter shards and its ``cache_specs`` cache slices, its collectives
-  the partitioned layers' hand count; ``long_500k`` stays whole.
+  the partitioned layers' hand count; ``long_500k`` on (data=2, model=2)
+  prices the rank's shards and ``S / 2`` rows of k and v, and one combine
+  a layer over the worker axes.
+* ``all_reduce_sum`` on the ``fake`` group peaks at ``x``, one float32
+  accumulator and one received part, not every rank's parts.
 * ``main --all`` over a reduced matrix (two archs, small shapes) exits 0,
   writes one JSON a target, resumes done targets and exits 1 on a failure.
 """
@@ -160,13 +164,79 @@ def test_serving_targets_price_a_ranks_shards_and_cache_slices(arch, kw, step, m
     assert torch.float32 == getattr(torch, run_cfg.dtype)
 
 
-def test_long_500k_decode_keeps_whole_parameters(monkeypatch):
-    """``long_500k`` (its cache's sequence cut over the worker axes, which
-    the port does not run) is priced with whole parameters and caches."""
-    monkeypatch.setenv("REPRO_TEST_MESH", "1x2")
-    rec = dryrun.run_one("gemma2-2b", "long_500k", False, "decode", verbose=False,
-                         cfg=get_config("gemma2-2b").reduced())
-    assert rec["collectives"]["total"] == 0 and rec["gathers"] == rec["reduces"] == {}
+@pytest.mark.parametrize("arch", ["gemma2-2b", "hymba-1.5b", "falcon-mamba-7b"])
+def test_long_500k_decode_cuts_the_sequence_over_the_workers(arch, monkeypatch):
+    """``long_500k`` on rank 0 of (data=2, model=2): the rank's arguments
+    are its parameter shards, ``S / 2`` rows of k and v cut over ``model``
+    too (``cache_specs(..., seq_sharded=True)``: the sequence over the
+    worker axes), its ``model`` slice of the whole SSM states, and the
+    token; each attention layer combines the ranks' partial softmaxes once
+    over the worker axes (B·H/2·(hd + 2) float32, on ``axis_worker``)."""
+    import math
+
+    from repro_torch.configs import SHAPES, config_for_shape
+    from repro_torch.dist.sharding import cache_specs, param_specs, shard_slices
+    from repro_torch.launch import specs
+    from repro_torch.tree import tree_leaves
+
+    monkeypatch.setenv("REPRO_TEST_MESH", "2x2")
+    cfg = get_config(arch).reduced()
+    rec = dryrun.run_one(arch, "long_500k", False, "decode", verbose=False, cfg=cfg)
+    shape = SHAPES["long_500k"]
+    run_cfg = config_for_shape(cfg, shape).with_(use_pallas=True)
+    mesh = H.FakeMesh({"data": 0, "model": 0}, data=2, model=2)
+    sizes, coord = {"data": 2, "model": 2}, {"data": 0, "model": 0}
+    like = specs.abstract_params(run_cfg)
+    want = sum(_rounded(math.prod(sl.stop - sl.start for sl in shard_slices(
+        sp, x.shape, sizes, coord)) * x.element_size())
+        for sp, x in zip(tree_leaves(param_specs(run_cfg, like, mesh)), tree_leaves(like)))
+    _, _, caches = specs.decode_structs(run_cfg, shape)
+    cspecs = cache_specs(run_cfg, mesh, caches, seq_sharded=True)
+    S, L = shape.seq_len, run_cfg.n_layers
+    for name, x in caches.items():
+        cut = shard_slices(cspecs[name], x.shape, sizes, coord)
+        if name in ("k", "v"):
+            assert cut[2] == slice(0, S // 2) and cspecs[name][2] == ("data",)
+        else:
+            assert cut[1] == slice(0, 1)
+        want += _rounded(math.prod(sl.stop - sl.start for sl in cut) * x.element_size())
+    want += _rounded(4)                                            # the token
+    assert rec["memory"]["argument_size_in_bytes"] == want
+    combine = run_cfg.n_heads // 2 * (run_cfg.head_dim + 2) * 4
+    if run_cfg.has_attention:
+        assert (rec["reduces"]["data"], rec["reduce_bytes"]["data"]) == (L, L * combine)
+        assert rec["collectives"]["axis_worker"] == L * combine
+    else:
+        assert "data" not in rec["reduces"] and rec["collectives"]["axis_worker"] == 0
+    assert rec["collectives"]["axis_model"] > 0
+
+
+def test_all_reduce_sum_holds_one_part_at_a_time():
+    """On the dry run's ``fake`` group over meta tensors, ``all_reduce_sum``
+    of a float32 ``x`` over 16 ranks peaks at ``x`` plus the float32
+    accumulator plus one received part (the bf16 result is rounded after
+    the part is freed), not the 16 ranks' parts at once; its ``REDUCES``
+    booking is one call at ``x``'s bytes."""
+    import torch
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch.mesh import make_test_mesh
+
+    from repro_torch.device import stand_ins
+
+    n = 1 << 20
+    with dryrun.fake_group(16), stand_ins():
+        mesh = make_test_mesh(data=1, model=16, device="meta")
+        for dtype, extra in ((torch.float32, 4 * n + 4 * n), (torch.bfloat16, 4 * n + 2 * n)):
+            coll.reset_gathers()
+            meter = dryrun.Meter()
+            with meter:
+                x = torch.empty(n, dtype=dtype, device="meta")
+                held = meter.live
+                out = coll.all_reduce_sum(x, "model", mesh=mesh)
+            assert out.shape == x.shape and out.dtype == dtype
+            assert meter.peak - held == extra
+            assert coll.REDUCES == {("model",): [1, n * x.element_size()]}
 
 
 def test_a_moe_rank_takes_the_global_batch(monkeypatch):

@@ -913,3 +913,152 @@ def run_serving(rank, world, ref_np, cases, generate):
             with control():
                 out[name] = serve_run(cfg, shards, gathered)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the sequence-sharded decode (long_500k): the spawned ranks of
+# tests/test_torch_long_context.py
+# --------------------------------------------------------------------------- #
+#: case -> (arch, the reduced config's overrides): the archs of
+#: ``long_500k``, dense (gemma2-2b, starcoder2-3b with 2 KV heads), hybrid
+#: (hymba-1.5b) and SSM (falcon-mamba-7b); ``hymba-hd``: 10/5 heads, whose
+#: cache the ``model`` axis cuts over ``hd`` (gathered at each read)
+LONG_CASES = {"gemma2-2b": ("gemma2-2b", {}), "starcoder2-3b": ("starcoder2-3b", {}),
+              "hymba-1.5b": ("hymba-1.5b", {}), "falcon-mamba-7b": ("falcon-mamba-7b", {}),
+              "hymba-hd": ("hymba-1.5b", {"n_heads": 10, "n_kv_heads": 5})}
+LONG_S, LONG_W = 256, 32          # the cache's rows, every attention layer's window
+#: the decode's positions in turn: a window straddling the boundary of rows
+#: 128 (and its next position), one inside rank 0's rows, the last row
+LONG_POSITIONS = (143, 144, 40, LONG_S - 1)
+#: meshes of the spawned groups: (data, model)
+LONG_MESHES = {2: [(2, 1)], 4: [(4, 1), (2, 2)]}
+
+
+def long_config(case):
+    """The case's arch reduced in float32, every attention layer windowed at
+    ``LONG_W`` (``long_context``, as ``config_for_shape`` gives ``long_500k``)."""
+    from repro_torch.configs import get_config
+
+    arch, kw = LONG_CASES[case]
+    return get_config(arch).reduced().with_(remat=False, long_context=True, window=LONG_W, **kw)
+
+
+def long_inputs(cfg, seed=0):
+    """``(whole caches, tokens)`` as numpy: every cache leaf of one row and
+    ``LONG_S`` positions drawn from ``seed`` (the ssm state at 0.1), one
+    token a position of ``LONG_POSITIONS``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L, out = cfg.n_layers, {}
+    if cfg.has_attention:
+        for name in ("k", "v"):
+            out[name] = rng.standard_normal(
+                (L, 1, LONG_S, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32)
+    if cfg.has_ssm:
+        out["conv"] = rng.standard_normal((L, 1, cfg.ssm_conv - 1, cfg.d_inner)).astype(
+            np.float32)
+        out["ssm"] = 0.1 * rng.standard_normal((L, 1, cfg.d_inner, cfg.ssm_state)).astype(
+            np.float32)
+    return out, rng.integers(0, cfg.vocab_size, len(LONG_POSITIONS))
+
+
+def long_run(cfg, params, caches_np, tokens, shards=None):
+    """``serve_step`` at each of ``LONG_POSITIONS`` in turn from the caches
+    ``caches_np`` (this rank's slices of them with ``shards``): the logits
+    of every step, the caches at the end and the all-reduces of every step
+    (``collectives.REDUCES``)."""
+    from repro_torch.dist.sharding import cache_slices
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import serve_step
+
+    caches = T.init_caches(cfg, 1, LONG_S, torch.float32, device="cpu", shards=shards)
+    if shards is not None:
+        cut = cache_slices(cfg, shards.mesh, {k: torch.empty(v.shape, device="meta")
+                                              for k, v in caches_np.items()},
+                           seq_sharded=shards.seq is not None)
+    for name, c in caches.items():
+        whole = torch.from_numpy(caches_np[name])
+        c.copy_(whole if shards is None else whole[cut[name]])
+    logits, reduces = [], []
+    with torch.no_grad():
+        for pos, tok in zip(LONG_POSITIONS, tokens):
+            coll.reset_gathers()
+            lg, caches = serve_step(cfg, params, torch.tensor([int(tok)]), pos, caches, shards)
+            logits.append(lg.numpy().copy())
+            reduces.append({k: list(v) for k, v in coll.REDUCES.items()})
+    return {"logits": logits, "caches": {k: v.numpy() for k, v in caches.items()},
+            "reduces": reduces, "held": {k: tuple(v.shape) for k, v in caches.items()}}
+
+
+def unscaled_softmax_sum():
+    """A failing control: each rank's partial normalised by its own sum and
+    the ranks' outputs summed, without the rescale to the global max."""
+    import contextlib
+
+    from repro_torch.models import attention
+
+    @contextlib.contextmanager
+    def patched():
+        real = attention._combine_partials
+        attention._combine_partials = lambda parts, hd: (
+            parts[..., :hd] / parts[..., hd + 1:hd + 2]).sum(0)
+        try:
+            yield
+        finally:
+            attention._combine_partials = real
+
+    return patched()
+
+
+def write_without_offset():
+    """A failing control: the new row written at local row ``pos`` (without
+    the ``- r0`` offset) by every rank whose slice has such a row."""
+    import contextlib
+
+    from repro_torch.models import attention
+
+    def write(cache, new, pos, r0):
+        if pos < cache.shape[1]:
+            cache[:, pos] = new[:, 0].to(cache.dtype)
+
+    @contextlib.contextmanager
+    def patched():
+        real = attention._write_row
+        attention._write_row = write
+        try:
+            yield
+        finally:
+            attention._write_row = real
+
+    return patched()
+
+
+def run_long(rank, world, ref_np):
+    """Per mesh of ``LONG_MESHES[world]`` and case of ``LONG_CASES``: the
+    reference's parameters ``ref_np[case]`` cut into this rank's shards,
+    served on sequence-sharded caches (``long_run``); on (data=2) the two
+    controls on gemma2-2b."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.sharding import ShardedParams, param_specs, shard_tree
+
+    torch.set_num_threads(1)
+    out = {}
+    for data, model in LONG_MESHES[world]:
+        mesh = make_test_mesh(data=data, model=model, device="cpu")
+        for case in LONG_CASES:
+            cfg = long_config(case)
+            full = params_from_numpy(ref_np[case], device="cpu")
+            specs = param_specs(cfg, full, mesh)
+            shards = ShardedParams(specs, mesh, seq_sharded=True)
+            out[data, model, case] = long_run(cfg, shard_tree(full, specs, mesh),
+                                              *long_inputs(cfg), shards)
+        if (data, model) == (2, 1):
+            cfg = long_config("gemma2-2b")
+            full = params_from_numpy(ref_np["gemma2-2b"], device="cpu")
+            shards = ShardedParams(param_specs(cfg, full, mesh), mesh, seq_sharded=True)
+            for name, control in (("unscaled", unscaled_softmax_sum),
+                                  ("no-offset", write_without_offset)):
+                with control():
+                    out[name] = long_run(cfg, full, *long_inputs(cfg), shards)
+    return out
