@@ -2834,15 +2834,20 @@ def sharded_path(arch):
     return f"train {arch} --reduce 100m --model-axis 2 (4 gloo ranks), engine=flat"
 
 
+#: the partitioned layers' collectives that ``ShardProbe`` times and counts
+COMM_KINDS = ("gather", "reduce", "exchange")
+
+
 class ShardProbe(TrainProbe):
     """A ``TrainProbe`` for a rank of a sharded trainer: also the engine the
     steps build (``ho_sgd.make_engine``), the loss they were built with,
     the whole-tree shapes (``launch.train.init_params``), at each step's
     start the parameter bytes the rank holds, every loss evaluation's value
     (in order, per step), and the host seconds, calls and bytes of the
-    gathers (``collectives.gather_cat``, per axes) and of the partitioned
+    gathers (``collectives.gather_cat``, per axes), of the partitioned
     forward's all-reduces (``collectives.all_reduce_sum`` and, for the
-    cross-entropy's combine, ``reduce_parts``),
+    cross-entropy's combine, ``reduce_parts``) and of its exchanges
+    (``collectives.exchange``, its transpose too: the bytes received),
     each after a synchronize, so that its time is its
     own and not the compute queued before it.  The flat kernels' outputs in
     the first ZO step are held on sampled blocks of this rank's packed
@@ -2856,9 +2861,9 @@ class ShardProbe(TrainProbe):
         self.holding = hold
         self.engine, self.like, self.paths, self.loss_fn = None, None, None, None
         self.first_batch = None
-        self.comm = {c: {"s": 0.0, "bytes": 0, "calls": 0} for c in ("gather", "reduce")}
+        self.comm = {c: {"s": 0.0, "bytes": 0, "calls": 0} for c in COMM_KINDS}
         self.step_comm = {c: {k: {"fo": [], "zo": []} for k in ("s", "bytes", "calls")}
-                          for c in ("gather", "reduce")}
+                          for c in COMM_KINDS}
         self.gather_axes = {}          # axes -> gathers over the run
         self.held_bytes = {"fo": [], "zo": []}
         self.evals = {"fo": [], "zo": []}   # per step: its loss evaluations' values
@@ -2897,15 +2902,18 @@ class ShardProbe(TrainProbe):
             self.loss_fn = loss_fn
             return steps(loss_fn, *a, **kw)
 
+        def received():
+            return sum(b for _, b in coll.EXCHANGES.values())
+
         def timed(kind, fn, size):
             def run(*a, **kw):
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
+                t0, r0 = time.perf_counter(), received()
                 out = fn(*a, **kw)
                 torch.cuda.synchronize()
                 rec = self.comm[kind]
                 rec["s"] += time.perf_counter() - t0
-                rec["bytes"] += size(a[0], out)
+                rec["bytes"] += size(a[0], out) if size else received() - r0
                 rec["calls"] += 1
                 if kind == "gather":
                     axes = (a[1],) if isinstance(a[1], str) else tuple(a[1])
@@ -2930,6 +2938,7 @@ class ShardProbe(TrainProbe):
                                         lambda x, out: nbytes(out)))
         for name in ("all_reduce_sum", "reduce_parts"):
             patch(coll, name, timed("reduce", getattr(coll, name), lambda x, out: nbytes(x)))
+        patch(coll, "exchange", timed("exchange", coll.exchange, None))
 
     def step(self, kind, fn):
         inner = super().step(kind, fn)
@@ -3143,9 +3152,9 @@ def step_ms(rows, order):
 
 
 def sharded_report(what, res, rows, smi):
-    """Print rank 0's step times with the all-reduces' and gathers' calls,
-    bytes and shares of each step (host clock), and each rank's memory and
-    bytes held."""
+    """Print rank 0's step times with the all-reduces', gathers' and
+    exchanges' calls, bytes and shares of each step (host clock), and each
+    rank's memory and bytes held."""
     r0 = res[0]
     ms = {"fo": step_ms(rows, 1), "zo": step_ms(rows, 0)}
     per_step = {c: {kind: [{"calls": n, "bytes": b, "s": t, "share": t / (1e-3 * m)}
@@ -3153,10 +3162,11 @@ def sharded_report(what, res, rows, smi):
                                                  r0["step_comm"][c]["bytes"][kind],
                                                  r0["step_comm"][c]["s"][kind], ms[kind])]
                     for kind in ms}
-                for c in ("reduce", "gather")}
+                for c in COMM_KINDS}
     print(f"  {what}: rank 0 ms per step (host, to the loss on the host) FO "
           f"{[round(v, 1) for v in ms['fo']]}, ZO {[round(v, 1) for v in ms['zo']]} [{smi}]")
-    for c, label in (("reduce", "all-reduces"), ("gather", "gathers")):
+    for c, label in (("reduce", "all-reduces"), ("gather", "gathers"),
+                     ("exchange", "exchanges (bytes received)")):
         for kind in ms:
             print(f"    {kind.upper()} steps' {label} (calls, GB, share of the step by host "
                   f"clock): " + ", ".join(f"{r['calls']} / {r['bytes'] / 1e9:.3f} / "
@@ -3164,7 +3174,9 @@ def sharded_report(what, res, rows, smi):
     print(f"    over the run: {r0['comm']['reduce']['calls']} all-reduces "
           f"({r0['comm']['reduce']['bytes'] / 1e9:.3f} GB, {r0['comm']['reduce']['s']:.2f} s), "
           f"{r0['comm']['gather']['calls']} gathers ({r0['comm']['gather']['bytes'] / 1e9:.3f} GB, "
-          f"{r0['comm']['gather']['s']:.2f} s; by axes {r0['gather_axes']})")
+          f"{r0['comm']['gather']['s']:.2f} s; by axes {r0['gather_axes']}), "
+          f"{r0['comm']['exchange']['calls']} exchanges "
+          f"({r0['comm']['exchange']['bytes'] / 1e9:.3f} GB, {r0['comm']['exchange']['s']:.2f} s)")
     for rank, r in enumerate(res):
         packing = ("" if r["packed_over_shard"] is None else
                    f" (flat block {r['block']}, packed/shard {r['packed_over_shard']:.4f})")
@@ -3178,6 +3190,8 @@ def sharded_report(what, res, rows, smi):
             "reduce_gb": r0["comm"]["reduce"]["bytes"] / 1e9,
             "gathers": r0["comm"]["gather"]["calls"],
             "gather_gb": r0["comm"]["gather"]["bytes"] / 1e9,
+            "exchanges": r0["comm"]["exchange"]["calls"],
+            "exchange_gb": r0["comm"]["exchange"]["bytes"] / 1e9,
             "gather_axes": {"+".join(k): v for k, v in r0["gather_axes"].items()}}
 
 
@@ -3261,13 +3275,19 @@ MIXER_FLAGS = ["--arch", "hymba-1.5b", "--tau", "3", "--batch", "8", "--seq", "1
 
 def model_gathers_per_layer(cfg, ms=2) -> list:
     """The leaves a layer of the partitioned forward gathers over ``model``
-    (``ms`` ranks) a forward: the mamba mixer's ``in_proj``, and
-    attention's ``wq`` when the axis cuts inside a query head and ``wk``,
-    ``wv`` when it cuts inside a KV head."""
-    names = ["in_proj"] if cfg.arch_type in ("ssm", "hybrid") else []
-    if cfg.arch_type != "ssm":
-        names += ["wq"] * (cfg.n_heads % ms != 0) + ["wk", "wv"] * (cfg.n_kv_heads % ms != 0)
-    return names
+    (``ms`` ranks) a forward: attention's ``wq`` when the axis cuts inside a
+    query head and ``wk``, ``wv`` when it cuts inside a KV head.  The mamba
+    mixer gathers nothing: ``in_proj`` stays cut, and a rank exchanges the
+    pieces of u and z it needs (``model_exchanges_per_layer``)."""
+    if cfg.arch_type == "ssm":
+        return []
+    return ["wq"] * (cfg.n_heads % ms != 0) + ["wk", "wv"] * (cfg.n_kv_heads % ms != 0)
+
+
+def model_exchanges_per_layer(cfg) -> int:
+    """The exchanges a layer of the partitioned forward makes over ``model``
+    a forward: the mamba mixer's one of u's and z's pieces."""
+    return int(cfg.arch_type in ("ssm", "hybrid"))
 
 
 def sharded_pallas_run(torch, dev, reduce_a, a_rows, a_evals, steps=3):
@@ -3335,12 +3355,17 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
     (F Z Z F), against a one-process run of the same flags in this process:
     the mamba mixer and attention partitioned (hymba's 25 query and 5 KV
     heads do not split on whole heads at model=2, so ``wq``, ``wk``, ``wv``
-    are gathered, with the mixer's ``in_proj``: ``model_gathers_per_layer``).
+    are gathered: ``model_gathers_per_layer``; the mixer's ``in_proj``
+    stays cut, one exchange of u and z pieces a layer and forward, and one
+    in the backward: ``model_exchanges_per_layer``).
     Losses within ``LOSS_RTOL_BF16`` of one process's; rank 0's shards after
     the first FO step within 2% of the update (or one bf16 ulp) of one
     process's on sampled elements; every loss evaluation the same bits on
     both ranks; the gathers over ``model`` alone, ``model_gathers_per_layer``
-    per layer and forward (twice in an FO step: remat recomputes it);
+    per layer and forward (twice in an FO step: remat recomputes it), the
+    warm FO step's printed beside what it was with ``in_proj`` gathered
+    whole (one more a layer and forward); the exchanges ``model_exchanges_per_layer`` per layer and forward (and its
+    recompute, and once more in an FO step's backward);
     rank 0 books 4·d and 4 bytes; the flat kernels held on rank 0's first ZO
     step with shard-local counters failing; the loss of one row without the
     mixer's ``out_proj`` all-reduce leaving ``LOSS_RTOL_BF16`` (the control).
@@ -3383,14 +3408,21 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
     gathered = model_gathers_per_layer(cfg)
     per_layer = len(gathered)
     for rank, r in enumerate(res):
-        check(set(r["gather_axes"]) == {("model",)}, f"sharded (d) rank {rank}: gathers by "
-              f"axes {r['gather_axes']}")
+        check(set(r["gather_axes"]) == ({("model",)} if per_layer else set()),
+              f"sharded (d) rank {rank}: gathers by axes {r['gather_axes']}")
         for kind in ("fo", "zo"):
-            want = [per_layer * cfg.n_layers * len(ev) * (2 if kind == "fo" and cfg.remat
-                                                          else 1) for ev in r["evals"][kind]]
+            forwards = [cfg.n_layers * len(ev) * (2 if kind == "fo" and cfg.remat else 1)
+                        for ev in r["evals"][kind]]
+            want = [per_layer * n for n in forwards]
             got_calls = r["step_comm"]["gather"]["calls"][kind]
             check(got_calls == want, f"sharded (d) rank {rank}: {kind.upper()} steps' gathers "
                   f"{got_calls}, {per_layer} a layer and forward would be {want}")
+            backward = [cfg.n_layers * len(ev) * (kind == "fo") for ev in r["evals"][kind]]
+            want = [model_exchanges_per_layer(cfg) * (n + b) for n, b in zip(forwards, backward)]
+            got_calls = r["step_comm"]["exchange"]["calls"][kind]
+            check(got_calls == want, f"sharded (d) rank {rank}: {kind.upper()} steps' "
+                  f"exchanges {got_calls}, one a layer and forward (and backward) would be "
+                  f"{want}")
         ctrl = r["control"]
         check(abs(ctrl["without_mixer_reduce"] - ctrl["loss"]) > LOSS_RTOL_BF16 * abs(ctrl["loss"]),
               f"sharded (d) rank {rank}: the control without the mixer's all-reduce passed: "
@@ -3403,12 +3435,18 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
         check(not held[5] or (name == "zo_reconstruct_flat" and held[6]),
               f"sharded (d): {name}'s control (shard-local counters) passed")
     one_peak = max(max(v) for v in one["peak_gb"].values())
+    warm_forwards = cfg.n_layers * len(res[0]["evals"]["fo"][-1]) * (2 if cfg.remat else 1)
     print(f"  (d) hymba-1.5b --reduce {reduce} --model-axis 2 (d={d:,}), 2 gloo ranks, {steps} "
           f"steps in {wall:.1f} s: losses {losses} against one process's {one['losses']}: "
           f"relative {[f'{v:.2e}' for v in rel]} (tol {LOSS_RTOL_BF16}); rank 0's shards after "
           f"the FO step {diff:.3e} from one process's (largest update {scale:.3e}, worst at "
           f"{worst:.3f} of its tolerance); {per_layer} gathers over model a layer and forward "
-          f"({', '.join(gathered)}); control without "
+          f"({', '.join(gathered)}; the warm FO step's "
+          f"{res[0]['step_comm']['gather']['calls']['fo'][-1]}, with in_proj gathered whole "
+          f"{(per_layer + 1) * warm_forwards}) and {model_exchanges_per_layer(cfg)} exchange of u "
+          f"and z pieces (the warm FO step's {res[0]['step_comm']['exchange']['calls']['fo'][-1]}, "
+          f"{res[0]['step_comm']['exchange']['bytes']['fo'][-1] / 1e6:.3f} MB received on rank "
+          f"0); control without "
           f"the mixer's all-reduce {res[0]['control']}; one process FO ms "
           f"{[round(v, 1) for v in one['fo_ms']]}, ZO ms {[round(v, 1) for v in one['zo_ms']]}, "
           f"peak {one_peak:.2f} GB")
@@ -3416,7 +3454,7 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
                          for k in res[0]["launches"]},
             "rank0": {"peak_gb": res[0]["peak_gb"],
                       **{f"step_{c}_{k}": res[0]["step_comm"][c][k]
-                         for c in ("gather", "reduce") for k in ("bytes", "calls")}},
+                         for c in COMM_KINDS for k in ("bytes", "calls")}},
             "losses": losses, "one_process_losses": one["losses"], "rel": rel,
             "fo_hold": [diff, scale, worst], "control": res[0]["control"],
             "gathered_per_layer": gathered, "one_process_fo_ms": one["fo_ms"],
@@ -3734,14 +3772,16 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     tolerance of its plain version.  (e) With ``sharded_d`` (sharded_phase
     (d)'s rank 0), it also prices (d)'s configuration, hymba-1.5b at full
     width and depth on rank 0 of (data=1, model=2), an FO and a ZO step:
-    the all-reduces' and gathers' calls and bytes of each equal to the
-    card's first step of that kind, each peak within ``PEAK_TOL`` of the
-    card's.  (f) It also prices serving qwen3-14b at full width on rank 0
-    of (data=1, model=2) at ``SERVE_DRYRUN``'s shapes
-    (``serve_dryrun_target``), which ``sharded_serve_phase`` (e) holds to
-    the card; those records are returned as ``serve_dry``.  Returns what it
-    printed."""
+    the all-reduces', gathers' and exchanges' calls and bytes of each equal
+    to the card's first step of that kind, each peak within ``PEAK_TOL`` of
+    the card's.  (f) It also prices serving ``SHARDED_SERVE_ARCHS`` (qwen3-14b,
+    falcon-mamba-7b, hymba-1.5b) at full width on rank 0 of (data=1,
+    model=2) at ``SERVE_DRYRUN``'s shapes (``serve_dryrun_target``), which
+    ``sharded_serve_phase`` (e), (f) and (g) hold to the card; those records
+    are returned as ``serve_dry`` (run key -> step -> record).  Returns what
+    it printed."""
     import multiprocessing as mp
+    import os
     import tempfile
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3754,11 +3794,15 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     targets = {k: (mesh, TRAIN_FLAGS, reduce) for k, mesh in DRYRUN_TARGETS.items()}
     if sharded_d is not None:
         targets["e"] = ("1x2", MIXER_FLAGS, sharded_d["reduce"])
-    with ProcessPoolExecutor(2 * len(targets) + len(SERVE_DRYRUN),
+    # the host's cores less three (the overlap ranks and this process), so
+    # that the long pole, (e)'s FO step, is not slowed by the serving targets
+    n_dry = 2 * len(targets) + len(SHARDED_SERVE_ARCHS) * len(SERVE_DRYRUN)
+    with ProcessPoolExecutor(min(n_dry, max(1, (os.cpu_count() or 8) - 3)),
                              mp_context=mp.get_context("spawn")) as pool:
         futures = {(k, step): pool.submit(dryrun_target, mesh, step, red, flags)
                    for k, (mesh, flags, red) in targets.items() for step in ("fo", "zo")}
-        serve_futures = {step: pool.submit(serve_dryrun_target, "1x2", step, "qwen3-14b", *shape)
+        serve_futures = {(key, step): pool.submit(serve_dryrun_target, "1x2", step, arch, *shape)
+                         for key, arch in SHARDED_SERVE_ARCHS.items()
                          for step, shape in SERVE_DRYRUN.items()}
         # (c) while the dry runs work on the CPU
         with tempfile.TemporaryDirectory() as tmp:
@@ -3795,14 +3839,19 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
               + f" [{smi}]")
         out["bench"] = bench
         recs = {k: f.result() for k, f in futures.items()}
-        out["serve_dry"] = {step: f.result() for step, f in serve_futures.items()}
+        out["serve_dry"] = {}
+        for (key, step), f in serve_futures.items():
+            out["serve_dry"].setdefault(key, {})[step] = f.result()
     wall = time.perf_counter() - t0
-    for step, rec in out["serve_dry"].items():
-        print(f"  (f) dry run of serving qwen3-14b {step} at (S, rows) {SERVE_DRYRUN[step]} on "
-              f"rank 0 of model=2: predicted peak {rec['memory']['peak_memory_in_bytes'] / 1e9:.3f}"
-              f" GB, arguments {rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, gathers "
-              f"{rec['gathers']} ({rec['gather_bytes']} B), all-reduces {rec['reduces']} "
-              f"({rec['reduce_bytes']} B), run {rec['run_s']} s")
+    for key, arch in SHARDED_SERVE_ARCHS.items():
+        for step, rec in out["serve_dry"][key].items():
+            print(f"  (f) dry run of serving {arch} {step} at (S, rows) {SERVE_DRYRUN[step]} on "
+                  f"rank 0 of model=2: predicted peak "
+                  f"{rec['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB, arguments "
+                  f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, gathers "
+                  f"{rec['gathers']} ({rec['gather_bytes']} B), exchanges {rec['exchanges']} "
+                  f"({rec['exchange_bytes']} B), all-reduces {rec['reduces']} "
+                  f"({rec['reduce_bytes']} B), named {rec['named']}, run {rec['run_s']} s")
     measured = {"a": train_a["peak_gb"], "b": sharded_a["rank0"]["peak_gb"]}
     if sharded_d is not None:
         measured["e"] = sharded_d["rank0"]["peak_gb"]
@@ -3835,7 +3884,7 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
                   f"{recs[('b', step)][f'{kind}s']}) [{smi}]")
             out[f"{kind}_bytes_{step}"] = {"predicted": pred, "measured": got}
     if sharded_d is not None:
-        for kind in ("reduce", "gather"):
+        for kind in COMM_KINDS:
             for step in ("fo", "zo"):
                 rec = recs[("e", step)]
                 pred = (sum(rec[f"{kind}s"].values()), sum(rec[f"{kind}_bytes"].values()))
@@ -4976,7 +5025,10 @@ def mamba_profiles(torch, cfg, params, tokens, slots=8):
 # phase 13b: serving on sharded placements
 # --------------------------------------------------------------------------- #
 SHARDED_SERVE = {"e": "serve qwen3-14b --model-axis 2 (2 gloo ranks) prefill",
-                 "f": "serve falcon-mamba-7b --model-axis 2 (2 gloo ranks) prefill"}
+                 "f": "serve falcon-mamba-7b --model-axis 2 (2 gloo ranks) prefill",
+                 "g": "serve hymba-1.5b --model-axis 2 (2 gloo ranks) prefill"}
+#: the archs of sharded_serve_phase's runs, priced by dryrun_phase (f)
+SHARDED_SERVE_ARCHS = {"e": "qwen3-14b", "f": "falcon-mamba-7b", "g": "hymba-1.5b"}
 #: the dry run's serving targets at (e)'s shapes: a prefill of the longest
 #: prompt's bucket (B=1, S=1024) and a decode step of the 8-slot pool (S=1056)
 SERVE_DRYRUN = {"prefill": (1024, 1), "decode": (1056, 8)}
@@ -4999,12 +5051,13 @@ def serve_dryrun_target(mesh: str, step: str, arch: str, seq: int, batch: int):
 
 
 def collective_probe(torch, stack, rec):
-    """Time every gather and all-reduce exchange (``collectives.gather_cat``,
-    ``all_reduce_sum``, ``reduce_parts``) by host clock, each between two
-    synchronizes, into ``rec["comm_s"]`` and ``rec["comm_calls"]``."""
+    """Time every gather, all-reduce and exchange (``collectives.gather_cat``,
+    ``all_reduce_sum``, ``reduce_parts``, ``exchange``) by host clock, each
+    between two synchronizes, into ``rec["comm_s"]`` and
+    ``rec["comm_calls"]``."""
     from repro_torch.dist import collectives as coll
 
-    for name in ("gather_cat", "all_reduce_sum", "reduce_parts"):
+    for name in ("gather_cat", "all_reduce_sum", "reduce_parts", "exchange"):
         fn = getattr(coll, name)
 
         def timed(*a, fn=fn, **kw):
@@ -5022,9 +5075,10 @@ def collective_probe(torch, stack, rec):
 
 def count_collectives(torch, sch, rec):
     """Around each prefill and decode of the scheduler ``sch`` (after
-    ``instrument``): the gathers and all-reduces over ``model`` it made
-    (calls, bytes), the collective seconds and calls within it, and a digest
-    of each decode step's logits."""
+    ``instrument``): the gathers, exchanges and all-reduces over ``model`` it
+    made (calls, bytes; ``named``: the labelled ones), the collective
+    seconds and calls within it, and a digest of each decode step's
+    logits."""
     import hashlib
 
     from repro_torch.dist import collectives as coll
@@ -5032,8 +5086,11 @@ def count_collectives(torch, sch, rec):
     prefill, decode = sch._prefill, sch._decode
 
     def counts():
-        return {kind: {"+".join(k): list(v) for k, v in table.items()}
-                for kind, table in (("gathers", coll.GATHERS), ("reduces", coll.REDUCES))}
+        out = {kind: {"+".join(k): list(v) for k, v in table.items()}
+               for kind, table in (("gathers", coll.GATHERS), ("exchanges", coll.EXCHANGES),
+                                   ("reduces", coll.REDUCES))}
+        out["named"] = {k: list(v) for k, v in sorted(coll.LABELS.items())}
+        return out
 
     def counted_prefill(bucket):
         fn = prefill(bucket)
@@ -5202,37 +5259,70 @@ def rank_shape_kernels(torch, dev, exp_instr, flash_rows, scan_rows, S=1024):
     return out
 
 
-def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, scan_rows,
-                        timeout=900.0):
+#: what each run of sharded_serve_phase launches on its prefills
+SHARDED_SERVE_KERNEL = {"e": "flash_attention", "f": "selective_scan", "g": "selective_scan"}
+
+
+def parent_gathers(cfg, slots, max_seq, ms=2, dtype_bytes=2) -> dict:
+    """The bytes a rank gathered over ``model`` a layer and decode step by
+    the parent's method, which this slice replaced: the mixer's whole
+    ``in_proj``, attention's ``wq`` (cut inside a head), ``wk`` and ``wv``,
+    and an ``hd``-cut layer's k and v caches whole."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    if cfg.has_ssm:
+        out["in_proj"] = D * 2 * cfg.d_inner * dtype_bytes
+    if cfg.has_attention and KV % ms and not hd % ms:
+        out.update(wq=D * H * hd * dtype_bytes * bool((H * hd // ms) % hd),
+                   wk=D * KV * hd * dtype_bytes, wv=D * KV * hd * dtype_bytes,
+                   k_cache=slots * max_seq * KV * hd * dtype_bytes,
+                   v_cache=slots * max_seq * KV * hd * dtype_bytes)
+    return out
+
+
+def sharded_serve_phase(torch, dev, qwen, mamba, hymba, dry, exp_instr, flash_rows,
+                        scan_rows, timeout=900.0):
     """Serving on sharded placements: 2 gloo ranks sharing ``cuda:0``, each
     its shards partitioned over ``model`` (the same-card exchange; no CPU
     path, no caught failure), through ``Engine.generate``.
 
     (e) qwen3-14b at full width and depth (40 layers, 40/8 heads: a rank
-    20/4) on model=2: ``serve_phase``'s seed-0 weights, 8 prompts, 32 new
-    tokens, 8 slots, held to its kernel run (``qwen``) by its rule
+    20/4) on model=2: ``serve_phase``'s seed-0 weights, 8 prompts, 8
+    slots, 32 new tokens, held to its kernel run (``qwen``) by its rule
     (``serving_hold``); every rank the same tokens, the same prefill logits
     bits and the same decode logits (digests); flash launches a rank =
-    prefills x 40 layers, all ``wgmma`` at hd 128; the gathers and
-    all-reduces of the prefill at bucket 1024 and of one decode step equal
-    to the dry run's (``dry``, ``SERVE_DRYRUN``); rank 0's peak within
-    ``PEAK_TOL`` of the dry run's prediction: the larger of the prefill's
-    peak plus the pool and the decode step's peak.
+    prefills x 40 layers, all ``wgmma`` at hd 128.
     (f) falcon-mamba-7b at full width and depth on model=2: the scan on a
     rank's 4096 of 8192 channels, conv and ssm caches cut over d_inner,
-    held to ``mamba`` (one process) by the same rule, both ranks the same
-    tokens; scan launches a rank = prefills x layers.
+    ``in_proj`` kept cut (one exchange of u and z pieces a layer, no
+    gather of it), held to ``mamba`` (one process) by the same rule, both
+    ranks the same tokens; scan launches a rank = prefills x layers.
+    (g) hymba-1.5b at full width and depth on model=2 (``hybrid_serve_phase``'s
+    seed-0 weights, prompts and slots, held to its one-process run
+    ``hymba``): 25/5 heads, so the k/v caches are cut over ``hd`` and each
+    decode step reads them cut (the q, k, v products and the attention
+    output gathered, the partial logits all-reduced; no cache gathered:
+    its bytes 0), the mixer as in (f); scan launches a rank = prefills x
+    layers.
+    For each run, the gathers, exchanges and all-reduces of the prefill at
+    bucket 1024 and of one decode step equal to the dry run's (``dry``,
+    ``SERVE_DRYRUN``); rank 0's peak within ``PEAK_TOL`` of the dry run's
+    prediction (the larger of the prefill's peak plus the pool and the
+    decode step's peak) for (e) and (g), printed for (f).
     The kernels at a rank's shapes (``rank_shape_kernels``) first.  Prints
     wall time, prefill ms, decode ms a step, collective calls and their
-    share, and peak GB a rank against one process's."""
+    share, the bytes a decode step moves, what the parent's method would
+    have gathered a layer (``parent_gathers``), and peak GB a rank against
+    one process's."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn_ranks
 
     smi = smi_line()
     kernels = rank_shape_kernels(torch, dev, exp_instr, flash_rows, scan_rows)
+    refs = {"e": qwen, "f": mamba, "g": hymba}
     runs = {key: (ref["cfg"].with_(use_pallas=True), ref["prompts"], ref["max_new"],
-                  ref["slots"], ref["max_seq"]) for key, ref in (("e", qwen), ("f", mamba))}
+                  ref["slots"], ref["max_seq"]) for key, ref in refs.items()}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         try:
@@ -5245,7 +5335,9 @@ def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, sca
         for rec in r.values():
             rec["prefill"] = [(b, ms, torch.from_numpy(lg), m) for b, ms, lg, m in rec["prefill"]]
     out = {"kernels": kernels, "wall_s": wall}
-    for key, ref, kernel in (("e", qwen, "flash_attention"), ("f", mamba, "selective_scan")):
+    seq, _ = SERVE_DRYRUN["prefill"]
+    for key, ref in refs.items():
+        kernel = SHARDED_SERVE_KERNEL[key]
         cfg, one = ref["cfg"], ref["kernel_run"]
         label = f"({key}) {SHARDED_SERVE[key]}"
         lens = [len(p) for p in ref["prompts"]]
@@ -5271,9 +5363,12 @@ def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, sca
         dec = statistics.median(r0["decode_ms"])
         dec_comm = [c for _, c, _ in r0["decode_comm"]]
         calls = r0["decode_comm"][0][2]
+        step_counts = r0["decode_comm"][0][0]
+        moved = {kind: sum(b for _, b in step_counts[kind].values())
+                 for kind in ("gathers", "exchanges", "reduces")}
         by_bucket = {}
-        for (b, ms, *_), (_, _, s, n) in zip(r0["prefill"], r0["prefill_comm"]):
-            by_bucket.setdefault(b, []).append((round(ms, 3), n, round(1e3 * s, 3)))
+        for (b, ms, *_), (_, _, s_, n) in zip(r0["prefill"], r0["prefill_comm"]):
+            by_bucket.setdefault(b, []).append((round(ms, 3), n, round(1e3 * s_, 3)))
         n_tok = len(lens) * ref["max_new"]
         print(f"  {label}: {cfg.n_layers} layers; rank 0 holds "
               f"{r0['held_gb']:.3f} GB of parameters and a {r0['pool_gb']:.3f} GB pool "
@@ -5292,6 +5387,14 @@ def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, sca
               f"{r0['comm_calls']} calls, {r0['comm_s']:.3f} s = {r0['comm_s'] / r0['wall_s']:.3f}"
               f" of generate; peak {', '.join(f'{r[key]['peak_gb']:.3f}' for r in ranks)} GB "
               f"by rank, one process {one['peak_gb']:.3f} GB")
+        ex_calls, ex_bytes = step_counts["exchanges"].get("model", [0, 0])
+        parent = parent_gathers(cfg, ref["slots"], ref["max_seq"])
+        print(f"    a decode step on rank 0: {moved['gathers'] / 1e6:.4f} MB gathered, "
+              f"{moved['exchanges'] / 1e6:.4f} MB received by {ex_calls} exchanges "
+              f"({ex_bytes / max(ex_calls, 1) / 1e3:.2f} KB each), {moved['reduces'] / 1e6:.4f} "
+              f"MB all-reduced; by label {step_counts['named']}; the parent's method gathered "
+              f"a layer {({k: f'{v / 1e6:.3f} MB' for k, v in parent.items()})}, "
+              f"{sum(parent.values()) * cfg.n_layers / 1e9:.3f} GB a step")
         out[key] = {"launches": {k: sum(r[key]["launches"].get(k, 0) for r in ranks)
                                  for k in r0["launches"]},
                     "logits_max_abs_diff": diff, "tol": tol, "identical_requests": same,
@@ -5300,35 +5403,51 @@ def sharded_serve_phase(torch, dev, qwen, mamba, dry, exp_instr, flash_rows, sca
                     "decode_collective_calls": calls,
                     "decode_collective_ms": 1e3 * statistics.median(dec_comm),
                     "collective_share": r0["comm_s"] / r0["wall_s"],
+                    "decode_step_bytes": moved, "decode_step_named": step_counts["named"],
+                    "parent_gathers_per_layer": parent,
                     "peak_gb": [r[key]["peak_gb"] for r in ranks],
                     "one_process_peak_gb": one["peak_gb"], "held_gb": r0["held_gb"],
                     "prefill_ms": {str(b): [x[0] for x in v] for b, v in by_bucket.items()}}
-    # (e)'s collectives and peak against the dry run
-    r0 = ranks[0]["e"]
-    seq, _ = SERVE_DRYRUN["prefill"]
-    measured = {"prefill": next(c for b, c, _, _ in r0["prefill_comm"] if b == seq),
-                "decode": r0["decode_comm"][0][0]}
-    for step, rec in dry.items():
-        for kind in ("gathers", "reduces"):
-            pred = {k: [rec[kind][k], rec[f"{kind[:-1]}_bytes"][k]] for k in rec[kind]}
-            got = measured[step][kind]
-            check(pred == got, f"(e) {kind} of one {step} {SERVE_DRYRUN[step]}: dry run {pred}, "
-                  f"rank 0 {got}")
-        print(f"  (e) one {step} at (S, rows) {SERVE_DRYRUN[step]}: gathers and all-reduces "
-              f"(calls, bytes) on rank 0 {measured[step]}, the dry run's the same")
-    pool_gb = r0["pool_gb"]
-    pre, dec = (dry[s]["memory"] for s in ("prefill", "decode"))
-    pred = max(pre["peak_memory_in_bytes"] / 1e9 + pool_gb, dec["peak_memory_in_bytes"] / 1e9)
-    rel = abs(pred - r0["peak_gb"]) / max(r0["peak_gb"], 1e-12)
-    print(f"  (e) rank 0's peak {r0['peak_gb']:.3f} GB; the dry run's prediction {pred:.3f} GB "
-          f"(prefill peak {pre['peak_memory_in_bytes'] / 1e9:.3f} + pool {pool_gb:.3f}, decode "
-          f"peak {dec['peak_memory_in_bytes'] / 1e9:.3f}; arguments "
-          f"{pre['argument_size_in_bytes'] / 1e9:.3f} / {dec['argument_size_in_bytes'] / 1e9:.3f}"
-          f"): relative {rel:.4f} (tol {PEAK_TOL}) [{smi}]")
-    check(rel <= PEAK_TOL, f"(e) rank 0's peak {r0['peak_gb']:.3f} GB, the dry run's "
-          f"{pred:.3f} (relative {rel:.4f} > {PEAK_TOL})")
-    out["e"]["dry_run_peak_gb"], out["e"]["peak_rel"] = pred, rel
-    print(f"  sharded serving: {wall:.1f} s for both runs on 2 ranks")
+        # the collectives and peak against the dry run
+        measured = {"prefill": next(c for b, c, _, _ in r0["prefill_comm"] if b == seq),
+                    "decode": step_counts}
+        for step, rec in dry[key].items():
+            for kind in ("gathers", "exchanges", "reduces"):
+                pred = {k: [rec[kind][k], rec[f"{kind[:-1]}_bytes"][k]] for k in rec[kind]}
+                got = measured[step][kind]
+                check(pred == got, f"({key}) {kind} of one {step} {SERVE_DRYRUN[step]}: dry run "
+                      f"{pred}, rank 0 {got}")
+            check(rec["named"] == measured[step]["named"], f"({key}) labelled collectives of "
+                  f"one {step}: dry run {rec['named']}, rank 0 {measured[step]['named']}")
+            print(f"  ({key}) one {step} at (S, rows) {SERVE_DRYRUN[step]}: gathers, exchanges "
+                  f"and all-reduces (calls, bytes) on rank 0 "
+                  f"{ {k: measured[step][k] for k in ('gathers', 'exchanges', 'reduces')} }, "
+                  f"the dry run's the same")
+        if cfg.has_attention and parent.get("k_cache"):
+            named = step_counts["named"]
+            cache_bytes = moved["gathers"] - sum(named.get(k, [0, 0])[1]
+                                                 for k in ("qkv", "attn_out", "logits"))
+            check(cache_bytes == 0, f"({key}) a decode step gathered {cache_bytes} bytes beyond "
+                  f"its products, attention output and logits")
+            print(f"  ({key}) cache-gather bytes a decode step: {cache_bytes} (the hd-cut "
+                  f"caches are read cut)")
+            out[key]["cache_gather_bytes"] = cache_bytes
+        pool_gb = r0["pool_gb"]
+        pre, dec_mem = (dry[key][st]["memory"] for st in ("prefill", "decode"))
+        pred = max(pre["peak_memory_in_bytes"] / 1e9 + pool_gb,
+                   dec_mem["peak_memory_in_bytes"] / 1e9)
+        rel = abs(pred - r0["peak_gb"]) / max(r0["peak_gb"], 1e-12)
+        print(f"  ({key}) rank 0's peak {r0['peak_gb']:.3f} GB; the dry run's prediction "
+              f"{pred:.3f} GB (prefill peak {pre['peak_memory_in_bytes'] / 1e9:.3f} + pool "
+              f"{pool_gb:.3f}, decode peak {dec_mem['peak_memory_in_bytes'] / 1e9:.3f}; arguments "
+              f"{pre['argument_size_in_bytes'] / 1e9:.3f} / "
+              f"{dec_mem['argument_size_in_bytes'] / 1e9:.3f}): relative {rel:.4f} (tol "
+              f"{PEAK_TOL}{', printed only' if key == 'f' else ''}) [{smi}]")
+        if key != "f":
+            check(rel <= PEAK_TOL, f"({key}) rank 0's peak {r0['peak_gb']:.3f} GB, the dry "
+                  f"run's {pred:.3f} (relative {rel:.4f} > {PEAK_TOL})")
+        out[key]["dry_run_peak_gb"], out[key]["peak_rel"] = pred, rel
+    print(f"  sharded serving: {wall:.1f} s for the three runs on 2 ranks")
     return out
 
 
@@ -5757,7 +5876,9 @@ def hybrid_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
     by layer); then one prefill of the longest prompt on each path with
     its caches held against each other: layer 0 (the same input on both
     paths) k, v and conv equal and the ssm state within 1e-5 of max|h|,
-    every layer's leaf within 5% of its largest (the logits' rule)."""
+    every layer's leaf within 5% of its largest (the logits' rule).  Returns
+    the kernel run's record and its prompts, which ``sharded_serve_phase``
+    (g) holds its ranks to."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -5801,7 +5922,9 @@ def hybrid_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
     print(f"  prefill caches of {len(tokens)} tokens, kernel vs plain path: layer 0's k, v and "
           f"conv equal, its ssm state within 1e-5 of max|h|; every layer, max |diff| / max "
           f"|plain|: " + ", ".join(f"{k} {v:.5f}" for k, v in rel.items()) + " (tolerance 0.05)")
-    out = {"launches": run["launches"], "decode_ms": run["decode_ms"], "cache_rel": rel}
+    out = {"launches": run["launches"], "decode_ms": run["decode_ms"], "cache_rel": rel,
+           **{k: run[k] for k in ("cfg", "prompts", "max_new", "slots", "max_seq",
+                                  "kernel_run")}}
     del run, params, fast, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -6085,9 +6208,12 @@ def main() -> None:
     del mamba["params"]                   # falcon-mamba-7b's 14 GB go before qwen3-moe's
     gc.collect()
     torch.cuda.empty_cache()
+    print("# phase: serving hymba-1.5b at full width and depth (scan kernel vs plain path)")
+    hymba = hybrid_serve_phase(torch, dev)
     print("# phase: serving on sharded placements, Engine.generate on 2 gloo ranks sharing "
-          "cuda:0 at model=2: (e) qwen3-14b and (f) falcon-mamba-7b at full width and depth")
-    sharded_serve = sharded_serve_phase(torch, dev, serve, mamba, tooling["serve_dry"],
+          "cuda:0 at model=2: (e) qwen3-14b, (f) falcon-mamba-7b and (g) hymba-1.5b at full "
+          "width and depth")
+    sharded_serve = sharded_serve_phase(torch, dev, serve, mamba, hymba, tooling["serve_dry"],
                                         exp_instr, flash["rows"], scan["rows"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -6098,8 +6224,6 @@ def main() -> None:
     print(f"# phase: serving qwen3-moe-235b-a22b at full width, {MOE_LAYERS} layers (kernel vs "
           f"plain path)")
     moe = moe_serve_phase(torch, dev)
-    print("# phase: serving hymba-1.5b at full width and depth (scan kernel vs plain path)")
-    hymba = hybrid_serve_phase(torch, dev)
     print("# phase: pixtral-12b and hubert-xlarge forward and loss at full width and depth "
           "(flash kernel vs plain path)")
     frontends = frontend_phase(torch, dev)
@@ -6228,9 +6352,11 @@ def main() -> None:
                                          "fastest_lanes")} for r in scan["rows"]],
         "sass": scan_sass[ss.SERVED_LANES], "prefill_1024": prefill_paths,
         "launches_by_path": {HYMBA_PATH: hymba["launches"]["selective_scan"],
-                             SHARDED_SERVE["f"]: sharded_serve["f"]["launches"]["selective_scan"]},
+                             **{SHARDED_SERVE[k]: sharded_serve[k]["launches"]["selective_scan"]
+                                for k in ("f", "g")}},
         "rank_shape": sharded_serve["kernels"]["scan"],
         "sharded_serve": {k: v for k, v in sharded_serve["f"].items() if k != "launches"},
+        "sharded_serve_hymba": {k: v for k, v in sharded_serve["g"].items() if k != "launches"},
         "hymba_serve": {k: hymba[k] for k in ("decode_ms", "cache_rel")},
     })
     for path, n in kernels[-1]["launches_by_path"].items():

@@ -54,15 +54,26 @@ order of its own), and book nothing: they are the model's internal
 traffic, not the method's exchange, as the reference's compiler books them
 nowhere either.
 
+``exchange`` is the partitioned layers' collective-permute: a fixed plan
+says which slices of which ranks' tensors each rank takes, and only those
+slices move (on one card each rank reads them from the owners' buffers;
+otherwise one ``all_to_all_single`` of the slices alone).  Its transpose,
+which returns each piece's gradient to its owner's slice, is an
+``exchange`` over the ``transposed`` plan.
+
 ``GATHERS`` counts ``gather_cat``'s calls and the bytes of its results per
 tuple of axes, ``REDUCES`` the partitioned forward's all-reduces and the
-bytes of their reduced payloads (``reset_gathers`` sets both to 0): the dry
+bytes of their reduced payloads, ``EXCHANGES`` ``exchange``'s calls and
+the bytes a rank receives, and ``LABELS`` the
+calls and bytes of every collective given a ``label`` (the partitioned
+layers name theirs: ``mixer_uz``, ``qkv``, ``partial_logits``,
+``attn_out``, ``logits``); ``reset_gathers`` sets all four to 0: the dry
 run's collective bytes (``launch.dryrun``).  Every collective that runs
 over the group (``gather_cat``, ``all_reduce_sum``, ``reduce_parts``,
-``all_gather``, ``psum``, ``pmean``) is one ``record_function`` span named
-``collective:<kind>`` (``all-gather`` or ``all-reduce``), which
-``launch.overlap`` pairs with the kernels a profiler trace shows between
-its ends.
+``exchange``, ``all_gather``, ``psum``, ``pmean``) is one
+``record_function`` span named ``collective:<kind>`` (``all-gather``,
+``all-reduce`` or ``collective-permute``), which ``launch.overlap`` pairs
+with the kernels a profiler trace shows between its ends.
 """
 from __future__ import annotations
 
@@ -84,18 +95,34 @@ GATHERS: Dict[Tuple[str, ...], List[int]] = {}
 #: axes -> [calls, bytes of the reduced payloads] of ``all_reduce_sum`` and
 #: ``reduce_parts``
 REDUCES: Dict[Tuple[str, ...], List[int]] = {}
+#: axes -> [calls, bytes this rank received] of ``exchange``
+EXCHANGES: Dict[Tuple[str, ...], List[int]] = {}
+#: label -> [calls, bytes] of the collectives above that were given a label
+LABELS: Dict[str, List[int]] = {}
+
+#: ``exchange``'s plan: per destination rank, its pieces ``(source rank,
+#: start, length)`` on the exchanged dim
+Plan = Tuple[Tuple[Tuple[int, int, int], ...], ...]
 
 
 def reset_gathers() -> None:
-    """Set ``GATHERS`` and ``REDUCES`` to 0."""
+    """Set ``GATHERS``, ``REDUCES``, ``EXCHANGES`` and ``LABELS`` to 0."""
     GATHERS.clear()
     REDUCES.clear()
+    EXCHANGES.clear()
+    LABELS.clear()
 
 
-def _count(table: Dict[Tuple[str, ...], List[int]], axes: Axes, t: torch.Tensor) -> None:
-    stat = table.setdefault((axes,) if isinstance(axes, str) else tuple(axes), [0, 0])
-    stat[0] += 1
-    stat[1] += t.numel() * t.element_size()
+def _count(table: Dict[Tuple[str, ...], List[int]], axes: Axes, nbytes: int,
+           label: Optional[str] = None) -> None:
+    for stat in ([table.setdefault((axes,) if isinstance(axes, str) else tuple(axes), [0, 0])]
+                 + ([LABELS.setdefault(label, [0, 0])] if label else [])):
+        stat[0] += 1
+        stat[1] += nbytes
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _span(kind: str):
@@ -239,12 +266,12 @@ def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 
 class _CardExchange:
-    """``gather_cat`` and ``all_reduce_sum`` between ranks that share one
-    CUDA device: each rank copies its part into a buffer of its own that
-    every rank of the group has opened through a CUDA IPC handle, and every
-    rank reads the parts device to device (``gather``: concatenated;
-    ``reduce_sum``: added into one float32 accumulator one buffer at a
-    time).  A barrier after the writes and one after the reads
+    """``gather_cat``, ``all_reduce_sum`` and ``exchange`` between ranks
+    that share one CUDA device: each rank copies its part into a buffer of
+    its own that every rank of the group has opened through a CUDA IPC
+    handle, and every rank reads the parts device to device (``gather``:
+    concatenated; ``reduce_sum``: added into one float32 accumulator one
+    buffer at a time; ``permute``: only the pieces a plan gives it).  A barrier after the writes and one after the reads
     (each behind a stream synchronize) keep a rank from reading a part
     before it is written, or overwriting its buffer before it is read.  The
     buffers grow in step on every rank: the ranks of a group gather the same
@@ -267,23 +294,32 @@ class _CardExchange:
         self.parts = [self.mine if r == me else rebuild(*args)
                       for r, (rebuild, args) in enumerate(handles)]
 
-    def _read(self, x: torch.Tensor, combine):
-        """``combine`` of every rank's ``x`` (a generator of views of their
-        buffers, in group-rank order), between the two barriers."""
+    def _publish(self, x: torch.Tensor, reserve: int, read):
+        """``read`` of every rank's buffer (uint8, in group-rank order)
+        after each rank wrote its ``x`` there, between the two barriers;
+        ``reserve`` is the bytes a buffer must hold, the same on every
+        rank."""
         import torch.distributed as dist
 
         x = x.contiguous()
-        n = x.numel() * x.element_size()
-        if self.mine is None or self.mine.numel() < n:
-            self._grow(max(n, 0 if self.mine is None else 2 * self.mine.numel()))
+        n = _nbytes(x)
+        if self.mine is None or self.mine.numel() < reserve:
+            self._grow(max(reserve, 0 if self.mine is None else 2 * self.mine.numel()))
         stream = torch.cuda.current_stream(self.device)
         self.mine[:n].copy_(x.reshape(-1).view(torch.uint8))
         stream.synchronize()
         dist.barrier(group=self.group)
-        out = combine(p[:n].view(x.dtype).view(x.shape) for p in self.parts)
+        out = read(self.parts)
         stream.synchronize()
         dist.barrier(group=self.group)
         return out
+
+    def _read(self, x: torch.Tensor, combine):
+        """``combine`` of every rank's ``x`` (a generator of views of their
+        buffers, in group-rank order), between the two barriers."""
+        n = _nbytes(x)
+        return self._publish(x, n, lambda bufs: combine(
+            p[:n].view(x.dtype).view(x.shape) for p in bufs))
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return self._read(x, lambda parts: torch.cat(list(parts), dim))
@@ -291,6 +327,29 @@ class _CardExchange:
     def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The float32 sum of every rank's ``x``, each buffer read in turn."""
         return self._read(x, _accumulate)
+
+    def permute(self, sends: List[torch.Tensor], moves, me: int, dtype) -> List[torch.Tensor]:
+        """``_permute`` on the card: each rank writes its outgoing pieces
+        into its buffer in ``moves``' order, and each reads only the pieces
+        it receives from their senders' buffers."""
+        es = torch.empty((), dtype=dtype).element_size()
+        total: Dict[int, int] = {}
+        for snd, _, shape in moves:
+            total[snd] = total.get(snd, 0) + math.prod(shape) * es
+        flat = (torch.cat([t.reshape(-1) for t in sends]) if sends else
+                torch.empty(0, dtype=dtype, device=self.device))
+
+        def read(bufs):
+            off: Dict[int, int] = {}
+            out = []
+            for snd, rcv, shape in moves:
+                a = off.get(snd, 0)
+                off[snd] = a + math.prod(shape) * es
+                if rcv == me:
+                    out.append(bufs[snd][a:off[snd]].view(dtype).view(shape).clone())
+            return out
+
+        return self._publish(flat, max(total.values(), default=0), read)
 
 
 #: per mesh and axes: the ``_CardExchange`` of their group, or None when its
@@ -319,15 +378,17 @@ def _card_exchange(mesh, axes: Axes, x: torch.Tensor) -> Optional[_CardExchange]
     return cards[names]
 
 
-def gather_cat(x: torch.Tensor, axes: Axes, *, mesh, dim: int) -> torch.Tensor:
+def gather_cat(x: torch.Tensor, axes: Axes, *, mesh, dim: int,
+               label: Optional[str] = None) -> torch.Tensor:
     """The parts of ``x`` over the ``axes`` of ``mesh``, concatenated on
     ``dim`` in group-rank order, on ``x``'s device; books nothing.  Ranks
     that share one card exchange CUDA parts device to device
     (``_CardExchange``); otherwise the group's backend carries them (gloo
-    through host memory)."""
+    through host memory).  Counted in ``GATHERS`` (and ``LABELS`` under
+    ``label``) at the result's bytes."""
     with _span("all-gather"):
         out = _gather_cat(x, axes, mesh, dim)
-    _count(GATHERS, axes, out)
+    _count(GATHERS, axes, _nbytes(out), label)
     return out
 
 
@@ -341,20 +402,21 @@ def reduce_parts(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
     nothing."""
     with _span("all-reduce"):
         out = _gather_cat(x.unsqueeze(0), axes, mesh, 0)
-    _count(REDUCES, axes, x)
+    _count(REDUCES, axes, _nbytes(x))
     return out
 
 
-def all_reduce_sum(x: torch.Tensor, axes: Axes, *, mesh) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, axes: Axes, *, mesh,
+                   label: Optional[str] = None) -> torch.Tensor:
     """The sum of ``x`` over the ``axes`` of ``mesh``, the same bits on
     every rank: the parts exchanged in ``x``'s dtype, added in group-rank
     order into one float32 accumulator as each is read, rounded once to
     ``x``'s dtype.  A rank holds ``x``, the accumulator and at most one
-    received part.  Counted in ``REDUCES`` at ``x``'s bytes; books
-    nothing."""
+    received part.  Counted in ``REDUCES`` (and ``LABELS`` under
+    ``label``) at ``x``'s bytes; books nothing."""
     with _span("all-reduce"):
         out = _reduce_sum(x, axes, mesh)
-    _count(REDUCES, axes, x)
+    _count(REDUCES, axes, _nbytes(x), label)
     return out.to(x.device, x.dtype)
 
 
@@ -396,6 +458,105 @@ def _reduce_sum(x: torch.Tensor, axes: Axes, mesh) -> torch.Tensor:
             yield part
 
     return _accumulate(received())
+
+
+def _moves(plan: Plan, shape, dim: int) -> List[Tuple[int, int, Tuple[int, ...]]]:
+    """The pieces of ``plan`` that cross ranks, as ``(sender, receiver,
+    shape)`` in plan order (by destination, then its pieces)."""
+    def piece(length):
+        return tuple(length if d == dim else n for d, n in enumerate(shape))
+
+    return [(src, dst, piece(length)) for dst, want in enumerate(plan)
+            for src, _, length in want if src != dst]
+
+
+def _permute(sends: List[torch.Tensor], moves, axes: Axes, mesh, proto: torch.Tensor
+             ) -> List[torch.Tensor]:
+    """Move pieces between the ranks of the group over ``axes``: ``moves``
+    (the same list on every rank) are ``(sender, receiver, shape)`` group
+    ranks; ``sends`` this rank's outgoing pieces in ``moves``' order.
+    Returns the pieces this rank receives, in ``moves``' order, on
+    ``proto``'s device and in its dtype.  Through the same-card exchange,
+    or one ``all_to_all_single`` of the flattened pieces (gloo stages a
+    CUDA payload through host memory); nothing else moves."""
+    import torch.distributed as dist
+
+    group = axes_group(mesh, axes)
+    me = dist.get_rank(group)
+    if proto.is_cuda:
+        card = _card_exchange(mesh, axes, proto)
+        if card is not None:
+            return card.permute(sends, moves, me, proto.dtype)
+    world = dist.get_world_size(group)
+    mine = [(rcv, t) for (snd, rcv, _), t in
+            zip([m for m in moves if m[0] == me], sends)]
+    mine.sort(key=lambda p: p[0])                  # stable: plan order within a receiver
+    in_splits, out_splits = [0] * world, [0] * world
+    for rcv, t in mine:
+        in_splits[rcv] += t.numel()
+    incoming = [m for m in moves if m[1] == me]
+    for snd, _, shape in incoming:
+        out_splits[snd] += math.prod(shape)
+    flat = (torch.cat([t.reshape(-1) for _, t in mine]) if mine else
+            torch.empty(0, dtype=proto.dtype, device=proto.device))
+    flat, staged = _staged(flat, group)
+    got = torch.empty(sum(out_splits), dtype=flat.dtype, device=flat.device)
+    dist.all_to_all_single(got, flat, out_splits, in_splits, group=group)
+    got = got.to(proto.device) if staged else got
+    # the senders' chunks in rank order, each in plan order
+    off, at = 0, {}
+    for snd in range(world):
+        at[snd], off = off, off + out_splits[snd]
+    out = []
+    for snd, _, shape in incoming:
+        k = math.prod(shape)
+        out.append(got[at[snd]:at[snd] + k].view(shape))
+        at[snd] += k
+    return out
+
+
+def exchange(x: torch.Tensor, plan: Plan, axes: Axes, *, mesh, dim: int,
+             label: Optional[str] = None) -> List[torch.Tensor]:
+    """This rank's pieces of the ranks' ``x`` over the ``axes`` of ``mesh``:
+    XLA's collective-permute.  ``plan[d]`` lists the pieces that group rank
+    ``d`` takes, each ``(source rank, start, length)`` on ``dim`` of the
+    source's ``x``; every rank holds the same plan and an ``x`` of one
+    shape off ``dim``.  Returns this rank's pieces in its plan's order (its own sliced
+    here, copies).  Only the pieces that cross ranks move.  Counted in
+    ``EXCHANGES`` (and ``LABELS`` under ``label``) at the bytes this rank
+    receives; books nothing."""
+    import torch.distributed as dist
+
+    me = dist.get_rank(axes_group(mesh, axes))
+    dim = dim % x.dim()
+    moves = _moves(plan, x.shape, dim)
+    sends = [x.narrow(dim, start, length) for dst, want in enumerate(plan)
+             for src, start, length in want if src == me != dst]
+    with _span("collective-permute"):
+        got = iter(_permute(sends, moves, axes, mesh, x))
+        out = [x.narrow(dim, start, length).clone() if src == me else next(got)
+               for src, start, length in plan[me]]
+    _count(EXCHANGES, axes, sum(_nbytes(t) for t, (src, _, _) in zip(out, plan[me])
+                                if src != me), label)
+    return out
+
+
+def transposed(plan: Plan) -> Tuple[Plan, Tuple[Tuple[Tuple[int, int], ...], ...]]:
+    """``exchange``'s transpose as an exchange: when group rank ``d`` holds
+    its pieces' gradients concatenated on the exchanged dim in its plan's
+    order, the plan that takes each back to its source (per destination,
+    the pieces of every rank's plan that came from it, in rank and then
+    plan order) and, per destination, where each lands on its ``x``:
+    ``(start, length)`` in the same order."""
+    back: List[List[Tuple[int, int, int]]] = [[] for _ in plan]
+    lands: List[List[Tuple[int, int]]] = [[] for _ in plan]
+    for d, want in enumerate(plan):
+        at = 0
+        for src, start, length in want:
+            back[src].append((d, at, length))
+            lands[src].append((start, length))
+            at += length
+    return tuple(map(tuple, back)), tuple(map(tuple, lands))
 
 
 def _gather_cat(x: torch.Tensor, axes: Axes, mesh, dim: int) -> torch.Tensor:

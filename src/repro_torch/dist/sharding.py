@@ -49,13 +49,16 @@ whole one on every rank.  ``gather`` is differentiable, and its backward is
 this rank's slice of the gradient: that is right for a storage axis (every
 rank that shares a leaf's shards computed the same full gradient); a leaf
 gathered over ``model`` to be used on a rank's part (``ModelAxis.whole``:
-the mixer's ``in_proj``, whose cut on its last dim gives rank 0 all of u
-and rank 1 all of z at model=2, or a ``wk`` cut inside a head) enters
+a ``wk`` cut inside a head, in the training forward and prefill) enters
 after the gather, so that the gradient is summed over the axis before it
-is sliced.  Serving runs on the same placements: a rank's caches are its
+is sliced.  Where a rank needs other ranks' columns of a column-parallel
+product (the mixer's u and z, ``in_proj`` cut on ``2·di``), it takes only
+those pieces of the products (``ModelAxis.exchange``), and the weight
+stays cut.  Serving runs on the same placements: a rank's caches are its
 slices of ``cache_specs`` over ``model`` (``cache_slices``), and
 ``ModelAxis.cat`` gathers what a rank needs whole (the logits' vocabulary
-columns, an ``hd``-cut cache).  A sequence-sharded cache (``long_500k``)
+columns; on an ``hd``-cut cache the q, k and v products and the attention
+output, never the cache).  A sequence-sharded cache (``long_500k``)
 is also cut on its sequence over the worker axes (``SequenceAxis``, carried
 by ``ShardedParams(..., seq_sharded=True)``).  Nothing here is a ``DTensor``: the
 models launch kernels on raw pointers, and gloo carries a CUDA payload only
@@ -487,15 +490,15 @@ class _GatherDim(torch.autograd.Function):
     ``dim``; backward: this rank's slice of the gradient."""
 
     @staticmethod
-    def forward(ctx, x, dim, axes, mesh, index):
+    def forward(ctx, x, dim, axes, mesh, index, label):
         from repro_torch.dist import collectives as coll
 
         ctx.dim, ctx.index, ctx.n = dim, index, x.shape[dim]
-        return coll.gather_cat(x, axes, mesh=mesh, dim=dim)
+        return coll.gather_cat(x, axes, mesh=mesh, dim=dim, label=label)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None, None
 
 
 def gather(x: torch.Tensor, spec: PartitionSpec, mesh,
@@ -514,7 +517,7 @@ def gather(x: torch.Tensor, spec: PartitionSpec, mesh,
         index = 0
         for a in names:
             index = index * sizes[a] + coord[a]
-        x = _GatherDim.apply(x, dim, names, mesh, index)
+        x = _GatherDim.apply(x, dim, names, mesh, index, None)
     return x
 
 
@@ -566,14 +569,43 @@ class _Parts(torch.autograd.Function):
         return g[ctx.rank], None
 
 
+class _Exchange(torch.autograd.Function):
+    """``collectives.exchange`` over a ``ModelAxis``: this rank's pieces of
+    the ranks' tensors; backward: each piece's gradient back in its owner's
+    slice, an exchange over the ``collectives.transposed`` plan."""
+
+    @staticmethod
+    def forward(ctx, x, plan, axis, dim, label):
+        from repro_torch.dist import collectives as coll
+
+        ctx.plan, ctx.axis, ctx.dim, ctx.label = plan, axis, dim % x.dim(), label
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return tuple(coll.exchange(x, plan, axis.name, mesh=axis.mesh, dim=dim, label=label))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from repro_torch.dist import collectives as coll
+
+        back, lands = coll.transposed(ctx.plan)
+        got = coll.exchange(torch.cat(grads, ctx.dim), back, ctx.axis.name, mesh=ctx.axis.mesh,
+                            dim=ctx.dim, label=ctx.label and f"{ctx.label}_grad")
+        g = torch.zeros(ctx.shape, dtype=ctx.dtype, device=grads[0].device)
+        for piece, (start, length) in zip(got, lands[ctx.axis.rank]):
+            g.narrow(ctx.dim, start, length).add_(piece)
+        return g, None, None, None, None
+
+
 class ModelAxis:
     """The ``model`` axis of a mesh as the partitioned layers use it:
     ``size`` ranks, this rank at ``rank``; ``enter`` and ``reduce`` are the
     conjugate pair of Megatron's tensor parallelism, ``sum`` the
     rank-ordered all-reduce (``collectives.all_reduce_sum``: the same bits
-    on every rank), ``parts`` every rank's tensor stacked in rank order, and
-    ``whole`` a leaf gathered over the axis to be used on this rank's part
-    (its gradient summed over the axis, then sliced)."""
+    on every rank), ``parts`` every rank's tensor stacked in rank order,
+    ``exchange`` the pieces of the ranks' tensors that a plan gives this
+    rank (``collectives.exchange``; its gradient goes back to the owners),
+    and ``whole`` a leaf gathered over the axis to be used on this rank's
+    part (its gradient summed over the axis, then sliced).  ``label`` names
+    a collective in ``collectives.LABELS``."""
 
     name = "model"
 
@@ -582,10 +614,17 @@ class ModelAxis:
         self.size = mesh_shape(mesh)[self.name]
         self.rank = mesh_coordinate(mesh)[self.name]
 
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
+    def sum(self, x: torch.Tensor, label: str = None) -> torch.Tensor:
         from repro_torch.dist import collectives as coll
 
-        return coll.all_reduce_sum(x, self.name, mesh=self.mesh)
+        return coll.all_reduce_sum(x, self.name, mesh=self.mesh, label=label)
+
+    def exchange(self, x: torch.Tensor, plan, dim: int, label: str = None):
+        """``collectives.exchange`` of ``x``, differentiable: a tuple of this
+        rank's pieces.  Its backward is a collective too, so every rank's
+        plan takes at least one piece (a rank with no piece would have no
+        backward to join)."""
+        return _Exchange.apply(x, plan, self, dim, label)
 
     def parts(self, x: torch.Tensor) -> torch.Tensor:
         return _Parts.apply(x, self)
@@ -597,10 +636,11 @@ class ModelAxis:
         """The float32 partials' sum over the axis, rounded once to ``dtype``."""
         return _Reduce.apply(partial, self).to(dtype)
 
-    def cat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def cat(self, x: torch.Tensor, dim: int, label: str = None) -> torch.Tensor:
         """Every rank's ``x`` concatenated on ``dim`` in rank order (serving's
-        logits and an ``hd``-cut cache); its gradient this rank's slice."""
-        return _GatherDim.apply(x, dim % x.dim(), (self.name,), self.mesh, self.rank)
+        logits, the products and attention output of a decode on an
+        ``hd``-cut cache); its gradient this rank's slice."""
+        return _GatherDim.apply(x, dim % x.dim(), (self.name,), self.mesh, self.rank, label)
 
     def whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return self.enter(self.cat(x, dim))

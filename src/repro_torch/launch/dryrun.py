@@ -50,10 +50,16 @@ where they mean something here:
   ZO), the gathers that ``dist.sharding.gather`` made
   (``collectives.GATHERS``: their results' bytes, on ``all-gather``) and
   the partitioned forward's all-reduces (``collectives.REDUCES``: their
-  payloads' bytes, on ``all-reduce``); over ``model`` on ``axis_model``,
-  over ``data`` (fsdp) on ``axis_worker``.  ``gathers`` and ``reduces``
-  count the calls per axes, ``gather_bytes`` and ``reduce_bytes`` their
-  bytes;
+  payloads' bytes, on ``all-reduce``) and exchanges of product pieces
+  (``collectives.EXCHANGES``: the bytes a rank receives, on
+  ``collective-permute``); over ``model`` on ``axis_model``, over ``data``
+  (fsdp) on ``axis_worker``.  ``gathers``, ``reduces`` and ``exchanges``
+  count the calls per axes, ``gather_bytes``, ``reduce_bytes`` and
+  ``exchange_bytes`` their bytes, and ``named`` the calls and bytes of
+  each labelled collective (``collectives.LABELS``: the mixer's
+  ``mixer_uz`` and its ``mixer_uz_grad``, a decode's ``qkv``,
+  ``partial_logits`` and ``attn_out`` on an ``hd``-cut cache, the
+  ``logits``);
 * ``kernels``: the calls of each hand-written kernel in the step;
 * ``run_s`` in place of ``lower_s`` / ``compile_s``.
 
@@ -282,7 +288,8 @@ def _collectives(ledger: CommLedger, name: str, mesh) -> Dict[str, float]:
         if r.payload:
             out[_LEDGER_KIND.get(r.kind, "all-reduce")] += r.nbytes
             out["axis_worker"] += r.nbytes
-    for kind, table in (("all-gather", coll.GATHERS), ("all-reduce", coll.REDUCES)):
+    for kind, table in (("all-gather", coll.GATHERS), ("all-reduce", coll.REDUCES),
+                        ("collective-permute", coll.EXCHANGES)):
         for axes, (_, nbytes) in table.items():
             out[kind] += nbytes
             out["axis_model" if set(axes) == {"model"} else "axis_worker"] += nbytes
@@ -379,9 +386,11 @@ def run_one(arch: str, shape_name: Union[str, ShapeConfig], multi_pod: bool, ste
         a["temp_size_in_bytes"] = a["peak_memory_in_bytes"] - a["argument_size_in_bytes"]
         rec["cost"] = {"flops": float(flops.get_total_flops()), "bytes": float(meter.bytes)}
         rec["collectives"] = _collectives(ledger, step, mesh)
-        for name, table in (("gather", coll.GATHERS), ("reduce", coll.REDUCES)):
+        for name, table in (("gather", coll.GATHERS), ("reduce", coll.REDUCES),
+                            ("exchange", coll.EXCHANGES)):
             rec[f"{name}s"] = {"+".join(k): v[0] for k, v in table.items()}
             rec[f"{name}_bytes"] = {"+".join(k): v[1] for k, v in table.items()}
+        rec["named"] = {k: list(v) for k, v in sorted(coll.LABELS.items())}
         rec["kernels"] = {k: v for k, v in fake.CALLS.items() if v}
     rec["run_s"] = round(time.perf_counter() - t0, 2)
     if verbose:

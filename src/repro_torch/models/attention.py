@@ -31,10 +31,19 @@ Serving on sharded placements (``attention_prefill``/``attention_decode``
 with ``tp``) runs the same heads, and the rank's k/v cache is its slice of
 ``dist.sharding.cache_specs`` (``cache_cut``): its own KV heads when ``KV``
 divides the axis, else a slice of ``hd`` of every KV head.  In the second
-case the rank computes every KV head's k and v (``wk``/``wv`` gathered, as
-above), stores its ``hd`` slice, and at use gathers the layer's cache over
-the axis (``ModelAxis.cat``, counted) to read the heads its query heads
-need.
+case the prefill computes every KV head's k and v (``wk``/``wv`` gathered,
+as above) and stores its ``hd`` slice, and a decode step keeps the cache
+cut, as the reference's ``_constrain_hd`` pins it (``_hd_decode``): the
+rank's columns of the q, k and v products are gathered over the axis
+(``B·H·hd`` and ``B·KV·hd`` elements, label ``qkv``), normed and rotated
+on whole heads, and cut to the rank's ``hd`` slice; each rank contracts
+its slice (every query head against its KV head's slice of the cache),
+the float32 partial logits are summed over the axis in rank order
+(``partial_logits``), and only then scaled by ``sqrt(hd)`` of the whole
+head, soft-capped and masked; every rank takes the same softmax, weighs
+its ``hd`` slice of v, and the ``(B, 1, H, hd/ms)`` outputs are gathered
+over ``hd`` (``attn_out``) before the rank's rows of ``wo``.  No cache
+crosses ranks.
 
 A sequence-sharded cache (``long_500k``: ``dist.sharding.SequenceAxis``)
 holds a rank's rows of the sequence; a scalar-position decode on it reads
@@ -44,7 +53,7 @@ combined over the worker axes (``_decode_seq_sharded``).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,11 +82,15 @@ def init_attention(gen, cfg: ModelConfig, dtype, device="cpu") -> Params:
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
     """q (B, S, heads, hd), k and v (B, S, kv heads, hd), the heads those of
     ``p``'s columns."""
-    B, S, _ = x.shape
+    return _qkv_heads(cfg, p, x @ p["wq"], x @ p["wk"], x @ p["wv"], positions)
+
+
+def _qkv_heads(cfg: ModelConfig, p: Params, q, k, v, positions: torch.Tensor):
+    """The products q, k and v (B, S, heads·hd) as heads, normed and
+    rotated (``p``'s ``q_norm``/``k_norm``)."""
+    B, S, _ = q.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, -1, hd)
-    k = (x @ p["wk"]).reshape(B, S, -1, hd)
-    v = (x @ p["wv"]).reshape(B, S, -1, hd)
+    q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -88,16 +101,29 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.
     return q, k, v
 
 
-def _logits(cfg: ModelConfig, q, k, q_positions, k_positions, window, causal) -> torch.Tensor:
-    """The masked float32 logits ``(B, KV, H/KV, Sq, Sk)`` of ``_attend``."""
+def _logits(cfg: ModelConfig, q, k, q_positions, k_positions, window, causal,
+            hd_axis=None) -> torch.Tensor:
+    """The masked float32 logits ``(B, KV, H/KV, Sq, Sk)`` of ``_attend``.
+    With ``hd_axis`` (a ``ModelAxis``) q and k are this rank's slice of
+    ``hd``: the partial products are summed over the axis before the scale
+    by the whole head's ``sqrt(hd)``, the softcap and the masks."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
-    logits = torch.einsum(
-        "bqgrd,bkgd->bgrqk", qg.to(torch.float32), k.to(torch.float32)
-    ) / math.sqrt(hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(torch.float32), k.to(torch.float32))
+    if hd_axis is not None:
+        logits = hd_axis.sum(logits, label="partial_logits")
+        hd *= hd_axis.size
+    logits = logits / math.sqrt(hd)
     if cfg.attn_softcap:
         logits = softcap(logits, cfg.attn_softcap)
+    return _masked(logits, q_positions, k_positions, window, causal)
+
+
+def _masked(logits, q_positions, k_positions, window, causal) -> torch.Tensor:
+    """``(B, KV, H/KV, Sq, Sk)`` logits with the causal and window masks'
+    blanks at -1e30."""
+    B, Sq, Sk = logits.shape[0], logits.shape[-2], logits.shape[-1]
     qp = q_positions.reshape(-1, Sq).expand(B, Sq)
     kp = k_positions.reshape(-1, Sk).expand(B, Sk)
     rel = qp[:, :, None] - kp[:, None, :]                # (B, Sq, Sk)
@@ -118,30 +144,34 @@ def _attend(
     k_positions: torch.Tensor,    # (B, Sk) or (Sk,)
     window: Optional[int],        # None = full attention
     causal: bool,
+    hd_axis=None,                 # q, k, v this rank's slice of hd (_hd_decode)
 ) -> torch.Tensor:
-    B, Sq, H, hd = q.shape
-    logits = _logits(cfg, q, k, q_positions, k_positions, window, causal)
+    B, Sq = q.shape[:2]
+    logits = _logits(cfg, q, k, q_positions, k_positions, window, causal, hd_axis)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.to(torch.float32))
-    return out.reshape(B, Sq, H * hd).to(q.dtype)
+    if hd_axis is not None:
+        out = hd_axis.cat(out, -1, label="attn_out")
+    return out.reshape(B, Sq, -1).to(q.dtype)
 
 
-def _attend_partial(cfg: ModelConfig, q, k, v, q_positions, k_positions, window
-                    ) -> torch.Tensor:
+def _attend_partial(cfg: ModelConfig, q, k, v, q_positions, k_positions, window,
+                    hd_axis=None) -> torch.Tensor:
     """``_attend``'s causal softmax over the keys given, left unnormalised,
     for a combine over ranks that each hold a part of the keys
     (``_combine_partials``): ``(B, Sq, KV, H/KV, hd + 2)`` float32, the last
     dim the output ``o = sum exp(logit - m) v``, the row max ``m`` of the
     masked logits and ``l = sum exp(logit - m)``, with the softcap and masks
-    of ``_attend``.  No keys (a rank whose rows miss the window) give
-    ``m = -1e30``, ``l = 0`` and ``o = 0``."""
+    of ``_attend`` (``hd``: q's, this rank's slice with ``hd_axis``).  No
+    keys (a rank whose rows miss the window) give ``m = -1e30``, ``l = 0``
+    and ``o = 0``."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     if k.shape[1] == 0:
         out = torch.zeros((B, Sq, KV, H // KV, hd + 2), dtype=torch.float32, device=q.device)
         out[..., hd] = -1e30
         return out
-    logits = _logits(cfg, q, k, q_positions, k_positions, window, causal=True)
+    logits = _logits(cfg, q, k, q_positions, k_positions, window, True, hd_axis)
     m = logits.amax(dim=-1)                                  # (B, KV, G, Sq)
     e = torch.exp(logits - m[..., None])
     o = torch.einsum("bgrqk,bkgd->bqgrd", e, v.to(torch.float32))
@@ -290,10 +320,10 @@ def cache_cut(cfg: ModelConfig, tp) -> Tuple[slice, slice]:
 class _RankProjection:
     """Serving's attention on this rank (the module docstring): ``q`` of its
     query heads; ``k`` and ``v`` of the KV heads its wk/wv give; ``cached``
-    their part in this rank's slice of the cache; ``read`` a cache slice
-    turned into the k or v its query heads attend (gathered over the axis
-    when the cache is cut on ``hd``); ``out`` the attention output summed
-    over the axis."""
+    their part in this rank's slice of the cache; ``read`` a cache slice of
+    whole heads turned into the k or v its query heads attend; ``out`` the
+    attention output summed over the axis.  A decode on an ``hd``-cut
+    cache goes through ``_hd_decode`` instead."""
 
     def __init__(self, cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, tp):
@@ -307,8 +337,6 @@ class _RankProjection:
         return t[:, :, a:a + self.kv_cut.stop - self.kv_cut.start, self.hd_cut]
 
     def read(self, cache: torch.Tensor) -> torch.Tensor:
-        if cache.shape[-1] != self.cfg.head_dim:
-            cache = self.tp.cat(cache, -1)
         return _query_kv(self.cfg, cache, self.kv_cut.start, self.q0, self.q.shape[2])
 
     def attended(self, t: torch.Tensor) -> torch.Tensor:
@@ -332,16 +360,47 @@ def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return _attend_seq(cfg, q, k, v, positions, window) @ p["wo"], (k, v)
 
 
+class _Decode(NamedTuple):
+    """A decode step's projection: ``q``, the new ``k`` and ``v`` as the
+    cache holds them, ``read`` a cache (slice) turned into the k or v that
+    ``q`` attends, ``finish`` the attention output through ``wo``, and
+    ``hd_axis`` the ``ModelAxis`` when q, k and v are this rank's slice of
+    ``hd`` (``_hd_decode``), else None."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    read: Callable
+    finish: Callable
+    hd_axis: object = None
+
+
+def _hd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+               tp, sl: slice) -> _Decode:
+    """A decode step on a cache cut to ``sl`` of ``hd`` (the module
+    docstring): the products gathered, q, k and v of every head cut to the
+    slice; the rank's columns of the attention output through its rows of
+    ``wo``, summed over the axis."""
+    x_in = tp.enter(x)
+    q, k, v = _qkv_heads(cfg, p, *(tp.cat(x_in @ p[n], -1, label="qkv")
+                                   for n in ("wq", "wk", "wv")), positions)
+    c0, wo = tp.rank * p["wo"].shape[0], p["wo"]
+    return _Decode(q[..., sl], k[..., sl], v[..., sl], lambda c: c,
+                   lambda o: tp.reduce(_rank_out(o, 0, c0, wo), x.dtype), tp)
+
+
 def _decode_projection(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                       positions: torch.Tensor, tp):
-    """``(q, new k, new v, read, out)`` of a decode step: whole heads
-    without ``tp``; else this rank's (``_RankProjection``), the new k and v
-    its slice of the cache."""
+                       positions: torch.Tensor, tp) -> _Decode:
+    """A decode step's ``_Decode``: whole heads without ``tp``; on an
+    ``hd``-cut cache ``_hd_decode``; else this rank's heads
+    (``_RankProjection``), the new k and v its slice of the cache."""
     if tp is None:
         q, k, v = _project_qkv(cfg, p, x, positions)
-        return q, k, v, (lambda c: c), (lambda o: o @ p["wo"])
+        return _Decode(q, k, v, lambda c: c, lambda o: o @ p["wo"])
+    hd_cut = cache_cut(cfg, tp)[1]
+    if hd_cut.stop - hd_cut.start != cfg.head_dim:
+        return _hd_decode(cfg, p, x, positions, tp, hd_cut)
     r = _RankProjection(cfg, p, x, positions, tp)
-    return r.q, r.cached(r.k), r.cached(r.v), r.read, r.out
+    return _Decode(r.q, r.cached(r.k), r.cached(r.v), r.read, r.out)
 
 
 def attention_decode(
@@ -376,9 +435,9 @@ def attention_decode(
     S = k_cache.shape[1]
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new, read, finish = _decode_projection(cfg, p, x, positions, tp)
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    d = _decode_projection(cfg, p, x, positions, tp)
+    k_cache[:, pos] = d.k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = d.v[:, 0].to(v_cache.dtype)
     if static_window is not None and static_window < S:
         W = static_window
         start = min(max(pos - W + 1, 0), S - W)
@@ -388,9 +447,9 @@ def attention_decode(
         k_read, v_read = k_cache, v_cache
         k_positions = torch.arange(S, dtype=torch.int32, device=x.device)
     # beyond-pos rows are masked by the causal rel >= 0 test (q position == pos)
-    out = _attend(cfg, q, read(k_read), read(v_read), positions, k_positions, window,
-                  causal=True)
-    return finish(out), (k_cache, v_cache)
+    out = _attend(cfg, d.q, d.read(k_read), d.read(v_read), positions, k_positions, window,
+                  causal=True, hd_axis=d.hd_axis)
+    return d.finish(out), (k_cache, v_cache)
 
 
 def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int, r0: int) -> None:
@@ -406,15 +465,18 @@ def _decode_seq_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, pos
     (``seq``): this rank holds rows ``[r0, r1)`` of the ``S`` positions.
 
     Every rank of the worker axes computes the same q, new k and new v (its
-    heads under ``tp``, as ``_RankProjection`` gives them); the rank that
+    heads under ``tp``, or its ``hd`` slice of every head on an ``hd``-cut
+    cache, as ``_decode_projection`` gives them); the rank that
     holds ``pos`` writes row ``pos - r0``.  Each rank reads the rows of the
     reference's window that it holds, ``[start, start + W) ∩ [r0, r1)`` with
     ``start = clip(pos - W + 1, 0, S - W)`` (all its rows without a static
     window), and computes its unnormalised partial (``_attend_partial``);
     the partials (B·H·(hd + 2) float32) are stacked over the worker axes
     (``SequenceAxis.parts``, one combine a layer) and combined in rank
-    order (``_combine_partials``), then ``wo`` (and the ``model``
-    all-reduce) applies as on a whole cache.  The combine is exact: ``pos``
+    order (``_combine_partials``; on an ``hd``-cut cache each partial's
+    logits summed over ``model`` first, and the combined output's ``hd``
+    slices gathered after), then ``wo`` (and the ``model`` all-reduce)
+    applies as on a whole cache.  The combine is exact: ``pos``
     is live on exactly one rank, so ``m`` is a real logit, and a rank
     whose rows miss the window, or whose rows the masks blank, has ``m_r =
     -1e30`` and weighs ``exp(-1e30 - m) = 0``.  Every rank gets the same
@@ -423,20 +485,23 @@ def _decode_seq_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor, cache, pos
     S = k_cache.shape[1] * seq.size
     r0, r1 = seq.rows(S)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new, read, finish = _decode_projection(cfg, p, x, positions, tp)
-    _write_row(k_cache, k_new, pos, r0)
-    _write_row(v_cache, v_new, pos, r0)
+    d = _decode_projection(cfg, p, x, positions, tp)
+    _write_row(k_cache, d.k, pos, r0)
+    _write_row(v_cache, d.v, pos, r0)
     lo, hi = r0, r1
     if static_window is not None and static_window < S:
         start = min(max(pos - static_window + 1, 0), S - static_window)
         lo, hi = max(start, r0), min(start + static_window, r1)
     hi = max(lo, hi)
-    k_read, v_read = read(k_cache[:, lo - r0:hi - r0]), read(v_cache[:, lo - r0:hi - r0])
+    k_read, v_read = d.read(k_cache[:, lo - r0:hi - r0]), d.read(v_cache[:, lo - r0:hi - r0])
     k_positions = torch.arange(lo, hi, dtype=torch.int32, device=x.device)
-    part = _attend_partial(cfg, q, k_read, v_read, positions, k_positions, window)
-    out = _combine_partials(seq.parts(part), cfg.head_dim)
-    B, Sq = q.shape[0], q.shape[1]
-    return finish(out.reshape(B, Sq, -1).to(q.dtype)), (k_cache, v_cache)
+    part = _attend_partial(cfg, d.q, k_read, v_read, positions, k_positions, window,
+                           d.hd_axis)
+    out = _combine_partials(seq.parts(part), d.q.shape[-1])
+    if d.hd_axis is not None:
+        out = d.hd_axis.cat(out, -1, label="attn_out")
+    B, Sq = d.q.shape[0], d.q.shape[1]
+    return d.finish(out.reshape(B, Sq, -1).to(d.q.dtype)), (k_cache, v_cache)
 
 
 def _write_slots(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -464,10 +529,10 @@ def _attention_decode_slots(
     k_cache, v_cache = cache
     S = k_cache.shape[1]
     positions = pos[:, None].to(torch.int32)              # (B, 1) q positions
-    q, k_new, v_new, read, finish = _decode_projection(cfg, p, x, positions, tp)
-    _write_slots(k_cache, k_new, pos)
-    _write_slots(v_cache, v_new, pos)
+    d = _decode_projection(cfg, p, x, positions, tp)
+    _write_slots(k_cache, d.k, pos)
+    _write_slots(v_cache, d.v, pos)
     k_positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    out = _attend(cfg, q, read(k_cache), read(v_cache), positions, k_positions, window,
-                  causal=True)
-    return finish(out), (k_cache, v_cache)
+    out = _attend(cfg, d.q, d.read(k_cache), d.read(v_cache), positions, k_positions, window,
+                  causal=True, hd_axis=d.hd_axis)
+    return d.finish(out), (k_cache, v_cache)

@@ -16,15 +16,22 @@ Softplus is ``jax.nn.softplus``'s ``logaddexp(x, 0)`` (no threshold) and SiLU
 
 Partitioned over the ``model`` axis (``mamba_forward(..., tp=)``, the
 training loss on sharded placements), a rank runs the mixer on its
-channels ``[r·di/ms, (r+1)·di/ms)`` of ``d_inner``, the channels that the
-reference's placements give it of ``x_proj``, ``A_log``, ``out_proj`` (rows)
-and ``dt_w`` (columns).  ``in_proj`` is cut on its last dim, ``2·di``, so at
-model=2 rank 0 holds all of u and rank 1 all of z: it is gathered over the
-axis (``ModelAxis.whole``, the mixer's one gather, counted in
-``collectives.GATHERS``) and the rank takes u's and z's columns of its
-channels.  The replicated ``conv_w``, ``conv_b``, ``dt_b`` and ``D`` enter
-before they are sliced, so that their gradient is the whole one on every
-rank.  ``x_proj`` is row-parallel: ``x_dbl``'s float32 partials are summed
+channels ``[r·k, (r+1)·k)`` of ``d_inner`` (``k = di/ms``), the channels
+that the reference's placements give it of ``x_proj``, ``A_log``,
+``out_proj`` (rows) and ``dt_w`` (columns).  ``in_proj`` stays cut on its
+last dim, ``2·di``, as the reference keeps it: a rank computes its ``2k``
+columns of ``x @ in_proj`` from its own shard, and the columns of its
+channels' u and z, which lie on other ranks (at model=2 rank 0's product
+holds all of u, rank 1's all of z), come from the owners through one
+exchange of product pieces (``ModelAxis.exchange``, the reference's
+collective-permute, counted in ``collectives.EXCHANGES``): u's piece from
+rank ``r // 2`` at ``(r % 2)·k``, z's from rank ``(ms + r) // 2`` at
+``((ms + r) % 2)·k`` (``uz_plan``), at most two pieces of ``B·S·k``
+elements a rank.  The exchange's backward returns each piece's gradient to
+its owner, so ``in_proj``'s gradient is the rank's own ``xᵀ`` times its
+columns' gradient, with no all-reduce of the weight.  The replicated
+``conv_w``, ``conv_b``, ``dt_b`` and ``D`` enter before they are sliced,
+so that their gradient is the whole one on every rank.  ``x_proj`` is row-parallel: ``x_dbl``'s float32 partials are summed
 once over the axis and rounded as the product in u's dtype rounds, and the
 sum enters (dt_low, B and C feed this rank's channels only, so their
 gradient is summed over the axis); the scan runs on the rank's channels
@@ -36,6 +43,7 @@ ssm states are the rank's channels, ``dist.sharding.cache_specs``' cut of
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -209,26 +217,52 @@ def mamba_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None) -> torc
     return _block(cfg, p, x, return_state=False)[0]
 
 
-def _rank_channels(cfg: ModelConfig, p: Params, tp) -> Params:
-    """This rank's channels ``[c0, c0 + k)`` of every mixer leaf, with u's
-    and z's columns of ``in_proj`` as ``u_proj`` and ``z_proj``.  With
-    ``d_inner`` divisible by the axis, the placements cut ``x_proj``,
-    ``A_log``, ``out_proj`` and ``dt_w`` on it (they are the rank's already)
-    and ``in_proj`` on ``2·di`` (gathered, ``ModelAxis.whole``), and leave
-    ``conv_w``, ``conv_b``, ``dt_b`` and ``D`` replicated (entered, then
-    sliced)."""
+def _channels(cfg: ModelConfig, tp) -> int:
+    """``k = di/ms``, the channels of a rank."""
     di = cfg.d_inner
     if di % tp.size:
         raise ValueError(f"the partitioned mamba mixer takes d_inner={di} in equal parts on "
                          f"the {tp.size} ranks of the model axis")
-    k = di // tp.size
+    return di // tp.size
+
+
+def _rank_channels(cfg: ModelConfig, p: Params, tp) -> Params:
+    """This rank's channels ``[c0, c0 + k)`` of the mixer's leaves after
+    ``in_proj``.  With ``d_inner`` divisible by the axis, the placements
+    cut ``x_proj``, ``A_log``, ``out_proj`` and ``dt_w`` on it (they are
+    the rank's already), and leave ``conv_w``, ``conv_b``, ``dt_b`` and
+    ``D`` replicated (entered, then sliced)."""
+    k = _channels(cfg, tp)
     c0 = tp.rank * k
-    w = tp.whole(p["in_proj"], -1)
-    local = {"u_proj": w[:, c0:c0 + k], "z_proj": w[:, di + c0:di + c0 + k],
-             **{n: p[n] for n in ("x_proj", "A_log", "out_proj", "dt_w")}}
+    local = {n: p[n] for n in ("x_proj", "A_log", "out_proj", "dt_w")}
     for name, dim in (("conv_w", 1), ("conv_b", 0), ("dt_b", 0), ("D", 0)):
         local[name] = tp.enter(p[name]).narrow(dim, c0, k)
     return local
+
+
+@functools.lru_cache(maxsize=None)
+def uz_plan(ms: int, k: int, parts: str = "uz"):
+    """The exchange that gives each of ``ms`` ranks u's (``"u"``) and z's
+    (``"z"``) columns of its channels from the ranks' ``2k`` columns of
+    ``x @ in_proj`` (``collectives.exchange``'s plan): rank ``r``'s u
+    columns ``[r·k, (r+1)·k)`` of the product, its z columns ``di`` on."""
+    def piece(c):
+        return c // (2 * k), c % (2 * k), k
+
+    return tuple(tuple(piece(r * k if part == "u" else (ms + r) * k) for part in parts)
+                 for r in range(ms))
+
+
+def _rank_uz(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp, parts: str = "uz"):
+    """This rank's channels of u and z (``parts``) from ``x_in`` (``x``
+    after ``tp.enter``): its own columns of ``x @ in_proj`` (``in_proj``
+    kept cut), then the pieces of its channels exchanged
+    (``uz_plan``)."""
+    k = _channels(cfg, tp)
+    if p["in_proj"].shape[-1] != 2 * k:
+        raise ValueError(f"the partitioned mamba mixer takes in_proj cut on its last dim, "
+                         f"{2 * k} columns a rank; it holds {p['in_proj'].shape[-1]}")
+    return tp.exchange(x_in @ p["in_proj"], uz_plan(tp.size, k, parts), -1, label="mixer_uz")
 
 
 def _partial_block(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp, return_state: bool):
@@ -236,8 +270,8 @@ def _partial_block(cfg: ModelConfig, p: Params, x_in: torch.Tensor, tp, return_s
     ``tp.enter``): (its float32 partial of the output, the row-parallel
     ``out_proj`` last; its u; the mix's final state on its channels or
     None)."""
+    u, z = _rank_uz(cfg, p, x_in, tp)
     local = _rank_channels(cfg, p, tp)
-    u, z = x_in @ local["u_proj"], x_in @ local["z_proj"]
     y = mamba_mix(cfg, local, u, return_state, tp=tp)
     y, h = y if return_state else (y, None)
     return row_partial(y * silu(z), local["out_proj"]), u, h
@@ -285,15 +319,15 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """One token: x (B, 1, D) and (conv_state, ssm_state) -> (out (B, 1, D),
     (new conv_state, new ssm_state)); the state is returned, not written.
     With ``tp`` the state is this rank's slice of ``d_inner`` and the step
-    runs on its channels (``_rank_channels``; ``x_proj`` and ``out_proj``
-    row-parallel, an all-reduce each)."""
+    runs on its channels (``_rank_uz``: one exchange of ``B·k`` product
+    columns; ``_rank_channels``; ``x_proj`` and ``out_proj`` row-parallel,
+    an all-reduce each)."""
     conv_state, h = state
     if tp is None:
         u, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)    # (B, di)
     else:
+        u, z = _rank_uz(cfg, p, tp.enter(x[:, 0]), tp)
         p = _rank_channels(cfg, p, tp)
-        x_in = tp.enter(x[:, 0])
-        u, z = x_in @ p["u_proj"], x_in @ p["z_proj"]
     window = torch.cat([conv_state, u[:, None]], dim=1)            # (B, K, di)
     conv_y = torch.einsum("bkd,kd->bd", window.to(torch.float32),
                           p["conv_w"].to(torch.float32))

@@ -310,7 +310,7 @@ def compute_logits(cfg: ModelConfig, params: Params, h: torch.Tensor,
     logits = h @ head
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
-    return logits if tp is None else tp.cat(logits, -1)
+    return logits if tp is None else tp.cat(logits, -1, label="logits")
 
 
 # --------------------------------------------------------------------------- #
@@ -643,12 +643,13 @@ def _mamba_tail_state(cfg: ModelConfig, mp: Params, xn: torch.Tensor, tp=None):
     shorter; the slot write then fills only that many rows (a reference
     behaviour the port keeps: a prompt under ``K - 1`` tokens decodes from
     a misaligned conv window).  With ``tp`` the state of this rank's
-    channels (``ssm._rank_channels``, ``x_proj`` summed over the axis)."""
+    channels (its u exchanged alone, ``ssm._rank_uz``; ``ssm._rank_channels``,
+    ``x_proj`` summed over the axis)."""
     if tp is None:
         u, _ = torch.chunk(xn @ mp["in_proj"], 2, dim=-1)
     else:
+        (u,) = ssm_mod._rank_uz(cfg, mp, tp.enter(xn), tp, "u")
         mp = ssm_mod._rank_channels(cfg, mp, tp)
-        u = tp.enter(xn) @ mp["u_proj"]
     K = cfg.ssm_conv
     # copies, so that no cached view keeps a layer's u or (B, S, di, n) state alive
     conv_state = u[:, -(K - 1):, :].clone()

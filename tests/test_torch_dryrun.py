@@ -120,7 +120,9 @@ def test_serving_targets_price_a_ranks_shards_and_cache_slices(arch, kw, step, m
     (``cache_specs``' cut over ``model``) and the tokens, at prefill the
     prompt; each storage rounded to the allocator's 512 bytes.  The
     collectives are the partitioned layers' hand count
-    (``torch_dist_helpers.serve_collectives``), all on ``model``."""
+    (``torch_dist_helpers.serve_collectives``), all on ``model``, and the
+    labelled ones' bytes ``serve_collective_bytes``' (``named``): on the
+    ``hd``-cut cache no cache is gathered."""
     import math
 
     import torch
@@ -153,14 +155,21 @@ def test_serving_targets_price_a_ranks_shards_and_cache_slices(arch, kw, step, m
     assert rec["memory"]["argument_size_in_bytes"] == want
     whole = sum(_rounded(x.numel() * x.element_size()) for x in tree_leaves(like))
     assert want < whole
-    gathers, reduces = H.serve_collectives(run_cfg, step, 2)
+    gathers, exchanges, reduces = H.serve_collectives(run_cfg, step, 2)
     assert (rec["gathers"], rec["reduces"]) == ({"model": gathers}, {"model": reduces})
+    assert rec["exchanges"] == ({"model": exchanges} if exchanges else {})
     assert rec["collectives"]["total"] == rec["collectives"]["axis_model"] > 0
+    assert rec["collectives"]["collective-permute"] == sum(rec["exchange_bytes"].values())
+    B, S = shape.global_batch, shape.seq_len
+    named = H.serve_collective_bytes(run_cfg, step, 2, 0, B, S)
+    assert rec["named"] == named
     if arch == "hymba-1.5b" and step == "decode":
-        # the hd-cut caches gathered at use: k and v of every layer, whole
-        L, B, S = run_cfg.n_layers, shape.global_batch, shape.seq_len
+        # the hd-cut caches stay cut: every gather is a product or the
+        # logits, far less than the layers' k and v caches
+        L = run_cfg.n_layers
         cache = 2 * L * B * S * run_cfg.n_kv_heads * run_cfg.head_dim * 4
-        assert rec["gather_bytes"]["model"] > cache
+        assert rec["gather_bytes"]["model"] == sum(
+            named[k][1] for k in ("qkv", "attn_out", "logits")) < cache
     assert torch.float32 == getattr(torch, run_cfg.dtype)
 
 

@@ -451,6 +451,41 @@ def test_gather_between_ranks_on_one_card(tmp_path):
 
 
 @pytest.mark.gpu
+def test_exchange_between_ranks_on_one_card(tmp_path):
+    """Two gloo ranks on ``cuda:0``: ``collectives.exchange`` takes the
+    same-card exchange and gives each rank exactly its planned slices of
+    the sources' tensors, in float32 and bf16, and its backward gives
+    each owner the sum of its pieces' gradients at their slices
+    (``torch_dist_helpers.exchange_plans``)."""
+    import torch_dist_helpers as H
+    from repro_torch.launch.mesh import spawn_ranks
+
+    _cuda()
+    res = spawn_ranks(H.card_exchange, 2, str(tmp_path / "init"), timeout=120)
+    for name, (plan, shape, dim) in H.exchange_plans(2).items():
+        inputs = [H.exchange_inputs(r, shape, plan) for r in range(2)]
+        for dt in (torch.float32, torch.bfloat16):
+            def cast(a):
+                return torch.from_numpy(a).to(dt).float().numpy()
+
+            owed = [np.zeros(shape, np.float32) for _ in range(2)]
+            for d, (_, ws) in enumerate(inputs):
+                for w, (src, start, length) in zip(ws, plan[d]):
+                    idx = [slice(None)] * len(shape)
+                    idx[dim] = slice(start, start + length)
+                    owed[src][tuple(idx)] += np.resize(cast(w), owed[src][tuple(idx)].shape)
+            for rank, out in enumerate(res):
+                assert out["card"]
+                got = out[name, str(dt)]
+                for piece, (src, start, length) in zip(got["pieces"], plan[rank]):
+                    want = np.take(cast(inputs[src][0]), np.arange(start, start + length),
+                                   axis=dim)
+                    np.testing.assert_array_equal(piece, want)
+                tol = FP32_TOL if dt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+                np.testing.assert_allclose(got["grad"], owed[rank], **tol)
+
+
+@pytest.mark.gpu
 def test_all_reduce_between_ranks_on_one_card(tmp_path):
     """Three gloo ranks on ``cuda:0``: ``collectives.all_reduce_sum`` takes
     the same-card exchange and gives every rank the same bits, the parts

@@ -9,7 +9,7 @@ with every attention layer windowed at ``LONG_W`` = 32 over ``LONG_S`` =
 gemma2-2b and starcoder2-3b (2 KV heads) dense, hymba-1.5b hybrid (its
 mamba states whole on every rank of the worker axes), falcon-mamba-7b SSM
 (nothing to cut), and hymba-1.5b at 10/5 heads (on model=2 its cache is
-cut over ``hd`` too and gathered at each read of the window).
+cut over ``hd`` too, and read cut: ``attention._hd_decode``).
 The caches start from numpy draws (``long_inputs``) and the decode runs at
 ``LONG_POSITIONS`` in turn: a window straddling the ranks' boundary at row
 128 (and the next position, which reads the row the first wrote), one
@@ -30,7 +30,9 @@ inside rank 0's rows and the last row.
   same bounds; the logits the same bits on every rank.  A rank holds
   ``S / m`` rows of k and v, allocated at that size.
 * **Counts.** The combines over the worker axes a step equal the attention
-  layers (none for the SSM), each of B·H·(hd + 2) float32.
+  layers (none for the SSM), each of B·(H/ms)·(hd + 2) float32 on a rank's
+  heads, or B·H·(hd/ms + 2) on an ``hd``-cut cache (every head, the rank's
+  slice of ``hd``).
 * **Controls** that must fail: each rank's softmax normalised on its own
   and the outputs summed without the rescale, and the new row written at
   local row ``pos`` (without the ``- r0`` offset).
@@ -166,7 +168,10 @@ def test_cache_slices_are_one_process_rows(one, groups, mesh, case):
 @pytest.mark.parametrize("mesh,case", CASES)
 def test_combines_a_step_are_the_attention_layers(groups, mesh, case):
     cfg = H.long_config(case)
-    payload = cfg.n_heads // mesh[1] * (cfg.head_dim + 2) * 4      # B = 1
+    if H.hd_cut(cfg, mesh[1]):
+        payload = cfg.n_heads * (cfg.head_dim // mesh[1] + 2) * 4     # B = 1
+    else:
+        payload = cfg.n_heads // mesh[1] * (cfg.head_dim + 2) * 4
     for out in groups[mesh[0] * mesh[1]]:
         for reduces in out[(*mesh, case)]["reduces"]:
             combines = reduces.get(("data",), [0, 0])

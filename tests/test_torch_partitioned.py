@@ -46,8 +46,9 @@ every rank, or a token could go to different experts on two ranks.
   update within 2% (or one float32 ulp) of one process's, the ZO step's
   given the same f0 and f1 (``test_mixer_step_matches_reference_and_one_process``
   says why), every all-reduce and loss evaluation the same bits on the
-  ranks of a worker, and the only gather over ``model`` the mixer's
-  ``in_proj``; the loss and gradients on model=2 against one process.
+  ranks of a worker, no gather over ``model`` (``in_proj`` stays cut; the
+  mixer's exchanges of u and z pieces counted, calls and bytes); the loss
+  and gradients on model=2 against one process.
 * Controls that must fail: the gemma2 step without the MLP's all-reduce
   (its loss and gradients leave the tolerances); on (data=1, model=4) a
   sum that starts from each rank's own part (the all-reduces' results part
@@ -265,11 +266,13 @@ def _one_process_replayed(cfg, np_tree, batch, mesh, ho, t, evals):
     return [x.numpy() for x in tree_leaves(p)]
 
 
-def _mixer_gathers(cfg, kind, evaluations):
-    """The partitioned mamba mixer's gathers over ``model`` in a step: one
-    of ``in_proj`` a layer a forward, and in an FO step under remat once
-    more in the layer's recompute."""
-    return cfg.n_layers * evaluations * (2 if kind == "fo" and cfg.remat else 1)
+def _mixer_exchanges(cfg, kind, evaluations):
+    """The partitioned mamba mixer's exchanges over ``model`` in a step: one
+    of u's and z's pieces a layer a forward, and in an FO step under remat
+    once more in the layer's recompute, and once transposed in its
+    backward."""
+    forward = cfg.n_layers * evaluations
+    return forward * (1 + cfg.remat + 1) if kind == "fo" else forward
 
 
 @pytest.mark.parametrize("mesh", ["model2", "data2-model2"])
@@ -286,8 +289,8 @@ def test_mixer_step_matches_reference_and_one_process(ssm, two, four, one, arch,
     the losses' last ulps (rtol 1e-7 here) into tens of percent of a ZO
     update at mu = 1e-3, so the partitioned forward is held by its losses
     and the sharded update by the same coefficients.  The ranks of a worker
-    evaluate the same bits, and the only gather over ``model`` is the
-    mixer's ``in_proj``."""
+    evaluate the same bits, and nothing is gathered over ``model``: the
+    mixer's u and z pieces are exchanged (``in_proj`` stays cut)."""
     _, _, np_tree = ssm[arch]
     cfg, d = get_config(arch).reduced(), _d(np_tree)
     t = 0 if kind == "fo" else H.ZO_T
@@ -314,10 +317,15 @@ def test_mixer_step_matches_reference_and_one_process(ssm, two, four, one, arch,
         mate = next(j for j, o in enumerate(res) if o["worker"] == r["worker"] and j != i)
         assert r["losses"] == res[mate]["losses"]
         assert rec["sums"] == recs[mate]["sums"]
-        assert set(r["gathers"]) == {("model",)}
-        calls, nbytes = r["gathers"][("model",)]
-        assert calls == _mixer_gathers(cfg, kind, len(r["losses"]))
-        assert nbytes == calls * 4 * cfg.d_model * 2 * cfg.d_inner       # in_proj, float32
+        # in_proj stays cut: no gather over model; at model=2 a rank
+        # receives one piece of u or z, B·S·di/2 float32, a call (a ZO
+        # step evaluates each of the m=2 workers held in the process on its
+        # half of the rows)
+        assert r["gathers"] == {}
+        calls, nbytes = r["exchanges"][("model",)]
+        assert calls == _mixer_exchanges(cfg, kind, len(r["losses"]))
+        tokens = r["rows"].size // (2 if kind == "zo" and mesh == "model2" else 1)
+        assert nbytes == calls * 4 * tokens * cfg.d_inner // 2, (calls, nbytes)
 
 
 @pytest.mark.parametrize("arch", H.SSM_ARCHS)

@@ -8,8 +8,8 @@ float32): qwen3-14b with 2 KV heads (its cache cut over KV heads), on the
 plain path and on the kernels' dispatch; hymba-1.5b at 4 layers (a windowed
 layer; attention and the partitioned mamba mixer, 4 KV heads cut over
 heads), with 10/5 heads (5 KV heads do not divide model=2, so the cache is
-cut over ``hd`` and gathered at use; rank 1's query heads part a group) and
-with 5/5 heads (``wq`` cut inside a head); falcon-mamba-7b (conv and ssm
+cut over ``hd`` and read cut, ``attention._hd_decode``; rank 1's query
+heads part a group) and with 5/5 heads (``wq`` cut inside a head); falcon-mamba-7b (conv and ssm
 states cut over ``d_inner``) on the plain path (the recomputed tail state
 on the rank's channels) and on the scan's dispatch; qwen3-moe at model=2
 and model=4 (the experts at decode).
@@ -30,9 +30,13 @@ and model=4 (the experts at decode).
   largest difference measured was 1.1e-6 of the largest logit, hymba with
   its ``hd``-cut cache), and the pool at the end within the same bounds.
   The logits are bit for bit the same on every rank.
-* **Counts.** The gathers and all-reduces over ``model`` of a prefill and a
-  decode step equal the hand count of the partitioned layers
-  (``torch_dist_helpers.serve_collectives``).
+* **Counts.** The gathers, exchanges and all-reduces over ``model`` of a
+  prefill and a decode step equal the hand count of the partitioned layers
+  (``torch_dist_helpers.serve_collectives``), and the labelled ones their
+  bytes too (``serve_collective_bytes``): the mixer's u and z pieces, the
+  logits, and on an ``hd``-cut cache the q, k, v products, the partial
+  logits and the attention output, whose gathers are all the decode
+  gathers (no weight, no cache).
 * **Controls** that must fail: the attention's all-reduce removed (the
   prefill's logits leave the tolerance), and each rank's cache written with
   its KV heads rotated (the cache slices leave the reference's, and the
@@ -173,12 +177,24 @@ def test_decode_matches_one_process_and_ranks_agree_bit_for_bit(one, two, four, 
 @pytest.mark.parametrize("world,case", [(2, c) for c in MODEL2] + [(4, c) for c in MODEL4])
 def test_collectives_are_the_partitioned_layers(two, four, world, case):
     cfg = H.serve_config(case)
-    for out in ranks(two, four, world):
+    for rank, out in enumerate(ranks(two, four, world)):
         for kind in ("prefill", "decode"):
-            gathers, reduces = out[case][f"{kind}_counts"]
-            assert set(gathers) == set(reduces) == {("model",)}
-            assert (gathers[("model",)][0], reduces[("model",)][0]) == \
-                H.serve_collectives(cfg, kind, world), kind
+            counts = out[case][f"{kind}_counts"]
+            gathers, exchanges, reduces = H.serve_collectives(cfg, kind, world)
+            assert set(counts["gathers"]) == set(counts["reduces"]) == {("model",)}
+            assert counts["gathers"][("model",)][0] == gathers, kind
+            assert counts["reduces"][("model",)][0] == reduces, kind
+            assert counts["exchanges"].get(("model",), [0, 0])[0] == exchanges, kind
+            assert set(counts["exchanges"]) <= {("model",)}
+            seq = H.SERVE_LEN + 8 if kind == "decode" else H.SERVE_LEN
+            rows = 3 if kind == "decode" else 2
+            want = H.serve_collective_bytes(cfg, kind, world, rank, rows, seq)
+            assert {k: v for k, v in counts["labels"].items() if k in want} == want, kind
+            assert set(counts["labels"]) == set(want), kind
+            if kind == "decode" and H.hd_cut(cfg, world):
+                # no weight and no cache gathered: every gather is a labelled product
+                assert counts["gathers"][("model",)][1] == sum(
+                    want[k][1] for k in ("qkv", "attn_out", "logits"))
 
 
 def test_control_without_the_attention_all_reduce_fails(ref, two):

@@ -146,13 +146,22 @@ def sharded_model(cfg, mesh, full):
     return shard_tree(full, specs, mesh), specs, loss, losses
 
 
+def _counts():
+    """The collectives counted since ``collectives.reset_gathers``: gathers,
+    all-reduces and exchanges (axes -> [calls, bytes]), and the labelled
+    ones (label -> [calls, bytes])."""
+    return {name: {k: list(v) for k, v in table.items()}
+            for name, table in (("gathers", coll.GATHERS), ("reduces", coll.REDUCES),
+                                ("exchanges", coll.EXCHANGES), ("labels", coll.LABELS))}
+
+
 def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
     """One FO or ZO step of ``make_distributed_ho_sgd`` on this rank's
     shards: the gathered parameters (numpy, on rank 0), their checksum, the
     shapes held, the loss, this rank's loss evaluations in order (the first
     its f0 on a ZO step), the ledger's bytes, this rank's rows and worker, and the
-    gathers and all-reduces the step made (``collectives.GATHERS``,
-    ``REDUCES``: axes -> [calls, bytes])."""
+    gathers, all-reduces and exchanges the step made (``collectives.GATHERS``,
+    ``REDUCES``, ``EXCHANGES``: axes -> [calls, bytes])."""
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import gather_tree
@@ -165,8 +174,7 @@ def sharded_step(cfg, mesh, full, batch, ho, kind, t, **kw):
     b = next(iter(shard_batches(iter([batch]), mesh, whole=takes_whole_batch(cfg))))
     coll.reset_gathers()
     p, _, out = step(t, shards, (), b)
-    counts = {"gathers": {k: list(v) for k, v in coll.GATHERS.items()},
-              "reduces": {k: list(v) for k, v in coll.REDUCES.items()}}
+    counts = _counts()
     whole = [x.numpy() for x in tree_leaves(gather_tree(p, specs, mesh))]
     return {"params": whole if dist.get_rank() == 0 else None,
             "checksum": float(sum(x.astype("float64").sum() for x in whole)),
@@ -469,10 +477,9 @@ def _tokens(vocab, rows=4, seq=16, seed=0):
 
 
 def loss_and_grads(cfg, params, batch, shards=None):
-    """``(loss, gradient leaves, gathers, all-reduces)`` of ``loss_fn`` on
-    ``params`` (this rank's shards with ``shards``); a leaf the loss does
-    not reach gets a zero gradient.  The counts are the step's
-    (``collectives.GATHERS``, ``REDUCES``: axes -> [calls, bytes])."""
+    """``(loss, gradient leaves, counts)`` of ``loss_fn`` on ``params``
+    (this rank's shards with ``shards``); a leaf the loss does not reach
+    gets a zero gradient.  The counts are the step's (``_counts``)."""
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -481,10 +488,8 @@ def loss_and_grads(cfg, params, batch, shards=None):
     coll.reset_gathers()
     loss = T.loss_fn(cfg, p, batch, shards)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    counts = ({k: list(v) for k, v in coll.GATHERS.items()},
-              {k: list(v) for k, v in coll.REDUCES.items()})
     return (float(loss.detach()),
-            [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)], *counts)
+            [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)], _counts())
 
 
 def partitioned_case(cfg, mesh, full, batch):
@@ -492,22 +497,22 @@ def partitioned_case(cfg, mesh, full, batch):
     on the whole parameters ``full``: both losses, per leaf the largest
     difference of this rank's gradient shard from its slice of the whole
     gradient over that slice's largest |g| (the tied embedding's: its
-    rows), and the counts of the partitioned step."""
+    rows), and the counts of the partitioned step (``_counts``)."""
     from repro_torch.dist.sharding import (
         ShardGeometry, ShardedParams, map_with_paths, param_specs, shard_tree)
 
     specs = param_specs(cfg, full, mesh)
     geom = ShardGeometry.from_global(specs, full, mesh)
-    l1, g1, _, _ = loss_and_grads(cfg, full, batch)
-    l2, g2, gathers, reduces = loss_and_grads(cfg, shard_tree(full, specs, mesh), batch,
-                                              ShardedParams(specs, mesh))
+    l1, g1, _ = loss_and_grads(cfg, full, batch)
+    l2, g2, counts = loss_and_grads(cfg, shard_tree(full, specs, mesh), batch,
+                                    ShardedParams(specs, mesh))
     paths = []
     map_with_paths(lambda names, x: paths.append(names), full)
     rel = {}
     for i, (a, b) in enumerate(zip(g2, g1)):
         want = b[geom.slices[i]]
         rel["/".join(paths[i])] = float((a - want).abs().max() / want.abs().max().clamp(min=1e-30))
-    return {"loss": l2, "loss1": l1, "grad_rel": rel, "gathers": gathers, "reduces": reduces}
+    return {"loss": l2, "loss1": l1, "grad_rel": rel, **counts}
 
 
 def rotated_sum():
@@ -521,7 +526,7 @@ def rotated_sum():
     def patched():
         real = coll.all_reduce_sum
 
-        def all_reduce_sum(x, axes, *, mesh):
+        def all_reduce_sum(x, axes, *, mesh, label=None):
             parts = coll._gather_cat(x.unsqueeze(0), axes, mesh, 0)
             n = parts.shape[0]
             me = dist.get_rank(coll.axes_group(mesh, axes))
@@ -557,8 +562,8 @@ def _recorded(fn):
         rec["ids"].append(out[1].numpy().copy())
         return out
 
-    def recorded_sum(self, x):
-        out = total(self, x)
+    def recorded_sum(self, x, label=None):
+        out = total(self, x, label)
         rec["sums"].append(hashlib.sha1(out.detach().numpy().tobytes()).hexdigest())
         return out
 
@@ -733,7 +738,8 @@ def run_partitioned_4(rank, world, moe_np, qwen_np, batch, ssm_np):
 # --------------------------------------------------------------------------- #
 #: case -> (arch, the reduced config's overrides): KV heads cut (dense GQA,
 #: hymba, MoE), ``hd`` cut (hymba with 5 KV heads, its query heads parting a
-#: group at model=2; and 5/5 heads, ``wq`` cut inside a head), d_inner cut
+#: group at model=2; and 5/5 heads, ``wq`` cut inside a head; and 10/5 with
+#: ``attn_softcap``, tests/test_torch_kept_cut.py), d_inner cut
 #: (falcon-mamba); ``-pallas``: the kernels' dispatch (their plain versions
 #: on the CPU), the scan's final state in place of the recomputed tail
 SERVE_CASES = {
@@ -742,6 +748,8 @@ SERVE_CASES = {
     "hymba": ("hymba-1.5b", {"n_layers": 4}),
     "hymba-hd": ("hymba-1.5b", {"n_layers": 4, "n_heads": 10, "n_kv_heads": 5}),
     "hymba-odd": ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5}),
+    "hymba-hd-cap": ("hymba-1.5b", {"n_layers": 4, "n_heads": 10, "n_kv_heads": 5,
+                                    "attn_softcap": 50.0}),
     "falcon-mamba": ("falcon-mamba-7b", {}),
     "falcon-mamba-pallas": ("falcon-mamba-7b", {"use_pallas": True}),
     "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
@@ -771,20 +779,15 @@ def serve_run(cfg, params, shards=None, steps=SERVE_STEPS):
     """``prefill_at`` of ``serve_prompts``, its caches put in slots 0 and 2
     of a 3-slot pool (slot 1 inactive), then ``steps`` decode steps, each
     row fed its greedy token: the logits of the prefill and of every step
-    (numpy), the prefill's caches and the pool at the end, and the gathers
-    and all-reduces of the prefill and of the last decode step
-    (``collectives.GATHERS``, ``REDUCES``)."""
+    (numpy), the prefill's caches and the pool at the end, and the
+    collectives of the prefill and of the last decode step (``_counts``)."""
     from repro_torch.models import transformer as T
-
-    def counts():
-        return ({k: list(v) for k, v in coll.GATHERS.items()},
-                {k: list(v) for k, v in coll.REDUCES.items()})
 
     toks, last = serve_prompts(cfg)
     with torch.no_grad():
         coll.reset_gathers()
         logits, caches = T.prefill_at(cfg, params, {"tokens": toks}, last, shards)
-        prefill_counts = counts()
+        prefill_counts = _counts()
         pool = T.init_caches(cfg, 3, SERVE_LEN + 8, torch.float32, device="cpu", shards=shards)
         for name, c in caches.items():
             for row, slot in ((0, 0), (1, 2)):
@@ -800,33 +803,72 @@ def serve_run(cfg, params, shards=None, steps=SERVE_STEPS):
             pos = torch.where(pos >= 0, pos + 1, -1).to(torch.int32)
     return {"logits": out, "caches": {k: v.numpy() for k, v in caches.items()},
             "pool": {k: v.numpy() for k, v in pool.items()}, "prefill_counts": prefill_counts,
-            "decode_counts": counts()}
+            "decode_counts": _counts()}
+
+
+def hd_cut(cfg, world) -> bool:
+    """Whether ``cache_specs`` cuts the k/v cache over ``hd`` on model=``world``
+    (an attention cache whose ``KV`` does not divide the axis, and ``hd``
+    does)."""
+    return cfg.has_attention and bool(cfg.n_kv_heads % world) and not cfg.head_dim % world
 
 
 def serve_collectives(cfg, kind, world):
-    """(gathers, all-reduces) over ``model`` of one prefill (``kind`` =
-    "prefill") or decode step on (data=1, model=``world``), the hand count
-    of the partitioned layers.  A layer: attention's all-reduce (and, where
-    ``KV`` does not divide the axis, its ``wk`` and ``wv`` gathered; ``wq``
-    too when its cut falls inside a head; at decode the k and v caches
-    gathered over ``hd``); the mamba mixer's ``in_proj`` gather and its two
+    """(gathers, exchanges, all-reduces) over ``model`` of one prefill
+    (``kind`` = "prefill") or decode step on (data=1, model=``world``), the
+    hand count of the partitioned layers.  A layer: attention's all-reduce;
+    at decode on an ``hd``-cut cache (``hd_cut``) the q, k and v products
+    and the attention output gathered and the partial logits all-reduced,
+    no weight and no cache gathered; otherwise, where ``KV`` does not divide
+    the axis, its ``wk`` and ``wv`` gathered, and ``wq`` too when its cut
+    falls inside a head.  The mamba mixer's exchange of u and z and its two
     all-reduces (``x_proj``, ``out_proj``), on the plain path's prefill
-    once more for the recomputed tail state; the MLP's or experts'
-    all-reduce.  Then the embedding's all-reduce and the logits' gather."""
-    gathers, reduces = 1, 1
+    once more each for the recomputed tail state (u alone).  The MLP's or
+    experts' all-reduce.  Then the embedding's all-reduce and the logits'
+    gather."""
+    gathers, exchanges, reduces = 1, 0, 1
     plain_tail = kind == "prefill" and not (cfg.use_pallas and cfg.d_inner % 64 == 0)
     for _ in range(cfg.n_layers):
         if cfg.has_attention:
             reduces += 1
-            if cfg.n_kv_heads % world:
-                gathers += 2 + 2 * (kind == "decode")
-            if (cfg.n_heads * cfg.head_dim // world) % cfg.head_dim:
-                gathers += 1
+            if kind == "decode" and hd_cut(cfg, world):
+                gathers += 4
+                reduces += 1
+            else:
+                gathers += 2 * bool(cfg.n_kv_heads % world)
+                gathers += bool((cfg.n_heads * cfg.head_dim // world) % cfg.head_dim)
         if cfg.has_ssm:
-            gathers += 1 + plain_tail
+            exchanges += 1 + plain_tail
             reduces += 2 + plain_tail
         reduces += bool(cfg.d_ff)
-    return gathers, reduces
+    return gathers, exchanges, reduces
+
+
+def serve_collective_bytes(cfg, kind, world, rank, rows, seq, dtype_bytes=4):
+    """The labelled collectives of ``serve_collectives`` on rank ``rank``,
+    label -> [calls, bytes], for ``rows`` rows of ``seq`` tokens (one at
+    decode, over a cache of ``seq`` positions): ``mixer_uz`` (the pieces the
+    rank receives of u's and z's ``k = di/ms`` columns of its channels, its
+    own excepted; the recomputed tail's u alone), ``logits`` (the whole
+    vocabulary) and, at decode on an ``hd``-cut cache, ``qkv`` (``B·H·hd``
+    and twice ``B·KV·hd``), ``partial_logits`` (``B·H·S`` float32) and
+    ``attn_out`` (``B·H·hd`` float32)."""
+    from repro_torch.models.ssm import uz_plan
+
+    L, H, KV, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {"logits": [1, rows * cfg.vocab_size * dtype_bytes]}
+    tokens = rows * (1 if kind == "decode" else seq)
+    if cfg.has_ssm:
+        k = cfg.d_inner // world
+        tail = kind == "prefill" and not (cfg.use_pallas and cfg.d_inner % 64 == 0)
+        pieces = sum(sum(src != rank for src, _, _ in uz_plan(world, k, parts)[rank])
+                     for parts in ("uz", "u")[:1 + tail])
+        out["mixer_uz"] = [L * (1 + tail), L * pieces * tokens * k * dtype_bytes]
+    if kind == "decode" and hd_cut(cfg, world):
+        out["qkv"] = [3 * L, L * rows * (H + 2 * KV) * hd * dtype_bytes]
+        out["partial_logits"] = [L, L * rows * H * seq * 4]
+        out["attn_out"] = [L, L * rows * H * hd * 4]
+    return out
 
 
 def serve_generate(cfg, params, shards=None):
@@ -1061,4 +1103,251 @@ def run_long(rank, world, ref_np):
                                   ("no-offset", write_without_offset)):
                 with control():
                     out[name] = long_run(cfg, full, *long_inputs(cfg), shards)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the kept cut (in_proj and the hd-cut cache): the spawned ranks of
+# tests/test_torch_kept_cut.py
+# --------------------------------------------------------------------------- #
+#: meshes of the kept-cut groups by world size: (data, model)
+KEPT_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
+#: the hd-cut serving cases (``SERVE_CASES``) and the mixer's
+KEPT_HD = ("hymba-hd", "hymba-odd", "hymba-hd-cap")
+KEPT_MIXER = ("falcon-mamba", "hymba")
+#: the scalar decode's fed tokens a step, one a row (``scalar_run``)
+SCALAR_TOKENS = ((5, 7), (11, 3), (2, 9))
+
+
+def exchange_plans(world):
+    """name -> (plan, x's shape, dim) of ``collectives.exchange`` on
+    ``world`` ranks: the mixer's u/z plan (``uz_plan``, k = 3) on the last
+    dim, and on dim 1 a plan of pieces of several lengths, from the rank
+    itself, twice from one source, and (on 4 ranks) a rank that takes only
+    its own piece, so receives nothing."""
+    from repro_torch.models.ssm import uz_plan
+
+    mixed = tuple(((d, 0, 2),) if world > 2 and d == world - 1 else
+                  ((d, 0, 2), ((d + 1) % world, 3, 4), ((d + 1) % world, 1, 1),
+                   ((d + world - 1) % world, 7, 3)) for d in range(world))
+    return {"uz": (uz_plan(world, 3), (2, 4, 6), -1), "mixed": (mixed, (3, 10, 2), 1)}
+
+
+def exchange_inputs(rank, shape, plan, seed=0):
+    """Rank ``rank``'s ``x`` and, per piece of its plan, the weights of the
+    piece's gradient (float32 draws of ``seed``, repeated to the piece's
+    shape by ``np.resize``)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, rank])
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x, [rng.standard_normal(7).astype(np.float32) for _ in plan[rank]]
+
+
+def run_exchange(mesh, world, rank):
+    """Per plan of ``exchange_plans``: this rank's pieces (``exchange``) and
+    the counted exchanges; the same pieces through ``ModelAxis.exchange``,
+    and the gradient of ``sum_i (piece_i * w_i).sum()`` (``w_i`` repeated
+    to each piece's shape) for this rank's ``x`` through its backward, the
+    transposed exchange, with that backward's counts."""
+    import numpy as np
+
+    from repro_torch.dist.sharding import ModelAxis
+
+    axis, out = ModelAxis(mesh), {}
+    for name, (plan, shape, dim) in exchange_plans(world).items():
+        x_np, ws = exchange_inputs(axis.rank, shape, plan)
+        x = torch.from_numpy(x_np)
+        coll.reset_gathers()
+        pieces = coll.exchange(x, plan, "model", mesh=mesh, dim=dim, label=name)
+        r = {"pieces": [p.numpy() for p in pieces], "counts": _counts()}
+        grads = [torch.from_numpy(np.resize(w, p.shape)) for p, w in zip(pieces, ws)]
+        xg = x.clone().requires_grad_(True)
+        got = axis.exchange(xg, plan, dim, label=name)
+        r["same"] = all(torch.equal(a, b) for a, b in zip(pieces, got))
+        loss = sum((p * g).sum() for p, g in zip(got, grads))
+        coll.reset_gathers()
+        loss.backward()
+        r["grad"], r["grad_counts"] = xg.grad.numpy(), _counts()
+        out[name] = r
+    return out
+
+
+def scalar_run(cfg, params, shards=None, steps=len(SCALAR_TOKENS)):
+    """``prefill_at`` of ``serve_prompts`` at their last position, its
+    caches in a pool of ``SERVE_LEN + 8`` rows, then ``serve_step`` at one
+    position for both rows, fed ``SCALAR_TOKENS``: the logits of every step
+    and the collectives of the last (``_counts``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import serve_step
+
+    toks, _ = serve_prompts(cfg)
+    last = torch.full((2,), SERVE_LEN - 1)
+    with torch.no_grad():
+        _, caches = T.prefill_at(cfg, params, {"tokens": toks}, last, shards)
+        pool = T.init_caches(cfg, 2, SERVE_LEN + 8, torch.float32, device="cpu", shards=shards)
+        for name, c in caches.items():
+            pool[name][:, :, :c.shape[2]] = c
+        out = []
+        for step in range(steps):
+            coll.reset_gathers()
+            logits, pool = serve_step(cfg, params, torch.tensor(SCALAR_TOKENS[step]),
+                                      SERVE_LEN + step, pool, shards)
+            out.append(logits.numpy())
+    return {"logits": out, "counts": _counts()}
+
+
+def uz_swapped():
+    """A failing control: the mixer's exchange plan with u's and z's
+    sources swapped (each rank takes z's piece as its u and u's as its z)
+    while the context is open."""
+    import contextlib
+
+    from repro_torch.models import ssm
+
+    @contextlib.contextmanager
+    def patched():
+        real = ssm.uz_plan
+        ssm.uz_plan = lambda ms, k, parts="uz": real(ms, k, parts[::-1])
+        try:
+            yield
+        finally:
+            ssm.uz_plan = real
+
+    return patched()
+
+
+def _hd_logits(mutate):
+    """A failing control: ``attention._logits`` on an ``hd``-cut decode
+    with ``mutate(cfg, partial float32 products, hd_axis)`` in place of the
+    sum over the axis, the scale and the softcap, while the context is
+    open."""
+    import contextlib
+
+    from repro_torch.models import attention
+
+    @contextlib.contextmanager
+    def patched():
+        real = attention._logits
+
+        def logits(cfg, q, k, q_positions, k_positions, window, causal, hd_axis=None):
+            if hd_axis is None:
+                return real(cfg, q, k, q_positions, k_positions, window, causal)
+            B, Sq, H, hd = q.shape
+            qg = q.reshape(B, Sq, k.shape[2], H // k.shape[2], hd).to(torch.float32)
+            part = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32))
+            return attention._masked(mutate(cfg, part, hd_axis), q_positions, k_positions,
+                                     window, causal)
+
+        attention._logits = logits
+        try:
+            yield
+        finally:
+            attention._logits = real
+
+    return patched()
+
+
+def softcap_before_sum():
+    """A failing control: each rank's partial logits scaled and soft-capped
+    before the sum over the axis."""
+    import math
+
+    from repro_torch.models.layers import softcap
+
+    def mutate(cfg, part, axis):
+        part = part / math.sqrt(cfg.head_dim)
+        return axis.sum(softcap(part, cfg.attn_softcap) if cfg.attn_softcap else part)
+
+    return _hd_logits(mutate)
+
+
+def slice_scaled():
+    """A failing control: the summed logits scaled by ``sqrt(hd/ms)``, the
+    rank's slice, in place of the whole head's ``sqrt(hd)``."""
+    import math
+
+    from repro_torch.models.layers import softcap
+
+    def mutate(cfg, part, axis):
+        logits = axis.sum(part) / math.sqrt(cfg.head_dim // axis.size)
+        return softcap(logits, cfg.attn_softcap) if cfg.attn_softcap else logits
+
+    return _hd_logits(mutate)
+
+
+def run_kept_cut(rank, world, ssm_np, batch, serve_np):
+    """Per mesh of ``KEPT_MESHES[world]``: the exchanges (``run_exchange``;
+    (data=1) meshes only); the SSM archs' loss and gradients against one
+    process (``partitioned_case``) and, on (data=1, model=4), their FO and
+    ZO steps (``ssm_steps``, m=2); on (data=1) meshes the serving cases
+    ``KEPT_MIXER`` and ``KEPT_HD`` from the reference's parameters
+    (``serve_run``, and ``scalar_run`` for the hd-cut ones).  On model=2
+    the controls: ``uz_swapped`` (falcon-mamba served, and hymba's loss),
+    ``softcap_before_sum`` (hymba-hd-cap) and ``slice_scaled`` (hymba-hd)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.sharding import ShardedParams, param_specs, shard_tree
+    from repro_torch.models import transformer as T
+
+    torch.set_num_threads(1)
+    out = {}
+    for data, model in KEPT_MESHES[world]:
+        mesh = make_test_mesh(data=data, model=model, device="cpu")
+        key = f"{data}x{model}"
+        for arch in SSM_ARCHS:
+            cfg = get_config(arch).reduced()
+            out[key, arch, "grads"] = partitioned_case(cfg, mesh, T.init_model(3, cfg,
+                                                                               device="cpu"),
+                                                       _tokens(cfg.vocab_size))
+        if (data, model) == (1, 4):
+            out[key, "steps"] = ssm_steps(mesh, ssm_np, batch)
+        if data != 1:
+            continue
+        out[key, "exchange"] = run_exchange(mesh, world, rank)
+        served = {}
+        for case in KEPT_MIXER + KEPT_HD:
+            cfg = serve_config(case)
+            full = params_from_numpy(serve_np[case], device="cpu")
+            specs = param_specs(cfg, full, mesh)
+            served[case] = (cfg, shard_tree(full, specs, mesh), ShardedParams(specs, mesh))
+            out[key, case] = serve_run(*served[case])
+            if case in KEPT_HD:
+                out[key, case, "scalar"] = scalar_run(*served[case])
+        if model == 2:
+            with uz_swapped():
+                out["uz-swapped"] = serve_run(*served["falcon-mamba"])
+                cfg = get_config("hymba-1.5b").reduced()
+                out["uz-swapped-grads"] = partitioned_case(
+                    cfg, mesh, T.init_model(3, cfg, device="cpu"), _tokens(cfg.vocab_size))
+            with softcap_before_sum():
+                out["softcap-before-sum"] = scalar_run(*served["hymba-hd-cap"])
+            with slice_scaled():
+                out["slice-scaled"] = scalar_run(*served["hymba-hd"])
+    return out
+
+
+def card_exchange(rank, world):
+    """``ModelAxis.exchange`` and its backward between ranks that
+    share ``cuda:0`` (the same-card exchange), on ``exchange_plans``' plans
+    in bf16 and float32: the pieces and the gradients' sums at the owners,
+    and whether the card path ran."""
+    import numpy as np
+
+    from repro_torch.dist.sharding import ModelAxis
+
+    torch.cuda.set_device(0)
+    mesh = make_test_mesh(data=1, model=world, device="cuda")
+    axis, out = ModelAxis(mesh), {}
+    for name, (plan, shape, dim) in exchange_plans(world).items():
+        x_np, ws = exchange_inputs(rank, shape, plan)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(x_np).to("cuda", dt).requires_grad_(True)
+            pieces = axis.exchange(x, plan, dim)
+            grads = [torch.from_numpy(np.resize(w, p.shape)).to("cuda", dt)
+                     for p, w in zip(pieces, ws)]
+            torch.autograd.backward(pieces, grads)
+            out[name, str(dt)] = {"pieces": [p.detach().float().cpu().numpy() for p in pieces],
+                                  "grad": x.grad.float().cpu().numpy()}
+    out["card"] = coll._CARDS[mesh][("model",)] is not None
     return out
