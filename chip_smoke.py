@@ -134,19 +134,22 @@ Phases (any failed check exits non-zero):
      hymba-1.5b at full width and depth, ``--model-axis 2``, F Z Z F, the
      mamba mixer partitioned, against one process: losses within rtol 1e-3,
      the FO update within 2% (or one bf16 ulp), f0 and f1 the same bits on
-     both ranks, the gathers over ``model`` those of ``in_proj``, ``wq``,
-     ``wk`` and ``wv`` alone, the loss without the mixer's all-reduce
+     both ranks, the gathers over ``model`` the q, k and v products (a
+     layer and forward) and the attention output's gradient (a layer and
+     backward) alone, to the byte, and no weight (``in_proj`` stays cut,
+     its u and z pieces exchanged), the loss without the mixer's all-reduce
      leaving 1e-3 (the control); per step the ms, the
-     all-reduces and gathers with their bytes and their shares of the step
-     by host clock;
+     all-reduces, gathers and exchanges with their bytes and their shares
+     of the step by host clock, the warm FO step's collectives by label;
   8d''. the launch tooling held to this run: ``launch.dryrun.run_one``
      prices (a) 8d (a)'s configuration on one rank and (b) rank 0 of 8d''s
      (a) mesh, an FO and a ZO step each, in four spawned processes on the
      CPU (a fake process group, ``meta`` tensors): each predicted peak
      within 10% of the card's first step of that kind, (b)'s all-reduced
      and gathered bytes of an FO step equal to rank 0's, and (e) rank 0 of
-     8d''s (d), hymba-1.5b at model=2, FO and ZO: its all-reduces' and
-     gathers' calls and bytes equal to the card's; (c) one FO step of
+     8d''s (d), hymba-1.5b at model=2, FO and ZO: its all-reduces',
+     gathers' and exchanges' calls and bytes, and its labelled
+     collectives', equal to the card's; (c) one FO step of
      gemma2-2b at 100m on 2 gloo ranks (``--model-axis 2``) traced by
      ``torch.profiler`` on rank 0: ``launch.overlap.overlap_stats``' pairs
      equal to the all-reduces and gathers counted in the step; (d)
@@ -2849,7 +2852,9 @@ class ShardProbe(TrainProbe):
     cross-entropy's combine, ``reduce_parts``) and of its exchanges
     (``collectives.exchange``, its transpose too: the bytes received),
     each after a synchronize, so that its time is its
-    own and not the compute queued before it.  The flat kernels' outputs in
+    own and not the compute queued before it; per step the labelled
+    collectives' calls and bytes (``collectives.LABELS``) and each loss
+    evaluation's tokens.  The flat kernels' outputs in
     the first ZO step are held on sampled blocks of this rank's packed
     shard, among them blocks of ``SHARD_LEAVES``, against the plain
     versions, and against a control: the plain versions with each block's
@@ -2867,7 +2872,9 @@ class ShardProbe(TrainProbe):
         self.gather_axes = {}          # axes -> gathers over the run
         self.held_bytes = {"fo": [], "zo": []}
         self.evals = {"fo": [], "zo": []}   # per step: its loss evaluations' values
-        self._evals = None
+        self.eval_tokens = {"fo": [], "zo": []}   # per step: each evaluation's tokens
+        self.step_labels = {"fo": [], "zo": []}   # per step: label -> [calls, bytes]
+        self._evals = self._tokens = None
 
     def install(self, stack):
         from repro_torch.core import ho_sgd as HS
@@ -2924,10 +2931,11 @@ class ShardProbe(TrainProbe):
         nbytes = lambda t: t.numel() * t.element_size()              # noqa: E731
         loss = T.loss_fn
 
-        def recorded_loss(*a, **kw):
-            out = loss(*a, **kw)
+        def recorded_loss(cfg, params, batch, *a, **kw):
+            out = loss(cfg, params, batch, *a, **kw)
             if self._evals is not None:
                 self._evals.append(float(out.detach()))
+                self._tokens.append(int(batch["tokens"].numel()))
             return out
 
         patch(HS, "make_engine", make_engine)
@@ -2941,6 +2949,8 @@ class ShardProbe(TrainProbe):
         patch(coll, "exchange", timed("exchange", coll.exchange, None))
 
     def step(self, kind, fn):
+        from repro_torch.dist import collectives as coll
+
         inner = super().step(kind, fn)
 
         def run(t, params, opt_state, batch):
@@ -2955,13 +2965,18 @@ class ShardProbe(TrainProbe):
             self.held_bytes[kind].append(
                 sum(x.numel() * x.element_size() for x in tree_leaves(params)))
             before = {c: dict(v) for c, v in self.comm.items()}
-            self._evals = []
+            labels = {k: list(v) for k, v in coll.LABELS.items()}
+            self._evals, self._tokens = [], []
             out = inner(t, params, opt_state, batch)
             self.evals[kind].append(self._evals)
-            self._evals = None
+            self.eval_tokens[kind].append(self._tokens)
+            self._evals = self._tokens = None
             for c, v in self.comm.items():
                 for k in ("s", "bytes", "calls"):
                     self.step_comm[c][k][kind].append(v[k] - before[c][k])
+            self.step_labels[kind].append(
+                {k: [v[0] - labels.get(k, [0, 0])[0], v[1] - labels.get(k, [0, 0])[1]]
+                 for k, v in sorted(coll.LABELS.items()) if v != labels.get(k)})
             return out
         return run
 
@@ -3098,6 +3113,7 @@ def sharded_rank(rank, world, argv, log, hold, ref_path, dev_type, sample=False,
            "peak_gb": probe.peak_gb, "start_gb": probe.start_gb,
            "held_bytes": probe.held_bytes, "comm": probe.comm, "step_comm": probe.step_comm,
            "gather_axes": probe.gather_axes, "evals": probe.evals,
+           "eval_tokens": probe.eval_tokens, "step_labels": probe.step_labels,
            "held": probe.held, "block": probe.engine.block, "n_leaves": len(leaves),
            "packed_over_shard": getattr(probe.engine, "packed_over_shard", None),
            "shard_bytes": sum(math.prod(s) * x.element_size()
@@ -3273,15 +3289,51 @@ SHARDED_MIXER = "train hymba-1.5b --reduce full --model-axis 2 (2 gloo ranks), e
 MIXER_FLAGS = ["--arch", "hymba-1.5b", "--tau", "3", "--batch", "8", "--seq", "128"]
 
 
-def model_gathers_per_layer(cfg, ms=2) -> list:
-    """The leaves a layer of the partitioned forward gathers over ``model``
-    (``ms`` ranks) a forward: attention's ``wq`` when the axis cuts inside a
-    query head and ``wk``, ``wv`` when it cuts inside a KV head.  The mamba
+def inside_a_head(cfg, ms=2) -> bool:
+    """Whether ``ms`` ranks of ``model`` cut attention's ``wq`` or ``wk``/``wv``
+    inside a head (the columns of the ``H`` or ``KV`` heads divide the axis,
+    the heads do not)."""
+    hd = cfg.head_dim
+    return cfg.has_attention and any(n * hd % ms == 0 and (n * hd // ms) % hd
+                                     for n in (cfg.n_heads, cfg.n_kv_heads))
+
+
+def param_bytes(cfg) -> int:
+    """The bytes of an element of ``cfg``'s parameters and activations."""
+    return {"bfloat16": 2, "float16": 2, "float32": 4}[cfg.dtype]
+
+
+def attention_gathers(cfg, tokens, forwards=1, backwards=0, ms=2) -> dict:
+    """The gathers over ``model`` (``ms`` ranks) of a step's loss evaluations
+    of ``tokens`` tokens each, label -> [calls, bytes]: where the axis cuts
+    attention inside a head (``inside_a_head``), a layer's forward
+    (``forwards`` an evaluation: 2 under remat) gathers the q, k and v
+    products (``tokens·H·hd`` and twice ``tokens·KV·hd`` elements, ``qkv``)
+    and its backward (``backwards`` an evaluation) the attention output's
+    gradient (``tokens·H·hd``, ``attn_out_grad``); no weight.  The mamba
     mixer gathers nothing: ``in_proj`` stays cut, and a rank exchanges the
     pieces of u and z it needs (``model_exchanges_per_layer``)."""
-    if cfg.arch_type == "ssm":
-        return []
-    return ["wq"] * (cfg.n_heads % ms != 0) + ["wk", "wv"] * (cfg.n_kv_heads % ms != 0)
+    if not inside_a_head(cfg, ms):
+        return {}
+    L, H, KV, hd, n, t = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          len(tokens), sum(tokens) * param_bytes(cfg))
+    out = {"qkv": [3 * L * forwards * n, L * forwards * t * (H + 2 * KV) * hd]}
+    if backwards:
+        out["attn_out_grad"] = [L * backwards * n, L * backwards * t * H * hd]
+    return out
+
+
+def weight_gathers(cfg, evals, forwards=1, backwards=0, ms=2) -> dict:
+    """What the method that gathered attention's weights whole where the axis
+    cuts inside a head (``wq`` when its cut falls inside a head, ``wk`` and
+    ``wv`` when theirs does) moved in ``evals`` loss evaluations: the
+    gathers a forward makes and the all-reduces of those weights' gradients
+    a backward makes, kind -> [calls, bytes]."""
+    D, H, KV, hd, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    sizes = [D * n * hd * param_bytes(cfg) for n in (H, KV, KV) if n * hd % ms == 0
+             and (n * hd // ms) % hd]
+    return {"gather": [len(sizes) * L * forwards * evals, sum(sizes) * L * forwards * evals],
+            "reduce": [len(sizes) * L * backwards * evals, sum(sizes) * L * backwards * evals]}
 
 
 def model_exchanges_per_layer(cfg) -> int:
@@ -3354,18 +3406,23 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
     ``--model-axis 2`` (2 ranks on the card), engine flat, ``steps`` steps
     (F Z Z F), against a one-process run of the same flags in this process:
     the mamba mixer and attention partitioned (hymba's 25 query and 5 KV
-    heads do not split on whole heads at model=2, so ``wq``, ``wk``, ``wv``
-    are gathered: ``model_gathers_per_layer``; the mixer's ``in_proj``
-    stays cut, one exchange of u and z pieces a layer and forward, and one
-    in the backward: ``model_exchanges_per_layer``).
+    heads do not split on whole heads at model=2, so each layer gathers the
+    q, k and v products and attends with every head, and its backward
+    gathers the attention output's gradient: ``attention_gathers``; the
+    mixer's ``in_proj`` stays cut, one exchange of u and z pieces a layer
+    and forward, and one in the backward: ``model_exchanges_per_layer``).
     Losses within ``LOSS_RTOL_BF16`` of one process's; rank 0's shards after
     the first FO step within 2% of the update (or one bf16 ulp) of one
     process's on sampled elements; every loss evaluation the same bits on
-    both ranks; the gathers over ``model`` alone, ``model_gathers_per_layer``
-    per layer and forward (twice in an FO step: remat recomputes it), the
-    warm FO step's printed beside what it was with ``in_proj`` gathered
-    whole (one more a layer and forward); the exchanges ``model_exchanges_per_layer`` per layer and forward (and its
-    recompute, and once more in an FO step's backward);
+    both ranks; the gathers over ``model`` alone, every step's those of
+    ``attention_gathers`` to the byte (the products a layer and forward,
+    twice in an FO step: remat recomputes them; the output's gradient a
+    layer and backward) and no weight: its labelled gathers are all its
+    gathers; the warm FO step's ms and calls by label printed beside what
+    the method that gathered ``wq``, ``wk`` and ``wv`` whole would have
+    moved (``weight_gathers``); the exchanges ``model_exchanges_per_layer``
+    per layer and forward (and its recompute, and once more in an FO step's
+    backward);
     rank 0 books 4·d and 4 bytes; the flat kernels held on rank 0's first ZO
     step with shard-local counters failing; the loss of one row without the
     mixer's ``out_proj`` all-reduce leaving ``LOSS_RTOL_BF16`` (the control).
@@ -3405,19 +3462,24 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
           f"sharded (d): rank 0 books {[r['comm_bytes'] for r in rows]}")
     check(res[0]["evals"] == res[1]["evals"], "sharded (d): the loss evaluations differ "
           "between the ranks")
-    gathered = model_gathers_per_layer(cfg)
-    per_layer = len(gathered)
+    cut = inside_a_head(cfg)
     for rank, r in enumerate(res):
-        check(set(r["gather_axes"]) == ({("model",)} if per_layer else set()),
+        check(set(r["gather_axes"]) == ({("model",)} if cut else set()),
               f"sharded (d) rank {rank}: gathers by axes {r['gather_axes']}")
         for kind in ("fo", "zo"):
-            forwards = [cfg.n_layers * len(ev) * (2 if kind == "fo" and cfg.remat else 1)
+            fo = kind == "fo"
+            forwards = [cfg.n_layers * len(ev) * (2 if fo and cfg.remat else 1)
                         for ev in r["evals"][kind]]
-            want = [per_layer * n for n in forwards]
-            got_calls = r["step_comm"]["gather"]["calls"][kind]
-            check(got_calls == want, f"sharded (d) rank {rank}: {kind.upper()} steps' gathers "
-                  f"{got_calls}, {per_layer} a layer and forward would be {want}")
-            backward = [cfg.n_layers * len(ev) * (kind == "fo") for ev in r["evals"][kind]]
+            for i, tokens in enumerate(r["eval_tokens"][kind]):
+                want = attention_gathers(cfg, tokens, 1 + (fo and cfg.remat), int(fo))
+                got = {k: v for k, v in r["step_labels"][kind][i].items() if k in want}
+                total = [r["step_comm"]["gather"][k][kind][i] for k in ("calls", "bytes")]
+                check(got == want and total == [sum(v[j] for v in want.values())
+                                                for j in (0, 1)],
+                      f"sharded (d) rank {rank}: {kind.upper()} step {i}'s gathers (calls, "
+                      f"bytes) {total}, by label {got}; the products and the output's "
+                      f"gradient alone would be {want}")
+            backward = [cfg.n_layers * len(ev) * fo for ev in r["evals"][kind]]
             want = [model_exchanges_per_layer(cfg) * (n + b) for n, b in zip(forwards, backward)]
             got_calls = r["step_comm"]["exchange"]["calls"][kind]
             check(got_calls == want, f"sharded (d) rank {rank}: {kind.upper()} steps' "
@@ -3435,29 +3497,33 @@ def sharded_mixer_run(torch, dev, steps=4, reduce="full"):
         check(not held[5] or (name == "zo_reconstruct_flat" and held[6]),
               f"sharded (d): {name}'s control (shard-local counters) passed")
     one_peak = max(max(v) for v in one["peak_gb"].values())
-    warm_forwards = cfg.n_layers * len(res[0]["evals"]["fo"][-1]) * (2 if cfg.remat else 1)
+    r0 = res[0]
+    warm = {c: [r0["step_comm"][c][k]["fo"][-1] for k in ("calls", "bytes")] for c in COMM_KINDS}
+    by_weight = weight_gathers(cfg, len(r0["evals"]["fo"][-1]), 1 + cfg.remat, 1)
     print(f"  (d) hymba-1.5b --reduce {reduce} --model-axis 2 (d={d:,}), 2 gloo ranks, {steps} "
           f"steps in {wall:.1f} s: losses {losses} against one process's {one['losses']}: "
           f"relative {[f'{v:.2e}' for v in rel]} (tol {LOSS_RTOL_BF16}); rank 0's shards after "
           f"the FO step {diff:.3e} from one process's (largest update {scale:.3e}, worst at "
-          f"{worst:.3f} of its tolerance); {per_layer} gathers over model a layer and forward "
-          f"({', '.join(gathered)}; the warm FO step's "
-          f"{res[0]['step_comm']['gather']['calls']['fo'][-1]}, with in_proj gathered whole "
-          f"{(per_layer + 1) * warm_forwards}) and {model_exchanges_per_layer(cfg)} exchange of u "
-          f"and z pieces (the warm FO step's {res[0]['step_comm']['exchange']['calls']['fo'][-1]}, "
-          f"{res[0]['step_comm']['exchange']['bytes']['fo'][-1] / 1e6:.3f} MB received on rank "
-          f"0); control without "
-          f"the mixer's all-reduce {res[0]['control']}; one process FO ms "
-          f"{[round(v, 1) for v in one['fo_ms']]}, ZO ms {[round(v, 1) for v in one['zo_ms']]}, "
-          f"peak {one_peak:.2f} GB")
+          f"{worst:.3f} of its tolerance); gathers over model the products and the output's "
+          f"gradient alone, no weight; control without the mixer's all-reduce "
+          f"{r0['control']}; one process FO ms {[round(v, 1) for v in one['fo_ms']]}, ZO ms "
+          f"{[round(v, 1) for v in one['zo_ms']]}, peak {one_peak:.2f} GB")
+    print(f"    the warm FO step on rank 0: {step_ms(rows, 1)[-1]:.1f} ms [{smi_line()}]; "
+          f"(calls, bytes) gathers {warm['gather']}, all-reduces {warm['reduce']}, exchanges "
+          f"{warm['exchange']}; by label {r0['step_labels']['fo'][-1]}; gathering wq, wk and "
+          f"wv whole would have made {by_weight['gather']} gathers and "
+          f"{by_weight['reduce']} more all-reduces (their gradients) in place of the "
+          f"products' and the output gradient's")
     return {"launches": {k: sum(r["launches"].get(k, 0) for r in res)
                          for k in res[0]["launches"]},
-            "rank0": {"peak_gb": res[0]["peak_gb"],
+            "rank0": {"peak_gb": res[0]["peak_gb"], "step_labels": res[0]["step_labels"],
                       **{f"step_{c}_{k}": res[0]["step_comm"][c][k]
                          for c in COMM_KINDS for k in ("bytes", "calls")}},
             "losses": losses, "one_process_losses": one["losses"], "rel": rel,
             "fo_hold": [diff, scale, worst], "control": res[0]["control"],
-            "gathered_per_layer": gathered, "one_process_fo_ms": one["fo_ms"],
+            "warm_fo": {"ms": step_ms(rows, 1)[-1], **warm,
+                        "labels": r0["step_labels"]["fo"][-1], "weight_gathers": by_weight},
+            "one_process_fo_ms": one["fo_ms"],
             "one_process_zo_ms": one["zo_ms"], "one_process_peak_gb": one_peak,
             "peak_gb": [max(max(v) for v in r["peak_gb"].values()) for r in res],
             "wall_s": wall, "d": d, "reduce": reduce,
@@ -3772,9 +3838,10 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
     tolerance of its plain version.  (e) With ``sharded_d`` (sharded_phase
     (d)'s rank 0), it also prices (d)'s configuration, hymba-1.5b at full
     width and depth on rank 0 of (data=1, model=2), an FO and a ZO step:
-    the all-reduces', gathers' and exchanges' calls and bytes of each equal
-    to the card's first step of that kind, each peak within ``PEAK_TOL`` of
-    the card's.  (f) It also prices serving ``SHARDED_SERVE_ARCHS`` (qwen3-14b,
+    the all-reduces', gathers' and exchanges' calls and bytes of each, and
+    its labelled collectives' (``named``: the products, the output's
+    gradient, the mixer's pieces), equal to the card's first step of that
+    kind, each peak within ``PEAK_TOL`` of the card's.  (f) It also prices serving ``SHARDED_SERVE_ARCHS`` (qwen3-14b,
     falcon-mamba-7b, hymba-1.5b) at full width on rank 0 of (data=1,
     model=2) at ``SERVE_DRYRUN``'s shapes (``serve_dryrun_target``), which
     ``sharded_serve_phase`` (e), (f) and (g) hold to the card; those records
@@ -3896,6 +3963,13 @@ def dryrun_phase(torch, dev, train_a, sharded_a, reduce="full", overlap_argv=OVE
                       f"of model=2 (calls, bytes): predicted {pred}, measured {got} "
                       f"(by axes {rec[f'{kind}s']}) [{smi}]")
                 out[f"e_{kind}_{step}"] = {"predicted": pred, "measured": got}
+        for step in ("fo", "zo"):
+            pred, got = recs[("e", step)]["named"], sharded_d["rank0"]["step_labels"][step][0]
+            check(pred == got, f"dry run (e): predicted labelled collectives of a "
+                  f"{step.upper()} step {pred}, (d)'s rank 0 {got}")
+            print(f"  (e) labelled collectives of hymba-1.5b's first {step.upper()} step on "
+                  f"rank 0 (calls, bytes): predicted {pred}, measured {got} [{smi}]")
+            out[f"e_named_{step}"] = {"predicted": pred, "measured": got}
     out["wall_s"] = wall
     return out
 
@@ -5264,10 +5338,11 @@ SHARDED_SERVE_KERNEL = {"e": "flash_attention", "f": "selective_scan", "g": "sel
 
 
 def parent_gathers(cfg, slots, max_seq, ms=2, dtype_bytes=2) -> dict:
-    """The bytes a rank gathered over ``model`` a layer and decode step by
-    the parent's method, which this slice replaced: the mixer's whole
-    ``in_proj``, attention's ``wq`` (cut inside a head), ``wk`` and ``wv``,
-    and an ``hd``-cut layer's k and v caches whole."""
+    """The bytes a rank would gather over ``model`` a layer and decode step
+    by the method that gathered weights and caches whole where the axis cuts
+    inside them: the mixer's ``in_proj``, attention's ``wq`` (cut inside a
+    head), ``wk`` and ``wv`` (the weights also at prefill), and an
+    ``hd``-cut layer's k and v caches.  The port gathers none of them."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {}
     if cfg.has_ssm:
@@ -5299,11 +5374,12 @@ def sharded_serve_phase(torch, dev, qwen, mamba, hymba, dry, exp_instr, flash_ro
     ranks the same tokens; scan launches a rank = prefills x layers.
     (g) hymba-1.5b at full width and depth on model=2 (``hybrid_serve_phase``'s
     seed-0 weights, prompts and slots, held to its one-process run
-    ``hymba``): 25/5 heads, so the k/v caches are cut over ``hd`` and each
-    decode step reads them cut (the q, k, v products and the attention
-    output gathered, the partial logits all-reduced; no cache gathered:
-    its bytes 0), the mixer as in (f); scan launches a rank = prefills x
-    layers.
+    ``hymba``): 25/5 heads, so a prefill gathers the q, k and v products,
+    not ``wq``, ``wk``, ``wv`` (its gathered bytes all labelled: no
+    weight), the k/v caches are cut over ``hd`` and each decode step reads
+    them cut (the q, k, v products and the attention output gathered, the
+    partial logits all-reduced; no cache gathered: its bytes 0), the mixer
+    as in (f); scan launches a rank = prefills x layers.
     For each run, the gathers, exchanges and all-reduces of the prefill at
     bucket 1024 and of one decode step equal to the dry run's (``dry``,
     ``SERVE_DRYRUN``); rank 0's peak within ``PEAK_TOL`` of the dry run's
@@ -5423,6 +5499,20 @@ def sharded_serve_phase(torch, dev, qwen, mamba, hymba, dry, exp_instr, flash_ro
                   f"and all-reduces (calls, bytes) on rank 0 "
                   f"{ {k: measured[step][k] for k in ('gathers', 'exchanges', 'reduces')} }, "
                   f"the dry run's the same")
+        if inside_a_head(cfg):
+            pre = measured["prefill"]
+            named = pre["named"]
+            weight_bytes = pre["gathers"].get("model", [0, 0])[1] - sum(
+                named.get(k, [0, 0])[1] for k in ("qkv", "logits"))
+            check(weight_bytes == 0 and named.get("qkv", [0])[0] == 3 * cfg.n_layers,
+                  f"({key}) a prefill at (S, rows) {SERVE_DRYRUN['prefill']} gathered "
+                  f"{weight_bytes} bytes beyond its products and logits; by label {named}")
+            weights = sum(parent.get(k, 0) for k in ("wq", "wk", "wv")) * cfg.n_layers
+            qkv = named.get("qkv", [0, 0])
+            print(f"  ({key}) a prefill at (S, rows) {SERVE_DRYRUN['prefill']} gathers the q, k "
+                  f"and v products, {qkv[1] / 1e6:.3f} MB in {qkv[0]} calls, "
+                  f"and no weight (wq, wk and wv gathered whole: {weights / 1e6:.3f} MB)")
+            out[key]["prefill_weight_gather_bytes"] = weight_bytes
         if cfg.has_attention and parent.get("k_cache"):
             named = step_counts["named"]
             cache_bytes = moved["gathers"] - sum(named.get(k, [0, 0])[1]

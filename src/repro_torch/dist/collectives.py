@@ -67,7 +67,8 @@ bytes of their reduced payloads, ``EXCHANGES`` ``exchange``'s calls and
 the bytes a rank receives, and ``LABELS`` the
 calls and bytes of every collective given a ``label`` (the partitioned
 layers name theirs: ``mixer_uz``, ``qkv``, ``partial_logits``,
-``attn_out``, ``logits``); ``reset_gathers`` sets all four to 0: the dry
+``attn_out``, ``logits``, and in a backward ``mixer_uz_grad`` and
+``attn_out_grad``); ``reset_gathers`` sets all four to 0: the dry
 run's collective bytes (``launch.dryrun``).  Every collective that runs
 over the group (``gather_cat``, ``all_reduce_sum``, ``reduce_parts``,
 ``exchange``, ``all_gather``, ``psum``, ``pmean``) is one

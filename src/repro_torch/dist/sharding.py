@@ -47,14 +47,16 @@ backward), once per sublayer.  Replicated leaves used on a rank's part
 ``conv_b``, ``dt_b`` and ``D``) enter too, so that their gradient is the
 whole one on every rank.  ``gather`` is differentiable, and its backward is
 this rank's slice of the gradient: that is right for a storage axis (every
-rank that shares a leaf's shards computed the same full gradient); a leaf
-gathered over ``model`` to be used on a rank's part (``ModelAxis.whole``:
-a ``wk`` cut inside a head, in the training forward and prefill) enters
-after the gather, so that the gradient is summed over the axis before it
-is sliced.  Where a rank needs other ranks' columns of a column-parallel
-product (the mixer's u and z, ``in_proj`` cut on ``2·di``), it takes only
-those pieces of the products (``ModelAxis.exchange``), and the weight
-stays cut.  Serving runs on the same placements: a rank's caches are its
+rank that shares a leaf's shards computed the same full gradient).  No
+weight is gathered over ``model``: where a rank needs other ranks'
+columns of a column-parallel product, it takes the products, and the
+weight stays cut.  The mixer takes only the pieces of u and z it needs
+(``in_proj`` cut on ``2·di``, ``ModelAxis.exchange``).  Attention, where
+the axis cuts ``wq``, ``wk`` or ``wv`` inside a head, gathers the q, k and
+v products whole (``ModelAxis.cat``, its gradient this rank's slice),
+runs every head on every rank, and takes this rank's columns of the
+output for its rows of ``wo`` (``ModelAxis.split``, its gradient
+gathered).  Serving runs on the same placements: a rank's caches are its
 slices of ``cache_specs`` over ``model`` (``cache_slices``), and
 ``ModelAxis.cat`` gathers what a rank needs whole (the logits' vocabulary
 columns; on an ``hd``-cut cache the q, k and v products and the attention
@@ -595,6 +597,27 @@ class _Exchange(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _Split(torch.autograd.Function):
+    """The transpose of ``ModelAxis.cat``: this rank's equal slice of ``dim``
+    of a tensor that every rank holds whole, with no collective; backward:
+    every rank's gradient slice concatenated on ``dim`` in rank order (an
+    all-gather), so that the gradient is whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis, label):
+        ctx.dim, ctx.axis, ctx.label = dim, axis, label
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist import collectives as coll
+
+        axis = ctx.axis
+        return (coll.gather_cat(g.contiguous(), axis.name, mesh=axis.mesh, dim=ctx.dim,
+                                label=ctx.label), None, None, None)
+
+
 class ModelAxis:
     """The ``model`` axis of a mesh as the partitioned layers use it:
     ``size`` ranks, this rank at ``rank``; ``enter`` and ``reduce`` are the
@@ -603,9 +626,10 @@ class ModelAxis:
     on every rank), ``parts`` every rank's tensor stacked in rank order,
     ``exchange`` the pieces of the ranks' tensors that a plan gives this
     rank (``collectives.exchange``; its gradient goes back to the owners),
-    and ``whole`` a leaf gathered over the axis to be used on this rank's
-    part (its gradient summed over the axis, then sliced).  ``label`` names
-    a collective in ``collectives.LABELS``."""
+    ``cat`` every rank's tensor concatenated (its gradient this rank's
+    slice) and ``split`` its transpose (this rank's slice of a tensor every
+    rank holds whole; its gradient gathered).  No weight is gathered over
+    the axis.  ``label`` names a collective in ``collectives.LABELS``."""
 
     name = "model"
 
@@ -638,12 +662,18 @@ class ModelAxis:
 
     def cat(self, x: torch.Tensor, dim: int, label: str = None) -> torch.Tensor:
         """Every rank's ``x`` concatenated on ``dim`` in rank order (serving's
-        logits, the products and attention output of a decode on an
-        ``hd``-cut cache); its gradient this rank's slice."""
+        logits; attention's q, k and v products where the axis cuts inside
+        a head, and a decode's output on an ``hd``-cut cache); its gradient
+        this rank's slice."""
         return _GatherDim.apply(x, dim % x.dim(), (self.name,), self.mesh, self.rank, label)
 
-    def whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return self.enter(self.cat(x, dim))
+    def split(self, x: torch.Tensor, dim: int, label: str = None) -> torch.Tensor:
+        """This rank's equal slice of ``dim`` of ``x``, which every rank holds
+        whole (``cat``'s transpose): no collective forward; backward the
+        gradient gathered over the axis (``label`` names that gather).  Every
+        rank calls it, whether or not its slice holds whole heads: the
+        backward is a collective."""
+        return _Split.apply(x, dim % x.dim(), self, label)
 
 
 class SequenceAxis:

@@ -57,9 +57,10 @@ where they mean something here:
   count the calls per axes, ``gather_bytes``, ``reduce_bytes`` and
   ``exchange_bytes`` their bytes, and ``named`` the calls and bytes of
   each labelled collective (``collectives.LABELS``: the mixer's
-  ``mixer_uz`` and its ``mixer_uz_grad``, a decode's ``qkv``,
-  ``partial_logits`` and ``attn_out`` on an ``hd``-cut cache, the
-  ``logits``);
+  ``mixer_uz`` and its ``mixer_uz_grad``; where the axis cuts inside a
+  head attention's ``qkv`` and its output's ``attn_out_grad``, and a
+  decode's ``partial_logits`` and ``attn_out`` on an ``hd``-cut cache;
+  the ``logits``);
 * ``kernels``: the calls of each hand-written kernel in the step;
 * ``run_s`` in place of ``lower_s`` / ``compile_s``.
 

@@ -14,31 +14,37 @@ The KV cache is updated in place (the reference returns new arrays), and the
 updated cache is returned as well.
 
 Partitioned over the ``model`` axis (``attention_forward(..., tp=)``, the
-training loss on sharded placements), a rank runs the heads whose columns
-of the attention output its rows of ``wo`` take, and ``wo`` is
-row-parallel: one rank-ordered all-reduce of float32 partials.  On whole
-heads (``H`` and ``KV`` divisible by the axis) the rank's ``H/ms`` query
-heads and ``KV/ms`` KV heads are its own columns of ``wq``, ``wk`` and
+training loss on sharded placements; ``_RankProjection``), ``wo`` is
+row-parallel: a rank's rows take its columns of the attention output, and
+one rank-ordered all-reduce of float32 partials sums them.  On whole heads
+(``H`` and ``KV`` divisible by the axis) a rank runs its ``H/ms`` query
+heads and ``KV/ms`` KV heads, its own columns of ``wq``, ``wk`` and
 ``wv``, contiguous as ``shard_slices`` cuts them, and the GQA grouping
-``h // (H/KV)`` holds within them.  A leaf cut inside a head (``KV % ms``:
-the divisibility guard cuts ``KV·hd``) is gathered over the axis and the
-rank takes the heads it needs; the gather is counted
-(``collectives.GATHERS``).  ``q_norm``, ``k_norm``, rope and the softcap
-act per head.  This is what the reference's ``_constrain_hd`` pins for its
-compiler.
+``h // (H/KV)`` holds within them (a replicated ``wk``/``wv`` enters, and
+the rank takes the KV heads its queries read).  Where the axis cuts
+``wq``, ``wk`` or ``wv`` inside a head (``KV % ms``: the divisibility
+guard cuts ``KV·hd``; ``H % ms`` likewise cuts ``wq``), no weight crosses
+ranks: as the reference's compiler does under its placements, each rank
+computes its columns of the q, k and v products, which are gathered over
+the axis (``B·S·H·hd`` and twice ``B·S·KV·hd`` elements, label ``qkv``),
+normed and rotated on whole heads, and every rank attends with every
+head (the flash kernel's usual route); ``ModelAxis.split`` then takes the
+rank's columns of the output for its rows of ``wo``.  In the backward
+``split`` gathers the output's gradient (label ``attn_out_grad``), every
+rank computes the same attention backward, ``cat`` hands each rank its
+slice of the products' gradients, and one all-reduce (``enter``) sums
+x's.  ``q_norm``, ``k_norm``, rope and the softcap act per head.
 
 Serving on sharded placements (``attention_prefill``/``attention_decode``
-with ``tp``) runs the same heads, and the rank's k/v cache is its slice of
-``dist.sharding.cache_specs`` (``cache_cut``): its own KV heads when ``KV``
-divides the axis, else a slice of ``hd`` of every KV head.  In the second
-case the prefill computes every KV head's k and v (``wk``/``wv`` gathered,
-as above) and stores its ``hd`` slice, and a decode step keeps the cache
-cut, as the reference's ``_constrain_hd`` pins it (``_hd_decode``): the
-rank's columns of the q, k and v products are gathered over the axis
-(``B·H·hd`` and ``B·KV·hd`` elements, label ``qkv``), normed and rotated
-on whole heads, and cut to the rank's ``hd`` slice; each rank contracts
-its slice (every query head against its KV head's slice of the cache),
-the float32 partial logits are summed over the axis in rank order
+with ``tp``) runs the same projection, and the rank's k/v cache is its
+slice of ``dist.sharding.cache_specs`` (``cache_cut``): its own KV heads
+when ``KV`` divides the axis, else a slice of ``hd`` of every KV head.  In
+the second case the prefill stores the ``hd`` slice of the whole heads'
+k and v (no collective beyond the products'), and a decode step keeps the
+cache cut, as the reference's ``_constrain_hd`` pins it (``_hd_decode``):
+q, k and v of every head, cut to the rank's ``hd`` slice; each rank
+contracts its slice (every query head against its KV head's slice of the
+cache), the float32 partial logits are summed over the axis in rank order
 (``partial_logits``), and only then scaled by ``sqrt(hd)`` of the whole
 head, soft-capped and masked; every rank takes the same softmax, weighs
 its ``hd`` slice of v, and the ``(B, 1, H, hd/ms)`` outputs are gathered
@@ -239,43 +245,58 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     module docstring)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if tp is not None:
-        return tp.reduce(_attention_partial(cfg, p, tp.enter(x), positions, window, tp),
-                         x.dtype)
+        r = _RankProjection(cfg, p, x, positions, tp)
+        return r.out(_attend_seq(cfg, r.q, r.attended(r.k), r.attended(r.v), positions, window))
     q, k, v = _project_qkv(cfg, p, x, positions)
     return _attend_seq(cfg, q, k, v, positions, window) @ p["wo"]
 
 
-def _rank_heads(cfg: ModelConfig, p: Params, tp, every_kv: bool = False
-                ) -> Tuple[Params, int, int, int]:
-    """``(this rank's q/k/v weights and norms, its query heads' first
-    column, its wo rows' first column, the first KV head of its wk/wv)``:
-    the query heads ``[h0, h1)`` that cover the columns ``[c0, c1)`` of the
-    attention output its rows of ``wo`` take, and the KV heads ``[kv0,
-    kv1)`` they read; with ``every_kv`` (serving, where the cache may hold
-    a slice of every KV head) all the KV heads unless the rank's own are
-    the cache's too."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    group = H // KV
+def _inside_a_head(cfg: ModelConfig, p: Params) -> bool:
+    """Whether the ``model`` axis cuts ``wq``, ``wk`` or ``wv`` inside a head
+    (``p`` this rank's shards: a cut on head boundaries leaves whole
+    heads a rank)."""
+    return any(p[n].shape[-1] % cfg.head_dim for n in ("wq", "wk", "wv"))
+
+
+def _rank_heads(cfg: ModelConfig, p: Params, tp) -> Tuple[Params, int, int]:
+    """On whole heads: ``(this rank's q/k/v weights and norms, its query
+    heads' first column, the first KV head of its wk/wv)``.  Its query heads
+    are its own columns of ``wq``, those that its rows of ``wo`` take; its
+    KV heads its own columns of ``wk``/``wv``, or every KV head where they
+    are replicated (``KV·hd`` does not divide the axis), entered."""
+    hd, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     c0 = tp.rank * p["wo"].shape[0]
-    c1 = c0 + p["wo"].shape[0]
-    h0, h1 = c0 // hd, -(-c1 // hd)
-    kv0, kv1 = h0 // group, (h1 - 1) // group + 1
-    wq = p["wq"]
-    if c0 % hd or c1 % hd:                      # wq cut inside a head
-        wq = tp.whole(wq, -1)[:, h0 * hd:h1 * hd]
-    if p["wk"].shape[-1] != KV * hd and not KV % tp.size:
-        wk, wv = p["wk"], p["wv"]               # this rank's own KV heads
-    else:
-        # replicated (a rank's heads enter), or cut inside a head (gathered)
-        whole = [tp.enter(p[n]) if p[n].shape[-1] == KV * hd else tp.whole(p[n], -1)
-                 for n in ("wk", "wv")]
-        kv0, kv1 = (0, KV) if every_kv else (kv0, kv1)
-        wk, wv = (w[:, kv0 * hd:kv1 * hd] for w in whole)
-    local = {"wq": wq, "wk": wk, "wv": wv}
+    local = {n: p[n] for n in ("wq", "wk", "wv")}
+    k0 = c0 // hd // group
+    if p["wk"].shape[-1] == cfg.n_kv_heads * hd:
+        local.update(wk=tp.enter(p["wk"]), wv=tp.enter(p["wv"]))
+        k0 = 0
     for n in ("q_norm", "k_norm"):
         if n in p:
             local[n] = tp.enter(p[n])
-    return local, h0 * hd, c0, kv0
+    return local, c0, k0
+
+
+def _gathered_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                  tp):
+    """q, k and v of every head where the axis cuts inside a head: this
+    rank's columns of each product (from ``x`` after ``tp.enter``)
+    gathered over the axis (label ``qkv``), then normed and rotated on
+    whole heads.  A replicated weight's product is computed whole from
+    ``x`` itself.
+
+    ``cat``'s backward, this rank's slice of the gradient, is right here:
+    every rank computes the same attention downstream, and ``split``'s
+    backward makes the output's gradient whole on every rank, so every
+    rank's gradient of the gathered products is the same full tensor.  So
+    are the norms' gradients: ``q_norm`` and ``k_norm`` act on every head
+    and do not enter."""
+    x_in = tp.enter(x)
+    prods = [tp.cat(x_in @ p[n], -1, label="qkv") if p[n].shape[-1] != width else x @ p[n]
+             for n, width in (("wq", cfg.n_heads * cfg.head_dim),
+                              ("wk", cfg.n_kv_heads * cfg.head_dim),
+                              ("wv", cfg.n_kv_heads * cfg.head_dim))]
+    return _qkv_heads(cfg, p, *prods, positions)
 
 
 def _query_kv(cfg: ModelConfig, t: torch.Tensor, k0: int, q0: int, nq: int) -> torch.Tensor:
@@ -291,24 +312,6 @@ def _query_kv(cfg: ModelConfig, t: torch.Tensor, k0: int, q0: int, nq: int) -> t
     return t
 
 
-def _rank_out(out: torch.Tensor, q0: int, c0: int, wo: torch.Tensor) -> torch.Tensor:
-    """The float32 partial of the rank's rows of ``wo`` on its columns of
-    the attention output ``out`` (its query heads' from ``q0``)."""
-    return row_partial(out[..., c0 - q0:c0 - q0 + wo.shape[0]], wo)
-
-
-def _attention_partial(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
-                       positions: torch.Tensor, window: Optional[int], tp) -> torch.Tensor:
-    """This rank's float32 partial of the attention sublayer's output, from
-    ``x_in`` (``x`` after ``tp.enter``)."""
-    local, q0, c0, k0 = _rank_heads(cfg, p, tp)
-    q, k, v = _project_qkv(cfg, local, x_in, positions)
-    nq = q.shape[2]
-    out = _attend_seq(cfg, q, _query_kv(cfg, k, k0, q0, nq), _query_kv(cfg, v, k0, q0, nq),
-                      positions, window)
-    return _rank_out(out, q0, c0, p["wo"])
-
-
 def cache_cut(cfg: ModelConfig, tp) -> Tuple[slice, slice]:
     """This rank's slices of the KV-head and ``hd`` dims of the k/v cache:
     ``dist.sharding.cache_specs``' cut (KV heads when ``KV`` divides the
@@ -318,18 +321,29 @@ def cache_cut(cfg: ModelConfig, tp) -> Tuple[slice, slice]:
 
 
 class _RankProjection:
-    """Serving's attention on this rank (the module docstring): ``q`` of its
-    query heads; ``k`` and ``v`` of the KV heads its wk/wv give; ``cached``
-    their part in this rank's slice of the cache; ``read`` a cache slice of
-    whole heads turned into the k or v its query heads attend; ``out`` the
-    attention output summed over the axis.  A decode on an ``hd``-cut
-    cache goes through ``_hd_decode`` instead."""
+    """This rank's attention (the module docstring).  On whole heads ``q`` of
+    its query heads (from column ``q0``), ``k`` and ``v`` of the KV heads
+    its wk/wv give (from ``k0``); where the axis cuts inside a head
+    (``_inside_a_head``) q, k and v of every head, the products gathered
+    (``_gathered_qkv``; ``q0 = k0 = 0``).  ``cached`` their part in this
+    rank's slice of the cache; ``read`` a cache slice of whole heads turned
+    into the k or v its query heads attend, ``attended`` the same of its
+    own k or v; ``out`` the attention output of its query heads (of every
+    head: ``ModelAxis.split`` takes this rank's columns, label
+    ``attn_out_grad`` on its backward's gather) through its rows of ``wo``,
+    summed over the axis.  A decode on an ``hd``-cut cache goes through
+    ``_hd_decode``."""
 
     def __init__(self, cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, tp):
-        local, self.q0, self.c0, self.k0 = _rank_heads(cfg, p, tp, every_kv=True)
         self.cfg, self.tp, self.wo, self.dtype = cfg, tp, p["wo"], x.dtype
-        self.q, self.k, self.v = _project_qkv(cfg, local, tp.enter(x), positions)
+        self.every_head = _inside_a_head(cfg, p)
+        if self.every_head:
+            self.q0 = self.k0 = 0
+            self.q, self.k, self.v = _gathered_qkv(cfg, p, x, positions, tp)
+        else:
+            local, self.q0, self.k0 = _rank_heads(cfg, p, tp)
+            self.q, self.k, self.v = _project_qkv(cfg, local, tp.enter(x), positions)
         self.kv_cut, self.hd_cut = cache_cut(cfg, tp)
 
     def cached(self, t: torch.Tensor) -> torch.Tensor:
@@ -343,7 +357,9 @@ class _RankProjection:
         return _query_kv(self.cfg, t, self.k0, self.q0, self.q.shape[2])
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
-        return self.tp.reduce(_rank_out(o, self.q0, self.c0, self.wo), self.dtype)
+        if self.every_head:
+            o = self.tp.split(o, -1, label="attn_out_grad")
+        return self.tp.reduce(row_partial(o, self.wo), self.dtype)
 
 
 def attention_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -374,18 +390,13 @@ class _Decode(NamedTuple):
     hd_axis: object = None
 
 
-def _hd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
-               tp, sl: slice) -> _Decode:
-    """A decode step on a cache cut to ``sl`` of ``hd`` (the module
-    docstring): the products gathered, q, k and v of every head cut to the
-    slice; the rank's columns of the attention output through its rows of
-    ``wo``, summed over the axis."""
-    x_in = tp.enter(x)
-    q, k, v = _qkv_heads(cfg, p, *(tp.cat(x_in @ p[n], -1, label="qkv")
-                                   for n in ("wq", "wk", "wv")), positions)
-    c0, wo = tp.rank * p["wo"].shape[0], p["wo"]
-    return _Decode(q[..., sl], k[..., sl], v[..., sl], lambda c: c,
-                   lambda o: tp.reduce(_rank_out(o, 0, c0, wo), x.dtype), tp)
+def _hd_decode(r: _RankProjection) -> _Decode:
+    """A decode step on a cache cut to ``r.hd_cut`` of ``hd`` (the module
+    docstring): q, k and v of every head (the products gathered) cut to
+    the slice; the attention output, gathered over ``hd``, through the
+    rank's rows of ``wo``, summed over the axis."""
+    sl = r.hd_cut
+    return _Decode(r.q[..., sl], r.k[..., sl], r.v[..., sl], lambda c: c, r.out, r.tp)
 
 
 def _decode_projection(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -396,10 +407,9 @@ def _decode_projection(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if tp is None:
         q, k, v = _project_qkv(cfg, p, x, positions)
         return _Decode(q, k, v, lambda c: c, lambda o: o @ p["wo"])
-    hd_cut = cache_cut(cfg, tp)[1]
-    if hd_cut.stop - hd_cut.start != cfg.head_dim:
-        return _hd_decode(cfg, p, x, positions, tp, hd_cut)
     r = _RankProjection(cfg, p, x, positions, tp)
+    if r.hd_cut.stop - r.hd_cut.start != cfg.head_dim:
+        return _hd_decode(r)
     return _Decode(r.q, r.cached(r.k), r.cached(r.v), r.read, r.out)
 
 

@@ -30,12 +30,14 @@ loss runs the partitioned forward of Megatron's convention over the
 its placements (``attention._constrain_hd``, ``moe._constrain``).  Each
 layer's leaves are gathered over the storage axes only (``data`` under
 fsdp) just before the layer runs, inside its ``checkpoint`` when
-``cfg.remat`` is on; attention runs this rank's heads, the MLP and the
+``cfg.remat`` is on; attention runs this rank's heads (every head, on
+the gathered q, k and v products, where the axis cuts inside a head:
+``models.attention``), the MLP and the
 experts its columns of the hidden dim (or, ``moe_sharding='expert'``, its
 experts), each sublayer summed by one rank-ordered all-reduce of float32
 partials; the mamba mixer its channels of ``d_inner`` (``models.ssm``:
-``in_proj`` gathered over the axis, its one gather there; ``x_proj`` and
-``out_proj`` row-parallel, an all-reduce each); the embedding is a
+``in_proj`` kept cut, the pieces of u and z a rank needs exchanged;
+``x_proj`` and ``out_proj`` row-parallel, an all-reduce each); the embedding is a
 vocab-parallel lookup, the head and the cross-entropy vocab-parallel (each
 rank its columns, the carries combined over the axis).  The loss is the
 same scalar on every rank.  ``init_model(..., shard=)``

@@ -10,13 +10,18 @@ Lowers, under the reference's own placements (``repro.dist.sharding``'s
   parameters and x) and ``mamba_decode``;
 * hymba-1.5b's attention at full width (25 query and 5 KV heads, hd 64):
   ``attention_decode`` at one position of an ``hd``-cut cache,
-  ``attention_prefill`` and ``attention_forward``,
+  ``attention_prefill``, ``attention_forward`` and its gradient (of the
+  output's sum, w.r.t. the parameters and x),
 
 in float32, B=2, S=64, and prints each program's collective instructions
-(``.compile().as_text()``), one per line.  The reference runs on the CPU
+(``.compile().as_text()``), one per line: the kind and the result's shape,
+a tuple of shapes where one instruction carries several arrays.  The reference runs on the CPU
 only; nothing of it changes.
 
-    PYTHONPATH=src python tests/helpers/reference_collectives.py
+    PYTHONPATH=src python tests/helpers/reference_collectives.py [mixer] [attention]
+
+(both parts without an argument).  ``tests/test_torch_kept_cut.py`` runs
+the attention part and holds the port's collectives to what it prints.
 """
 import os
 import re
@@ -36,14 +41,16 @@ from repro.dist.sharding import cache_specs, named, param_specs  # noqa: E402
 from repro.models import attention as A  # noqa: E402
 from repro.models import ssm as M  # noqa: E402
 
-COLLECTIVE = re.compile(r"= (\S+) (all-gather|all-reduce|collective-permute|reduce-scatter|"
-                        r"all-to-all)(-start)?\(")
+#: an instruction's result shape (one array, or a tuple of them) and kind
+COLLECTIVE = re.compile(r"= (\([^()]*\)|\S+) (all-gather|all-reduce|collective-permute|"
+                        r"reduce-scatter|all-to-all)(-start)?\(")
 B, S = 2, 64
 
 
 def collectives(fn, *args, in_shardings):
     """The collective instructions of ``fn`` compiled for ``args``:
-    ``(kind, result shape)`` in program order."""
+    ``(kind, result shape)`` in program order (the shape as the HLO text
+    writes it, ``(f32[..], f32[..])`` for a tuple)."""
     text = jax.jit(fn, in_shardings=in_shardings).lower(*args).compile().as_text()
     return [(m.group(2), m.group(1)) for m in COLLECTIVE.finditer(text)]
 
@@ -54,13 +61,19 @@ def show(name, found):
         print(f"  {kind} {shape}")
 
 
-def main():
+def main(parts=("mixer", "attention")):
     assert jax.device_count() == 2, jax.device_count()
     auto = (jax.sharding.AxisType.Auto,) * 2
     mesh = jax.make_mesh((1, 2), ("data", "model"), axis_types=auto)
+    if "mixer" in parts:
+        mixer(mesh)
+    if "attention" in parts:
+        attention(mesh)
+
+
+def mixer(mesh):
     rep = NamedSharding(mesh, P())
     key = jax.random.key(0)
-
     cfg = get_config("falcon-mamba-7b").reduced()
     p = M.init_mamba(key, cfg, jnp.float32)
     ps = named(mesh, param_specs(cfg, p, mesh))
@@ -77,6 +90,10 @@ def main():
         show("mamba_decode", collectives(lambda p, x, s: M.mamba_decode(cfg, p, x, s), p,
                                          x[:, :1], state, in_shardings=(ps, rep, st)))
 
+
+def attention(mesh):
+    rep = NamedSharding(mesh, P())
+    key = jax.random.key(0)
     cfg = get_config("hymba-1.5b")
     p = A.init_attention(key, cfg, jnp.float32)
     ps = named(mesh, param_specs(cfg, p, mesh))
@@ -95,7 +112,9 @@ def main():
                                               x, in_shardings=(ps, rep)))
         show("attention_forward", collectives(lambda p, x: A.attention_forward(cfg, p, x), p,
                                               x, in_shardings=(ps, rep)))
+        grad = jax.grad(lambda p, x: A.attention_forward(cfg, p, x).sum(), argnums=(0, 1))
+        show("grad of attention_forward", collectives(grad, p, x, in_shardings=(ps, rep)))
 
 
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]) or ("mixer", "attention"))

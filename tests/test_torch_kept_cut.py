@@ -38,18 +38,41 @@ the reference does, and exchange activations in their place
   k, v products, the attention output and the logits, to the byte: no cache
   and no weight crosses ranks (cache-gather bytes 0), and the partial
   logits are one all-reduce a layer.
+* **Attention cut inside a head** (the training forward and prefill gather
+  the q, k and v products, not ``wq``/``wk``/``wv``): hymba-1.5b's
+  attention at full width (25/5 heads, hd 64) on model=2, B=2, S=64, from
+  the JAX ``init_attention``'s parameters: the forward, prefill and the
+  gradient of the forward's sum within rtol 1e-5 / atol 1e-5 of the JAX
+  ``attention_forward``, ``attention_prefill`` and ``jax.grad`` and within
+  ``GRAD_REL`` of one process's, each rank's cache its ``hd`` slice of the
+  reference's; the collectives, by kind and shape, those that
+  ``tests/helpers/reference_collectives.py`` reads from the reference's
+  compiled programs on a (1, 2) CPU mesh (run in a subprocess), and no
+  weight gathered or all-reduced (the bytes of every gather and all-reduce
+  accounted for by the products, the output's gradient and x's).  The
+  ``HEAD_CUT`` configs (hymba at 10/5 and 5/5 heads, qwen3-14b with one KV
+  head) on model=2 and model=4: loss and gradients against one process,
+  the gathers over ``model`` the products' and the output gradient's to
+  the byte (``torch_dist_helpers.head_cut_gathers``).
 * **Controls** that must fail: the mixer's exchange with u's and z's
   sources swapped (the served logits leave one process's and the JAX
   reference's, and the loss and gradients leave one process's); each
   rank's partial logits scaled and soft-capped before the sum, and the
   summed logits scaled by ``sqrt(hd/ms)`` (the decode's logits leave one
-  process's).
+  process's); ``ModelAxis.split`` whose backward only slices (the
+  attention's gradients leave one process's).
 The same-card exchange and its transpose are held on the card by
 ``tests/test_torch_gpu.py::test_exchange_between_ranks_on_one_card``.
 
 Alone: ``PYTHONPATH=src:tests JAX_PLATFORMS=cpu python -m pytest -q
 tests/test_torch_kept_cut.py`` (one group of 2 and one of 4 spawned ranks).
 """
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +82,7 @@ import torch
 import torch_dist_helpers as H
 from repro import compat
 from repro.configs import get_config as jget_config
+from repro.models import attention as JA
 from repro.models import transformer as JT
 from repro.serving import engine as JE
 from repro_torch.configs import get_config
@@ -103,9 +127,20 @@ def ref():
 
 
 @pytest.fixture(scope="module")
-def groups(ssm, ref, tmp_path_factory):
+def attn():
+    """hymba-1.5b's attention at full width: the JAX ``init_attention``'s
+    float32 parameters and x (B=2, S=64, a numpy draw), as numpy."""
+    cfg = jget_config("hymba-1.5b")
+    p = JA.init_attention(jax.random.key(0), cfg, jnp.float32)
+    x = np.random.default_rng(0).standard_normal((2, 64, cfg.d_model)).astype(np.float32)
+    return jax.tree.map(np.asarray, p), x
+
+
+@pytest.fixture(scope="module")
+def groups(ssm, ref, attn, tmp_path_factory):
     """world -> every rank's ``run_kept_cut``."""
-    args = ({a: r[2] for a, r in ssm.items()}, _batch(512), {k: v[1] for k, v in ref.items()})
+    args = ({a: r[2] for a, r in ssm.items()}, _batch(512), {k: v[1] for k, v in ref.items()},
+            attn)
     return {world: spawn_ranks(H.run_kept_cut, world,
                                str(tmp_path_factory.mktemp(f"kept{world}") / "init"), *args,
                                timeout=600)
@@ -352,3 +387,166 @@ def test_control_logits_scaled_or_capped_off_the_sum_fails(groups, served_one, n
         got = out[name]["logits"]
         assert not any(np.allclose(g, w, rtol=RTOL, atol=atol)
                        for g, w in zip(got, scalar["logits"]))
+
+
+# --------------------------------------------------------------------------- #
+# attention cut inside a head: the products gathered, not wq/wk/wv
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def reference_lowering():
+    """program -> the reference's collectives on a (data=1, model=2) CPU
+    mesh, ``(kind, shapes)`` in program order (one shape, or a tuple's),
+    as ``tests/helpers/reference_collectives.py attention`` prints them."""
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "JAX_PLATFORMS": "cpu"}
+    text = subprocess.run([sys.executable, str(root / "tests/helpers/reference_collectives.py"),
+                           "attention"], env=env, capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if line.startswith("  ") and name:
+            kind, shape = line.split(None, 1)
+            out[name].append((kind, tuple(tuple(int(n) for n in dims.split(",")) for dims
+                                          in re.findall(r"\[([\d,]*)\]", shape))))
+        elif line.endswith(" collectives"):
+            name = line.split(":")[0]
+            out[name] = []
+    return out
+
+
+@pytest.fixture(scope="module")
+def attention_one(attn):
+    """The port's one-process ``attention_run`` on ``attn``."""
+    return H.attention_run(get_config("hymba-1.5b"), *attn)
+
+
+def _rank_slice(name, g_whole, g_rank, rank):
+    """Of a whole gradient, the slice this rank's shard holds (wq/wk/wv its
+    columns, wo its rows, x whole)."""
+    if name in ("wq", "wk", "wv"):
+        n = g_rank.shape[1]
+        return g_whole[:, rank * n:(rank + 1) * n]
+    if name == "wo":
+        n = g_rank.shape[0]
+        return g_whole[rank * n:(rank + 1) * n]
+    return g_whole
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def test_head_cut_attention_matches_reference_and_one_process(attn, groups, attention_one):
+    """hymba-1.5b's attention at full width on model=2: the forward, prefill
+    and the gradient w.r.t. the parameters and x against the JAX package and
+    one process; each rank's k/v cache its slice of ``hd``.  A gradient's
+    atol is 1e-5 of its leaf's largest |g| (entries reach ~10: each sums
+    B·S = 128 tokens' float32 products, in another order in each
+    framework)."""
+    p_np, x_np = attn
+    cfg = jget_config("hymba-1.5b")
+    p, x = jax.tree.map(jnp.asarray, p_np), jnp.asarray(x_np)
+    want = np.asarray(JA.attention_forward(cfg, p, x))
+    want_pre, (jk, jv) = JA.attention_prefill(cfg, p, x)
+    jg = jax.grad(lambda p, x: JA.attention_forward(cfg, p, x).sum(), argnums=(0, 1))(p, x)
+    jgrads = {**jax.tree.map(np.asarray, jg[0]), "x": np.asarray(jg[1])}
+    hd = cfg.head_dim // 2
+    for rank, out in enumerate(groups[2]):
+        r = out["attention"]
+        np.testing.assert_allclose(r["forward"], want, **TOL)
+        np.testing.assert_allclose(r["prefill"], np.asarray(want_pre), **TOL)
+        np.testing.assert_allclose(r["forward"], attention_one["forward"], rtol=RTOL, atol=1e-5)
+        for got, whole in ((r["k"], jk), (r["v"], jv)):
+            np.testing.assert_allclose(got, np.asarray(whole)[..., rank * hd:(rank + 1) * hd],
+                                       **TOL)
+        assert set(r["grads"]) == set(jgrads)
+        for name, g in r["grads"].items():
+            want_g = _rank_slice(name, jgrads[name], g, rank)
+            np.testing.assert_allclose(g, want_g, rtol=TOL["rtol"],
+                                       atol=TOL["atol"] * float(np.abs(want_g).max()),
+                                       err_msg=name)
+            one = _rank_slice(name, attention_one["grads"][name], g, rank)
+            assert _rel(g, one) <= GRAD_REL, name
+
+
+def _multiset(found):
+    return sorted((kind, shapes if isinstance(shapes[0], tuple) else (shapes,))
+                  for kind, shapes in found)
+
+
+def test_head_cut_attention_collectives_are_the_references(groups, reference_lowering):
+    """By kind and shape: the forward's and the prefill's collectives are the
+    reference's (the q, k and v products gathered, the ``wo`` all-reduce);
+    the gradient's are the reference's gradient program's, where two
+    differences are by design: the port's eager forward keeps its ``wo``
+    all-reduce (the reference's compiler drops it, since the gradient does
+    not read the output), and x's gradient is one all-reduce of the sum of
+    the three products' transposes where the reference all-reduces the three
+    as one tuple."""
+    ref = reference_lowering
+    x_shape = (2, 64, 1600)
+    grad_ref = [c for c in ref["grad of attention_forward"] if c[0] != "all-reduce"]
+    tuple_reduce = [c for c in ref["grad of attention_forward"] if c[0] == "all-reduce"]
+    assert tuple_reduce == [("all-reduce", (x_shape,) * 3)]
+    for out in groups[2]:
+        r = out["attention"]
+        assert _multiset(r["forward_collectives"]) == _multiset(ref["attention_forward"])
+        assert _multiset(r["prefill_collectives"]) == _multiset(ref["attention_prefill"])
+        fwd = r["grad_forward_collectives"]
+        assert _multiset(fwd) == _multiset(ref["attention_forward"])
+        gathers = [c for c in fwd + r["backward_collectives"] if c[0] == "all-gather"]
+        assert _multiset(gathers) == _multiset(grad_ref)
+        assert [c for c in r["backward_collectives"] if c[0] == "all-reduce"] == [
+            ("all-reduce", x_shape)]
+
+
+def test_head_cut_attention_gathers_and_all_reduces_no_weight(attn, groups):
+    """Every byte gathered over ``model`` is the products' (``qkv``) or the
+    output gradient's (``attn_out_grad``), and every byte all-reduced is
+    the ``wo`` partials' or x's gradient's: no weight and no weight
+    gradient crosses ranks."""
+    cfg = get_config("hymba-1.5b")
+    B, S, D = attn[1].shape
+    for out in groups[2]:
+        r = out["attention"]
+        fwd, bwd = r["grad_forward_counts"], r["backward_counts"]
+        assert fwd["labels"] == H.head_cut_gathers(cfg, B, S, layers=1)
+        assert bwd["labels"] == {"attn_out_grad": [1, B * S * cfg.n_heads * cfg.head_dim * 4]}
+        for counts in (fwd, bwd):
+            assert counts["gathers"] == {("model",): [sum(c for c, _ in counts["labels"].values()),
+                                                      sum(b for _, b in counts["labels"].values())]}
+            assert counts["reduces"] == {("model",): [1, B * S * D * 4]}
+            assert counts["exchanges"] == {}
+        # activations (B, S, ...) all: a weight is (D, ...) or (..., D)
+        assert all(s[:2] == (B, S) for _, s in r["forward_collectives"] + r["prefill_collectives"]
+                   + r["grad_forward_collectives"] + r["backward_collectives"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", list(H.HEAD_CUT))
+def test_head_cut_training_matches_one_process_gathering_products(groups, case, world):
+    """The ``HEAD_CUT`` configs' loss and every gradient against one process
+    on model=``world``; the gathers over ``model`` are the products' in the
+    forward and its recompute under ``remat`` and the output gradient's in
+    the backward, to the byte, and nothing else."""
+    cfg = H.head_cut_config(case)
+    want = H.head_cut_gathers(cfg, 4, 16, forwards=1 + cfg.remat, backwards=1)
+    for out in groups[world]:
+        r = out[f"1x{world}", case, "grads"]
+        np.testing.assert_allclose(r["loss"], r["loss1"], rtol=1e-6)
+        assert max(r["grad_rel"].values()) <= GRAD_REL, r["grad_rel"]
+        assert {k: v for k, v in r["labels"].items() if k in ("qkv", "attn_out_grad")} == want
+        assert r["gathers"] == {("model",): [sum(c for c, _ in want.values()),
+                                             sum(b for _, b in want.values())]}
+
+
+def test_control_split_backward_only_slicing_fails(groups, attention_one):
+    """``ModelAxis.split`` whose backward only slices: each rank's attention
+    backward sees its columns of the output gradient alone, and the
+    gradients of wq, wk, wv and x leave one process's."""
+    for rank, out in enumerate(groups[2]):
+        good, bad = out["attention"], out["split-only-slices"]
+        np.testing.assert_array_equal(bad["forward"], good["forward"])
+        for name in ("wq", "wk", "wv", "x"):
+            one = _rank_slice(name, attention_one["grads"][name], bad["grads"][name], rank)
+            assert _rel(bad["grads"][name], one) > GRAD_REL, name

@@ -28,7 +28,8 @@ every rank, or a token could go to different experts on two ranks.
   a rank while one process streams (300), its loss and every gradient,
   the tied embedding's rows too, against the one-process ones.  A KV = 1
   config (``wk``/``wv`` cut inside their one head): loss and gradients
-  against one process, their gathers counted over ``model``.
+  against one process, the q, k and v products and the attention output's
+  gradient gathered over ``model`` (no weight), calls and bytes.
 * 4 ranks: qwen3-moe reduced under fsdp on (data=2, model=2), one worker: a
   ZO and an FO step within 2e-5 of the reference's m=1 steps and within
   rtol 1e-6 / 2% of the update of the one-process ones, the expert ids of
@@ -170,13 +171,18 @@ def test_vocab_parallel_ce_and_tied_embedding_match_one_process(two, chunk):
 
 
 def test_a_kv_cut_inside_a_head_is_gathered_and_matches(two):
-    cfg = get_config("qwen3-14b").reduced()
+    cfg = get_config("qwen3-14b").reduced().with_(n_kv_heads=1)
+    # the q, k and v products gathered a layer, in the forward and in its
+    # recompute, and the attention output's gradient in the backward; no
+    # weight: every gathered byte is a product's or that gradient's
+    want = H.head_cut_gathers(cfg, 4, 16, forwards=2, backwards=1)
     for out in two:
         r = out["kv1"]
         np.testing.assert_allclose(r["loss"], r["loss1"], rtol=1e-6)
         assert max(r["grad_rel"].values()) <= GRAD_REL, r["grad_rel"]
-        # wk and wv gathered per layer, in the forward and in its recompute
-        assert r["gathers"][("model",)][0] == 2 * 2 * cfg.n_layers
+        assert r["labels"] == want
+        assert r["gathers"] == {("model",): [7 * cfg.n_layers,
+                                             sum(b for _, b in want.values())]}
 
 
 def test_control_without_the_mlp_all_reduce_fails(two):

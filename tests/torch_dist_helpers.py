@@ -813,15 +813,23 @@ def hd_cut(cfg, world) -> bool:
     return cfg.has_attention and bool(cfg.n_kv_heads % world) and not cfg.head_dim % world
 
 
+def inside_a_head(cfg, world) -> bool:
+    """Whether model=``world`` cuts attention's ``wq`` or ``wk``/``wv`` inside
+    a head (the columns of ``H`` or ``KV`` heads divide the axis, the heads
+    do not)."""
+    hd = cfg.head_dim
+    return cfg.has_attention and any(n * hd % world == 0 and (n * hd // world) % hd
+                                     for n in (cfg.n_heads, cfg.n_kv_heads))
+
+
 def serve_collectives(cfg, kind, world):
     """(gathers, exchanges, all-reduces) over ``model`` of one prefill
     (``kind`` = "prefill") or decode step on (data=1, model=``world``), the
     hand count of the partitioned layers.  A layer: attention's all-reduce;
-    at decode on an ``hd``-cut cache (``hd_cut``) the q, k and v products
-    and the attention output gathered and the partial logits all-reduced,
-    no weight and no cache gathered; otherwise, where ``KV`` does not divide
-    the axis, its ``wk`` and ``wv`` gathered, and ``wq`` too when its cut
-    falls inside a head.  The mamba mixer's exchange of u and z and its two
+    where the axis cuts inside a head (``inside_a_head``) the q, k and v
+    products gathered, no weight; at decode on an ``hd``-cut cache
+    (``hd_cut``) also the attention output gathered and the partial logits
+    all-reduced, no cache gathered.  The mamba mixer's exchange of u and z and its two
     all-reduces (``x_proj``, ``out_proj``), on the plain path's prefill
     once more each for the recomputed tail state (u alone).  The MLP's or
     experts' all-reduce.  Then the embedding's all-reduce and the logits'
@@ -831,12 +839,10 @@ def serve_collectives(cfg, kind, world):
     for _ in range(cfg.n_layers):
         if cfg.has_attention:
             reduces += 1
+            gathers += 3 * inside_a_head(cfg, world)
             if kind == "decode" and hd_cut(cfg, world):
-                gathers += 4
+                gathers += 1
                 reduces += 1
-            else:
-                gathers += 2 * bool(cfg.n_kv_heads % world)
-                gathers += bool((cfg.n_heads * cfg.head_dim // world) % cfg.head_dim)
         if cfg.has_ssm:
             exchanges += 1 + plain_tail
             reduces += 2 + plain_tail
@@ -850,8 +856,9 @@ def serve_collective_bytes(cfg, kind, world, rank, rows, seq, dtype_bytes=4):
     decode, over a cache of ``seq`` positions): ``mixer_uz`` (the pieces the
     rank receives of u's and z's ``k = di/ms`` columns of its channels, its
     own excepted; the recomputed tail's u alone), ``logits`` (the whole
-    vocabulary) and, at decode on an ``hd``-cut cache, ``qkv`` (``B·H·hd``
-    and twice ``B·KV·hd``), ``partial_logits`` (``B·H·S`` float32) and
+    vocabulary), where the axis cuts inside a head ``qkv`` (``B·S·H·hd``
+    and twice ``B·S·KV·hd``, ``S`` = 1 at decode) and, at decode on an
+    ``hd``-cut cache, ``partial_logits`` (``B·H·S`` float32) and
     ``attn_out`` (``B·H·hd`` float32)."""
     from repro_torch.models.ssm import uz_plan
 
@@ -864,8 +871,9 @@ def serve_collective_bytes(cfg, kind, world, rank, rows, seq, dtype_bytes=4):
         pieces = sum(sum(src != rank for src, _, _ in uz_plan(world, k, parts)[rank])
                      for parts in ("uz", "u")[:1 + tail])
         out["mixer_uz"] = [L * (1 + tail), L * pieces * tokens * k * dtype_bytes]
+    if inside_a_head(cfg, world):
+        out["qkv"] = [3 * L, L * tokens * (H + 2 * KV) * hd * dtype_bytes]
     if kind == "decode" and hd_cut(cfg, world):
-        out["qkv"] = [3 * L, L * rows * (H + 2 * KV) * hd * dtype_bytes]
         out["partial_logits"] = [L, L * rows * H * seq * 4]
         out["attn_out"] = [L, L * rows * H * hd * 4]
     return out
@@ -889,13 +897,18 @@ def without_attention_reduce():
     (each rank keeps its own partial of ``wo``) while the context is open."""
     import contextlib
 
+    from repro_torch.dist.sharding import row_partial
     from repro_torch.models import attention
+
+    def out(self, o):
+        if self.every_head:
+            o = self.tp.split(o, -1)
+        return row_partial(o, self.wo).to(self.dtype)
 
     @contextlib.contextmanager
     def patched():
         real = attention._RankProjection.out
-        attention._RankProjection.out = (
-            lambda self, o: attention._rank_out(o, self.q0, self.c0, self.wo).to(self.dtype))
+        attention._RankProjection.out = out
         try:
             yield
         finally:
@@ -1276,15 +1289,143 @@ def slice_scaled():
     return _hd_logits(mutate)
 
 
-def run_kept_cut(rank, world, ssm_np, batch, serve_np):
+#: the training configs whose ``model`` cut falls inside a head, by name:
+#: hymba-1.5b reduced at 10/5 heads (``wk``/``wv`` cut inside a head on
+#: model=2, ``wq`` too on model=4), at 5/5 (``wq`` cut inside a head) and
+#: qwen3-14b reduced with one KV head (``wq`` on whole heads, ``wk``/``wv``
+#: inside one)
+HEAD_CUT = {"hymba-hd": ("hymba-1.5b", {"n_heads": 10, "n_kv_heads": 5}),
+            "hymba-odd": ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5}),
+            "kv1": ("qwen3-14b", {"n_kv_heads": 1})}
+
+
+def head_cut_config(case):
+    from repro_torch.configs import get_config
+
+    arch, kw = HEAD_CUT[case]
+    return get_config(arch).reduced().with_(**kw)
+
+
+def head_cut_gathers(cfg, rows, seq, forwards=1, backwards=0, dtype_bytes=4, layers=None):
+    """The gathers over ``model`` of ``forwards`` forwards and ``backwards``
+    backwards of ``layers`` (default all) attention layers that the axis
+    cuts inside a head, label -> [calls, bytes]: a layer's forward gathers
+    the q, k and v products (``B·S·H·hd`` and twice ``B·S·KV·hd`` elements,
+    ``qkv``), its backward the attention output's gradient (``B·S·H·hd``,
+    ``attn_out_grad``)."""
+    L, H, KV, hd = layers or cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tokens = rows * seq
+    out = {"qkv": [3 * L * forwards, L * forwards * tokens * (H + 2 * KV) * hd * dtype_bytes]}
+    if backwards:
+        out["attn_out_grad"] = [L * backwards, L * backwards * tokens * H * hd * dtype_bytes]
+    return out
+
+
+def recorded_collectives():
+    """A context that records ``(kind, shape)`` of every all-gather (its
+    result) and all-reduce (its operand) over the group, in call order,
+    into the list it yields."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patched():
+        seen, gather, reduce = [], coll.gather_cat, coll.all_reduce_sum
+
+        def gather_cat(x, axes, **kw):
+            out = gather(x, axes, **kw)
+            seen.append(("all-gather", tuple(out.shape)))
+            return out
+
+        def all_reduce_sum(x, axes, **kw):
+            seen.append(("all-reduce", tuple(x.shape)))
+            return reduce(x, axes, **kw)
+
+        coll.gather_cat, coll.all_reduce_sum = gather_cat, all_reduce_sum
+        try:
+            yield seen
+        finally:
+            coll.gather_cat, coll.all_reduce_sum = gather, reduce
+
+    return patched()
+
+
+def split_only_slices():
+    """A failing control: ``ModelAxis.split`` whose backward only slices
+    (``narrow``: the gradient of this rank's columns, zeros elsewhere, no
+    gather), while the context is open."""
+    import contextlib
+
+    from repro_torch.dist.sharding import ModelAxis
+
+    @contextlib.contextmanager
+    def patched():
+        real = ModelAxis.split
+
+        def split(self, x, dim, label=None):
+            n = x.shape[dim] // self.size
+            return x.narrow(dim, self.rank * n, n)
+
+        ModelAxis.split = split
+        try:
+            yield
+        finally:
+            ModelAxis.split = real
+
+    return patched()
+
+
+def attention_run(cfg, p_np, x_np, mesh=None):
+    """hymba-1.5b's attention on ``x_np`` from the whole parameters ``p_np``
+    (numpy), in one process or, with ``mesh``, on this rank's shards
+    partitioned over its ``model`` axis: ``attention_forward``,
+    ``attention_prefill`` (output and cache) and the gradient of the
+    forward's sum w.r.t. the parameters (this rank's shards) and x, with the
+    collectives of each (``recorded_collectives``; the gradient's forward
+    and backward apart) and the counts of the gradient's forward and
+    backward (``_counts``)."""
+    from repro_torch.dist.sharding import ModelAxis, param_specs, shard_tree
+    from repro_torch.models import attention as A
+
+    p = {k: torch.from_numpy(v.copy()) for k, v in p_np.items()}
+    tp = None
+    if mesh is not None:
+        p = shard_tree(p, param_specs(cfg, {"attn": p}, mesh)["attn"], mesh)
+        tp = ModelAxis(mesh)
+    x = torch.from_numpy(x_np)
+    out = {}
+    with torch.no_grad(), recorded_collectives() as seen:
+        out["forward"] = A.attention_forward(cfg, p, x, tp=tp).numpy()
+    out["forward_collectives"] = seen
+    with torch.no_grad(), recorded_collectives() as seen:
+        y, (k, v) = A.attention_prefill(cfg, p, x, tp=tp)
+    out.update(prefill=y.numpy(), k=k.numpy(), v=v.numpy(), prefill_collectives=seen)
+    pg = {n: t.clone().requires_grad_(True) for n, t in p.items()}
+    xg = x.clone().requires_grad_(True)
+    coll.reset_gathers()
+    with recorded_collectives() as seen:
+        y = A.attention_forward(cfg, pg, xg, tp=tp)
+    out["grad_forward_collectives"], out["grad_forward_counts"] = seen, _counts()
+    coll.reset_gathers()
+    with recorded_collectives() as seen:
+        grads = torch.autograd.grad(y.sum(), [*pg.values(), xg])
+    out["backward_collectives"], out["backward_counts"] = seen, _counts()
+    out["grads"] = {n: g.numpy() for n, g in zip([*pg, "x"], grads)}
+    return out
+
+
+def run_kept_cut(rank, world, ssm_np, batch, serve_np, attn_np):
     """Per mesh of ``KEPT_MESHES[world]``: the exchanges (``run_exchange``;
     (data=1) meshes only); the SSM archs' loss and gradients against one
     process (``partitioned_case``) and, on (data=1, model=4), their FO and
-    ZO steps (``ssm_steps``, m=2); on (data=1) meshes the serving cases
-    ``KEPT_MIXER`` and ``KEPT_HD`` from the reference's parameters
-    (``serve_run``, and ``scalar_run`` for the hd-cut ones).  On model=2
-    the controls: ``uz_swapped`` (falcon-mamba served, and hymba's loss),
-    ``softcap_before_sum`` (hymba-hd-cap) and ``slice_scaled`` (hymba-hd)."""
+    ZO steps (``ssm_steps``, m=2); on (data=1) meshes the ``HEAD_CUT``
+    configs' loss and gradients against one process (``partitioned_case``)
+    and the serving cases ``KEPT_MIXER`` and ``KEPT_HD`` from the
+    reference's parameters (``serve_run``, and ``scalar_run`` for the
+    hd-cut ones).  On model=2 hymba-1.5b's attention at full width on
+    ``attn_np`` = (parameters, x) (``attention_run``) and the controls:
+    ``uz_swapped`` (falcon-mamba served, and hymba's loss),
+    ``softcap_before_sum`` (hymba-hd-cap), ``slice_scaled`` (hymba-hd) and
+    ``split_only_slices`` (the full-width attention's gradient)."""
     from repro_torch.configs import get_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.dist.sharding import ShardedParams, param_specs, shard_tree
@@ -1305,6 +1446,15 @@ def run_kept_cut(rank, world, ssm_np, batch, serve_np):
         if data != 1:
             continue
         out[key, "exchange"] = run_exchange(mesh, world, rank)
+        for case in HEAD_CUT:
+            cfg = head_cut_config(case)
+            out[key, case, "grads"] = partitioned_case(
+                cfg, mesh, T.init_model(5, cfg, device="cpu"), _tokens(cfg.vocab_size))
+        if model == 2:
+            acfg = get_config("hymba-1.5b")
+            out["attention"] = attention_run(acfg, *attn_np, mesh)
+            with split_only_slices():
+                out["split-only-slices"] = attention_run(acfg, *attn_np, mesh)
         served = {}
         for case in KEPT_MIXER + KEPT_HD:
             cfg = serve_config(case)
