@@ -93,6 +93,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import directions as D
 from repro_torch.core import rounds
 from repro_torch.core.ho_sgd import (
@@ -221,16 +222,19 @@ def lower_fo_round(
 
     def grad_of(params, batch):
         if grad_accum <= 1:
-            return value_and_grad(loss_fn, params, batch)
+            with obs.span("fo.microbatch", i=0):
+                return value_and_grad(loss_fn, params, batch)
         mb = tree_map(lambda x: x.reshape(x.shape[0] // grad_accum, grad_accum,
                                           *x.shape[1:]).transpose(0, 1), batch)
         g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device),
                          params)
         l_acc = torch.zeros((), dtype=_F32, device=_device_of(params))
         for i in range(grad_accum):
-            loss, g = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], mb))
-            g_acc = tree_map(lambda a, gg: a + gg.to(_F32), g_acc, g)
-            l_acc = l_acc + loss
+            with obs.span("fo.microbatch", i=i):
+                loss, g = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], mb))
+                with obs.span("fo.accumulate"):
+                    g_acc = tree_map(lambda a, gg: a + gg.to(_F32), g_acc, g)
+                    l_acc = l_acc + loss
         return l_acc / grad_accum, tree_map(lambda g: g / grad_accum, g_acc)
 
     def wire_of(geom, nb):
@@ -245,53 +249,60 @@ def lower_fo_round(
             key_t, stacked = D.fold(seed, t), _split(batch, m)
             losses, dec, wire = [], [], 0
             for w in range(m):
-                loss, g = value_and_grad(loss_fn, params, tree_map(lambda x: x[w], stacked))
-                d_w, nb = compress_tree(compressor, g, D.fold(key_t, w))
+                with obs.span("fo.microbatch", i=w):
+                    loss, g = value_and_grad(loss_fn, params,
+                                             tree_map(lambda x: x[w], stacked))
+                with obs.span("fo.exchange", kind="comm.exposed"):
+                    d_w, nb = compress_tree(compressor, g, D.fold(key_t, w))
                 losses.append(loss)
                 dec.append(d_w)
                 wire = wire_of(geom, nb) * m
-            grads = tree_map(lambda *xs: torch.mean(torch.stack(
-                [x.to(_F32) for x in xs]), 0).to(xs[0].dtype), *dec)
-            coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
+            with obs.span("fo.exchange", kind="comm.exposed"):
+                grads = tree_map(lambda *xs: torch.mean(torch.stack(
+                    [x.to(_F32) for x in xs]), 0).to(xs[0].dtype), *dec)
+                coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
             return torch.mean(torch.stack(losses)), grads
         loss, grads = grad_of(params, batch)
-        if compressor is not None:
-            grads, wire = compress_tree(compressor, grads, D.fold(seed, t))
-            coll.note_all_reduce(grads, nbytes=wire_of(geom, wire), tag=compressor.name)
-        else:
-            coll.note_all_reduce(grads, tag="grads", nbytes=None if geom is None
-                                 else geom.global_nbytes(grads))
+        with obs.span("fo.exchange", kind="comm.exposed"):
+            if compressor is not None:
+                grads, wire = compress_tree(compressor, grads, D.fold(seed, t))
+                coll.note_all_reduce(grads, nbytes=wire_of(geom, wire), tag=compressor.name)
+            else:
+                coll.note_all_reduce(grads, tag="grads", nbytes=None if geom is None
+                                     else geom.global_nbytes(grads))
         return loss, grads
 
     def rank_per_worker(t, params, batch):
         geom = geometry_of(params)
         loss, grads = grad_of(params, batch)
-        loss = coll.pmean(loss, wa, mesh=mesh, tag="loss", payload=False)
-        if compressor is None:
-            return loss, coll.pmean(grads, wa, mesh=mesh, tag="grads", nbytes=None
-                                    if geom is None else geom.global_nbytes(grads))
-        if per_worker:
-            dec, nb = compress_tree(compressor, grads,
-                                    D.fold(D.fold(seed, t), worker_index(mesh)))
-            grads = coll.pmean(dec, wa, mesh=mesh, tag="decoded", payload=False)
-            wire = wire_of(geom, nb) * m
-        else:
-            grads = coll.pmean(grads, wa, mesh=mesh, tag="decoded", payload=False)
-            grads, wire = compress_tree(compressor, grads, D.fold(seed, t))
-            wire = wire_of(geom, wire)
-        coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
-        return loss, grads
+        with obs.span("fo.exchange", kind="comm.exposed"):
+            loss = coll.pmean(loss, wa, mesh=mesh, tag="loss", payload=False)
+            if compressor is None:
+                return loss, coll.pmean(grads, wa, mesh=mesh, tag="grads", nbytes=None
+                                        if geom is None else geom.global_nbytes(grads))
+            if per_worker:
+                dec, nb = compress_tree(compressor, grads,
+                                        D.fold(D.fold(seed, t), worker_index(mesh)))
+                grads = coll.pmean(dec, wa, mesh=mesh, tag="decoded", payload=False)
+                wire = wire_of(geom, nb) * m
+            else:
+                grads = coll.pmean(grads, wa, mesh=mesh, tag="decoded", payload=False)
+                grads, wire = compress_tree(compressor, grads, D.fold(seed, t))
+                wire = wire_of(geom, wire)
+            coll.note_all_reduce(grads, nbytes=wire, tag=compressor.name)
+            return loss, grads
 
     def fo_step(t, params, opt_state, batch):
-        batch = to_device(batch, _device_of(params))
-        if ranks == 1 or (whole_batch and not per_worker):
-            loss, grads = one_process(t, params, batch)
-        else:
-            loss, grads = rank_per_worker(t, params, worker_rows(batch, mesh)
-                                          if whole_batch else batch)
-        with torch.no_grad():
-            deltas, opt_state = opt.update(grads, opt_state, params, t)
-            return apply_deltas(params, deltas), opt_state, loss
+        with obs.span("fo.step", t=t):
+            batch = to_device(batch, _device_of(params))
+            if ranks == 1 or (whole_batch and not per_worker):
+                loss, grads = one_process(t, params, batch)
+            else:
+                loss, grads = rank_per_worker(t, params, worker_rows(batch, mesh)
+                                              if whole_batch else batch)
+            with torch.no_grad(), obs.span("fo.update"):
+                deltas, opt_state = opt.update(grads, opt_state, params, t)
+                return apply_deltas(params, deltas), opt_state, loss
 
     return fo_step
 
@@ -347,11 +358,13 @@ def lower_zo_round(
         all-gathered, every direction rebuilt here."""
         eng = engine_for(params)
         c, f0 = eng.zo_coeff(loss_fn, params, batch, t, worker_index(mesh), ho.mu)
-        cs = coll.all_gather(c, wa, mesh=mesh, tag="zo_coeffs").reshape(-1)
+        with obs.span("zo.exchange", kind="comm.exposed"):
+            cs = coll.all_gather(c, wa, mesh=mesh, tag="zo_coeffs").reshape(-1)
         g_hat = zo_estimate(eng, cs, t, ho.zo_scale)
         # averaging the monitoring loss is diagnostics, not Algorithm 1's
         # communication: booked as non-payload so the bytes stay 4*m
-        loss = coll.pmean(f0, wa, mesh=mesh, tag="loss", payload=False)
+        with obs.span("zo.exchange", kind="comm.exposed"):
+            loss = coll.pmean(f0, wa, mesh=mesh, tag="loss", payload=False)
         return g_hat, loss
 
     def zo_single(t, params, batch):
@@ -359,7 +372,8 @@ def lower_zo_round(
         as 4 bytes; every rank of the mesh holds the whole batch."""
         eng = engine_for(params)
         c, f0 = eng.zo_coeff(loss_fn, params, batch, t, 0, ho.mu)
-        cs = coll.note("all_gather", c.reshape(1), tag="zo_coeffs")
+        with obs.span("zo.exchange", kind="comm.exposed"):
+            cs = coll.note("all_gather", c.reshape(1), tag="zo_coeffs")
         return zo_estimate(eng, cs, t, ho.zo_scale), f0
 
     def booked(cs, loss):
@@ -377,23 +391,25 @@ def lower_zo_round(
 
     @torch.no_grad()
     def zo_step(t, params, opt_state, batch):
-        batch = to_device(batch, _device_of(params))
-        if not wa:
-            g_hat, loss = zo_single(t, params, batch)
-        elif ranks == 1:
-            eng = engine_for(params)
-            if fused_flat:
-                return fused_flat_zo_round(eng, loss_fn, opt, t, params, opt_state,
-                                           _split(batch, m), workers, ho.mu, ho.zo_scale,
-                                           exchange=booked)
-            g_hat, loss = zo_round_estimate(eng, loss_fn, params, _split(batch, m), t,
-                                            workers, ho.mu, ho.zo_scale, exchange=booked,
-                                            vmap_workers=vmap_workers)
-        else:
-            g_hat, loss = zo_inner(t, params, worker_rows(batch, mesh) if whole_batch
-                                   else batch)
-        deltas, opt_state = opt.update(g_hat, opt_state, params, t)
-        return apply_deltas(params, deltas), opt_state, loss
+        with obs.span("zo.step", t=t):
+            batch = to_device(batch, _device_of(params))
+            if not wa:
+                g_hat, loss = zo_single(t, params, batch)
+            elif ranks == 1:
+                eng = engine_for(params)
+                if fused_flat:
+                    return fused_flat_zo_round(eng, loss_fn, opt, t, params, opt_state,
+                                               _split(batch, m), workers, ho.mu,
+                                               ho.zo_scale, exchange=booked)
+                g_hat, loss = zo_round_estimate(eng, loss_fn, params, _split(batch, m), t,
+                                                workers, ho.mu, ho.zo_scale,
+                                                exchange=booked, vmap_workers=vmap_workers)
+            else:
+                g_hat, loss = zo_inner(t, params, worker_rows(batch, mesh) if whole_batch
+                                       else batch)
+            with obs.span("zo.update"):
+                deltas, opt_state = opt.update(g_hat, opt_state, params, t)
+                return apply_deltas(params, deltas), opt_state, loss
 
     return zo_step
 

@@ -64,6 +64,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import directions as D
 from repro_torch.device import host_to_device
 from repro_torch.dist.sharding import ShardGeometry
@@ -157,8 +158,12 @@ class DirectionEngine:
             for w in workers])
         return self.geometry.reduce_sums(partials)
 
-    def inv_norm(self, t, worker) -> torch.Tensor:
-        return torch.rsqrt(self.sumsq(t, worker) + 1e-30)
+    def inv_norm(self, t, worker, caller: str = "coeff") -> torch.Tensor:
+        """``rsqrt(sumsq + 1e-30)``; ``caller`` names who asks in the trace
+        (``coeff``: ``zo_coeff``; ``reconstruct``: ``_inv_norms``)."""
+        with obs.span("engine.sumsq", caller=caller):
+            obs.count("engine.sumsq")
+            return torch.rsqrt(self.sumsq(t, worker) + 1e-30)
 
     # ---- primitive 2: perturb ------------------------------------------- #
     def perturb(self, params: Any, t, worker, scale) -> Any:
@@ -171,8 +176,12 @@ class DirectionEngine:
                  mu: float) -> Tuple[torch.Tensor, torch.Tensor]:
         """Two function evaluations -> (c, f0), c = (d/mu)*[F(x+mu*v) - F(x)]."""
         inv = self.inv_norm(t, worker)
-        f0 = loss_fn(params, batch)
-        f1 = loss_fn(self.perturb(params, t, worker, mu * inv), batch)
+        with obs.span("zo.loss", point=0, worker=worker):
+            f0 = loss_fn(params, batch)
+        with obs.span("engine.perturb"):
+            x1 = self.perturb(params, t, worker, mu * inv)
+        with obs.span("zo.loss", point=1, worker=worker):
+            f1 = loss_fn(x1, batch)
         return ((self.dim / mu) * (f1 - f0)).to(_F32), f0
 
     def zo_coeffs(self, loss_fn: Callable, params: Any, batches: Any, t,
@@ -198,10 +207,11 @@ class DirectionEngine:
         each leaf, rounded once (equal within accumulation order)."""
         m = int(coeffs.shape[0])
         workers = list(range(m)) if workers is None else [int(w) for w in workers]
-        coeffs = coeffs.to(device=self.device, dtype=_F32)
-        if vmap_workers:
-            return self._reconstruct_vmapped(coeffs, t, workers)
-        return self._reconstruct(coeffs, t, workers)
+        with obs.span("engine.reconstruct"):
+            coeffs = coeffs.to(device=self.device, dtype=_F32)
+            if vmap_workers:
+                return self._reconstruct_vmapped(coeffs, t, workers)
+            return self._reconstruct(coeffs, t, workers)
 
     def _reconstruct(self, coeffs, t, workers) -> Any:
         raise NotImplementedError
@@ -209,8 +219,10 @@ class DirectionEngine:
     def _inv_norms(self, t, workers) -> torch.Tensor:
         """``(m,)`` inv_norm of each worker (one collective when sharded)."""
         if self.geometry is not None:
-            return torch.rsqrt(self.sumsq_many(t, workers) + 1e-30)
-        return torch.stack([self.inv_norm(t, w) for w in workers])
+            with obs.span("engine.sumsq", caller="reconstruct"):
+                obs.count("engine.sumsq", len(workers))
+                return torch.rsqrt(self.sumsq_many(t, workers) + 1e-30)
+        return torch.stack([self.inv_norm(t, w, caller="reconstruct") for w in workers])
 
     def _prescaled(self, coeffs, t, workers) -> torch.Tensor:
         """``coeffs[w] * inv_norm_w``: what the kernels take per worker."""
@@ -394,28 +406,30 @@ class FlatEngine(DirectionEngine):
     # ---- packed-buffer layout ------------------------------------------- #
     def pack(self, tree: Any) -> torch.Tensor:
         """Tree -> fresh (padded_dim,) contiguous float32 buffer."""
-        parts = []
-        for i, x in enumerate(tree_leaves(tree)):
-            runs, n, padded = self._row[i]
-            flat = x.to(_F32).reshape(runs, -1)
-            pad = padded - flat.shape[1]
-            parts.append((torch.nn.functional.pad(flat, (0, pad)) if pad else flat)
-                         .reshape(-1))
-        return torch.cat(parts)
+        with obs.span("engine.pack"):
+            parts = []
+            for i, x in enumerate(tree_leaves(tree)):
+                runs, n, padded = self._row[i]
+                flat = x.to(_F32).reshape(runs, -1)
+                pad = padded - flat.shape[1]
+                parts.append((torch.nn.functional.pad(flat, (0, pad)) if pad else flat)
+                             .reshape(-1))
+            return torch.cat(parts)
 
     def unpack(self, buf: torch.Tensor, cast: bool = True) -> Any:
         """(padded_dim,) buffer -> tree of views; ``cast`` restores leaf
         dtypes (False keeps float32 leaves — update/momentum trees)."""
-        outs = []
-        for i, shape in enumerate(self.shapes):
-            off = self.pad_offsets[i]
-            runs, n, padded = self._row[i]
-            if runs == 1:
-                leaf = buf[off:off + self.sizes[i]].reshape(shape)
-            else:
-                leaf = buf[off:off + runs * padded].view(runs, padded)[:, :n].reshape(shape)
-            outs.append(leaf.to(self.dtypes[i]) if cast else leaf)
-        return tree_unflatten(self.treedef, outs)
+        with obs.span("engine.unpack"):
+            outs = []
+            for i, shape in enumerate(self.shapes):
+                off = self.pad_offsets[i]
+                runs, n, padded = self._row[i]
+                if runs == 1:
+                    leaf = buf[off:off + self.sizes[i]].reshape(shape)
+                else:
+                    leaf = buf[off:off + runs * padded].view(runs, padded)[:, :n].reshape(shape)
+                outs.append(leaf.to(self.dtypes[i]) if cast else leaf)
+            return tree_unflatten(self.treedef, outs)
 
     def blk_salts(self, t, worker) -> torch.Tensor:
         """(n_blocks,) uint32 — each block's leaf salt for (t, worker)."""
@@ -461,10 +475,11 @@ class FlatEngine(DirectionEngine):
 
         self._unsharded("fused_perturb_sumsq")
 
-        out, ss = ops.zo_perturb_sumsq(
-            buf, self.blk_salts(t, worker), self._blk_ctr, self._blk_nv, mu,
-            block=self.block)
-        return out, ss[0]
+        with obs.span("engine.perturb_sumsq"):
+            out, ss = ops.zo_perturb_sumsq(
+                buf, self.blk_salts(t, worker), self._blk_ctr, self._blk_nv, mu,
+                block=self.block)
+            return out, ss[0]
 
     def fused_reconstruct_update(self, buf: torch.Tensor, mom, t, workers,
                                  scaled_coeffs: torch.Tensor, lr,
@@ -476,11 +491,12 @@ class FlatEngine(DirectionEngine):
 
         self._unsharded("fused_reconstruct_update")
 
-        return ops.zo_reconstruct_update(
-            buf, mom, self.blk_salts_multi(t, workers), self._blk_ctr,
-            self._blk_nv, self._blk_bf16, scaled_coeffs.to(_F32).contiguous(),
-            lr, momentum=float(momentum), block=self.block,
-            acc_dtype=self.acc_dtype)
+        with obs.span("engine.reconstruct_update"):
+            return ops.zo_reconstruct_update(
+                buf, mom, self.blk_salts_multi(t, workers), self._blk_ctr,
+                self._blk_nv, self._blk_bf16, scaled_coeffs.to(_F32).contiguous(),
+                lr, momentum=float(momentum), block=self.block,
+                acc_dtype=self.acc_dtype)
 
 
 # --------------------------------------------------------------------------- #

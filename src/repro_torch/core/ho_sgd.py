@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import make_engine
 from repro_torch.opt.optimizers import Optimizer, apply_deltas, const_schedule, sgd
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -92,8 +93,10 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Any):
     leaves, treedef = tree_flatten(params)
     with torch.enable_grad():
         req = [x.detach().requires_grad_(True) for x in leaves]
-        loss = loss_fn(tree_unflatten(treedef, req), batch)
-        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        with obs.span("fo.forward"):
+            loss = loss_fn(tree_unflatten(treedef, req), batch)
+        with obs.span("fo.backward"):
+            grads = torch.autograd.grad(loss, req, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(treedef, grads)
 
@@ -139,7 +142,8 @@ def zo_round_estimate(eng, loss_fn: Callable, params, batch, t, workers, mu: flo
     scaled estimate.  Returns ``(g_hat, mean loss)``."""
     cs, f0s = eng.zo_coeffs(loss_fn, params, batch, t, workers, mu,
                             vmap_workers=vmap_workers)
-    cs, loss = exchange(cs, torch.mean(f0s))
+    with obs.span("zo.exchange", kind="comm.exposed"):
+        cs, loss = exchange(cs, torch.mean(f0s))
     return zo_estimate(eng, cs, t, zo_scale, vmap_workers), loss
 
 
@@ -162,13 +166,18 @@ def fused_flat_zo_round(eng, loss_fn: Callable, opt: Optimizer, t, params, opt_s
     cs, invs, f0s = [], [], []
     for j, i in enumerate(workers):
         b_i = tree_map(lambda x: x[j], batch)
-        f0 = loss_fn(params, b_i)
+        with obs.span("zo.loss", point=0, worker=i):
+            f0 = loss_fn(params, b_i)
         pbuf, ss = eng.fused_perturb_sumsq(buf, t, i, mu)
-        f1 = loss_fn(eng.unpack(pbuf), b_i)
+        x1 = eng.unpack(pbuf)
+        with obs.span("zo.loss", point=1, worker=i):
+            f1 = loss_fn(x1, b_i)
+        del x1      # as soon as the evaluation is done, as an argument would be
         cs.append(((eng.dim / mu) * (f1 - f0)).to(torch.float32))
         invs.append(torch.rsqrt(ss + 1e-30))
         f0s.append(f0)
-    cs, loss = exchange(torch.stack(cs), torch.mean(torch.stack(f0s)))
+    with obs.span("zo.exchange", kind="comm.exposed"):
+        cs, loss = exchange(torch.stack(cs), torch.mean(torch.stack(f0s)))
     scaled = cs * torch.stack(invs) * torch.tensor(zo_scale / len(workers),
                                                    dtype=torch.float32)
     lr = opt.hyper["schedule"](t)

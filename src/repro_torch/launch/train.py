@@ -42,6 +42,10 @@ What differs from the reference:
   the mamba mixer gathers its ``in_proj`` over ``model`` (``models.ssm``).
 * ``--xla-overlap`` has no counterpart (it sets ``XLA_FLAGS``, which
   PyTorch does not have) and exits with a message.
+* ``--trace`` makes its wall tracer the process's active one
+  (``repro_torch.obs.active``), so the program's own spans (``fo.step``,
+  ``fo.microbatch``, ``zo.loss``, ``engine.sumsq``, ...) nest under each
+  step's span, each with its card time (``device_ms``) on CUDA.
 
 Frontend architectures (vision, audio) exit with the reference's message:
 their batches need image embeddings or features, which the token stream
@@ -50,11 +54,13 @@ does not make.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import save as ckpt_save
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ModelConfig
@@ -134,7 +140,8 @@ def _parser() -> argparse.ArgumentParser:
                          "counterpart in the port (exits with a message)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write a wall-clock Perfetto trace: one span per "
-                         "FO/ZO step (ledger bytes attached) plus a "
+                         "FO/ZO step (ledger bytes attached), the program's "
+                         "own spans inside it (repro_torch.obs.span), plus a "
                          "cumulative received-bytes counter")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
@@ -225,10 +232,12 @@ def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
     since_fo = 0
     tracer = None
     if args.trace and lead:
-        from repro_torch.obs import Tracer
-        tracer = Tracer(clock="wall")
-    with CSVLogger(args.log if lead else None,
-                   ["step", "order", "loss", "dt", "comm_bytes"]) as logger:
+        # active for the run: the program's own spans (core, engine) nest
+        # under each step's, with the card's time of each on CUDA
+        tracer = obs.Tracer(clock="wall", device=dev.type == "cuda")
+    with (obs.active(tracer) if tracer is not None else contextlib.nullcontext()), \
+            CSVLogger(args.log if lead else None,
+                      ["step", "order", "loss", "dt", "comm_bytes"]) as logger:
         t_prev = time.perf_counter()
         batches = shard_batches(host, mesh, whole=takes_whole_batch(cfg))
         for t, batch in zip(range(args.steps), batches):
@@ -265,8 +274,8 @@ def _train(args, cfg: ModelConfig, dev: torch.device, n_dev: int) -> float:
                 path = _save(args.ckpt, args.steps, params, specs, mesh, geom, lead)
             say("checkpoint:", path)
     if tracer is not None:
-        from repro_torch.obs import write_trace
-        write_trace(args.trace, tracer, title=f"train:{cfg.name}")
+        tracer.resolve()
+        obs.write_trace(args.trace, tracer, title=f"train:{cfg.name}")
         say(f"wrote trace {args.trace} ({len(tracer.spans)} spans)")
     # the dense FO exchange moves gradients in the parameters' dtype (a
     # float32 accumulator with grad_accum microbatches); ZO coefficients are

@@ -69,6 +69,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -577,8 +578,9 @@ def decode_step_slots(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     shards and its slices of the caches (``init_caches(..., shards)``); the
     logits are whole on every rank.
     """
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
-    return _decode(cfg, params, tokens, pos, caches, shards)
+    with obs.span("model.decode", kind="decode"):
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        return _decode(cfg, params, tokens, pos, caches, shards)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
@@ -595,10 +597,11 @@ def prefill_at(cfg: ModelConfig, params: Params, batch: Dict, last_idx: torch.Te
     token — and the filled caches.  Causal attention keeps positions up to
     ``last_idx`` blind to the pad tail, so one bucket length serves every
     prompt that fits in it."""
-    h, caches = _prefill_hidden(cfg, params, batch, shards)
-    rows = torch.arange(h.shape[0], device=h.device)
-    h_last = h[rows, last_idx.to(device=h.device, dtype=torch.int64)][:, None, :]
-    return compute_logits(cfg, params, h_last, shards)[:, 0], caches
+    with obs.span("model.prefill", kind="prefill"):
+        h, caches = _prefill_hidden(cfg, params, batch, shards)
+        rows = torch.arange(h.shape[0], device=h.device)
+        h_last = h[rows, last_idx.to(device=h.device, dtype=torch.int64)][:, None, :]
+        return compute_logits(cfg, params, h_last, shards)[:, 0], caches
 
 
 def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
@@ -620,7 +623,8 @@ def _prefill_hidden(cfg: ModelConfig, params: Params, batch: Dict, shards=None):
         if cfg.has_ssm:
             m, state = ssm_mod.mamba_prefill(cfg, lp["mamba"], xn, axis("mamba"))
             if state is None:           # the plain path: the reference's recomputation
-                state = _mamba_tail_state(cfg, lp["mamba"], xn, axis("mamba"))
+                with obs.span("ssm.tail_state"):
+                    state = _mamba_tail_state(cfg, lp["mamba"], xn, axis("mamba"))
             layer["conv"], layer["ssm"] = state
         mix = (_fuse(cfg, lp, a, m) if cfg.arch_type == "hybrid" else
                m if cfg.has_ssm else a)

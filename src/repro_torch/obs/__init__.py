@@ -8,7 +8,9 @@ three layers (README §repro.obs):
   * ``trace``  — nestable ``Span``s on per-worker/link/slot lanes, kind
     taxonomy ``compute | comm.exposed | comm.overlapped | queue.contention
     | barrier | checkpoint | prefill | decode``, byte counters; clock modes
-    ``sim`` (deterministic, caller-supplied times) and ``wall``.
+    ``sim`` (deterministic, caller-supplied times) and ``wall``; one
+    wall tracer may be active process-wide, and the program's modules
+    record into it through ``span``/``count`` (free when none is).
   * ``export`` — Chrome/Perfetto ``trace_event`` JSON, deterministically
     serialized (same spec seed ⇒ byte-identical artifact) and
     round-trippable (``spans_from_events``).
@@ -36,8 +38,16 @@ from repro_torch.obs.report import (  # noqa: F401
 from repro_torch.obs.trace import (  # noqa: F401
     CLOCKS,
     KINDS,
+    NO_SPAN,
     Span,
     Tracer,
+    activate,
+    active,
+    count,
+    deactivate,
+    interval,
     slot_lane,
+    span,
+    tracing,
     worker_lane,
 )

@@ -9,7 +9,8 @@ Emits the JSON-object form (``{"traceEvents": [...]}``) that Perfetto and
   worker / pod link / serving slot;
 * one complete event (``ph: "X"``) per span — ``ts``/``dur`` in
   microseconds, ``cat`` = the span kind, ``args`` carrying the byte payload
-  and the source event kind;
+  and the source event kind, and, where set, the span's ``attrs``,
+  ``device_ms`` and ``counts`` (a program span's);
 * one counter event (``ph: "C"``) per counter sample (ledger bytes etc.).
 
 Serialization is deterministic: events are emitted in span order with
@@ -55,6 +56,12 @@ def trace_events(spans: Sequence[Span],
             args["src"] = s.src_kind
         if s.worker >= 0:
             args["worker"] = s.worker
+        if s.attrs:
+            args["attrs"] = s.attrs
+        if s.device_ms is not None:
+            args["device_ms"] = s.device_ms
+        if s.counts:
+            args["counts"] = s.counts
         events.append({
             "ph": "X", "pid": 1, "tid": tid[s.lane],
             "name": s.name or s.kind, "cat": s.kind,
@@ -129,10 +136,14 @@ def spans_from_events(events: Sequence[Dict]) -> List[Span]:
             continue
         args = ev.get("args", {})
         t0 = ev["ts"] / _S_TO_US
-        spans.append(Span(
+        span = Span(
             kind=ev["cat"], lane=lane_of[ev["tid"]],
             t0=t0, t1=t0 + ev["dur"] / _S_TO_US,
             name=ev["name"], nbytes=int(args.get("nbytes", 0)),
             worker=int(args.get("worker", -1)),
-            src_kind=args.get("src")))
+            src_kind=args.get("src"))
+        for extra in ("attrs", "device_ms", "counts"):
+            if extra in args:
+                setattr(span, extra, args[extra])
+        spans.append(span)
     return spans

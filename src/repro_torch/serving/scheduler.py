@@ -26,6 +26,7 @@ and the same bits on every rank, so every rank samples the same tokens.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Set, Tuple
@@ -33,9 +34,11 @@ from typing import Callable, Deque, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.directions import fold
 from repro_torch.models import transformer as T
+from repro_torch.models.ssm import kernel_path
 from repro_torch.serving.cache import SlotKVCache
 
 
@@ -73,6 +76,7 @@ class Request:
     out: List[int] = field(default_factory=list)   # generated tokens
     done: bool = False
     slot: int = -1            # live slot while decoding, -1 otherwise
+    submitted: float = 0.0    # time.perf_counter() at submit (the trace's queue wait)
 
 
 @dataclass
@@ -117,7 +121,7 @@ class Scheduler:
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid, list(prompt), max_new,
-                      rid if key_id is None else key_id)
+                      rid if key_id is None else key_id, submitted=time.perf_counter())
         self.requests[rid] = req
         self.queue.append(req)
         return rid
@@ -172,41 +176,58 @@ class Scheduler:
 
     def step(self) -> StepReport:
         """Admit into free slots, then one decode step over the live pool."""
-        report = StepReport([], 0, [], [])
-        # --- admission: bucketed prefill straight into a free slot -------- #
-        while self.queue and self.pool.free_slots:
-            req = self.queue.popleft()
-            L = len(req.prompt)
-            bucket = self.bucket_for(L)
+        with obs.span("serve.step"):
+            report = StepReport([], 0, [], [])
+            while self.queue and self.pool.free_slots:
+                self._admit(self.queue.popleft(), report)
+            self._decode_pool(report)
+            return report
+
+    def _admit(self, req: Request, report: StepReport) -> None:
+        """A bucketed prefill straight into a free slot, and its first token."""
+        if obs.tracing():
+            obs.interval("serve.queued", req.submitted, f"request/{req.rid}",
+                         kind="queue.contention", rid=req.rid)
+        L = len(req.prompt)
+        bucket = self.bucket_for(L)
+        with obs.span("serve.admit", kind="prefill", rid=req.rid, tokens=L) as sp:
+            if sp is not None and self.cfg.has_ssm:
+                sp.attrs["route"] = "kernel" if kernel_path(self.cfg, bucket) else "plain"
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :L] = req.prompt
             logits, caches = self._prefill(bucket)(
                 self.params, torch.as_tensor(toks, device=self.device),
                 torch.tensor([L - 1], device=self.device))
-            tok = self._sample(logits[0], req.key_id, 0)
-            slot = self.pool.alloc(req.rid)
-            report.admitted.append((req.rid, L, bucket, slot))
-            self.pool.assign(slot, caches, L)
+            with obs.span("serve.sample"):
+                tok = self._sample(logits[0], req.key_id, 0)
+            with obs.span("cache.assign"):
+                slot = self.pool.alloc(req.rid)
+                report.admitted.append((req.rid, L, bucket, slot))
+                self.pool.assign(slot, caches, L)
             req.slot = slot
             if not self._append(req, tok, report, "prefill"):
                 self._slot_tokens[slot] = tok
-        # --- one decode step over the packed live pool -------------------- #
+
+    def _decode_pool(self, report: StepReport) -> None:
+        """One decode step over the packed live pool."""
         live = self.pool.live_slots()
         report.live = len(live)
-        if live:
+        if not live:
+            return
+        with obs.span("serve.decode", kind="decode"):
             logits, self.pool.caches = self._decode(
                 self.params, torch.as_tensor(self._slot_tokens, device=self.device),
                 torch.as_tensor(self.pool.pos_vector(), device=self.device),
                 self.pool.caches)
-            if self.sc.temperature <= 0 or self.key is None:
-                toks = torch.argmax(logits, dim=-1).cpu().numpy()
-            else:
-                toks = None
-            for slot in live:
-                req = self.requests[int(self.pool.owner[slot])]
-                self.pool.advance(slot)   # the decode wrote req's token at pos
-                tok = (int(toks[slot]) if toks is not None else
-                       self._sample(logits[slot], req.key_id, len(req.out)))
-                if not self._append(req, tok, report, "decode"):
-                    self._slot_tokens[slot] = tok
-        return report
+            with obs.span("serve.sample"):
+                if self.sc.temperature <= 0 or self.key is None:
+                    toks = torch.argmax(logits, dim=-1).cpu().numpy()
+                else:
+                    toks = None
+                for slot in live:
+                    req = self.requests[int(self.pool.owner[slot])]
+                    self.pool.advance(slot)   # the decode wrote req's token at pos
+                    tok = (int(toks[slot]) if toks is not None else
+                           self._sample(logits[slot], req.key_id, len(req.out)))
+                    if not self._append(req, tok, report, "decode"):
+                        self._slot_tokens[slot] = tok

@@ -216,13 +216,18 @@ def test_cli_matches_reference(tmp_path, monkeypatch, case):
     assert step == step2 == 9
     for a, b in zip(jax.tree.leaves(got), tree_leaves(mine)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    # one span per step, named and booked as the CSV
+    # one span per step, named and booked as the CSV; the program's own
+    # spans (dotted names) nest inside them, one fo.step or zo.step a step
     spans = spans_from_events(load_trace_events(str(tmp_path / "port" / "trace.json")))
-    steps = [s for s in spans if s.kind == "compute"]
+    steps = [s for s in spans if s.kind == "compute" and "." not in s.name]
     assert [s.name for s in steps] == [f"{'fo' if r['order'] == '1' else 'zo'}/{r['step']}"
                                        for r in port]
     assert [s.nbytes for s in steps] == [int(r["comm_bytes"]) for r in port]
     assert [s.name for s in spans if s.kind == "checkpoint"] == ["ckpt_save"]
+    program = [s for s in spans if "." in s.name]
+    assert [s.name for s in program if s.name.endswith(".step")] == [
+        f"{'fo' if r['order'] == '1' else 'zo'}.step" for r in port]
+    assert all(any(st.t0 <= s.t0 and s.t1 <= st.t1 for st in steps) for s in program)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b", "hymba-1.5b"])
