@@ -202,7 +202,8 @@ Phases (any failed check exits non-zero):
   11. the selective scan, RMSNorm and flash attention at hd=80: each CUDA
      kernel against its plain version (the scan's y and final state at
      falcon-mamba-7b's width, B=1, di=8192, n=16, S in {64, 256, 1024},
-     bf16, ragged di and S, every n template, n = 96 and 128 in groups, B =
+     bf16, the served ragged lengths S = 1023 and 1000 at that width in
+     float32 and bf16, ragged di and S, every n template, n = 96 and 128 in groups, B =
      70,000; RMSNorm at (1024, 4096) bf16, (1000, 5120) float32, (1024,
      12288) bf16, ragged rows and rows past 8192), with controls (the scan's
      state reset at every tile, D*u dropped, C_t read a step late, the final
@@ -214,8 +215,10 @@ Phases (any failed check exits non-zero):
      widths (B=1, S=1024, H=16, hd=80, no causal mask, bf16) beside SDPA;
   12. serving falcon-mamba-7b at full width and depth (7,006,588,928 random
      bf16 parameters, after qwen3-14b's are freed): 8 seeded prompts whose
-     lengths are multiples of 64 in [64, 1024], exact-length prefills, as
-     in phase 10 through the scan kernel and through the plain path;
+     lengths are multiples of 64 in [64, 1024] and 4 ragged ones (1023,
+     1000, 129 and 2 tokens), exact-length prefills, as in phase 10
+     through the scan kernel (every prefill, at any length, on the card)
+     and through the plain path;
   13. profiles of one 1024-token falcon-mamba prefill on each path (the
      scan kernel's share; the plain tail-state scan's calls, 0 through the
      kernel, which gives the state, and one per layer on the plain path;
@@ -250,10 +253,12 @@ Phases (any failed check exits non-zero):
      reads beside their least time; flash at its head layout (S=1024,
      H=64, KV=4) is held and timed in phase 9;
   15. serving hymba-1.5b at full width and depth (1,662,264,000 random
-     bf16 parameters) as phase 12: 32 scan launches per prefill, its
+     bf16 parameters) as phase 12, with ragged prompts beside the aligned
+     ones: 32 scan launches per prefill, its
      attention plain on both paths (its windows differ by layer); one
-     1024-token prefill's k, v, conv and ssm caches through the kernel held
-     against the plain path's;
+     1024-token and one 1023-token prefill's k, v, conv and ssm caches
+     through the kernel held against the plain path's, with the tail-state
+     scans counted;
   16. pixtral-12b (1024 image embeddings and 1024 tokens) and
      hubert-xlarge (1024 features) at full width and depth, bf16:
      ``forward_logits`` and ``loss_fn`` through the flash kernel (causal;
@@ -2565,7 +2570,8 @@ def train_run(torch, dev, argv, profile=None, extra=None, sample_fo=None, routes
         with open(log) as f:
             rows = list(csv.DictReader(f))
         spans = spans_from_events(load_trace_events(trace))
-    steps = [s for s in spans if s.kind == "compute"]
+    # one span a step; the program's own spans (dotted names) nest inside them
+    steps = [s for s in spans if s.kind == "compute" and "." not in s.name]
     check([s.name for s in steps] == [f"{'fo' if r['order'] == '1' else 'zo'}/{r['step']}"
                                       for r in rows]
           and [s.nbytes for s in steps] == [int(r["comm_bytes"]) for r in rows],
@@ -4617,6 +4623,12 @@ def leaf_count(cfg) -> int:
     return cfg.param_count() + n
 
 
+#: prompt lengths that are not multiples of 64, as the serving benchmark
+#: sends them (its warm-up's 1023, the traffic's exact lengths, a prompt
+#: under ``ssm_conv - 1``): on the card each prefills through the scan kernel
+RAGGED_LENS = [1023, 1000, 129, 2]
+
+
 def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
                 kernel="flash_attention", probe=None):
     """qwen3-14b (full width and depth unless ``cfg`` is given) served twice
@@ -4675,12 +4687,11 @@ def serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8,
     fast, plain = runs[True], runs[False]
     n_prefill = len(fast["prefill"])
     check(n_prefill == len(prompts), f"{n_prefill} prefills for {len(prompts)} prompts")
-    kernel_buckets = [b for b, *_ in fast["prefill"] if b % 64 == 0]
-    want_launches = len(kernel_buckets) * cfg.n_layers
+    want_launches = n_prefill * cfg.n_layers
     print(f"  launches: kernel run {fast['launches'][kernel]} "
-          f"(prefills on 64-aligned buckets {len(kernel_buckets)} x {cfg.n_layers} layers "
-          f"= {want_launches}), plain run {plain['launches'][kernel]}")
-    check(fast["launches"][kernel] == want_launches == n_prefill * cfg.n_layers,
+          f"(prefills {n_prefill} x {cfg.n_layers} layers = {want_launches}), "
+          f"plain run {plain['launches'][kernel]}")
+    check(fast["launches"][kernel] == want_launches,
           f"{kernel} launches != admitted prefills x layers")
     check(plain["launches"][kernel] == 0, "the plain run launched the kernel")
     flash = {k[len("flash_attention_"):]: n for k, n in fast["launches"].items()
@@ -4858,7 +4869,8 @@ def scan_bound(S, di, n, exp_instr, B=1, dtype_bytes=4):
 def scan_phase(torch, dev, exp_instr, tile, di=8192, n=16, shapes=SCAN_SHAPES,
                big_b=(70000, 3, 8, 16), margin=0.05):
     """The kernel's y and final state against the plain version's (the
-    served width at every S of ``shapes``, bf16, ragged S and di, every n
+    served width at every S of ``shapes``, bf16, the served ragged lengths
+    1023 and 1000 at that width, ragged S and di, every n
     template, n past 64 in groups, a B past 65535), with controls (the
     state reset every ``tile`` steps, the served template's tile); then each
     n = 16 lane variant held and timed at every S, in turns, beside the
@@ -4903,7 +4915,7 @@ def scan_phase(torch, dev, exp_instr, tile, di=8192, n=16, shapes=SCAN_SHAPES,
     compare(f"B=1 S=256 di={di} n={n} bf16", scan_inputs(torch, dev, 1, 256, di, n, torch.bfloat16))
     for B, S, d_, n_ in ((2, 100, 200, 16), (2, 33, 64, 4), (1, 40, 96, 8), (1, 70, 64, 24),
                          (1, 37, 64, 64), (1, 50, 72, 96), (2, 33, 64, 128), (3, 1, 8192, 16),
-                         big_b):
+                         (1, 1023, di, n), (1, 1000, di, n), big_b):
         for dt_ in (torch.float32, torch.bfloat16):
             compare(f"B={B} S={S} di={d_} n={n_} {str(dt_)[6:]}",
                     scan_inputs(torch, dev, B, S, d_, n_, dt_))
@@ -5959,44 +5971,40 @@ def moe_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
     return out
 
 
-def hybrid_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
-    """hymba-1.5b at full width and depth served as phase 12 serves
-    falcon-mamba-7b (exact-length prefills, the scan kernel against the
-    plain path; its attention stays plain in both, since its windows differ
-    by layer); then one prefill of the longest prompt on each path with
-    its caches held against each other: layer 0 (the same input on both
-    paths) k, v and conv equal and the ssm state within 1e-5 of max|h|,
-    every layer's leaf within 5% of its largest (the logits' rule).  Returns
-    the kernel run's record and its prompts, which ``sharded_serve_phase``
-    (g) holds its ranks to."""
-    import numpy as np
-
-    from repro_torch.configs import get_config
+def hybrid_caches_hold(torch, dev, cfg, params, tokens):
+    """One prefill of ``tokens`` on each path, its caches held against each
+    other (``hybrid_serve_phase``'s rule); on the kernel path one scan
+    launch a layer and no tail-state scan, on the plain path one tail-state
+    scan a layer.  Returns each leaf's max |diff| / max |plain|."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
 
-    cfg = cfg or get_config("hymba-1.5b")
-    if lens is None:
-        rng = np.random.default_rng(2)
-        lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)]
-    run = serve_phase(torch, dev, cfg=cfg, lens=lens, max_new=max_new, slots=slots,
-                      kernel="selective_scan")
-    check(run["launches"]["flash_attention"] == run["plain_launches"]["flash_attention"] == 0,
-          "hymba's attention reached the flash kernel (its windows differ by layer)")
-    params, tokens = run["params"], max(run["prompts"], key=len)
     toks = torch.tensor([tokens], device=dev)
     last = torch.tensor([len(tokens) - 1], device=dev)
-    got = {}
+    tail, calls, got = T._mamba_tail_state, [], {}
+
+    def counted(*args):
+        calls.append(1)
+        return tail(*args)
+
     for use_pallas in (True, False):
+        calls.clear()
         ops.reset_launch_counts()
-        _, caches = T.prefill_at(cfg.with_(use_pallas=use_pallas), params, {"tokens": toks},
-                                 last)
+        T._mamba_tail_state = counted
+        try:
+            _, caches = T.prefill_at(cfg.with_(use_pallas=use_pallas), params,
+                                     {"tokens": toks}, last)
+        finally:
+            T._mamba_tail_state = tail
         torch.cuda.synchronize()
-        got[use_pallas] = (caches, ops.launch_counts())
-    (fast, nf), (plain, npl) = got[True], got[False]
+        got[use_pallas] = (caches, ops.launch_counts(), len(calls))
+    (fast, nf, tf), (plain, npl, tp) = got[True], got[False]
     check(nf["selective_scan"] == cfg.n_layers and nf["flash_attention"] == 0
           and npl["selective_scan"] == npl["flash_attention"] == 0,
           f"hymba prefill launches: kernel path {nf}, plain path {npl}")
+    check(tf == 0 and tp == cfg.n_layers,
+          f"hymba prefill of {len(tokens)} tokens: {tf} tail-state scans on the kernel path, "
+          f"{tp} on the plain path (want 0 and {cfg.n_layers})")
     check(sorted(fast) == sorted(plain) == ["conv", "k", "ssm", "v"],
           f"hymba caches {sorted(fast)}, {sorted(plain)}")
     rel = {}
@@ -6009,13 +6017,47 @@ def hybrid_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
               f"hymba layer 0 {name} cache: kernel vs plain path {l0:.3e}")
         check(rel[name] <= 0.05, f"hymba {name} cache: kernel vs plain path {rel[name]:.4f} "
               f"of its largest value")
-    print(f"  prefill caches of {len(tokens)} tokens, kernel vs plain path: layer 0's k, v and "
-          f"conv equal, its ssm state within 1e-5 of max|h|; every layer, max |diff| / max "
-          f"|plain|: " + ", ".join(f"{k} {v:.5f}" for k, v in rel.items()) + " (tolerance 0.05)")
+    print(f"  prefill caches of {len(tokens)} tokens, kernel vs plain path: {tf} and {tp} "
+          f"tail-state scans; layer 0's k, v and conv equal, its ssm state within 1e-5 of "
+          f"max|h|; every layer, max |diff| / max |plain|: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in rel.items()) + " (tolerance 0.05)")
+    return rel
+
+
+def hybrid_serve_phase(torch, dev, cfg=None, lens=None, max_new=32, slots=8):
+    """hymba-1.5b at full width and depth served as phase 12 serves
+    falcon-mamba-7b (exact-length prefills, the scan kernel against the
+    plain path; its attention stays plain in both, since its windows differ
+    by layer); then one prefill of the longest prompt, and one of the
+    longest that is not a multiple of 64, on each path with their caches
+    held against each other (``hybrid_caches_hold``): layer 0 (the same input on both
+    paths) k, v and conv equal and the ssm state within 1e-5 of max|h|,
+    every layer's leaf within 5% of its largest (the logits' rule).  Returns
+    the kernel run's record and its prompts, which ``sharded_serve_phase``
+    (g) holds its ranks to."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("hymba-1.5b")
+    if lens is None:
+        rng = np.random.default_rng(2)
+        lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)] + RAGGED_LENS
+    run = serve_phase(torch, dev, cfg=cfg, lens=lens, max_new=max_new, slots=slots,
+                      kernel="selective_scan")
+    check(run["launches"]["flash_attention"] == run["plain_launches"]["flash_attention"] == 0,
+          "hymba's attention reached the flash kernel (its windows differ by layer)")
+    params = run["params"]
+    longest = max(run["prompts"], key=len)
+    ragged = [p for p in run["prompts"] if len(p) % 64]
+    held = [longest] + ([max(ragged, key=len)] if ragged and not len(longest) % 64 else [])
+    rels = [hybrid_caches_hold(torch, dev, cfg, params, tokens) for tokens in held]
+    rel = rels[0]
     out = {"launches": run["launches"], "decode_ms": run["decode_ms"], "cache_rel": rel,
+           "cache_rel_ragged": rels[1] if len(rels) > 1 else None,
            **{k: run[k] for k in ("cfg", "prompts", "max_new", "slots", "max_seq",
                                   "kernel_run")}}
-    del run, params, fast, plain
+    del run, params
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -6288,7 +6330,7 @@ def main() -> None:
     from repro_torch.configs import get_config
 
     rng = np.random.default_rng(1)
-    lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)]
+    lens = [64, 1024] + [64 * int(k) for k in rng.integers(1, 17, 6)] + RAGGED_LENS
     mamba = serve_phase(torch, dev, cfg=get_config("falcon-mamba-7b"), lens=lens,
                         kernel="selective_scan")
     print("# phase: profiles of one 1024-token prefill on each path and one decode step "

@@ -23,10 +23,11 @@ measured.  ``--log`` writes one CSV row per request (arrival/ttft/latency),
 
 ``--device`` (default ``cuda``, which raises without a GPU) picks the device;
 ``--use-pallas`` sets ``ModelConfig.use_pallas``, which sends aligned
-prefills to the flash-attention kernel (dense decoders) or the selective-scan
-kernel (SSM decoders, which prefill at exact length, so only prompts of a
-multiple of 64 tokens reach it) (default: on for ``cuda``, off for ``cpu``,
-where the plain path and the kernel's plain version agree anyway).  With
+prefills to the flash-attention kernel (dense decoders) and every prefill on
+the card to the selective-scan kernel (SSM decoders, which prefill at exact
+length; on the CPU only prompts of a multiple of 64 tokens, the reference's
+gate) (default: on for ``cuda``, off for ``cpu``, where the plain path and
+the kernel's plain version agree anyway).  With
 ``--temperature > 0`` the engine's sampling key is the int ``--seed``.
 """
 from __future__ import annotations
@@ -94,7 +95,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--use-pallas", action=argparse.BooleanOptionalAction, default=None,
                     help="send aligned prefills to the flash-attention kernel "
-                         "(dense) or the selective-scan kernel (SSM) "
+                         "(dense) and prefills to the selective-scan kernel (SSM) "
                          "(default: on for cuda, off for cpu)")
     args = ap.parse_args(argv)
 

@@ -3,13 +3,18 @@
 The plain path runs the recurrence as a log-depth associative scan
 (``_assoc_scan``, the combination order of ``jax.lax.associative_scan``),
 which materialises the ``(B, S, d_inner, n)`` state; ``cfg.ssm_chunk`` bounds
-that by scanning over sequence chunks.  With ``cfg.use_pallas``, a length and
-a ``d_inner`` that are multiples of 64 send the scan to the selective-scan
-kernel (``kernels.ops.selective_scan``), which keeps the state out of memory.
-That dispatch is the reference's, not a fallback: a CUDA tensor that reaches
-the kernel launches it or raises.  On that path the kernel also gives the
-final state, which ``mamba_prefill`` hands to the prefill's caches; off it
-the caller recomputes the state with the plain scan, as the reference does.
+that by scanning over sequence chunks.  With ``cfg.use_pallas``, the scan
+goes to the selective-scan kernel (``kernels.ops.selective_scan``), which
+keeps the state out of memory (``kernel_path``): a CUDA tensor of any length
+and any ``d_inner``, which the CUDA kernel takes (and a dry run's ``meta``
+tensor, priced as the card runs it); on the CPU the reference's gate, a
+length and a ``d_inner`` that are multiples of 64, so that the CPU keeps the
+reference's route.  That dispatch is not a fallback: a CUDA tensor that
+reaches the kernel launches it or raises, and so does a gradient through it
+(the kernel has no backward).  On that path the kernel also
+gives the final state, which ``mamba_prefill`` hands to the prefill's
+caches; off it the caller recomputes the state with the plain scan, as the
+reference does.
 
 Softplus is ``jax.nn.softplus``'s ``logaddexp(x, 0)`` (no threshold) and SiLU
 ``x * sigmoid(x)``, each in its input's dtype, as in the reference.
@@ -148,11 +153,18 @@ def _assoc_scan(deltaA: torch.Tensor, deltaBu: torch.Tensor,
     return _scan_pairs(deltaA, deltaBu)
 
 
-def kernel_path(cfg: ModelConfig, seq_len: int) -> bool:
-    """Whether a length-``seq_len`` scan goes to the selective-scan kernel:
-    ``use_pallas`` with a length and a ``d_inner`` that are multiples of 64,
-    the reference's gate."""
-    return bool(cfg.use_pallas) and seq_len % 64 == 0 and cfg.d_inner % 64 == 0
+def kernel_path(cfg: ModelConfig, seq_len: int, device=None) -> bool:
+    """Whether a length-``seq_len`` scan on ``device`` goes to the
+    selective-scan kernel: with ``use_pallas``, off the CPU (the card, and
+    the dry run's ``meta`` tensors, which price the card's dispatch) at any
+    length and ``d_inner`` (the CUDA kernel takes both ragged); on the CPU,
+    or with no device given, the reference's gate, a length and a
+    ``d_inner`` that are multiples of 64."""
+    if not cfg.use_pallas:
+        return False
+    if device is not None and torch.device(device).type != "cpu":
+        return True
+    return seq_len % 64 == 0 and cfg.d_inner % 64 == 0
 
 
 def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, return_state: bool = False,
@@ -164,7 +176,13 @@ def mamba_mix(cfg: ModelConfig, p: Params, u: torch.Tensor, return_state: bool =
     ``(B, di, n)`` float32 state, elsewhere None (the plain path keeps the
     reference's structure, which recomputes the state apart)."""
     u = silu(_causal_conv(p, u, cfg.ssm_conv))
-    if kernel_path(cfg, u.shape[1]):
+    if kernel_path(cfg, u.shape[1], u.device):
+        if u.device.type != "cpu" and torch.is_grad_enabled() and u.requires_grad:
+            # the kernel has no backward: autograd would leave the mixer's
+            # leaves without a gradient, and value_and_grad would zero them
+            raise NotImplementedError(
+                "the selective-scan kernel has no backward; take gradients with "
+                "use_pallas off")
         # the kernel path: its inputs, without the (B, S, di, n) state
         dt, Bm, Cm = _split_x(cfg, p, u, tp)
         A = -torch.exp(p["A_log"])

@@ -192,7 +192,8 @@ class Scheduler:
         bucket = self.bucket_for(L)
         with obs.span("serve.admit", kind="prefill", rid=req.rid, tokens=L) as sp:
             if sp is not None and self.cfg.has_ssm:
-                sp.attrs["route"] = "kernel" if kernel_path(self.cfg, bucket) else "plain"
+                on_kernel = kernel_path(self.cfg, bucket, self.device)
+                sp.attrs["route"] = "kernel" if on_kernel else "plain"
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :L] = req.prompt
             logits, caches = self._prefill(bucket)(

@@ -726,6 +726,8 @@ def _scan_inputs(B, S, di, n, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,di,n", [
     (1, 64, 8192, 16), (1, 256, 8192, 16),     # the served shape (falcon-mamba-7b)
+    (1, 1023, 8192, 16), (1, 1000, 8192, 16),  # served at ragged lengths, a one-token prompt
+    (1, 129, 8192, 16), (1, 1, 8192, 16),
     (2, 100, 200, 16),                          # ragged di and S
     (2, 33, 64, 4), (1, 40, 96, 8), (1, 70, 64, 24), (1, 37, 64, 64),   # every n template
 ])
@@ -750,6 +752,8 @@ def test_selective_scan_kernel_matches_plain_version(B, S, di, n, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,di,n", [
     (1, 256, 8192, 16),                         # the served shape (falcon-mamba-7b)
+    (1, 1023, 8192, 16), (1, 1000, 8192, 16),  # served at ragged lengths, a one-token prompt
+    (1, 129, 8192, 16), (1, 1, 8192, 16),
     (2, 100, 200, 4), (2, 37, 96, 16), (1, 70, 72, 64),   # ragged S and di
     (1, 50, 72, 96), (2, 33, 64, 128),          # more than 64 states: groups of 64
     (70000, 3, 8, 16),                          # B past 65535
@@ -831,7 +835,8 @@ def test_ssm_prefill_through_the_kernel_matches_plain_path():
     scan kernel (use_pallas) and through the plain scan: one launch per
     layer, logits within 2% of their largest, the decode caches (the
     kernel's final state and conv rows against the plain tail-state scan's),
-    and served tokens through the engine's exact-length prefills."""
+    and served tokens through the engine's exact-length prefills, each on
+    the kernel at any length."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
@@ -860,7 +865,7 @@ def test_ssm_prefill_through_the_kernel_matches_plain_path():
     ops.reset_launch_counts()
     eng = Engine(cfg.with_(use_pallas=True), params, ServeConfig(max_seq=140, slots=2))
     outs = eng.generate([toks[0].tolist(), [1, 2, 3], toks[0, :64].tolist()], max_new=4)
-    assert ops.launch_counts()["selective_scan"] == 2 * cfg.n_layers
+    assert ops.launch_counts()["selective_scan"] == 3 * cfg.n_layers
     assert eng.scheduler.prefill_buckets() == (3, 64, 128)
     assert all(len(o) == n + 4 for o, n in zip(outs, (128, 3, 64)))
 
@@ -946,6 +951,93 @@ def test_hybrid_prefill_caches_through_the_kernel_match_plain_path():
         assert torch.equal(fast[name][0], plain[name][0])
         err = float((fast[name] - plain[name]).abs().max())
         assert err <= 1e-5 * float(plain[name].abs().max()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [191, 2])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_prefill_at_ragged_lengths_through_the_kernel_matches_plain_path(arch, S):
+    """A prefill whose length is not a multiple of 64 (191, and 2, under
+    ``ssm_conv - 1``) on the card: with ``use_pallas`` one scan launch per
+    layer and no tail-state scan, against the plain path's tail-state scan
+    once per layer.  falcon-mamba-7b.reduced() in bf16 is held as
+    ``test_ssm_prefill_through_the_kernel_matches_plain_path`` holds it,
+    hymba-1.5b.reduced() at 4 layers in float32 as
+    ``test_hybrid_prefill_caches_through_the_kernel_match_plain_path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    dev = _cuda()
+    cfg = get_config(arch).reduced()
+    cfg = (cfg.with_(dtype="bfloat16") if arch == "falcon-mamba-7b"
+           else cfg.with_(n_layers=4, dtype="float32"))
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=torch.Generator().manual_seed(S))
+    toks, last = toks.to(dev), torch.tensor([S - 1, S - 1], device=dev)
+    tail, calls = T._mamba_tail_state, []
+
+    def counted(*args):
+        calls.append(1)
+        return tail(*args)
+
+    runs = {}
+    T._mamba_tail_state = counted
+    try:
+        for use_pallas in (True, False):
+            calls.clear()
+            ops.reset_launch_counts()
+            logits, caches = T.prefill_at(cfg.with_(use_pallas=use_pallas), params,
+                                          {"tokens": toks}, last)
+            torch.cuda.synchronize()
+            runs[use_pallas] = (logits, caches, ops.launch_counts(), len(calls))
+    finally:
+        T._mamba_tail_state = tail
+    (fast_logits, fast, nf, tf), (plain_logits, plain, npl, tp) = runs[True], runs[False]
+    assert nf["selective_scan"] == cfg.n_layers and tf == 0
+    assert npl["selective_scan"] == 0 and tp == cfg.n_layers
+    assert nf["flash_attention"] == npl["flash_attention"] == 0
+    assert sorted(fast) == sorted(plain)
+    assert fast["conv"].shape[2] == min(S, cfg.ssm_conv - 1)
+    assert torch.equal(fast["conv"][0], plain["conv"][0])
+    err = float((fast_logits.float() - plain_logits.float()).abs().max())
+    if arch == "falcon-mamba-7b":
+        assert err <= 0.02 * float(plain_logits.float().abs().max()), err
+        _caches_agree(fast, plain, slice(0, 1), rel=1e-5)
+        _caches_agree(fast, plain, slice(None), rel=0.02)
+        return
+    assert sorted(fast) == ["conv", "k", "ssm", "v"]
+    assert err <= 1e-4 * float(plain_logits.abs().max()), err
+    _caches_agree(fast, plain, slice(None), rel=1e-5)
+    for name in ("k", "v"):
+        assert torch.equal(fast[name][0], plain[name][0])
+        err = float((fast[name] - plain[name]).abs().max())
+        assert err <= 1e-5 * float(plain[name].abs().max()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [37, 64])
+def test_fo_gradient_through_the_scan_kernel_raises_on_the_card(S):
+    """The scan kernel has no backward: ``value_and_grad`` of
+    falcon-mamba-7b.reduced()'s loss with ``use_pallas`` on the card raises
+    at any length, rather than hand the mixer's leaves zero gradients; with
+    it off every mixer leaf gets a gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ho_sgd import value_and_grad
+    from repro_torch.models import transformer as T
+
+    dev = _cuda()
+    cfg = get_config("falcon-mamba-7b").reduced().with_(dtype="float32", remat=False)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    gen = torch.Generator().manual_seed(S)
+    batch = {name: torch.randint(0, cfg.vocab_size, (2, S), generator=gen).to(dev)
+             for name in ("tokens", "labels")}
+    with pytest.raises(NotImplementedError, match="no backward"):
+        value_and_grad(lambda p, b: T.loss_fn(cfg.with_(use_pallas=True), p, b), params, batch)
+    _, grads = value_and_grad(lambda p, b: T.loss_fn(cfg, p, b), params, batch)
+    for name in ("conv_w", "conv_b", "x_proj", "dt_w", "dt_b", "A_log", "D"):
+        g = grads["layers"]["mamba"][name]
+        assert all(float(layer.abs().max()) > 0 for layer in g), name
 
 
 # the manifest of _ckpt_tree's checkpoint at step 3, as msgpack.packb writes it

@@ -19,7 +19,10 @@ takes the state from its associative scan, within 1e-5 of max|h| (the two
 orders round differently, by a few float32 ulp; the matrix products add
 ~1e-7 relative).  Off the kernel path (``use_pallas`` off, or a length that
 is not a multiple of 64) the tail-state scan runs once per layer, as in the
-reference.
+reference.  ``kernel_path`` keeps the reference's gate on the CPU and where
+no device is given; off the CPU (the card, the dry run's ``meta``) every
+length takes the kernel, which has no backward: a gradient through it
+raises there.
 """
 import jax
 import jax.numpy as jnp
@@ -214,6 +217,63 @@ def test_tail_state_scan_runs_only_off_the_kernel_path(S_, use_pallas, runs, mod
     assert S.kernel_path(cfg, S_) == (not runs)
     h = np.asarray(jc["ssm"])
     np.testing.assert_allclose(tc["ssm"].numpy(), h, rtol=0, atol=1e-5 * np.abs(h).max())
+
+
+@pytest.mark.parametrize("S_", [37, 64, 128])
+@pytest.mark.parametrize("d_model", [None, 100])     # d_inner 2 * d_model: 200 is ragged
+def test_kernel_path_keeps_the_reference_gate_on_the_cpu(S_, d_model):
+    """With no device or on the CPU, ``kernel_path`` is the reference's gate
+    (``use_pallas``, S and d_inner multiples of 64,
+    ``repro.models.ssm.mamba_mix``); on a CUDA device (a ``torch.device``
+    needs no card), and on ``meta`` (the dry run prices the card's route),
+    every length and d_inner goes to the kernel with ``use_pallas``, and
+    none without."""
+    size = {} if d_model is None else {"d_model": d_model}
+    on = get_config("falcon-mamba-7b").reduced().with_(use_pallas=True, **size)
+    off = on.with_(use_pallas=False)
+    jon = jget_config("falcon-mamba-7b").reduced().with_(use_pallas=True, **size)
+    assert jon.d_inner == on.d_inner
+    reference = S_ % 64 == 0 and jon.d_inner % 64 == 0     # the reference's gate
+    assert reference == (S_ != 37 and d_model is None)
+    cpu, cuda, meta = torch.device("cpu"), torch.device("cuda"), torch.device("meta")
+    assert S.kernel_path(on, S_) == S.kernel_path(on, S_, cpu) == S.kernel_path(on, S_, "cpu")
+    assert S.kernel_path(on, S_, cpu) == reference
+    assert S.kernel_path(on, S_, cuda) and S.kernel_path(on, S_, "cuda:0")
+    assert S.kernel_path(on, S_, meta)
+    for dev in (None, cpu, cuda, meta):
+        assert not S.kernel_path(off, S_, dev)
+
+
+@pytest.mark.parametrize("seq", [37, 64])
+def test_no_gradient_through_the_scan_kernel_off_the_cpu(seq, params):
+    """The kernel has no backward, so off the CPU (``meta`` here, which
+    takes the card's route) a scan through it that autograd would
+    differentiate raises, rather than leave the mixer's leaves without a
+    gradient; without grad, or with no leaf that requires one, it runs.  On
+    the CPU the kernel path's plain version is differentiable: its gradient
+    is the plain path's."""
+    _, cfg = configs(use_pallas=True)
+    tp = params[1]
+    meta = {k: v.to("meta").requires_grad_() for k, v in tp.items()}
+    x = torch.zeros(2, seq, D_MODEL, device="meta")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        S.mamba_forward(cfg, meta, x)
+    with torch.no_grad():
+        assert S.mamba_forward(cfg, meta, x).shape == (2, seq, D_MODEL)
+    frozen = {k: v.detach() for k, v in meta.items()}
+    assert S.mamba_forward(cfg, frozen, x).shape == (2, seq, D_MODEL)
+
+    x = torch.from_numpy(np.random.default_rng(seq).standard_normal((2, seq, D_MODEL))
+                         .astype(np.float32))
+    grads = []
+    for c in (cfg, cfg.with_(use_pallas=False)):
+        leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+        S.mamba_forward(c, leaves, x).square().sum().backward()
+        grads.append({k: v.grad for k, v in leaves.items()})
+    for k, g in grads[1].items():
+        assert grads[0][k] is not None and float(g.abs().max()) > 0, k
+        np.testing.assert_allclose(grads[0][k].numpy(), g.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
 
 
 @pytest.mark.parametrize("use_pallas,seq", [(True, 128), (False, 128), (True, 37)])
